@@ -1,0 +1,154 @@
+"""The stack kernel: its wrapper, its plain PyTorch version, and its
+launch count.
+
+Computes, for each run r of a stack sorted by destination block,
+
+    C[run_c[r]] = C[run_c[r]] + alpha * sum_{e in run r} A[a_idx[e]] @ B[b_idx[e]]
+
+in place.  On a CUDA tensor `smm_stack` launches the hand-written kernel
+of ``csrc/smm_stack.cu`` (it replaces the Pallas kernel
+`dbcsr_tpu/acc/pallas_smm.py:_smm_kernel`, base and kmerge variants); on
+a CPU tensor it runs `smm_stack_plain`, the same function as
+gather -> `torch.bmm` -> `index_add_` in stack order.  Nothing falls back
+from the kernel to the plain version: a CUDA launch that fails raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+
+import torch
+
+from dbcsr_tpu_torch.acc import build
+
+SOURCE = "smm_stack.cu"
+
+# launches of the CUDA kernel, and calls of the plain version, since the
+# last reset (chip_smoke.py reads them around the main path)
+launches = 0
+plain_calls = 0
+
+_DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
+_lib = None
+
+
+def reset_counts() -> None:
+    global launches, plain_calls
+    launches = 0
+    plain_calls = 0
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = build.load(SOURCE)
+        lib.smm_stack_launch.argtypes = [
+            ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_double, ctypes.c_void_p,
+        ]
+        lib.smm_stack_launch.restype = ctypes.c_int
+        lib.smm_stack_error_string.argtypes = [ctypes.c_int]
+        lib.smm_stack_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(c, a, b, a_idx, b_idx, run_ptr, run_c) -> None:
+    if c.dtype not in _DTYPE_CODE:
+        raise TypeError(f"stack kernel takes float64/float32/bfloat16, got {c.dtype}")
+    if a.dtype != c.dtype or b.dtype != c.dtype:
+        raise TypeError(f"operand dtypes {a.dtype}/{b.dtype} differ from C's {c.dtype}")
+    if a.dim() != 3 or b.dim() != 3 or c.dim() != 3:
+        raise ValueError("A, B and C must be 3-D block arrays")
+    m, k = a.shape[1:]
+    if b.shape[1] != k or c.shape[1:] != (m, b.shape[2]):
+        raise ValueError(f"block shapes A{tuple(a.shape)} B{tuple(b.shape)} "
+                         f"C{tuple(c.shape)} do not chain")
+    for name, t in (("a_idx", a_idx), ("b_idx", b_idx), ("run_ptr", run_ptr),
+                    ("run_c", run_c)):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor")
+    if a_idx.numel() != b_idx.numel() or run_ptr.numel() != run_c.numel() + 1:
+        raise ValueError("stack arrays have inconsistent lengths")
+    for name, t in (("A", a), ("B", b), ("C", c), ("a_idx", a_idx),
+                    ("b_idx", b_idx), ("run_ptr", run_ptr), ("run_c", run_c)):
+        if t.device != c.device:
+            raise ValueError(f"{name} is on {t.device}, C on {c.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def smm_stack(c, a, b, a_idx, b_idx, run_ptr, run_c, alpha=1.0):
+    """Apply the stack to ``c`` in place and return it: the CUDA kernel on
+    a CUDA tensor, `smm_stack_plain` on a CPU tensor."""
+    global launches
+    _check(c, a, b, a_idx, b_idx, run_ptr, run_c)
+    if c.device.type == "cpu":
+        return smm_stack_plain(c, a, b, a_idx, b_idx, run_ptr, run_c, alpha)
+    if c.device.type != "cuda":
+        raise ValueError(f"no stack kernel for device {c.device}")
+    nruns = run_c.numel()
+    if nruns == 0:
+        return c
+    lib = _kernel_lib()
+    m, k = a.shape[1:]
+    n = b.shape[2]
+    stream = torch.cuda.current_stream(c.device).cuda_stream
+    with torch.cuda.device(c.device):
+        err = lib.smm_stack_launch(
+            _DTYPE_CODE[c.dtype], a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            a_idx.data_ptr(), b_idx.data_ptr(), run_ptr.data_ptr(),
+            run_c.data_ptr(), nruns, m, n, k, float(alpha), stream)
+    if err != 0:
+        msg = lib.smm_stack_error_string(err).decode()
+        raise RuntimeError(f"smm_stack launch failed (m={m}, n={n}, k={k}, "
+                           f"{c.dtype}, nruns={nruns}): CUDA error {err}: {msg}")
+    launches += 1
+    return c
+
+
+@contextlib.contextmanager
+def _full_precision_matmul(device: torch.device):
+    """TF32 off for float32 products on the card (it keeps ~3 digits)."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def smm_stack_plain(c, a, b, a_idx, b_idx, run_ptr, run_c, alpha=1.0,
+                    chunk: int = 30000):
+    """Plain PyTorch version of the kernel's function, in place on ``c``:
+    gather ``chunk`` entries at a time, `torch.bmm`, sum each run's
+    products in stack order with `index_add_`, then
+    ``C[run_c] = C[run_c] + alpha * sums``.  bf16 computes in float32,
+    as the kernel does."""
+    global plain_calls
+    plain_calls += 1
+    nruns = run_c.numel()
+    if nruns == 0:
+        return c
+    acc = torch.float32 if c.dtype == torch.bfloat16 else c.dtype
+    m, n = c.shape[1:]
+    run_len = (run_ptr[1:] - run_ptr[:-1]).long()
+    run_id = torch.repeat_interleave(
+        torch.arange(nruns, device=c.device), run_len)
+    sums = torch.zeros((nruns, m, n), dtype=acc, device=c.device)
+    with _full_precision_matmul(c.device):
+        for s0 in range(0, a_idx.numel(), chunk):
+            ai = a_idx[s0: s0 + chunk].long()
+            bi = b_idx[s0: s0 + chunk].long()
+            prod = torch.bmm(a[ai].to(acc), b[bi].to(acc))
+            sums.index_add_(0, run_id[s0: s0 + chunk], prod)
+    rc = run_c.long()
+    c[rc] = (c[rc].to(acc) + alpha * sums).to(c.dtype)
+    return c

@@ -1,0 +1,400 @@
+"""The block-sparse matrix type.
+
+Counterpart of `dbcsr_tpu/core/matrix.py` (ref `dbcsr_type`,
+`src/core/dbcsr_types.F:363-461`), with the same data model:
+
+* Host index (NumPy): sorted int64 keys ``row * nblkcols + col``, the
+  derived ``row_ptr``, and for each entry its shape bin (``ent_bin``)
+  and slot within the bin (``ent_slot``).
+* Device data: one torch tensor per distinct block shape, of shape
+  ``(count, bm, bn)`` -- the "shape bins" the stack kernel indexes into.
+  Unlike the JAX package there is no jit cache to feed, so a bin's
+  capacity equals its count (no bucket padding, no pad rows).
+* Assembly goes through a host work buffer then `finalize()` (ref
+  `dbcsr_finalize`, `src/work/dbcsr_work_operations.F:749`).
+
+Tensors are mutable here: the multiply engine updates C's bins in
+place, and `copy()` therefore clones the data.  Symmetric matrices are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dbcsr_tpu_torch.core.dist import Distribution
+from dbcsr_tpu_torch.core.kinds import dtype_of, host_dtype
+from dbcsr_tpu_torch.device import DeviceLike, resolve_device
+
+# matrix_type of a non-symmetric matrix (ref dbcsr_type_no_symmetry);
+# the symmetric kinds "S"/"A"/"H" are not ported yet
+NO_SYMMETRY = "N"
+
+
+@dataclasses.dataclass
+class _Bin:
+    """One block-shape bin: a device tensor of same-shape blocks."""
+
+    shape: Tuple[int, int]
+    data: torch.Tensor  # (count, bm, bn)
+    count: int
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """Fetch a tensor to a numpy array (bf16 widens to float32)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.detach().cpu().numpy()
+
+
+def to_index(idx: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Upload a host index array as an int64 tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(idx, np.int64)).to(device)
+
+
+def to_device(arr: np.ndarray, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """Upload a host block array as ``dtype`` on ``device``."""
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:  # torch.from_numpy wants a writable buffer
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
+class BlockSparseMatrix:
+    """A block-compressed sparse row matrix on one device."""
+
+    def __init__(
+        self,
+        name: str,
+        row_blk_sizes,
+        col_blk_sizes,
+        dtype=torch.float64,
+        dist: Optional[Distribution] = None,
+        matrix_type: str = NO_SYMMETRY,
+        device: Optional[DeviceLike] = None,
+    ):
+        if matrix_type != NO_SYMMETRY:
+            raise NotImplementedError(
+                f"matrix_type {matrix_type!r}: symmetric storage is not "
+                f"ported to dbcsr_tpu_torch yet")
+        self.device = resolve_device(device)
+        self.name = name
+        self.row_blk_sizes = np.ascontiguousarray(row_blk_sizes, np.int32)
+        self.col_blk_sizes = np.ascontiguousarray(col_blk_sizes, np.int32)
+        self.dtype = dtype_of(dtype)
+        self.matrix_type = matrix_type
+        self.dist = dist or Distribution.trivial(
+            len(self.row_blk_sizes), len(self.col_blk_sizes))
+        if (self.dist.nblkrows, self.dist.nblkcols) != (
+                self.nblkrows, self.nblkcols):
+            raise ValueError("distribution does not match the blocking")
+        self.keys = np.empty(0, np.int64)
+        self.row_ptr = np.zeros(self.nblkrows + 1, np.int64)
+        self.ent_bin = np.empty(0, np.int32)
+        self.ent_slot = np.empty(0, np.int32)
+        self.bins: List[_Bin] = []
+        self.valid = True
+        # pre-finalize work buffer: (row, col) -> host block
+        self._work: Dict[Tuple[int, int], np.ndarray] = {}
+        # batched staging: (keys int64, blocks (N, bm, bn), summation)
+        self._work_batches: List[Tuple[np.ndarray, np.ndarray, bool]] = []
+
+    # ---------------------------------------------------------------- shape
+    @property
+    def nblkrows(self) -> int:
+        return len(self.row_blk_sizes)
+
+    @property
+    def nblkcols(self) -> int:
+        return len(self.col_blk_sizes)
+
+    @property
+    def nfullrows(self) -> int:
+        return int(self.row_blk_sizes.sum())
+
+    @property
+    def nfullcols(self) -> int:
+        return int(self.col_blk_sizes.sum())
+
+    @property
+    def row_blk_offsets(self) -> np.ndarray:
+        return np.concatenate([[0], np.cumsum(self.row_blk_sizes)]).astype(np.int64)
+
+    @property
+    def col_blk_offsets(self) -> np.ndarray:
+        return np.concatenate([[0], np.cumsum(self.col_blk_sizes)]).astype(np.int64)
+
+    @property
+    def nblks(self) -> int:
+        return len(self.keys)
+
+    @property
+    def nnz(self) -> int:
+        rows, cols = self.entry_coords()
+        return int((self.row_blk_sizes[rows].astype(np.int64)
+                    * self.col_blk_sizes[cols]).sum())
+
+    def occupation(self) -> float:
+        """Fraction of nonzero elements (ref dbcsr_get_occupation)."""
+        full = self.nfullrows * self.nfullcols
+        return self.nnz / full if full else 0.0
+
+    def block_shape(self, row: int, col: int) -> Tuple[int, int]:
+        return int(self.row_blk_sizes[row]), int(self.col_blk_sizes[col])
+
+    def entry_coords(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(rows, cols) arrays for all finalized entries, key-ordered."""
+        return ((self.keys // self.nblkcols).astype(np.int64),
+                (self.keys % self.nblkcols).astype(np.int64))
+
+    # ------------------------------------------------------------- assembly
+    def put_block(self, row: int, col: int, block, summation: bool = False) -> None:
+        """Stage a block for the next `finalize` (ref `dbcsr_put_block`)."""
+        if not (0 <= row < self.nblkrows and 0 <= col < self.nblkcols):
+            raise IndexError(f"block ({row},{col}) out of range")
+        block = np.asarray(block)
+        bm, bn = self.block_shape(row, col)
+        if block.shape != (bm, bn):
+            raise ValueError(
+                f"block ({row},{col}) has shape {block.shape}, expected {(bm, bn)}")
+        block = block.astype(host_dtype(self.dtype), copy=True)
+        key = (row, col)
+        if summation and key in self._work:
+            self._work[key] = self._work[key] + block
+        elif summation and self._find_entry(row, col) >= 0:
+            self._work[key] = self.get_block(row, col) + block
+        else:
+            self._work[key] = block
+        self.valid = False
+
+    def put_blocks(self, rows, cols, blocks, summation: bool = False) -> None:
+        """Stage many blocks at once; ``blocks`` is an (N, bm, bn) array
+        or a list of 2-D arrays.  Applied at `finalize` after the single
+        `put_block` stagings, in call order; duplicates within one call
+        are summed when ``summation``, last-write-wins otherwise."""
+        self._work_batches.extend(self._make_batches(rows, cols, blocks, summation))
+        self.valid = False
+
+    def _make_batches(self, rows, cols, blocks, summation: bool):
+        """Validate, group by block shape and pre-reduce duplicates;
+        returns [(keys, (N, bm, bn) host array, summation)]."""
+        rows = np.ascontiguousarray(rows, np.int64)
+        cols = np.ascontiguousarray(cols, np.int64)
+        if len(rows) != len(cols):
+            raise ValueError("rows/cols length mismatch")
+        if len(rows) == 0:
+            return []
+        if rows.min() < 0 or rows.max() >= self.nblkrows or cols.min() < 0 \
+                or cols.max() >= self.nblkcols:
+            raise IndexError("block coordinates out of range")
+        if len(blocks) != len(rows):
+            raise ValueError("blocks length mismatch")
+        hdt = host_dtype(self.dtype)
+        if isinstance(blocks, np.ndarray) and blocks.ndim == 3:
+            groups = [(np.arange(len(rows)), blocks.astype(hdt))]
+        else:
+            shapes = np.array([np.shape(b) for b in blocks], np.int64)
+            code = shapes[:, 0] << 32 | shapes[:, 1]
+            groups = []
+            for u in np.unique(code):
+                idx = np.nonzero(code == u)[0]
+                groups.append(
+                    (idx, np.stack([np.asarray(blocks[i]) for i in idx]).astype(hdt)))
+        out = []
+        for idx, arr in groups:
+            r, c = rows[idx], cols[idx]
+            bm, bn = arr.shape[1], arr.shape[2]
+            if not (np.all(self.row_blk_sizes[r] == bm)
+                    and np.all(self.col_blk_sizes[c] == bn)):
+                raise ValueError(f"batch of shape ({bm},{bn}) does not match "
+                                 f"the blocking at all its coordinates")
+            keys = r * self.nblkcols + c
+            if len(np.unique(keys)) != len(keys):
+                if summation:
+                    uniq, inv = np.unique(keys, return_inverse=True)
+                    red = np.zeros((len(uniq), bm, bn), hdt)
+                    np.add.at(red, inv, arr)
+                    keys, arr = uniq, red
+                else:
+                    uniq, first_rev = np.unique(keys[::-1], return_index=True)
+                    keys, arr = uniq, arr[len(keys) - 1 - first_rev]
+            out.append((keys, arr, summation))
+        return out
+
+    def finalize(self) -> "BlockSparseMatrix":
+        """Merge staged blocks into the index (ref `dbcsr_finalize` ->
+        `dbcsr_merge_all`).  Surviving blocks move bin to bin on the
+        device; only the staged host blocks are uploaded."""
+        if not self._work and not self._work_batches:
+            self.valid = True
+            return self
+        if self._work:
+            # single-put stagings become a leading replace batch
+            self._work_batches = self._make_batches(
+                np.array([r for (r, _) in self._work], np.int64),
+                np.array([c for (_, c) in self._work], np.int64),
+                list(self._work.values()), False) + self._work_batches
+            self._work.clear()
+        staged_keys = np.unique(np.concatenate([k for (k, _, _) in self._work_batches]))
+        merged = np.union1d(self.keys, staged_keys)
+        rows = (merged // self.nblkcols).astype(np.int64)
+        cols = (merged % self.nblkcols).astype(np.int64)
+        nb, nsl, shapes = _bin_entries(self.row_blk_sizes, self.col_blk_sizes,
+                                       rows, cols)
+        shape_to_bin = {s: i for i, s in enumerate(shapes)}
+        counts = np.bincount(nb, minlength=len(shapes))
+        datas = [torch.zeros((int(counts[i]), bm, bn), dtype=self.dtype,
+                             device=self.device)
+                 for i, (bm, bn) in enumerate(shapes)]
+        # 1) surviving old blocks: device-to-device move per shape
+        if len(self.keys):
+            pos_old = np.searchsorted(merged, self.keys)
+            new_bin_of_old = nb[pos_old]
+            for b in range(len(shapes)):
+                old_sel = np.nonzero(new_bin_of_old == b)[0]
+                if not len(old_sel):
+                    continue
+                src = self.bins[self.ent_bin[old_sel[0]]].data
+                datas[b][to_index(nsl[pos_old[old_sel]], self.device)] = \
+                    src[to_index(self.ent_slot[old_sel], self.device)]
+        # 2) staged batches in call order (each is one shape -> one bin)
+        for keys_b, arr, summation in self._work_batches:
+            b = shape_to_bin[(arr.shape[1], arr.shape[2])]
+            slots = to_index(nsl[np.searchsorted(merged, keys_b)], self.device)
+            blocks = to_device(arr, self.dtype, self.device)
+            if summation:
+                datas[b].index_add_(0, slots, blocks)
+            else:
+                datas[b][slots] = blocks
+        bins = [_Bin(s, datas[i], int(counts[i])) for i, s in enumerate(shapes)]
+        self._work_batches.clear()
+        self.set_structure_from_device(merged, bins, binning=(nb, nsl, shapes))
+        return self
+
+    def set_structure_from_device(self, keys: np.ndarray, bins: List[_Bin],
+                                  binning=None) -> None:
+        """Adopt a prebuilt index + device bins (the multiply engine
+        assembles C on the device).  ``binning`` optionally carries a
+        precomputed `_bin_entries` result."""
+        keys = np.ascontiguousarray(keys, np.int64)
+        rows = (keys // self.nblkcols).astype(np.int64)
+        cols = (keys % self.nblkcols).astype(np.int64)
+        if binning is None:
+            binning = _bin_entries(self.row_blk_sizes, self.col_blk_sizes, rows, cols)
+        bin_ids, slots, shapes = binning
+        self.keys = keys
+        self.row_ptr = np.zeros(self.nblkrows + 1, np.int64)
+        self.row_ptr[1:] = np.cumsum(np.bincount(rows, minlength=self.nblkrows))
+        self.ent_bin = bin_ids
+        self.ent_slot = slots
+        by_shape = {b.shape: b for b in bins}
+        self.bins = [by_shape[(int(bm), int(bn))] for (bm, bn) in shapes]
+        self._work.clear()
+        self._work_batches.clear()
+        self.valid = True
+
+    # --------------------------------------------------------------- access
+    def _find_entry(self, row: int, col: int) -> int:
+        key = row * self.nblkcols + col
+        i = np.searchsorted(self.keys, key)
+        if i < len(self.keys) and self.keys[i] == key:
+            return int(i)
+        return -1
+
+    def get_block(self, row: int, col: int) -> Optional[np.ndarray]:
+        """Fetch one block to the host; None if absent (ref
+        `dbcsr_get_block_p`)."""
+        if (row, col) in self._work:
+            return self._work[(row, col)].copy()
+        e = self._find_entry(row, col)
+        if e < 0:
+            return None
+        return to_host(self.bins[self.ent_bin[e]].data[int(self.ent_slot[e])])
+
+    def iterate_blocks(self) -> Iterator[Tuple[int, int, np.ndarray]]:
+        """Iterate stored blocks in index order (ref `dbcsr_iterator_*`);
+        fetches each bin from the device once."""
+        if not self.valid:
+            raise RuntimeError("finalize() before iterating")
+        host_bins = [to_host(b.data[: b.count]) for b in self.bins]
+        rows, cols = self.entry_coords()
+        for e in range(self.nblks):
+            yield int(rows[e]), int(cols[e]), host_bins[self.ent_bin[e]][self.ent_slot[e]]
+
+    def block_norms(self) -> np.ndarray:
+        """Frobenius norm per finalized entry, key-ordered, computed on
+        the device in the matrix dtype as the JAX package does (bf16
+        sums in float32 and rounds the norm back to bf16)."""
+        out = np.zeros(self.nblks, np.float64)
+        for b_id, b in enumerate(self.bins):
+            if b.count == 0:
+                continue
+            d = b.data
+            acc = torch.float32 if d.dtype == torch.bfloat16 else d.dtype
+            norms = torch.sqrt((d * d).sum(dim=(1, 2), dtype=acc)).to(d.dtype)
+            mask = self.ent_bin == b_id
+            out[mask] = to_host(norms).astype(np.float64)[self.ent_slot[mask]]
+        return out
+
+    def copy(self, name: Optional[str] = None) -> "BlockSparseMatrix":
+        """Deep copy: bins are cloned, since the engine updates C in place."""
+        m = BlockSparseMatrix(name or self.name, self.row_blk_sizes,
+                              self.col_blk_sizes, self.dtype, self.dist,
+                              self.matrix_type, device=self.device)
+        m.keys = self.keys.copy()
+        m.row_ptr = self.row_ptr.copy()
+        m.ent_bin = self.ent_bin.copy()
+        m.ent_slot = self.ent_slot.copy()
+        m.bins = [_Bin(b.shape, b.data.clone(), b.count) for b in self.bins]
+        m._work = {k: v.copy() for k, v in self._work.items()}
+        m._work_batches = [(k.copy(), a.copy(), s) for (k, a, s) in self._work_batches]
+        m.valid = self.valid
+        return m
+
+    def __repr__(self) -> str:
+        return (f"BlockSparseMatrix({self.name!r}, {self.nblkrows}x{self.nblkcols} "
+                f"blocks, {self.nblks} stored, dtype={self.dtype}, "
+                f"device={self.device})")
+
+
+def _bin_entries(row_blk_sizes, col_blk_sizes, rows, cols):
+    """Assign each entry a shape-bin id and an in-bin slot (key order).
+
+    Distinct block sizes are few (ref `dbcsr_mm_common.F:309`), so bin
+    ids come from a small size->id table and slots from per-bin counts.
+    """
+    n = len(rows)
+    if n == 0:
+        return np.empty(0, np.int32), np.empty(0, np.int32), []
+    ur = np.unique(row_blk_sizes)
+    uc = np.unique(col_blk_sizes)
+    if len(ur) * len(uc) > max(4 * n, 1 << 20):
+        code64 = row_blk_sizes[rows].astype(np.int64) << 32 | col_blk_sizes[cols]
+        uniq, inv = np.unique(code64, return_inverse=True)
+        inv = inv.astype(np.int32)
+        shapes = [(int(u >> 32), int(u & 0xFFFFFFFF)) for u in uniq]
+    else:
+        rid = np.searchsorted(ur, row_blk_sizes[rows])
+        cid = np.searchsorted(uc, col_blk_sizes[cols])
+        code = rid.astype(np.int32) * len(uc) + cid
+        counts_all = np.bincount(code, minlength=len(ur) * len(uc))
+        present = np.nonzero(counts_all)[0]
+        remap = np.zeros(len(ur) * len(uc), np.int32)
+        remap[present] = np.arange(len(present), dtype=np.int32)
+        inv = remap[code]
+        shapes = [(int(ur[p // len(uc)]), int(uc[p % len(uc)])) for p in present]
+    nbins = len(shapes)
+    if nbins == 1:
+        return inv, np.arange(n, dtype=np.int32), shapes
+    counts = np.bincount(inv, minlength=nbins)
+    starts = np.concatenate([[0], np.cumsum(counts[:-1])])
+    order = np.argsort(inv, kind="stable")
+    slots = np.empty(n, np.int32)
+    slots[order] = (np.arange(n) - np.repeat(starts, counts)).astype(np.int32)
+    return inv, slots, shapes
+
