@@ -5,23 +5,38 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the CUDA stack kernel from ``dbcsr_tpu_torch/csrc`` with nvcc,
-then runs five phases, each printing one JSON line; any failure raises
-and the script exits non-zero:
+It builds the port's CUDA kernels from ``dbcsr_tpu_torch/csrc`` with
+nvcc (both sources at once), then runs these phases, each printing one
+JSON line; any failure raises and the script exits non-zero:
 
-1. card and build: the card's name and power limit, CUDA version,
-   nvcc seconds and ptxas resource lines;
-2. the stack kernel against its plain PyTorch version on the card, for
-   f64/f32/bf16 at block shapes (23,23,23), (23,18,23), (18,23,18),
-   (5,13,23), (100,50,20), on stacks with short runs, one run of 5000
-   entries, alpha != 1 and a nonzero incoming C;
-3. `.perf` checksum gates through `run_perf` (the kernel must launch,
-   the plain version must not run);
-4. the north-star product (10k x 10k, 23x23 blocks, occupancy 0.1, f64,
-   beta 0, 3 repeats) through the kernel, held against one repeat with
-   ``mm_driver="torch"`` (the plain version) at rel <= 1e-10;
-5. the kernel and the plain version compared and timed on the north
-   star's own stacks, with the least time the card could take for them.
+1. build: the card's name and power limit, CUDA version, nvcc seconds
+   and ptxas resource lines of each source, the persisting-L2 limit;
+2. kernel_vs_plain: the base stack kernel (K1) against its plain PyTorch
+   version, f64/f32/bf16 at block shapes (23,23,23), (23,18,23),
+   (18,23,18), (5,13,23), (100,50,20), on stacks with short runs, one
+   run of 5000 entries, alpha != 1 and a nonzero incoming C;
+3. crosspack_vs_plain: the crosspack kernel (K3) and its resident launch
+   (K4) against their plain version on the same kind of stacks, at
+   `choose_pack`'s pack for four shapes and a forced pack (3, 5) for
+   (16,24,12); (100,50,20) must plan onto K1 (P = 1);
+4. perf_gates: the `.perf` checksum gates through `run_perf` under
+   ``mm_driver="auto"`` (f64: K1 must launch, no plain version);
+5. perf_gates_crosspack: the same gates under ``mm_driver="pallas_cross"``
+   (K3 must launch, except on the 100/50/20 blocks, which take K1);
+6. northstar: the north-star product (10k x 10k, 23x23 blocks,
+   occupancy 0.1, f64, beta 0, 3 repeats) through K1, held against one
+   repeat with ``mm_driver="torch"`` (the plain version) at rel <= 1e-10;
+7. northstar_stacks: K1 and its plain version compared and timed on the
+   north star's own stacks, with the least time the card could take;
+8. northstar_f32: the north star as sreal through K3 (no K1 launch, no
+   plain call), held against one ``"torch"`` repeat (elementwise at the
+   kernel validation tolerance, checksums at rel <= 1e-6), then K3 and
+   its plain version timed on its stacks, and the host planning of its
+   stacks for K1 and for K3 timed in turns;
+9. resident_f32: `test_H2O` as sreal with a tuned ``crosspack_vmem`` row
+   in a temporary parameter directory, through K4, held against the
+   ``"torch"`` driver likewise, then K4, K3 and the plain version timed
+   on its stacks.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints
@@ -30,33 +45,45 @@ no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
 import sys
+import tempfile
+import time
 
 import numpy as np
 import torch
 
-from dbcsr_tpu_torch.acc import build, stack_kernel
+from dbcsr_tpu_torch.acc import build, crosspack_kernel, params, stack_kernel
+from dbcsr_tpu_torch.acc.crosspack import choose_pack, resident_limit_bytes
+from dbcsr_tpu_torch.acc.smm import prepare_stack
 from dbcsr_tpu_torch.core.config import set_config
+from dbcsr_tpu_torch.core.kinds import name_of
 from dbcsr_tpu_torch.device import resolve_device
-from dbcsr_tpu_torch.mm.multiply import _build_spans, _candidates
-from dbcsr_tpu_torch.obs.costmodel import kernel_validation_tolerance, stack_bytes
-from dbcsr_tpu_torch.perf.driver import parse_perf_file, run_perf
+from dbcsr_tpu_torch.mm.multiply import _build_spans, _candidates, _effective
+from dbcsr_tpu_torch.obs.costmodel import (
+    crosspack_entries,
+    kernel_validation_tolerance,
+    stack_bound_s,
+    stack_bytes,
+    stack_min_bytes,
+)
+from dbcsr_tpu_torch.perf.driver import expand_block_sizes, parse_perf_file, run_perf
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 INPUTS = os.path.join(ROOT, "tests", "inputs")
 
-# NVIDIA H100 SXM data sheet, dense rates: HBM3 bandwidth, and the peak
-# for each operand type (f64: FP64 tensor cores; f32: CUDA cores; bf16:
-# tensor cores), at the full 700 W power limit
-H100_BYTES_PER_S = 3.35e12
-H100_PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12,
-                   torch.bfloat16: 989e12}
-
-KERNEL_SOURCE = "dbcsr_tpu_torch/csrc/smm_stack.cu"
-KERNEL_REPLACES = "dbcsr_tpu/acc/pallas_smm.py:132"
+KERNELS = {
+    "smm_stack": ("dbcsr_tpu_torch/csrc/smm_stack.cu",
+                  "dbcsr_tpu/acc/pallas_smm.py:132"),
+    "smm_crosspack": ("dbcsr_tpu_torch/csrc/smm_crosspack.cu",
+                      "dbcsr_tpu/acc/pallas_smm.py:456"),
+    "smm_crosspack_resident": ("dbcsr_tpu_torch/csrc/smm_crosspack.cu",
+                               "dbcsr_tpu/acc/pallas_smm.py:535"),
+}
+LIBRARY_NOTE = "no single PyTorch call computes this function"
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -66,18 +93,6 @@ def _require(cond: bool, msg: str) -> None:
 
 def _emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def _bound_s(dtype, m, n, k, entries, n_a, n_b, nruns) -> tuple:
-    """Least time for one stack on the card: each referenced A and B
-    block read once, the index arrays read once, each C block of a run
-    read and written once, against the flops over the type's peak."""
-    isz = torch.empty(0, dtype=dtype).element_size()
-    nbytes = (isz * (n_a * m * k + n_b * k * n + 2 * nruns * m * n)
-              + 4 * (2 * entries + 2 * nruns + 1))
-    t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = 2.0 * m * n * k * entries / H100_PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -94,8 +109,36 @@ def _time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def _stack_args(plan):
-    return plan.a_idx, plan.b_idx, plan.run_ptr, plan.run_c
+def _reset_counts() -> None:
+    stack_kernel.reset_counts()
+    crosspack_kernel.reset_counts()
+
+
+def _counts() -> dict:
+    return {"smm_stack": stack_kernel.launches,
+            "smm_crosspack": crosspack_kernel.launches_cross,
+            "smm_crosspack_resident": crosspack_kernel.launches_resident,
+            "plain": stack_kernel.plain_calls + crosspack_kernel.plain_calls}
+
+
+def _calls(plan, resident=None):
+    """(kernel, plain) callables running ``plan``'s kernel and its plain
+    version as ``f(c, a, b, alpha)``; ``resident`` overrides a crosspack
+    plan's launch."""
+    if plan.driver != "crosspack":
+        args = (plan.a_idx, plan.b_idx, plan.run_ptr, plan.run_c)
+        return (lambda c, a, b, al: stack_kernel.smm_stack(c, a, b, *args, al),
+                lambda c, a, b, al: stack_kernel.smm_stack_plain(c, a, b, *args, al))
+    args = (plan.a_idx, plan.b_idx, plan.run_ptr, plan.run_c, plan.pack_runs, plan.pack)
+    res = plan.resident if resident is None else resident
+    return (lambda c, a, b, al: crosspack_kernel.smm_crosspack(
+                c, a, b, *args, al, resident=res, window=plan.window),
+            lambda c, a, b, al: crosspack_kernel.smm_crosspack_plain(c, a, b, *args, al))
+
+
+def _rel_err(got, want) -> float:
+    diff = float((got.double() - want.double()).abs().max())
+    return diff / max(float(want.double().abs().max()), 1.0)
 
 
 def phase_build() -> str:
@@ -104,13 +147,14 @@ def phase_build() -> str:
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0].strip()
     print(card, flush=True)
-    build.build_all([stack_kernel.SOURCE])
-    log = build.build_logs.get(stack_kernel.SOURCE, "")
+    build.build_all()
     _emit({"phase": "build", "card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
-           "nvcc_s": build.build_seconds[stack_kernel.SOURCE],
-           "ptxas": [ln.strip() for ln in log.splitlines()
-                     if "registers" in ln or "Compiling entry" in ln]})
+           "nvcc_s": {src: build.build_seconds[src] for src in build.SOURCES},
+           "ptxas": {src: [ln.strip() for ln in build.build_logs.get(src, "").splitlines()
+                           if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+                     for src in build.SOURCES},
+           "persisting_l2_bytes": resident_limit_bytes(resolve_device())})
     return card
 
 
@@ -131,8 +175,6 @@ def _synthetic_stack(rng, m, n, k, dtype, long_run=5000):
 
 
 def phase_kernel_vs_plain() -> None:
-    from dbcsr_tpu_torch.acc.smm import prepare_stack
-
     rng = np.random.default_rng(20261016)
     alpha = -0.75
     cases = []
@@ -140,31 +182,72 @@ def phase_kernel_vs_plain() -> None:
         for m, n, k in ((23, 23, 23), (23, 18, 23), (18, 23, 18), (5, 13, 23),
                         (100, 50, 20)):
             a, b, c, a_idx, b_idx, c_idx = _synthetic_stack(rng, m, n, k, dtype)
-            plan = prepare_stack(c, a, b, a_idx, b_idx, c_idx)
-            args = _stack_args(plan)
-            got = stack_kernel.smm_stack(c.clone(), a, b, *args, alpha)
-            want = stack_kernel.smm_stack_plain(c.clone(), a, b, *args, alpha)
+            plan = prepare_stack(c, a, b, a_idx, b_idx, c_idx, variant="kmerge")
+            kernel, plain = _calls(plan)
+            got = kernel(c.clone(), a, b, alpha)
+            want = plain(c.clone(), a, b, alpha)
             torch.cuda.synchronize()
-            diff = float((got.double() - want.double()).abs().max())
-            rel = diff / max(float(want.double().abs().max()), 1.0)
-            tol = kernel_validation_tolerance(str(dtype).replace("torch.", ""),
-                                              k, plan.max_run)
+            rel = _rel_err(got, want)
+            tol = kernel_validation_tolerance(name_of(dtype), k, plan.max_run)
             _require(np.isfinite(rel) and rel <= tol,
                      f"kernel != plain for {dtype} {(m, n, k)}: rel {rel:.3e} > {tol:.1e}")
             scratch = c.clone()
-            ms = _time_ms(lambda: stack_kernel.smm_stack(scratch, a, b, *args, alpha), 10)
-            plain_ms = _time_ms(
-                lambda: stack_kernel.smm_stack_plain(scratch, a, b, *args, alpha), 3)
-            bound, by = _bound_s(dtype, m, n, k, plan.entries,
-                                 len(np.unique(a_idx)), len(np.unique(b_idx)), plan.nruns)
-            cases.append({"dtype": str(dtype).replace("torch.", ""), "mnk": [m, n, k],
+            ms = _time_ms(lambda: kernel(scratch, a, b, alpha), 10)
+            plain_ms = _time_ms(lambda: plain(scratch, a, b, alpha), 3)
+            bound, by = stack_bound_s(name_of(dtype), m, n, k, plan.entries,
+                                      len(np.unique(a_idx)), len(np.unique(b_idx)), plan.nruns)
+            cases.append({"dtype": name_of(dtype), "mnk": [m, n, k],
                           "entries": plan.entries, "runs": plan.nruns,
                           "longest_run": plan.max_run, "max_rel_err": rel,
                           "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound * 1e3, "bound_by": by})
-    _emit({"phase": "kernel_vs_plain", "alpha": alpha,
-           "library_ms": None,
-           "library_note": "no single PyTorch call computes this function",
+    _emit({"phase": "kernel_vs_plain", "alpha": alpha, "library_ms": None,
+           "library_note": LIBRARY_NOTE, "cases": cases})
+
+
+def phase_crosspack_vs_plain() -> None:
+    rng = np.random.default_rng(20261017)
+    alpha = -0.75
+    cases = []
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        for (m, n, k), pack in (((23, 23, 23), None), ((23, 18, 23), None),
+                                ((18, 23, 18), None), ((5, 13, 23), None),
+                                ((16, 24, 12), (3, 5))):
+            a, b, c, a_idx, b_idx, c_idx = _synthetic_stack(rng, m, n, k, dtype)
+            plan = prepare_stack(c, a, b, a_idx, b_idx, c_idx, variant="crosspack",
+                                 pack=pack)
+            _require(plan.driver == "crosspack" and plan.pack == (pack or choose_pack(m, n, k)),
+                     f"{(m, n, k)} did not plan onto crosspack at its pack")
+            tol = kernel_validation_tolerance(name_of(dtype), k, plan.max_run)
+            bound, by = stack_bound_s(name_of(dtype), m, n, k, plan.entries,
+                                      len(np.unique(a_idx)), len(np.unique(b_idx)), plan.nruns)
+            row = {"dtype": name_of(dtype), "mnk": [m, n, k], "pack": list(plan.pack),
+                   "entries": plan.entries, "runs": plan.nruns, "packs": plan.pack_runs.numel()
+                   // plan.pack[0], "entry_slots": crosspack_entries(plan),
+                   "longest_run": plan.max_run, "tolerance": tol,
+                   "bound_ms": bound * 1e3, "bound_by": by, "library_ms": None}
+            _, plain = _calls(plan)
+            want = plain(c.clone(), a, b, alpha)
+            scratch = c.clone()
+            row["plain_ms"] = _time_ms(lambda: plain(scratch, a, b, alpha), 3)
+            for tag, resident in (("cross", False), ("resident", True)):
+                kernel, _ = _calls(plan, resident=resident)
+                got = kernel(c.clone(), a, b, alpha)
+                torch.cuda.synchronize()
+                rel = _rel_err(got, want)
+                _require(np.isfinite(rel) and rel <= tol,
+                         f"crosspack ({tag}) != plain for {dtype} {(m, n, k)} pack "
+                         f"{plan.pack}: rel {rel:.3e} > {tol:.1e}")
+                row[f"{tag}_max_rel_err"] = rel
+                row[f"{tag}_ms"] = _time_ms(lambda: kernel(scratch, a, b, alpha), 10)
+            cases.append(row)
+    # blocks too wide to pack side by side plan onto the base kernel
+    a, b, c, a_idx, b_idx, c_idx = _synthetic_stack(rng, 100, 50, 20, torch.float32, 10)
+    plan = prepare_stack(c, a, b, a_idx, b_idx, c_idx, variant="crosspack")
+    _require(plan.driver == "kernel" and choose_pack(100, 50, 20)[0] == 1,
+             f"(100, 50, 20) planned onto {plan.driver}, not the base kernel")
+    _emit({"phase": "crosspack_vs_plain", "alpha": alpha, "library_ms": None,
+           "library_note": LIBRARY_NOTE, "p1_shape_takes_base_kernel": [100, 50, 20],
            "cases": cases})
 
 
@@ -173,113 +256,294 @@ PERF_GATES = (("test_H2O", 3), ("test_square_sparse", 1), ("test_rect1_sparse", 
               ("test_square_sparse_bigblocks", 1))
 
 
-def phase_perf_gates() -> None:
+def phase_perf_gates(driver: str) -> None:
+    """The `.perf` gates under ``mm_driver=driver``: "auto" (f64 takes
+    K1) or "pallas_cross" (K3, except where P = 1)."""
     rows = []
-    for name, nrep in PERF_GATES:
-        cfg = parse_perf_file(os.path.join(INPUTS, f"{name}.perf"))
-        cfg.nrep = nrep
-        stack_kernel.reset_counts()
-        res = run_perf(cfg, verbose=False)  # raises PerfChecksumError on mismatch
-        launches, plain = stack_kernel.launches, stack_kernel.plain_calls
-        _require(launches > 0, f"{name}: the stack kernel never launched")
-        _require(plain == 0, f"{name}: the plain version ran {plain} times")
-        rows.append({"input": name, "nrep": nrep, "checksum": res["checksum"],
-                     "checksum_pos": res["checksum_pos"],
-                     "refs": list(cfg.check_refs), "threshold": cfg.check_threshold,
-                     "launches": launches, "times_s": res["times_s"],
-                     "gflops_best": res["gflops_best"]})
-    _emit({"phase": "perf_gates", "passed": len(rows), "inputs": rows})
+    set_config(mm_driver=driver)
+    try:
+        for name, nrep in PERF_GATES:
+            cfg = parse_perf_file(os.path.join(INPUTS, f"{name}.perf"))
+            cfg.nrep = nrep
+            _reset_counts()
+            res = run_perf(cfg, verbose=False)  # raises PerfChecksumError on mismatch
+            counts = _counts()
+            wanted = "smm_crosspack" if driver == "pallas_cross" else "smm_stack"
+            if driver == "pallas_cross" and all(
+                    choose_pack(m, n, k)[0] == 1 for m, n, k, *_ in res["spans"]):
+                wanted = "smm_stack"  # every span has P = 1
+            _require(counts[wanted] > 0, f"{name} under {driver}: {wanted} never launched")
+            _require(counts["plain"] == 0,
+                     f"{name} under {driver}: the plain versions ran {counts['plain']} times")
+            rows.append({"input": name, "nrep": nrep, "checksum": res["checksum"],
+                         "checksum_pos": res["checksum_pos"],
+                         "refs": list(cfg.check_refs), "threshold": cfg.check_threshold,
+                         "launches": counts, "kernels": sorted({s[4] for s in res["spans"]}),
+                         "times_s": res["times_s"], "gflops_best": res["gflops_best"]})
+    finally:
+        set_config(mm_driver="auto")
+    _emit({"phase": "perf_gates" if driver == "auto" else "perf_gates_crosspack",
+           "mm_driver": driver, "passed": len(rows), "inputs": rows})
 
 
-def _northstar_cfg(nrep: int):
+def _northstar_cfg(nrep: int, data_type: int = 3):
     cfg = parse_perf_file(os.path.join(INPUTS, "northstar.perf"))
     cfg.beta = 0.0  # as bench.py runs it
     cfg.nrep = nrep
+    cfg.data_type = data_type
     return cfg
 
 
-def phase_northstar() -> dict:
-    stack_kernel.reset_counts()
-    res = run_perf(_northstar_cfg(3), verbose=False)
-    launches, plain = stack_kernel.launches, stack_kernel.plain_calls
-    _require(launches > 0, "north star: the stack kernel never launched")
-    _require(plain == 0, f"north star: the plain version ran {plain} times")
-    mats = res["matrices"]
-    c_out = mats["c_out"]
-
+def _against_torch_driver(res, cfg, tol_el: float, tol_cs: float) -> dict:
+    """One repeat of ``cfg`` under ``mm_driver="torch"`` (the plain
+    version): C's pattern must be equal, the elementwise error relative
+    to max |C| within ``tol_el`` and both checksums within ``tol_cs``."""
+    cfg.nrep = 1
     set_config(mm_driver="torch")
     try:
-        ref = run_perf(_northstar_cfg(1), verbose=False)
+        ref = run_perf(cfg, verbose=False)
     finally:
         set_config(mm_driver="auto")
-    c_ref = ref["matrices"]["c_out"]
-    _require(np.array_equal(c_out.keys, c_ref.keys), "north star: C patterns differ")
+    c_out, c_ref = res["matrices"]["c_out"], ref["matrices"]["c_out"]
+    _require(np.array_equal(c_out.keys, c_ref.keys), "C patterns differ from the torch driver's")
     rel_cs = abs(res["checksum"] - ref["checksum"]) / abs(ref["checksum"])
     rel_pos = abs(res["checksum_pos"] - ref["checksum_pos"]) / abs(ref["checksum_pos"])
-    scale = max(float(b.data.abs().max()) for b in c_ref.bins)
-    rel_el = max(float((x.data - y.data).abs().max())
-                 for x, y in zip(c_out.bins, c_ref.bins)) / scale
-    _require(rel_cs <= 1e-10 and rel_pos <= 1e-10 and rel_el <= 1e-10,
-             f"north star: kernel vs torch driver rel {rel_cs:.3e}/{rel_pos:.3e}/"
-             f"{rel_el:.3e} > 1e-10")
-    _emit({"phase": "northstar", "shape": [10000, 10000, 10000], "block": 23,
-           "occupancy": 0.1, "dtype": "float64", "nrep": 3,
-           "times_s": res["times_s"], "host_s": res["host_s"],
-           "host_phase_s": res["host_phase_s"],
-           "stack_device_s": res["stack_device_s"], "flops": res["flops"],
-           "gflops_true": [res["flops"] / t / 1e9 for t in res["times_s"]],
-           "launches": launches, "launches_per_multiply": launches / 3,
-           "checksum": res["checksum"], "checksum_pos": res["checksum_pos"],
-           "torch_driver_checksum": ref["checksum"],
-           "torch_driver_checksum_pos": ref["checksum_pos"],
-           "torch_driver_times_s": ref["times_s"],
-           "rel_checksum": rel_cs, "rel_checksum_pos": rel_pos,
-           "rel_elementwise": rel_el, "tolerance": 1e-10,
-           "c_blocks": int(c_out.nblks)})
-    return {"launches": launches, "a": mats["a"], "b": mats["b"], "c": c_out}
+    scale = max(float(b.data.abs().max()) for b in c_ref.bins if b.count)
+    rel_el = max(float((x.data.double() - y.data.double()).abs().max())
+                 for x, y in zip(c_out.bins, c_ref.bins) if x.count) / scale
+    _require(rel_cs <= tol_cs and rel_pos <= tol_cs and rel_el <= tol_el,
+             f"kernel vs torch driver rel {rel_cs:.3e}/{rel_pos:.3e}/{rel_el:.3e} "
+             f"> {tol_cs:.1e}/{tol_cs:.1e}/{tol_el:.1e}")
+    return {"torch_driver_checksum": ref["checksum"],
+            "torch_driver_checksum_pos": ref["checksum_pos"],
+            "torch_driver_times_s": ref["times_s"],
+            "rel_checksum": rel_cs, "rel_checksum_pos": rel_pos,
+            "rel_elementwise": rel_el, "tolerance_elementwise": tol_el,
+            "tolerance_checksum": tol_cs}
 
 
-def phase_northstar_stacks(ns: dict) -> dict:
-    """The kernel and its plain version on the north star's own stacks,
-    re-planned from the product's operands; times summed per multiply."""
-    a, b, c = ns["a"], ns["b"], ns["c"]
+def _run_summary(res, nrep: int, counts: dict) -> dict:
+    return {"nrep": nrep, "times_s": res["times_s"], "host_s": res["host_s"],
+            "host_phase_s": res["host_phase_s"], "stack_device_s": res["stack_device_s"],
+            "flops": res["flops"],
+            "gflops_true": [res["flops"] / t / 1e9 for t in res["times_s"]],
+            "launches": counts,
+            "launches_per_multiply": {k: v / nrep for k, v in counts.items()},
+            "spans": res["spans"], "checksum": res["checksum"],
+            "checksum_pos": res["checksum_pos"],
+            "c_blocks": int(res["matrices"]["c_out"].nblks)}
+
+
+def phase_northstar() -> dict:
+    _reset_counts()
+    res = run_perf(_northstar_cfg(3), verbose=False)
+    counts = _counts()
+    _require(counts["smm_stack"] > 0, "north star: the stack kernel never launched")
+    _require(counts["plain"] == 0, f"north star: the plain versions ran {counts['plain']} times")
+    out = {"phase": "northstar", "shape": [10000, 10000, 10000], "block": 23,
+           "occupancy": 0.1, "dtype": "float64", **_run_summary(res, 3, counts)}
+    out.update(_against_torch_driver(res, _northstar_cfg(1), 1e-10, 1e-10))
+    _emit(out)
+    return {"launches": counts["smm_stack"], "a": res["matrices"]["a"],
+            "b": res["matrices"]["b"], "c": res["matrices"]["c_out"]}
+
+
+def _stacks_phase(phase: str, a, b, c, kernels=(None,), reps=5) -> dict:
+    """Each stack of the product ``c = a * b``, re-planned from its
+    operands, run through its plan's kernel (``kernels``: None for the
+    plan's own launch, False/True to force a crosspack plan's plain or
+    resident launch) and its plain version: compared, and timed by CUDA
+    events (kernel mean of ``reps`` launches, plain mean of 2); times
+    summed per multiply, beside the least time the card could take."""
+    t0 = time.perf_counter()
     i, j, a_ent, b_ent = _candidates(a, b, None)
-    spans = _build_spans(c, a, b, i * c.nblkcols + j, a_ent, b_ent)
+    keys = i * c.nblkcols + j
+    t1 = time.perf_counter()
+    spans = _build_spans(c, a, b, keys, a_ent, b_ent)
+    host_s = {"index": t1 - t0, "plan": time.perf_counter() - t1}
     alpha = 1.0
-    rows, tot_ms, tot_plain, tot_bound, max_err = [], 0.0, 0.0, 0.0, 0.0
-    modeled_bytes = 0
-    for cbin, abin, bbin, m, n, k, entries, plan in spans:
-        ad, bd, cd = a.bins[abin].data, b.bins[bbin].data, c.bins[cbin].data
-        args = _stack_args(plan)
-        got = stack_kernel.smm_stack(cd.clone(), ad, bd, *args, alpha)
-        want = stack_kernel.smm_stack_plain(cd.clone(), ad, bd, *args, alpha)
-        err = float((got - want).abs().max())
-        del got, want
+    rows = []
+    tot = {"ms": [0.0] * len(kernels), "plain_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": [0.0] * len(kernels)}
+    modeled_bytes = min_bytes = 0
+    for sp in spans:
+        ad, bd, cd = a.bins[sp.abin].data, b.bins[sp.bbin].data, c.bins[sp.cbin].data
+        plan = sp.plan
+        _, plain = _calls(plan)
+        want = plain(cd.clone(), ad, bd, alpha)
         scratch = cd.clone()
-        ms = _time_ms(lambda: stack_kernel.smm_stack(scratch, ad, bd, *args, alpha), 5)
-        plain_ms = _time_ms(
-            lambda: stack_kernel.smm_stack_plain(scratch, ad, bd, *args, alpha), 2)
-        del scratch
-        a_used = len(torch.unique(plan.a_idx))
-        b_used = len(torch.unique(plan.b_idx))
-        bound, by = _bound_s(cd.dtype, m, n, k, entries, a_used, b_used, plan.nruns)
-        modeled_bytes += stack_bytes(m, n, k, entries, nseg=plan.nruns, itemsize=8)
-        rows.append({"mnk": [m, n, k], "entries": entries, "runs": plan.nruns,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound * 1e3,
-                     "bound_by": by, "max_abs_err": err})
-        tot_ms += ms
-        tot_plain += plain_ms
-        tot_bound += bound * 1e3
-        max_err = max(max_err, err)
+        row = {"mnk": [sp.m, sp.n, sp.k], "entries": sp.entries, "runs": plan.nruns,
+               "kernel": sp.driver, "ms": [], "max_abs_err": []}
+        if plan.driver == "crosspack":
+            row["pack"] = list(plan.pack)
+            row["entry_slots"] = crosspack_entries(plan)
+        for ki, resident in enumerate(kernels):
+            kernel, _ = _calls(plan, resident=resident)
+            got = kernel(cd.clone(), ad, bd, alpha)
+            err = float((got.double() - want.double()).abs().max())
+            del got
+            ms = _time_ms(lambda: kernel(scratch, ad, bd, alpha), reps)
+            row["ms"].append(ms)
+            row["max_abs_err"].append(err)
+            tot["ms"][ki] += ms
+            tot["max_abs_err"][ki] = max(tot["max_abs_err"][ki], err)
+        row["plain_ms"] = _time_ms(lambda: plain(scratch, ad, bd, alpha), 2)
+        del scratch, want
+        counts = (name_of(cd.dtype), sp.m, sp.n, sp.k, sp.entries,
+                  len(torch.unique(plan.a_idx)), len(torch.unique(plan.b_idx)), plan.nruns)
+        bound, by = stack_bound_s(*counts)
+        min_bytes += stack_min_bytes(*counts)
+        modeled_bytes += stack_bytes(sp.m, sp.n, sp.k, sp.entries, nseg=plan.nruns,
+                                     itemsize=cd.element_size())
+        row.update(bound_ms=bound * 1e3, bound_by=by)
+        rows.append(row)
+        tot["plain_ms"] += row["plain_ms"]
+        tot["bound_ms"] += bound * 1e3
     flops = sum(2 * r["mnk"][0] * r["mnk"][1] * r["mnk"][2] * r["entries"] for r in rows)
-    _emit({"phase": "northstar_stacks", "spans": rows, "launches_per_multiply": len(rows),
-           "ms": tot_ms, "plain_ms": tot_plain, "bound_ms": tot_bound,
-           "kernel_gflops": flops / tot_ms / 1e6, "flops": flops,
-           "modeled_stack_bytes": modeled_bytes, "max_abs_err": max_err})
-    return {"ms": tot_ms, "plain_ms": tot_plain, "bound_ms": tot_bound,
-            "max_abs_err": max_err,
-            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
-            else "operations"}
+    # what bounds the stack with the largest bound bounds the multiply
+    tot["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+    _emit({"phase": phase, "spans": rows, "launches_per_multiply": len(rows),
+           "replan_host_s": host_s,
+           "kernels_timed": [("plan" if r is None else "resident" if r else "cross")
+                             for r in kernels],
+           "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+           "bound_by": tot["bound_by"],
+           "kernel_gflops": [flops / ms / 1e6 for ms in tot["ms"]], "flops": flops,
+           "min_bytes": min_bytes, "modeled_stack_bytes": modeled_bytes,
+           "max_abs_err": tot["max_abs_err"]})
+    return tot
+
+
+def _kernel_row(name: str, launches: int, timing: dict, ki: int = 0) -> dict:
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": timing["max_abs_err"][ki],
+            "ms": timing["ms"][ki], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": None}
+
+
+def phase_northstar_f32() -> dict:
+    _reset_counts()
+    res = run_perf(_northstar_cfg(3, data_type=1), verbose=False)
+    counts = _counts()
+    _require(counts["smm_crosspack"] > 0, "f32 north star: the crosspack kernel never launched")
+    _require(counts["smm_stack"] == 0 and counts["smm_crosspack_resident"] == 0,
+             f"f32 north star: other kernels launched: {counts}")
+    _require(counts["plain"] == 0, f"f32 north star: the plain versions ran {counts['plain']} times")
+    _require(all(s[4] == "smm_crosspack" for s in res["spans"]),
+             f"f32 north star: not every span took crosspack: {res['spans']}")
+    longest = max(s[5] for s in res["spans"])
+    out = {"phase": "northstar_f32", "shape": [10000, 10000, 10000], "block": 23,
+           "occupancy": 0.1, "dtype": "float32", "mm_driver": "auto",
+           **_run_summary(res, 3, counts)}
+    out.update(_against_torch_driver(res, _northstar_cfg(1, data_type=1),
+                                     kernel_validation_tolerance("float32", 23, longest), 1e-6))
+    out["longest_run"] = longest
+    _emit(out)
+    operands = _operands(res, _northstar_cfg(1))
+    del res
+    timing = _stacks_phase("northstar_f32_stacks", *operands)
+    _plan_ab("northstar_f32_plan", *operands)
+    return _kernel_row("smm_crosspack", counts["smm_crosspack"], timing)
+
+
+def _plan_ab(phase: str, a, b, c, pairs: int = 3) -> None:
+    """Host seconds of planning the product's stacks for the base kernel
+    (``mm_driver="pallas"``) and for crosspack (``"auto"``), in turns on
+    the same operands in one process: what dealing runs into packs adds."""
+    i, j, a_ent, b_ent = _candidates(a, b, None)
+    keys = i * c.nblkcols + j
+    plan_s = {"pallas": [], "auto": []}
+    try:
+        for rep in range(pairs):
+            for driver in (("pallas", "auto") if rep % 2 == 0 else ("auto", "pallas")):
+                set_config(mm_driver=driver)
+                t0 = time.perf_counter()
+                spans = _build_spans(c, a, b, keys, a_ent, b_ent)
+                plan_s[driver].append(time.perf_counter() - t0)
+                want = "smm_stack" if driver == "pallas" else "smm_crosspack"
+                _require(all(sp.driver == want for sp in spans),
+                         f"{phase}: {driver} planned {[sp.driver for sp in spans]}")
+                del spans
+    finally:
+        set_config(mm_driver="auto")
+    _emit({"phase": phase, "plan_s": plan_s,
+           "median_s": {d: float(np.median(v)) for d, v in plan_s.items()}})
+
+
+def _operands(res, cfg):
+    """op(A), op(B) and C of a `run_perf` result."""
+    mats = res["matrices"]
+    return (_effective(mats["a"], cfg.transa), _effective(mats["b"], cfg.transb),
+            mats["c_out"])
+
+
+def _block_shapes(cfg):
+    sizes = [np.unique(expand_block_sizes(total, pat))
+             for total, pat in ((cfg.m, cfg.m_sizes), (cfg.n, cfg.n_sizes), (cfg.k, cfg.k_sizes))]
+    return [tuple(int(x) for x in t) for t in itertools.product(*sizes)]
+
+
+RESIDENT_CANDIDATES = ("test_H2O", "test_rect2_sparse", "test_rect1_sparse",
+                       "test_square_sparse", "test_singleblock")
+
+
+def phase_resident_f32() -> dict:
+    """`test_H2O` as sreal through K4, steered there by a tuned
+    ``crosspack_vmem`` row; the largest other `.perf` input whose
+    operands fit the persisting-L2 limit if its do not."""
+    limit = resident_limit_bytes(resolve_device())
+    prev_dir = os.environ.get("DBCSR_TPU_TORCH_PARAMS_DIR")
+    skipped = []
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["DBCSR_TPU_TORCH_PARAMS_DIR"] = tmp
+        try:
+            for name in RESIDENT_CANDIDATES:
+                cfg = parse_perf_file(os.path.join(INPUTS, f"{name}.perf"))
+                cfg.data_type, cfg.nrep, cfg.check = 1, 2, False
+                for m, n, k in _block_shapes(cfg):
+                    P, R = choose_pack(m, n, k)
+                    params.save_entry({"m": m, "n": n, "k": k, "dtype": "float32",
+                                       "driver": "pallas", "variant": "crosspack_vmem",
+                                       "grouping": R, "pack_p": P, "gflops": 0.0})
+                _reset_counts()
+                res = run_perf(cfg, verbose=False)
+                counts = _counts()
+                mats = res["matrices"]
+                operand_bytes = max(
+                    x.data.numel() * x.data.element_size() + y.data.numel() * y.data.element_size()
+                    for x in mats["a"].bins for y in mats["b"].bins)
+                if counts["smm_crosspack_resident"] > 0:
+                    break
+                skipped.append({"input": name, "operand_bytes": operand_bytes})
+                _require(operand_bytes > limit,
+                         f"{name}: operands fit ({operand_bytes} <= {limit} B) but K4 never launched")
+            else:
+                raise RuntimeError(f"no .perf input fits the persisting-L2 limit {limit} B")
+            _require(counts["plain"] == 0 and counts["smm_stack"] == 0,
+                     f"{name}: other launches on the resident path: {counts}")
+            longest = max(s[5] for s in res["spans"])
+            out = {"phase": "resident_f32", "input": name, "dtype": "float32",
+                   "persisting_l2_bytes": limit, "operand_bytes": operand_bytes,
+                   "skipped": skipped, "tuned_rows": params.params_path(),
+                   **_run_summary(res, 2, counts)}
+            k_max = max(k for _, _, k in _block_shapes(cfg))
+            out.update(_against_torch_driver(
+                res, cfg, kernel_validation_tolerance("float32", k_max, longest), 1e-6))
+            out["longest_run"] = longest
+            _emit(out)
+            operands = _operands(res, cfg)
+            del res, mats
+            timing = _stacks_phase("resident_f32_stacks", *operands,
+                                   kernels=(True, False), reps=10)
+        finally:
+            if prev_dir is None:
+                os.environ.pop("DBCSR_TPU_TORCH_PARAMS_DIR", None)
+            else:
+                os.environ["DBCSR_TPU_TORCH_PARAMS_DIR"] = prev_dir
+            params.invalidate()
+    return _kernel_row("smm_crosspack_resident", counts["smm_crosspack_resident"], timing)
 
 
 def main() -> int:
@@ -290,15 +554,15 @@ def main() -> int:
     set_config(mm_driver="auto", validate_kernels=True)
     phase_build()
     phase_kernel_vs_plain()
-    phase_perf_gates()
+    phase_crosspack_vs_plain()
+    phase_perf_gates("auto")
+    phase_perf_gates("pallas_cross")
     ns = phase_northstar()
-    timing = phase_northstar_stacks(ns)
-    print(json.dumps({"kernels": [{
-        "name": "smm_stack", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": ns["launches"],
-        "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": None}]}), flush=True)
+    k1 = _kernel_row("smm_stack", ns.pop("launches"),
+                     _stacks_phase("northstar_stacks", ns.pop("a"), ns.pop("b"), ns.pop("c")))
+    k3 = phase_northstar_f32()
+    k4 = phase_resident_f32()
+    print(json.dumps({"kernels": [k1, k3, k4]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

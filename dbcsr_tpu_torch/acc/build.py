@@ -26,6 +26,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
+# every source of the port (csrc/): the base stack kernel and the
+# crosspack kernel
+SOURCES = ("smm_stack.cu", "smm_crosspack.cu")
+
 # seconds each source's nvcc took in this process (0.0 = reused .so),
 # and nvcc's compiler output (ptxas registers / shared memory / spills)
 build_seconds: Dict[str, float] = {}
@@ -59,7 +63,7 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}.{h.hexdigest()[:16]}.so")
 
 
-def build_all(sources: Iterable[str]) -> Dict[str, str]:
+def build_all(sources: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every source that has no up-to-date library, all nvcc
     processes started together; returns {source: library path}.
     Raises with nvcc's output if any build fails."""

@@ -6,12 +6,19 @@ from __future__ import annotations
 
 import dataclasses
 
+MM_DRIVERS = ("auto", "pallas", "pallas_cross", "torch")
+
 
 @dataclasses.dataclass
 class Config:
-    # stack driver: "auto" launches the CUDA stack kernel on a CUDA
-    # tensor and runs its plain PyTorch version on a CPU tensor; "torch"
-    # runs the plain version on any device (the on-card comparison leg)
+    # stack driver (the JAX package's names): "auto" picks the kernel
+    # per stack (acc/smm.py: crosspack for an untuned float32/bfloat16
+    # stack on the card or a tuned crosspack row, else the base kernel);
+    # "pallas" forces the base stack kernel and "pallas_cross" the
+    # crosspack kernel (the base kernel where the pack has P <= 1);
+    # "torch" runs the base kernel's plain PyTorch version on any device
+    # (the on-card comparison leg).  A kernel runs its plain version on
+    # a CPU tensor.
     mm_driver: str = "auto"
     # entries the plain version gathers per chunk (bounds its temporary
     # memory; ref MM_STACK_SIZE, dbcsr_config.F:77-79)
@@ -23,8 +30,9 @@ class Config:
     mm_format: str = "stack"
 
     def validate(self) -> None:
-        if self.mm_driver not in ("auto", "torch"):
-            raise ValueError(f"mm_driver must be 'auto'/'torch', "
+        if self.mm_driver not in MM_DRIVERS:
+            raise ValueError(f"mm_driver must be one of "
+                             f"{'/'.join(repr(d) for d in MM_DRIVERS)}, "
                              f"got {self.mm_driver!r}")
         if self.mm_stack_size <= 0:
             raise ValueError("mm_stack_size must be positive")

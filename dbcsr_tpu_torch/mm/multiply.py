@@ -24,12 +24,12 @@ precision, then drop C blocks with ||C||^2 < eps^2 unless
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from dbcsr_tpu_torch.acc.smm import execute_stack, prepare_stack
+from dbcsr_tpu_torch.acc.smm import StackPlan, execute_stack, prepare_stack
 from dbcsr_tpu_torch.core.config import get_config
 from dbcsr_tpu_torch.core.matrix import (
     BlockSparseMatrix,
@@ -118,8 +118,9 @@ def multiply(
 
 def _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps) -> int:
     """The stack-format engine body.  Leaves the host seconds of each
-    phase in ``c._mm_phase_s`` and, on a CUDA device, a pair of CUDA
-    events around the stack launches in ``c._mm_stack_events``."""
+    phase in ``c._mm_phase_s``, each span's (m, n, k, entries, kernel,
+    longest run) in ``c._mm_spans`` and, on a CUDA device, a pair of
+    CUDA events around the stack launches in ``c._mm_stack_events``."""
     c._mm_algorithm = get_config().mm_format  # "stack", the one format ported
     phase = {}
     t0 = time.perf_counter()
@@ -143,6 +144,8 @@ def _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps) -> int:
     flops = _run_stacks(c, a, b, spans, alpha)
     phase["launch"] = time.perf_counter() - t3
     c._mm_phase_s = phase
+    c._mm_spans = [(sp.m, sp.n, sp.k, sp.entries, sp.driver, sp.plan.max_run)
+                   for sp in spans]
     if filter_eps is not None and not retain_sparsity:
         norms = c.block_norms()
         compress(c, norms ** 2 >= float(filter_eps) ** 2)
@@ -219,10 +222,26 @@ def _rebuild_c(c: BlockSparseMatrix, new_keys: np.ndarray, beta) -> None:
     c.set_structure_from_device(new_keys, bins, binning=(nb, nsl, shapes))
 
 
+class Span(NamedTuple):
+    """One stack of the product: the bins it reads and writes, its block
+    shape, its entry count, its prepared plan, and the kernel that plan
+    chose (`StackPlan.kernel`)."""
+
+    cbin: int
+    abin: int
+    bbin: int
+    m: int
+    n: int
+    k: int
+    entries: int
+    plan: StackPlan
+    driver: str
+
+
 def _build_spans(c, a, b, cand_keys, a_ent, b_ent):
     """Group the triples by (C bin, A bin, B bin), sort each group by
-    (C slot, A entry), and prepare one stack per group.  Returns
-    [(cbin, abin, bbin, m, n, k, entries, plan)] in group order."""
+    (C slot, A entry), and prepare one stack per group.  Returns the
+    `Span`s in group order."""
     if len(cand_keys) == 0:
         return []
     c_ent = np.searchsorted(c.keys, cand_keys)
@@ -247,7 +266,7 @@ def _build_spans(c, a, b, cand_keys, a_ent, b_ent):
         n = b.bins[bbin].shape[1]
         plan = prepare_stack(c.bins[cbin].data, a.bins[abin].data, b.bins[bbin].data,
                              a_slot[s0:s1], b_slot[s0:s1], c_slot[s0:s1])
-        spans.append((cbin, abin, bbin, m, n, k, s1 - s0, plan))
+        spans.append(Span(cbin, abin, bbin, m, n, k, s1 - s0, plan, plan.kernel))
     return spans
 
 
@@ -260,10 +279,10 @@ def _run_stacks(c, a, b, spans, alpha) -> int:
                   torch.cuda.Event(enable_timing=True))
         events[0].record()
     flops = 0
-    for cbin, abin, bbin, m, n, k, cnt, plan in spans:
-        execute_stack(c.bins[cbin].data, a.bins[abin].data, b.bins[bbin].data,
-                      plan, alpha)
-        flops += 2 * m * n * k * cnt
+    for sp in spans:
+        execute_stack(c.bins[sp.cbin].data, a.bins[sp.abin].data,
+                      b.bins[sp.bbin].data, sp.plan, alpha)
+        flops += 2 * sp.m * sp.n * sp.k * sp.entries
     if events is not None:
         events[1].record()
     c._mm_stack_events = events

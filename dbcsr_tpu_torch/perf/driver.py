@@ -20,6 +20,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from dbcsr_tpu_torch.acc import crosspack_kernel, stack_kernel
 from dbcsr_tpu_torch.core.kinds import dtype_of
 from dbcsr_tpu_torch.device import DeviceLike, resolve_device
 from dbcsr_tpu_torch.mm.multiply import multiply
@@ -157,6 +158,7 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
     chksum_c_in = matrix_checksum(c)
 
     times, phases, stack_s, flops_list = [], [], [], []
+    counts0 = _launch_counts()
     for _ in range(cfg.nrep):
         c_run = c.copy()
         _sync(dev)
@@ -169,6 +171,7 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
         phases.append(dict(c_run._mm_phase_s))
         ev = getattr(c_run, "_mm_stack_events", None)
         stack_s.append(ev[0].elapsed_time(ev[1]) / 1e3 if ev else None)
+    launches = {name: n - counts0[name] for name, n in _launch_counts().items()}
     gflops = [f / t / 1e9 for f, t in zip(flops_list, times)]
     cs = matrix_checksum(c_run)
     cs_pos = matrix_checksum(c_run, pos=True)
@@ -181,6 +184,11 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
         "host_s": [sum(p.values()) for p in phases],
         "host_phase_s": phases,
         "stack_device_s": stack_s,
+        # kernel launches over all repeats by kernel (first-use
+        # validations included), calls of the plain versions, and the
+        # last repeat's spans as (m, n, k, entries, kernel, longest run)
+        "launches": launches,
+        "spans": c_run._mm_spans,
         "flops": flops_list[-1],
         "gflops_mean": float(np.mean(gflops)),
         "gflops_std": float(np.std(gflops)),
@@ -212,6 +220,13 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
     if cfg.check:
         _verify_checksums(cfg, cs, cs_pos, verbose)
     return result
+
+
+def _launch_counts() -> dict:
+    return {"smm_stack": stack_kernel.launches,
+            "smm_crosspack": crosspack_kernel.launches_cross,
+            "smm_crosspack_resident": crosspack_kernel.launches_resident,
+            "plain": stack_kernel.plain_calls + crosspack_kernel.plain_calls}
 
 
 def _verify_checksums(cfg: PerfConfig, cs: float, cs_pos: float, verbose: bool) -> None:

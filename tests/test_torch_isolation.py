@@ -52,8 +52,16 @@ for m in mods:
     importlib.import_module(m)
 leaked = sorted(m for m in sys.modules if blocked(m))
 assert not leaked, leaked
-print(len(mods), "modules")
+print(len(mods), "modules:", " ".join(mods))
 """
+
+# modules the sweep must reach: one per layer of the stack path, the
+# crosspack kernel's planning, wrapper and tuned table included
+_REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.crosspack",
+             "dbcsr_tpu_torch.acc.crosspack_kernel", "dbcsr_tpu_torch.acc.params",
+             "dbcsr_tpu_torch.acc.smm", "dbcsr_tpu_torch.acc.stack_kernel",
+             "dbcsr_tpu_torch.mm.multiply", "dbcsr_tpu_torch.obs.costmodel",
+             "dbcsr_tpu_torch.perf.driver"}
 
 
 def _env(**extra):
@@ -66,7 +74,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _ISOLATION_SCRIPT], cwd=ROOT,
                          env=_env(), capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 15
+    count, _, names = out.stdout.partition("modules:")
+    assert int(count) >= 18
+    assert _REQUIRED <= set(names.split())
 
 
 @pytest.fixture

@@ -136,8 +136,8 @@ def test_wrapper_rejects_mismatched_arguments():
         stack_kernel.smm_stack(t[2], t[0], t[1], plan.a_idx.long(), *args[1:])
     with pytest.raises(ValueError):
         stack_kernel.smm_stack(t[2], t[1], t[0], *args)
-    with pytest.raises(ValueError):
-        port_smm.process_stack(t[2], t[0], t[1], ai, bi, ci, variant="crosspack")
+    with pytest.raises(ValueError, match="unknown stack kernel variant"):
+        port_smm.process_stack(t[2], t[0], t[1], ai, bi, ci, variant="crosspack_v2")
 
 
 def test_first_use_validation_raises_on_corrupted_plain_version(monkeypatch):
