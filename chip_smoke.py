@@ -13,12 +13,15 @@ JSON line; any failure raises and the script exits non-zero:
    and ptxas resource lines of each source, the persisting-L2 limit;
 2. kernel_vs_plain: the base stack kernel (K1) against its plain PyTorch
    version, f64/f32/bf16 at block shapes (23,23,23), (23,18,23),
-   (18,23,18), (5,13,23), (100,50,20), on stacks with short runs, one
-   run of 5000 entries, alpha != 1 and a nonzero incoming C;
+   (18,23,18), (5,13,23), the warp path's edges (32,32,32), (33,24,23)
+   and (8,8,4), and (100,50,20), on stacks with short runs, one run of
+   5000 entries, alpha != 1 and a nonzero incoming C; each case names
+   the path it took (warp or tiled), and both paths must run;
 3. crosspack_vs_plain: the crosspack kernel (K3) and its resident launch
    (K4) against their plain version on the same kind of stacks, at
-   `choose_pack`'s pack for four shapes and a forced pack (3, 5) for
-   (16,24,12); (100,50,20) must plan onto K1 (P = 1);
+   `choose_pack`'s pack for the same seven shapes and a forced pack
+   (3, 5) for (16,24,12), both paths again; (100,50,20) must plan onto
+   K1 (P = 1);
 4. perf_gates: the `.perf` checksum gates through `run_perf` under
    ``mm_driver="auto"`` (f64: K1 must launch, no plain version);
 5. perf_gates_crosspack: the same gates under ``mm_driver="pallas_cross"``
@@ -27,7 +30,8 @@ JSON line; any failure raises and the script exits non-zero:
    occupancy 0.1, f64, beta 0, 3 repeats) through K1, held against one
    repeat with ``mm_driver="torch"`` (the plain version) at rel <= 1e-10;
 7. northstar_stacks: K1 and its plain version compared and timed on the
-   north star's own stacks, with the least time the card could take;
+   north star's own stacks, with the least time the card could take
+   (every stack of the ``*_stacks`` phases must take the warp path);
 8. northstar_f32: the north star as sreal through K3 (no K1 launch, no
    plain call), held against one ``"torch"`` repeat (elementwise at the
    kernel validation tolerance, checksums at rel <= 1e-6), then K3 and
@@ -174,33 +178,44 @@ def _synthetic_stack(rng, m, n, k, dtype, long_run=5000):
     return a, b, c, a_idx, b_idx, c_idx
 
 
+# block shapes of the kernel-vs-plain phases: the north star's, shapes of
+# the `.perf` inputs, and the warp path's edges: (32,32,32) at its limit,
+# (33,24,23) just above it, (8,8,4) with no padding
+SHAPES = ((23, 23, 23), (23, 18, 23), (18, 23, 18), (5, 13, 23), (32, 32, 32),
+          (33, 24, 23), (8, 8, 4))
+
+
 def phase_kernel_vs_plain() -> None:
     rng = np.random.default_rng(20261016)
     alpha = -0.75
     cases = []
+    paths = set()
     for dtype in (torch.float64, torch.float32, torch.bfloat16):
-        for m, n, k in ((23, 23, 23), (23, 18, 23), (18, 23, 18), (5, 13, 23),
-                        (100, 50, 20)):
+        for m, n, k in SHAPES + ((100, 50, 20),):
             a, b, c, a_idx, b_idx, c_idx = _synthetic_stack(rng, m, n, k, dtype)
             plan = prepare_stack(c, a, b, a_idx, b_idx, c_idx, variant="kmerge")
             kernel, plain = _calls(plan)
+            path = stack_kernel.kernel_path(m, n, k)
+            paths.add(path)
             got = kernel(c.clone(), a, b, alpha)
             want = plain(c.clone(), a, b, alpha)
             torch.cuda.synchronize()
             rel = _rel_err(got, want)
             tol = kernel_validation_tolerance(name_of(dtype), k, plan.max_run)
             _require(np.isfinite(rel) and rel <= tol,
-                     f"kernel != plain for {dtype} {(m, n, k)}: rel {rel:.3e} > {tol:.1e}")
+                     f"kernel != plain for {dtype} {(m, n, k)} ({path} path): "
+                     f"rel {rel:.3e} > {tol:.1e}")
             scratch = c.clone()
             ms = _time_ms(lambda: kernel(scratch, a, b, alpha), 10)
             plain_ms = _time_ms(lambda: plain(scratch, a, b, alpha), 3)
             bound, by = stack_bound_s(name_of(dtype), m, n, k, plan.entries,
                                       len(np.unique(a_idx)), len(np.unique(b_idx)), plan.nruns)
-            cases.append({"dtype": name_of(dtype), "mnk": [m, n, k],
+            cases.append({"dtype": name_of(dtype), "mnk": [m, n, k], "path": path,
                           "entries": plan.entries, "runs": plan.nruns,
                           "longest_run": plan.max_run, "max_rel_err": rel,
                           "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound * 1e3, "bound_by": by})
+    _require(paths == {"warp", "tiled"}, f"K1 ran the paths {sorted(paths)}, not both")
     _emit({"phase": "kernel_vs_plain", "alpha": alpha, "library_ms": None,
            "library_note": LIBRARY_NOTE, "cases": cases})
 
@@ -209,10 +224,9 @@ def phase_crosspack_vs_plain() -> None:
     rng = np.random.default_rng(20261017)
     alpha = -0.75
     cases = []
+    paths = set()
     for dtype in (torch.float64, torch.float32, torch.bfloat16):
-        for (m, n, k), pack in (((23, 23, 23), None), ((23, 18, 23), None),
-                                ((18, 23, 18), None), ((5, 13, 23), None),
-                                ((16, 24, 12), (3, 5))):
+        for (m, n, k), pack in [(mnk, None) for mnk in SHAPES] + [((16, 24, 12), (3, 5))]:
             a, b, c, a_idx, b_idx, c_idx = _synthetic_stack(rng, m, n, k, dtype)
             plan = prepare_stack(c, a, b, a_idx, b_idx, c_idx, variant="crosspack",
                                  pack=pack)
@@ -221,7 +235,10 @@ def phase_crosspack_vs_plain() -> None:
             tol = kernel_validation_tolerance(name_of(dtype), k, plan.max_run)
             bound, by = stack_bound_s(name_of(dtype), m, n, k, plan.entries,
                                       len(np.unique(a_idx)), len(np.unique(b_idx)), plan.nruns)
+            path = crosspack_kernel.kernel_path(dtype, plan.pack, m, n, k)
+            paths.add(path)
             row = {"dtype": name_of(dtype), "mnk": [m, n, k], "pack": list(plan.pack),
+                   "path": path,
                    "entries": plan.entries, "runs": plan.nruns, "packs": plan.pack_runs.numel()
                    // plan.pack[0], "entry_slots": crosspack_entries(plan),
                    "longest_run": plan.max_run, "tolerance": tol,
@@ -237,7 +254,7 @@ def phase_crosspack_vs_plain() -> None:
                 rel = _rel_err(got, want)
                 _require(np.isfinite(rel) and rel <= tol,
                          f"crosspack ({tag}) != plain for {dtype} {(m, n, k)} pack "
-                         f"{plan.pack}: rel {rel:.3e} > {tol:.1e}")
+                         f"{plan.pack} ({path} path): rel {rel:.3e} > {tol:.1e}")
                 row[f"{tag}_max_rel_err"] = rel
                 row[f"{tag}_ms"] = _time_ms(lambda: kernel(scratch, a, b, alpha), 10)
             cases.append(row)
@@ -246,6 +263,7 @@ def phase_crosspack_vs_plain() -> None:
     plan = prepare_stack(c, a, b, a_idx, b_idx, c_idx, variant="crosspack")
     _require(plan.driver == "kernel" and choose_pack(100, 50, 20)[0] == 1,
              f"(100, 50, 20) planned onto {plan.driver}, not the base kernel")
+    _require(paths == {"warp", "tiled"}, f"K3 ran the paths {sorted(paths)}, not both")
     _emit({"phase": "crosspack_vs_plain", "alpha": alpha, "library_ms": None,
            "library_note": LIBRARY_NOTE, "p1_shape_takes_base_kernel": [100, 50, 20],
            "cases": cases})
@@ -350,7 +368,8 @@ def phase_northstar() -> dict:
 
 def _stacks_phase(phase: str, a, b, c, kernels=(None,), reps=5) -> dict:
     """Each stack of the product ``c = a * b``, re-planned from its
-    operands, run through its plan's kernel (``kernels``: None for the
+    operands (every one must take its kernel's warp path), run through
+    its plan's kernel (``kernels``: None for the
     plan's own launch, False/True to force a crosspack plan's plain or
     resident launch) and its plain version: compared, and timed by CUDA
     events (kernel mean of ``reps`` launches, plain mean of 2); times
@@ -372,8 +391,11 @@ def _stacks_phase(phase: str, a, b, c, kernels=(None,), reps=5) -> dict:
         _, plain = _calls(plan)
         want = plain(cd.clone(), ad, bd, alpha)
         scratch = cd.clone()
+        path = (crosspack_kernel.kernel_path(cd.dtype, plan.pack, sp.m, sp.n, sp.k)
+                if plan.driver == "crosspack" else stack_kernel.kernel_path(sp.m, sp.n, sp.k))
+        _require(path == "warp", f"{phase}: the {(sp.m, sp.n, sp.k)} span took the {path} path")
         row = {"mnk": [sp.m, sp.n, sp.k], "entries": sp.entries, "runs": plan.nruns,
-               "kernel": sp.driver, "ms": [], "max_abs_err": []}
+               "kernel": sp.driver, "path": path, "ms": [], "max_abs_err": []}
         if plan.driver == "crosspack":
             row["pack"] = list(plan.pack)
             row["entry_slots"] = crosspack_entries(plan)

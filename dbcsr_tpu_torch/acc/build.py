@@ -3,8 +3,8 @@
 Each ``dbcsr_tpu_torch/csrc/*.cu`` file has a plain C interface and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``dbcsr_tpu_torch/_build/lib<name>.<hash>.so``, where the hash covers the
-source and the flags, so an edited source rebuilds and an unchanged one
-is reused.  The library is loaded with ctypes by the kernel's wrapper.
+source, every shared header of ``csrc/`` (``*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.  The library is loaded with ctypes by the kernel's wrapper.
 Several sources build in parallel, one ``nvcc`` each (`build_all`).
 """
 
@@ -27,7 +27,7 @@ NVCC_FLAGS = (
 )
 
 # every source of the port (csrc/): the base stack kernel and the
-# crosspack kernel
+# crosspack kernel, which both include the warp path (smm_warp.cuh)
 SOURCES = ("smm_stack.cu", "smm_crosspack.cu")
 
 # seconds each source's nvcc took in this process (0.0 = reused .so),
@@ -54,10 +54,17 @@ def find_nvcc() -> str:
                        "the CUDA kernels of dbcsr_tpu_torch are built at first use")
 
 
-def library_path(source: str) -> str:
-    """Content-hashed output path of ``source`` (a file name in csrc/)."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        h = hashlib.sha256(f.read())
+def library_path(source: str, csrc_dir: str = CSRC_DIR) -> str:
+    """Content-hashed output path of ``source`` (a file name in
+    ``csrc_dir``): the hash covers the source, every header ``*.cuh`` of
+    the directory (in name order) and the flags."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(csrc_dir) if f.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(csrc_dir, name), "rb") as f:
+            data = f.read()
+        h.update(f"{name}\0{len(data)}\0".encode())
+        h.update(data)
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}.{h.hexdigest()[:16]}.so")

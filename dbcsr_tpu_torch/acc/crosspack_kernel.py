@@ -7,7 +7,8 @@ Computes the stack kernel's function,
 
 for every run r, walking the runs in packs of P (`acc/crosspack.py`
 builds the layout).  On a CUDA tensor `smm_crosspack` launches the
-hand-written kernel of ``csrc/smm_crosspack.cu``: the plain launch
+hand-written kernel of ``csrc/smm_crosspack.cu`` (its warp path or its
+tiled path by shape, `kernel_path`): the plain launch
 replaces `dbcsr_tpu/acc/pallas_smm.py:_crosspack_kernel` (K3) and the
 resident launch, which keeps one operand bin in persisting L2, replaces
 `_crosspack_vmem_kernel` (K4).  On a CPU tensor it runs
@@ -28,7 +29,7 @@ from dbcsr_tpu_torch.acc.stack_kernel import _DTYPE_CODE, _full_precision_matmul
 SOURCE = "smm_crosspack.cu"
 
 # the kernel's limits on a pack (csrc/smm_crosspack.cu: MAX_P, and MAXJ
-# outputs for each of at most 1024 threads)
+# outputs for each of at most MAX_THREADS threads of the tiled path)
 MAX_P = 128
 MAX_PACK_OUTPUTS = 8 * 1024
 
@@ -69,6 +70,8 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.smm_crosspack_resident_launch.argtypes = _LAUNCH_ARGS + [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
         lib.smm_crosspack_resident_launch.restype = ctypes.c_int
+        lib.smm_crosspack_path.argtypes = [ctypes.c_int] * 6
+        lib.smm_crosspack_path.restype = ctypes.c_int
         lib.smm_crosspack_persisting_l2_max.argtypes = [
             ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
         lib.smm_crosspack_persisting_l2_max.restype = ctypes.c_int
@@ -76,6 +79,14 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.smm_crosspack_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def kernel_path(dtype: torch.dtype, pack, m: int, n: int, k: int) -> str:
+    """Which hand-written path of ``csrc/smm_crosspack.cu`` a launch of
+    this pack takes: "warp" (one warp per run), "tiled", or "none" when
+    the launch would be refused."""
+    code = _kernel_lib().smm_crosspack_path(_DTYPE_CODE[dtype], pack[0], pack[1], m, n, k)
+    return {1: "warp", 0: "tiled"}.get(code, "none")
 
 
 def persisting_l2_bytes(device) -> int:

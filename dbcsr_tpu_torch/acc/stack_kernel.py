@@ -6,7 +6,8 @@ Computes, for each run r of a stack sorted by destination block,
     C[run_c[r]] = C[run_c[r]] + alpha * sum_{e in run r} A[a_idx[e]] @ B[b_idx[e]]
 
 in place.  On a CUDA tensor `smm_stack` launches the hand-written kernel
-of ``csrc/smm_stack.cu`` (it replaces the Pallas kernel
+of ``csrc/smm_stack.cu``, its warp path or its tiled path by shape
+(`kernel_path`; it replaces the Pallas kernel
 `dbcsr_tpu/acc/pallas_smm.py:_smm_kernel`, base and kmerge variants); on
 a CPU tensor it runs `smm_stack_plain`, the same function as
 gather -> `torch.bmm` -> `index_add_` in stack order.  Nothing falls back
@@ -51,10 +52,18 @@ def _kernel_lib() -> ctypes.CDLL:
             ctypes.c_double, ctypes.c_void_p,
         ]
         lib.smm_stack_launch.restype = ctypes.c_int
+        lib.smm_stack_path.argtypes = [ctypes.c_int] * 3
+        lib.smm_stack_path.restype = ctypes.c_int
         lib.smm_stack_error_string.argtypes = [ctypes.c_int]
         lib.smm_stack_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def kernel_path(m: int, n: int, k: int) -> str:
+    """Which hand-written path of ``csrc/smm_stack.cu`` a launch of (m, n, k)
+    blocks takes: "warp" (one warp per run, m, n, k <= 32) or "tiled"."""
+    return "warp" if _kernel_lib().smm_stack_path(m, n, k) == 1 else "tiled"
 
 
 def _check(c, a, b, a_idx, b_idx, run_ptr, run_c) -> None:

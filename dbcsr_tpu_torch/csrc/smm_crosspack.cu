@@ -18,78 +18,67 @@
 //   pack_runs    : int32[npacks*P]   the runs of each pack, -1 = empty slot
 // A is (Na, m, k), B is (Nb, k, n), C is (Nc, m, n), all row-major.
 //
-// Design.  One thread block owns one pack: the P C blocks of its runs.  It
-// walks the P runs together, R entries per step: each step stages the
-// step's P*R A and B blocks in shared memory, then every thread adds the
-// lane products of its outputs (at most MAXJ each, over all P*m*n outputs
-// of the pack).  The off-diagonal products of the TPU's packed dot are not
-// computed, and a lane whose run has ended idles.  At the end each output
-// is written once, C = C + alpha*acc: packs own disjoint C blocks, so there
-// are no atomics and no per-lane outputs to scatter, and each element sums
-// in one fixed order (entry by entry in stack order, k ascending), so
-// repeats are bit for bit equal.  The accumulator is double for f64 and
-// float for f32 and bf16 (bf16 converted on load); f32 runs on the CUDA
-// cores, never through TF32.  A step stages at most R entries per lane but
-// fewer when P*R blocks of A and B would pass SMEM_BUDGET bytes of shared
-// memory (the f64 23^3 pack (4, 4) would take 135 KB): staging depth
-// changes no sum's order, only how often the block synchronises.
-//
-// The resident variant (K4) is the same body.  On the TPU "resident" meant
-// the whole of A and B in VMEM; the on-chip memory of this card that can
-// hold whole operand bins is the 50 MB L2.  Its launch sets aside
-// persisting L2 and puts an access-policy window (hitProp persisting) on
-// that one launch, and the kernel reads A and B through the read-only
-// path.  CUDA allows one window per launch, so it covers one operand bin:
-// the caller passes the bin with more re-reads per byte (every entry reads
-// one block of each, so that is the bin with fewer blocks).  After the
-// kernel the launch waits for its stream, resets the persisting lines and
-// returns the set-aside to zero, so later launches inherit nothing; the
-// reset is not ordered on a stream, hence the wait.
-//
 // Bound on an H100.  For the f32 north-star product (10k^2, 23x23 blocks,
-// occupancy 0.1) the least traffic is the unique A and B blocks read once
-// plus each C block read and written once, about 0.9 GB, 0.26 ms at
-// 3.35 TB/s; its 2.02e10 true flops take 0.30 ms at the 67 TFLOP/s FP32
-// peak, so the two limits lie close and the strict bound is the
-// operations.  In f64 the same product is bound by bytes (1.79 GB,
-// 0.53 ms).  Per-entry operand traffic (each entry fetching its blocks) is
-// several times either.  This first design does little about it: blocks
-// are re-fetched per entry, every FMA reads both operands from shared
-// memory, and a pack is as slow as its longest run.  mma.sync/DMMA block
-// products, TMA staging and split long runs are later work.
+// occupancy 0.1: 825,573 block products in 186,045 runs) the least traffic
+// is the unique A and B blocks read once plus each C block read and
+// written once, about 0.9 GB, 0.27 ms at 3.35 TB/s; its 2.02e10 true
+// flops take 0.30 ms at the 67 TFLOP/s FP32 peak, so the strict bound is
+// the operations.  Dealing runs by length scatters neighbouring runs over
+// all block rows, so every entry fetches its A and B blocks: about 4.3 GB
+// of block traffic, 1.29 ms at 3.35 TB/s if none of it hit in L2.
+//
+// Two hand-written paths, picked by shape (smm_crosspack_path):
+// * the warp path (smm_warp.cuh), for m, n, k <= 32 and P <= MAX_WARPS
+//   when P warps' buffers fit shared memory: one pack is one block of P
+//   warps, one run each; persistent blocks loop over packs.  Each warp
+//   keeps its run's padded C block in registers (f64: DMMA tiles; f32 and
+//   bf16: register micro-tiles in full f32, half a shared load an FMA),
+//   stages the next step's blocks with cp.async, 16 bytes a lane, while it
+//   multiplies the current one, and writes C once.  R keeps its meaning,
+//   entries staged per step: a step stages at most R entries a warp, fewer
+//   when P warps' double buffers would pass SMEM_BUDGET bytes (the f32
+//   23^3 pack (4, 4) stages one).  Measured on the f32 north star (2.0
+//   ms), the kernel takes 1.65 ms without its operand copies and 0.85 ms
+//   without its products: the FMAs and their shared-memory loads bound it.
+// * the tiled path, for wider packs (m or n up to 64, or more than
+//   MAX_WARPS runs): each thread accumulates up to MAXJ outputs of the
+//   pack's P*m*n, and the block walks the P runs together, staging R
+//   entries per step (fewer above SMEM_BUDGET) in shared memory.
+// Both compute only the diagonal products of the TPU's packed dot; packs
+// own disjoint C blocks, so there are no atomics and no per-lane outputs
+// to scatter, and each element sums in one fixed order (entry by entry in
+// stack order, k ascending), so repeats are bit for bit equal.  The
+// accumulator is double for f64 and float for f32 and bf16; f32 runs on
+// the CUDA cores, never through TF32.  Staging depth changes no sum's
+// order, only how often a warp or block waits.
+//
+// The resident variant (K4) is the same kernel with another launch.  On
+// the TPU "resident" meant the whole of A and B in VMEM; the on-chip
+// memory of this card that can hold whole operand bins is the 50 MB L2.
+// Its launch sets aside persisting L2 and puts an access-policy window
+// (hitProp persisting) on that one launch.  CUDA allows one window per
+// launch, so it covers one operand bin: the caller passes the bin with
+// more re-reads per byte (every entry reads one block of each, so that is
+// the bin with fewer blocks).  After the kernel the launch waits for its
+// stream, resets the persisting lines and returns the set-aside to zero,
+// so later launches inherit nothing; the reset is not ordered on a
+// stream, hence the wait.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "smm_warp.cuh"
 
 namespace {
 
-constexpr int MAXJ = 8;            // outputs each thread accumulates
+using smm::AccOf;
+using smm::load_acc;
+using smm::load_ro;
+using smm::store_acc;
+
+constexpr int MAXJ = 8;            // tiled path: outputs each thread accumulates
 constexpr int MAX_THREADS = 1024;  // so a pack holds at most 8192 outputs
 constexpr int MAX_P = 128;         // P * max(m, n) <= 128 in every plan
-constexpr size_t SMEM_BUDGET = 72 * 1024;        // staging a step aims under
-constexpr size_t SMEM_MAX = 227 * 1024 - 4096;   // opt-in limit less static
-
-template <typename T> struct AccOf { using type = T; };
-template <> struct AccOf<__nv_bfloat16> { using type = float; };
-
-__device__ __forceinline__ double load_acc(const double* p) { return *p; }
-__device__ __forceinline__ float load_acc(const float* p) { return *p; }
-__device__ __forceinline__ float load_acc(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-// read-only (non-coherent) path, for the operands of the resident launch
-__device__ __forceinline__ double load_ro(const double* p) { return __ldg(p); }
-__device__ __forceinline__ float load_ro(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_ro(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldg(reinterpret_cast<const unsigned short*>(p))));
-}
-__device__ __forceinline__ void store_acc(double* p, double v) { *p = v; }
-__device__ __forceinline__ void store_acc(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_acc(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+constexpr int MAX_WARPS = 8;       // warp path: runs (warps) of a pack
+constexpr size_t SMEM_BUDGET = 72 * 1024;       // staging a step aims under
+constexpr size_t SMEM_MAX = 227 * 1024 - 4096;  // opt-in limit less static
 
 template <typename T, bool RESIDENT>
 __device__ __forceinline__ typename AccOf<T>::type load_operand(const T* p) {
@@ -196,57 +185,126 @@ smm_crosspack_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
+template <typename T, int MAXT>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
+smm_crosspack_warp_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                          T* __restrict__ c, const int* __restrict__ a_idx,
+                          const int* __restrict__ b_idx,
+                          const int* __restrict__ run_ptr,
+                          const int* __restrict__ run_c,
+                          const int* __restrict__ pack_runs, int npacks, int m,
+                          int n, int k, int r, typename AccOf<T>::type alpha) {
+  smm::warp_kernel<T, MAXT>(a, b, c, a_idx, b_idx, run_ptr, run_c, m, n, k, r,
+                            alpha, smm::PackRuns{pack_runs, npacks});
+}
+
 struct Shape {
+  bool warp;       // the warp path
   int nthreads;
-  int r_stage;
+  int r_stage;     // entries staged per step
   size_t smem;
 };
 
-// Threads, staged entries per step and dynamic shared memory of a launch;
-// false when the pack does not fit one thread block.
+// The path, threads, staged entries per step and dynamic shared memory
+// of a launch; false when the pack fits neither path.
 template <typename Acc>
 bool launch_shape(int P, int R, int m, int n, int k, Shape* s) {
   const long long total = (long long)P * m * n;
   if (P < 2 || P > MAX_P || R < 1 || m < 1 || n < 1 || k < 1 ||
       total > (long long)MAXJ * MAX_THREADS)
     return false;
+  if (smm::warp_dims(m, n, k) && P <= MAX_WARPS) {
+    int rs = 1;
+    while (rs < R && (size_t)P * smm::warp_geom(m, n, k, rs + 1, sizeof(Acc)).per_warp *
+                             sizeof(Acc) <= SMEM_BUDGET)
+      ++rs;
+    const size_t smem = (size_t)P * smm::warp_geom(m, n, k, rs, sizeof(Acc)).per_warp * sizeof(Acc);
+    if (smem <= SMEM_MAX) {
+      *s = {true, 32 * P, rs, smem};
+      return true;
+    }
+  }
   const size_t per_entry = (size_t)P * ((size_t)m * k + (size_t)k * n) * sizeof(Acc);
   if (per_entry > SMEM_MAX) return false;
-  int nthr = (int)(((total + MAXJ - 1) / MAXJ + 31) / 32 * 32);
-  s->nthreads = nthr < 64 ? 64 : nthr;
+  const int nthr = (int)(((total + MAXJ - 1) / MAXJ + 31) / 32 * 32);
   size_t rs = SMEM_BUDGET / per_entry;
   if (rs < 1) rs = 1;
   if (rs > (size_t)R) rs = R;
-  s->r_stage = (int)rs;
-  s->smem = rs * per_entry;
+  *s = {false, nthr < 64 ? 64 : nthr, (int)rs, rs * per_entry};
   return true;
 }
 
-template <typename T, bool RESIDENT>
-cudaError_t prepare_kernel(const Shape& s) {
-  if (s.smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(smm_crosspack_kernel<T, RESIDENT>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)s.smem);
+template <typename T, int MAXT>
+cudaError_t launch_warp(const Shape& s, const void* a, const void* b, void* c,
+                        const void* a_idx, const void* b_idx, const void* run_ptr,
+                        const void* run_c, const void* pack_runs, int npacks,
+                        int m, int n, int k, double alpha, cudaStream_t stream,
+                        cudaLaunchAttribute* attr) {
+  using Acc = typename AccOf<T>::type;
+  int grid = 0;
+  const cudaError_t err = smm::persistent_grid(smm_crosspack_warp_kernel<T, MAXT>,
+                                               s.nthreads, s.smem, npacks, &grid);
+  if (err != cudaSuccess) return err;
+  return smm::launch_kernel(
+      smm_crosspack_warp_kernel<T, MAXT>, grid, s.nthreads, s.smem, stream, attr,
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
+      static_cast<const int*>(a_idx), static_cast<const int*>(b_idx),
+      static_cast<const int*>(run_ptr), static_cast<const int*>(run_c),
+      static_cast<const int*>(pack_runs), npacks, m, n, k, s.r_stage,
+      static_cast<Acc>(alpha));
 }
 
-template <typename T>
-cudaError_t launch(const void* a, const void* b, void* c, const void* a_idx,
-                   const void* b_idx, const void* run_ptr, const void* run_c,
-                   const void* pack_runs, int npacks, int P, int R, int m,
-                   int n, int k, double alpha, cudaStream_t stream) {
+template <typename T, bool RESIDENT>
+cudaError_t launch_tiled(const Shape& s, const void* a, const void* b, void* c,
+                         const void* a_idx, const void* b_idx, const void* run_ptr,
+                         const void* run_c, const void* pack_runs, int npacks,
+                         int P, int m, int n, int k, double alpha,
+                         cudaStream_t stream, cudaLaunchAttribute* attr) {
   using Acc = typename AccOf<T>::type;
-  Shape s;
-  if (!launch_shape<Acc>(P, R, m, n, k, &s)) return cudaErrorInvalidValue;
-  cudaError_t err = prepare_kernel<T, false>(s);
-  if (err != cudaSuccess) return err;
-  smm_crosspack_kernel<T, false><<<npacks, s.nthreads, s.smem, stream>>>(
+  if (s.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        smm_crosspack_kernel<T, RESIDENT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
+    if (err != cudaSuccess) return err;
+  }
+  return smm::launch_kernel(
+      smm_crosspack_kernel<T, RESIDENT>, npacks, s.nthreads, s.smem, stream, attr,
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
       static_cast<const int*>(a_idx), static_cast<const int*>(b_idx),
       static_cast<const int*>(run_ptr), static_cast<const int*>(run_c),
       static_cast<const int*>(pack_runs), P, s.r_stage, m, n, k,
       static_cast<Acc>(alpha));
-  return cudaGetLastError();
+}
+
+// One launch of either path; attr, when given, is the resident launch's
+// access-policy window.
+template <typename T>
+cudaError_t launch(const void* a, const void* b, void* c, const void* a_idx,
+                   const void* b_idx, const void* run_ptr, const void* run_c,
+                   const void* pack_runs, int npacks, int P, int R, int m,
+                   int n, int k, double alpha, cudaStream_t stream,
+                   cudaLaunchAttribute* attr) {
+  using Acc = typename AccOf<T>::type;
+  Shape s;
+  if (!launch_shape<Acc>(P, R, m, n, k, &s)) return cudaErrorInvalidValue;
+  if (s.warp) {
+    switch (smm::warp_class(m, n)) {
+      case 2:
+        return launch_warp<T, 2>(s, a, b, c, a_idx, b_idx, run_ptr, run_c,
+                                 pack_runs, npacks, m, n, k, alpha, stream, attr);
+      case 3:
+        return launch_warp<T, 3>(s, a, b, c, a_idx, b_idx, run_ptr, run_c,
+                                 pack_runs, npacks, m, n, k, alpha, stream, attr);
+      default:
+        return launch_warp<T, 4>(s, a, b, c, a_idx, b_idx, run_ptr, run_c,
+                                 pack_runs, npacks, m, n, k, alpha, stream, attr);
+    }
+  }
+  if (attr)
+    return launch_tiled<T, true>(s, a, b, c, a_idx, b_idx, run_ptr, run_c,
+                                 pack_runs, npacks, P, m, n, k, alpha, stream, attr);
+  return launch_tiled<T, false>(s, a, b, c, a_idx, b_idx, run_ptr, run_c,
+                                pack_runs, npacks, P, m, n, k, alpha, stream, attr);
 }
 
 template <typename T>
@@ -262,8 +320,7 @@ cudaError_t launch_resident(const void* a, const void* b, void* c,
   if (!launch_shape<Acc>(P, R, m, n, k, &s) || window == nullptr ||
       window_bytes == 0)
     return cudaErrorInvalidValue;
-  cudaError_t err = prepare_kernel<T, true>(s);
-  if (err != cudaSuccess) return err;
+  cudaError_t err = cudaSuccess;
   int dev = 0, max_persist = 0, max_window = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&max_persist, cudaDevAttrMaxPersistingL2CacheSize, dev);
@@ -286,21 +343,8 @@ cudaError_t launch_resident(const void* a, const void* b, void* c,
       set_aside >= num_bytes ? 1.0f : (float)set_aside / (float)num_bytes;
   attr[0].val.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
   attr[0].val.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(npacks);
-  cfg.blockDim = dim3(s.nthreads);
-  cfg.dynamicSmemBytes = s.smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, smm_crosspack_kernel<T, true>, static_cast<const T*>(a),
-      static_cast<const T*>(b), static_cast<T*>(c),
-      static_cast<const int*>(a_idx), static_cast<const int*>(b_idx),
-      static_cast<const int*>(run_ptr), static_cast<const int*>(run_c),
-      static_cast<const int*>(pack_runs), P, s.r_stage, m, n, k,
-      static_cast<Acc>(alpha));
-  if (err == cudaSuccess) err = cudaGetLastError();
+  err = launch<T>(a, b, c, a_idx, b_idx, run_ptr, run_c, pack_runs, npacks, P,
+                  R, m, n, k, alpha, stream, attr);
   // undo the set-aside whatever happened, and report the first failure
   const cudaError_t sync = cudaStreamSynchronize(stream);
   const cudaError_t reset = cudaCtxResetPersistingL2Cache();
@@ -327,13 +371,14 @@ int smm_crosspack_launch(int dtype, const void* a, const void* b, void* c,
   switch (dtype) {
     case 0:
       return launch<double>(a, b, c, a_idx, b_idx, run_ptr, run_c, pack_runs,
-                            npacks, P, R, m, n, k, alpha, s);
+                            npacks, P, R, m, n, k, alpha, s, nullptr);
     case 1:
       return launch<float>(a, b, c, a_idx, b_idx, run_ptr, run_c, pack_runs,
-                           npacks, P, R, m, n, k, alpha, s);
+                           npacks, P, R, m, n, k, alpha, s, nullptr);
     case 2:
       return launch<__nv_bfloat16>(a, b, c, a_idx, b_idx, run_ptr, run_c,
-                                   pack_runs, npacks, P, R, m, n, k, alpha, s);
+                                   pack_runs, npacks, P, R, m, n, k, alpha, s,
+                                   nullptr);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -368,6 +413,20 @@ int smm_crosspack_resident_launch(int dtype, const void* a, const void* b,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The path a launch of this pack takes: 1 = warp path, 0 = tiled path,
+// -1 = no path (the launch would fail with cudaErrorInvalidValue).
+int smm_crosspack_path(int dtype, int P, int R, int m, int n, int k) {
+  Shape s;
+  bool ok = false;
+  switch (dtype) {
+    case 0: ok = launch_shape<double>(P, R, m, n, k, &s); break;
+    case 1:
+    case 2: ok = launch_shape<float>(P, R, m, n, k, &s); break;
+    default: return -1;
+  }
+  return ok ? (s.warp ? 1 : 0) : -1;
 }
 
 // The card's persisting-L2 limit in bytes (cudaDevAttrMaxPersistingL2CacheSize).
