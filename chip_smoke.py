@@ -29,6 +29,8 @@ JSON line; any failure raises and the script exits non-zero:
 6. northstar: the north-star product (10k x 10k, 23x23 blocks,
    occupancy 0.1, f64, beta 0, 3 repeats) through K1, held against one
    repeat with ``mm_driver="torch"`` (the plain version) at rel <= 1e-10;
+   repeats 2-3 must hit the multiply's plan cache, and the host "plan"
+   seconds of the first repeat and of the hits are printed;
 7. northstar_stacks: K1 and its plain version compared and timed on the
    north star's own stacks, with the least time the card could take
    (every stack of the ``*_stacks`` phases must take the warp path);
@@ -40,7 +42,21 @@ JSON line; any failure raises and the script exits non-zero:
 9. resident_f32: `test_H2O` as sreal with a tuned ``crosspack_vmem`` row
    in a temporary parameter directory, through K4, held against the
    ``"torch"`` driver likewise, then K4, K3 and the plain version timed
-   on its stacks.
+   on its stacks;
+10. models: the three linear-scaling DFT loops at `test_H2O`'s blocking
+   (96 block rows of 23, 2208^2, f64) on `make_test_density(96, 23)`:
+   McWeeny purification of the density, the filtered Newton-Schulz sign
+   iteration of the density shifted by -0.5 on its diagonal, and the
+   inverse square root of the density shifted by +0.5.  Each runs under
+   ``"auto"`` (K1 must launch, no plain call) and under ``"torch"``;
+   histories and final iterates must agree (1e-10, or 10 * filter_eps
+   where filtered), invsqrt must reach its tol, and purify's and sign's
+   convergence measures must fall.  Each run prints its multiplies,
+   launches, plan-cache outcomes, host seconds per phase, the stacks'
+   device seconds (CUDA events), its wall time, the matrices its chains
+   freed and the caching allocator's peak bytes;
+11. models_f32: the sign iteration as f32 through K3, held against
+   ``"torch"`` elementwise at the kernel validation tolerance.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints
@@ -63,10 +79,29 @@ import torch
 from dbcsr_tpu_torch.acc import build, crosspack_kernel, params, stack_kernel
 from dbcsr_tpu_torch.acc.crosspack import choose_pack, resident_limit_bytes
 from dbcsr_tpu_torch.acc.smm import prepare_stack
+from dbcsr_tpu_torch.core import mempool
 from dbcsr_tpu_torch.core.config import set_config
 from dbcsr_tpu_torch.core.kinds import name_of
+from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
 from dbcsr_tpu_torch.device import resolve_device
+from dbcsr_tpu_torch.mm import multiply as mm
 from dbcsr_tpu_torch.mm.multiply import _build_spans, _candidates, _effective
+from dbcsr_tpu_torch.models import (
+    invsqrt_iteration,
+    make_test_density,
+    mcweeny_purify,
+    sign_iteration,
+)
+from dbcsr_tpu_torch.ops.operations import (
+    add_on_diag,
+    added,
+    copy,
+    frobenius_norm,
+    gershgorin_norm,
+    maxabs_norm,
+    scale,
+    trace,
+)
 from dbcsr_tpu_torch.obs.costmodel import (
     crosspack_entries,
     kernel_validation_tolerance,
@@ -358,8 +393,13 @@ def phase_northstar() -> dict:
     counts = _counts()
     _require(counts["smm_stack"] > 0, "north star: the stack kernel never launched")
     _require(counts["plain"] == 0, f"north star: the plain versions ran {counts['plain']} times")
+    _require(res["plan_cache"][1:] == ["hit", "hit"],
+             f"north star: repeats 2-3 did not hit the plan cache: {res['plan_cache']}")
     out = {"phase": "northstar", "shape": [10000, 10000, 10000], "block": 23,
-           "occupancy": 0.1, "dtype": "float64", **_run_summary(res, 3, counts)}
+           "occupancy": 0.1, "dtype": "float64", **_run_summary(res, 3, counts),
+           "plan_cache": res["plan_cache"],
+           "plan_s_first": res["host_phase_s"][0]["plan"],
+           "plan_s_hits": [p["plan"] for p in res["host_phase_s"][1:]]}
     out.update(_against_torch_driver(res, _northstar_cfg(1), 1e-10, 1e-10))
     _emit(out)
     return {"launches": counts["smm_stack"], "a": res["matrices"]["a"],
@@ -568,6 +608,172 @@ def phase_resident_f32() -> dict:
     return _kernel_row("smm_crosspack_resident", counts["smm_crosspack_resident"], timing)
 
 
+# the models' workload: test_H2O's blocking (96 block rows of 23, 2208^2),
+# the density drawn from MODEL_SEED; steps and tolerances of each loop
+MODEL_BLOCKS, MODEL_BLOCK, MODEL_SEED = 96, 23, 0
+PURIFY_STEPS = 6
+SIGN_STEPS, SIGN_EPS = 25, 1e-10
+INVSQRT_TOL = 1e-10
+SIGN_F32_STEPS = 3
+
+
+def _drive(driver: str, loop):
+    """``loop()`` under ``mm_driver=driver``, with the kernel counts, the
+    engine's totals and the allocator's peak set to 0 just before it and
+    read just after (``pool``: the chains' frees and the caching
+    allocator's bytes, `core.mempool.pool_stats`)."""
+    set_config(mm_driver=driver)
+    try:
+        _reset_counts()
+        mm.reset_totals()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        freed0 = mempool.pool_stats()
+        t0 = time.perf_counter()
+        out = loop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        totals = mm.read_totals()
+        pool = mempool.pool_stats(resolve_device(None))
+    finally:
+        set_config(mm_driver="auto")
+    for key in ("freed", "freed_bytes"):
+        pool[key] -= freed0[key]
+    return out, {"wall_s": wall, "launches": counts, **totals, "pool": pool}
+
+
+def _history_diff(got, want) -> dict:
+    """Each history entry's difference, relative to the entry and, for
+    the bound, to the larger of the entry and the history's first (a
+    residual at the rounding floor differs by its own size)."""
+    _require(len(got) == len(want), f"histories differ in length: {len(got)} vs {len(want)}")
+    d = np.abs(np.asarray(got) - np.asarray(want))
+    w = np.abs(np.asarray(want))
+    return {"rel_entry": (d / np.maximum(w, 1e-300)).tolist(),
+            "rel_bound": float((d / np.maximum(w, w[0])).max())}
+
+
+def _iterate_diff(got, want) -> float:
+    """max |got - want| over max |want|, on the union of the patterns."""
+    return maxabs_norm(added(got, want, 1.0, -1.0)) / maxabs_norm(want)
+
+
+def _squared(x):
+    """X^2 through the engine (the driver in force)."""
+    x2 = BlockSparseMatrix("X2", x.row_blk_sizes, x.col_blk_sizes, x.dtype, x.dist,
+                           device=x.device)
+    mm.multiply("N", "N", 1.0, x, x, 0.0, x2)
+    return x2
+
+
+def _sign_measure(x) -> float:
+    """||X^2 - I||_F, the sign iteration's convergence measure."""
+    return frobenius_norm(add_on_diag(_squared(x), -1.0))
+
+
+def _idempotency(p) -> float:
+    """|tr(P^2) - tr(P)|, McWeeny's convergence measure."""
+    return abs(trace(_squared(p)) - trace(p))
+
+
+def _model_loops(p0, sign_steps: int, sign_eps):
+    """The sign input (``p0`` - 0.5 I) and the three loops on ``p0``."""
+    a = copy(p0, "A")
+    add_on_diag(a, -0.5)  # spectrum straddling zero
+    s = copy(p0, "S")
+    add_on_diag(s, 0.5)  # SPD, spectrum near [0.9, 1.1]
+
+    def invsqrt():
+        hist = []
+        z, sf, iters = invsqrt_iteration(s, tol=INVSQRT_TOL, history=hist)
+        return z, hist, sf, iters
+
+    return a, {
+        "purify": lambda: mcweeny_purify(p0, steps=PURIFY_STEPS),
+        "sign": lambda: sign_iteration(a, steps=sign_steps, filter_eps=sign_eps),
+        "invsqrt": invsqrt,
+    }
+
+
+def phase_models() -> dict:
+    p0 = make_test_density(MODEL_BLOCKS, MODEL_BLOCK, occ=0.2, seed=MODEL_SEED)
+    a, loops = _model_loops(p0, SIGN_STEPS, SIGN_EPS)
+    x0 = copy(a, "X0")
+    scale(x0, 1.0 / gershgorin_norm(a))  # the sign iteration's start
+    start = {"purify": _idempotency(p0), "sign": _sign_measure(x0)}
+    rows = {}
+    k1 = 0
+    for name, loop in loops.items():
+        runs = {}
+        for driver in ("auto", "torch"):
+            out, info = _drive(driver, loop)
+            runs[driver] = (out, info)
+        (xa, ha, *rest_a), info_a = runs["auto"]
+        (xt, ht, *rest_t), info_t = runs["torch"]
+        la, lt = info_a["launches"], info_t["launches"]
+        _require(la["smm_stack"] > 0 and la["plain"] == 0 and la["smm_crosspack"] == 0
+                 and la["smm_crosspack_resident"] == 0,
+                 f"models {name} under auto: launches {la}")
+        _require(lt["plain"] > 0 and lt["smm_stack"] == 0 and lt["smm_crosspack"] == 0,
+                 f"models {name} under torch: launches {lt}")
+        k1 += la["smm_stack"]
+        bound = 10 * SIGN_EPS if name == "sign" else 1e-10
+        hist = _history_diff(ha, ht)
+        rel_x = _iterate_diff(xa, xt)
+        _require(hist["rel_bound"] <= bound and rel_x <= bound,
+                 f"models {name}: auto vs torch history {hist['rel_bound']:.3e}, "
+                 f"iterate {rel_x:.3e} > {bound:.1e}")
+        row = {"history_auto": ha, "history_torch": ht, "history_rel": hist["rel_entry"],
+               "history_rel_bound": hist["rel_bound"], "iterate_rel": rel_x, "bound": bound,
+               "auto": info_a, "torch": info_t}
+        if name == "purify":
+            row["measure"] = {"start": start["purify"], "auto": _idempotency(xa),
+                              "torch": _idempotency(xt)}
+        elif name == "sign":
+            row["measure"] = {"start": start["sign"], "auto": _sign_measure(xa),
+                              "torch": _sign_measure(xt)}
+        else:
+            (sf_a, it_a), (sf_t, it_t) = rest_a, rest_t
+            _require(it_a == it_t and sf_a == sf_t,
+                     f"models invsqrt: iterations {it_a}/{it_t}, scale {sf_a}/{sf_t}")
+            _require(ha[-1] < INVSQRT_TOL and ht[-1] < INVSQRT_TOL,
+                     f"models invsqrt: residual {ha[-1]:.3e}/{ht[-1]:.3e} did not reach "
+                     f"{INVSQRT_TOL:.0e}")
+            row.update(iterations=it_a, scale_factor=sf_a, tol=INVSQRT_TOL,
+                       measure={"start": ha[0], "auto": ha[-1], "torch": ht[-1]})
+        if name != "invsqrt":
+            m = row["measure"]
+            _require(m["auto"] < m["start"] and m["torch"] < m["start"],
+                     f"models {name}: the convergence measure did not fall: {m}")
+        rows[name] = row
+        del runs, xa, xt
+    _emit({"phase": "models", "blocks": MODEL_BLOCKS, "block": MODEL_BLOCK,
+           "n": MODEL_BLOCKS * MODEL_BLOCK, "dtype": "float64", "seed": MODEL_SEED,
+           "density_blocks": int(p0.nblks), "purify_steps": PURIFY_STEPS,
+           "sign_steps": SIGN_STEPS, "sign_filter_eps": SIGN_EPS, "invsqrt_tol": INVSQRT_TOL,
+           **rows})
+    return k1
+
+
+def phase_models_f32() -> int:
+    p0 = make_test_density(MODEL_BLOCKS, MODEL_BLOCK, occ=0.2, seed=MODEL_SEED,
+                           dtype=torch.float32)
+    _, loops = _model_loops(p0, SIGN_F32_STEPS, None)
+    (xa, ha), info_a = _drive("auto", loops["sign"])
+    (xt, ht), info_t = _drive("torch", loops["sign"])
+    la = info_a["launches"]
+    _require(la["smm_crosspack"] > 0 and la["smm_stack"] == 0 and la["plain"] == 0,
+             f"models_f32 under auto: launches {la}")
+    tol = kernel_validation_tolerance("float32", MODEL_BLOCK, info_a["longest_run"])
+    rel_x = _iterate_diff(xa, xt)
+    _require(rel_x <= tol, f"models_f32: auto vs torch iterate {rel_x:.3e} > {tol:.1e}")
+    _emit({"phase": "models_f32", "loop": "sign", "dtype": "float32", "steps": SIGN_F32_STEPS,
+           "history_auto": ha, "history_torch": ht, "iterate_rel": rel_x, "tolerance": tol,
+           "longest_run": info_a["longest_run"], "auto": info_a, "torch": info_t})
+    return la["smm_crosspack"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; "
@@ -584,6 +790,9 @@ def main() -> int:
                      _stacks_phase("northstar_stacks", ns.pop("a"), ns.pop("b"), ns.pop("c")))
     k3 = phase_northstar_f32()
     k4 = phase_resident_f32()
+    k1["launches_by_path"] = {"northstar": k1["launches"], "models": phase_models()}
+    k3["launches_by_path"] = {"northstar_f32": k3["launches"], "models_f32": phase_models_f32()}
+    k4["launches_by_path"] = {"resident_f32": k4["launches"]}
     print(json.dumps({"kernels": [k1, k3, k4]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -91,6 +91,15 @@ class StackPlan:
             return "smm_crosspack_resident" if self.resident else "smm_crosspack"
         return "smm_stack" if self.driver == "kernel" else "plain"
 
+    def nbytes(self) -> int:
+        """Bytes the plan pins: its device index arrays and the host
+        prefix kept for first-use validation (the plan cache's budget)."""
+        arrays = (self.a_idx, self.b_idx, self.run_ptr, self.run_c, self.pack_runs)
+        n = sum(t.numel() * t.element_size() for t in arrays if t is not None)
+        if self.val_idx is not None:
+            n += sum(x.nbytes for x in self.val_idx)
+        return n
+
 
 def _upload(x: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)

@@ -45,6 +45,11 @@ class Distribution:
         grid = ProcessGrid(self.grid.npcols, self.grid.nprows)
         return Distribution(self.col_dist, self.row_dist, grid)
 
+    def stored_coordinates(self, row: int, col: int):
+        """Owning (prow, pcol) of a block (ref
+        `dbcsr_get_stored_coordinates`, `dbcsr_dist_operations.F`)."""
+        return int(self.row_dist[row]), int(self.col_dist[col])
+
     @staticmethod
     def trivial(nblkrows: int, nblkcols: int) -> "Distribution":
         return Distribution(np.zeros(nblkrows, np.int32),

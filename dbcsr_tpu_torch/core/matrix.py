@@ -14,8 +14,12 @@ Counterpart of `dbcsr_tpu/core/matrix.py` (ref `dbcsr_type`,
   `dbcsr_finalize`, `src/work/dbcsr_work_operations.F:749`).
 
 Tensors are mutable here: the multiply engine updates C's bins in
-place, and `copy()` therefore clones the data.  Symmetric matrices are
-not ported yet.
+place, and `copy()` therefore clones the data.  Symmetric,
+antisymmetric and (real, hence symmetric) hermitian matrices store the
+canonical upper triangle only (row <= col), as the reference does:
+`put_block` folds a lower-triangle write onto the stored transpose and
+`get_block` unfolds it.  A matrix created inside a `core.mempool.chain`
+is adopted by it.
 """
 
 from __future__ import annotations
@@ -26,13 +30,18 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from dbcsr_tpu_torch.core import digests, mempool
 from dbcsr_tpu_torch.core.dist import Distribution
 from dbcsr_tpu_torch.core.kinds import dtype_of, host_dtype
 from dbcsr_tpu_torch.device import DeviceLike, resolve_device
 
-# matrix_type of a non-symmetric matrix (ref dbcsr_type_no_symmetry);
-# the symmetric kinds "S"/"A"/"H" are not ported yet
+# matrix_type flags, ref dbcsr_type_no_symmetry/_symmetric/_antisymmetric/
+# _hermitian in src/core/dbcsr_types.F
 NO_SYMMETRY = "N"
+SYMMETRIC = "S"
+ANTISYMMETRIC = "A"
+HERMITIAN = "H"
+MATRIX_TYPES = (NO_SYMMETRY, SYMMETRIC, ANTISYMMETRIC, HERMITIAN)
 
 
 @dataclasses.dataclass
@@ -42,6 +51,16 @@ class _Bin:
     shape: Tuple[int, int]
     data: torch.Tensor  # (count, bm, bn)
     count: int
+
+
+def _fold_block(block: np.ndarray, matrix_type: str) -> np.ndarray:
+    """A lower-triangle block's stored upper-triangle image (real kinds:
+    a hermitian matrix is symmetric)."""
+    if matrix_type == SYMMETRIC:
+        return block.T
+    if matrix_type == ANTISYMMETRIC:
+        return -block.T
+    raise AssertionError(matrix_type)
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -78,15 +97,19 @@ class BlockSparseMatrix:
         matrix_type: str = NO_SYMMETRY,
         device: Optional[DeviceLike] = None,
     ):
-        if matrix_type != NO_SYMMETRY:
-            raise NotImplementedError(
-                f"matrix_type {matrix_type!r}: symmetric storage is not "
-                f"ported to dbcsr_tpu_torch yet")
+        if matrix_type not in MATRIX_TYPES:
+            raise ValueError(f"matrix_type must be one of {MATRIX_TYPES}, "
+                             f"got {matrix_type!r}")
         self.device = resolve_device(device)
         self.name = name
         self.row_blk_sizes = np.ascontiguousarray(row_blk_sizes, np.int32)
         self.col_blk_sizes = np.ascontiguousarray(col_blk_sizes, np.int32)
         self.dtype = dtype_of(dtype)
+        if matrix_type != NO_SYMMETRY:
+            if not np.array_equal(self.row_blk_sizes, self.col_blk_sizes):
+                raise ValueError("symmetric matrix needs identical row/col blocking")
+            if matrix_type == HERMITIAN:
+                matrix_type = SYMMETRIC  # the ported kinds are all real
         self.matrix_type = matrix_type
         self.dist = dist or Distribution.trivial(
             len(self.row_blk_sizes), len(self.col_blk_sizes))
@@ -103,6 +126,9 @@ class BlockSparseMatrix:
         self._work: Dict[Tuple[int, int], np.ndarray] = {}
         # batched staging: (keys int64, blocks (N, bm, bn), summation)
         self._work_batches: List[Tuple[np.ndarray, np.ndarray, bool]] = []
+        ch = mempool.current_chain()
+        if ch is not None:
+            ch.adopt(self)
 
     # ---------------------------------------------------------------- shape
     @property
@@ -152,12 +178,29 @@ class BlockSparseMatrix:
         return ((self.keys // self.nblkcols).astype(np.int64),
                 (self.keys % self.nblkcols).astype(np.int64))
 
-    # ------------------------------------------------------------- assembly
-    def put_block(self, row: int, col: int, block, summation: bool = False) -> None:
-        """Stage a block for the next `finalize` (ref `dbcsr_put_block`)."""
+    def get_stored_coordinates(self, row: int, col: int):
+        """Owning (prow, pcol) of a block under this matrix's
+        distribution (ref `dbcsr_get_stored_coordinates`): the canonical
+        triangle owns a symmetric matrix's block."""
+        if self.matrix_type != NO_SYMMETRY and row > col:
+            row, col = col, row
+        return self.dist.stored_coordinates(row, col)
+
+    def _canonicalize(self, row: int, col: int, block):
         if not (0 <= row < self.nblkrows and 0 <= col < self.nblkcols):
             raise IndexError(f"block ({row},{col}) out of range")
-        block = np.asarray(block)
+        if self.matrix_type != NO_SYMMETRY and row > col:
+            if block is not None:
+                block = _fold_block(block, self.matrix_type)
+            row, col = col, row
+        return row, col, block
+
+    # ------------------------------------------------------------- assembly
+    def put_block(self, row: int, col: int, block, summation: bool = False) -> None:
+        """Stage a block for the next `finalize` (ref `dbcsr_put_block`);
+        a symmetric matrix folds a lower-triangle block onto its stored
+        transpose."""
+        row, col, block = self._canonicalize(row, col, np.asarray(block))
         bm, bn = self.block_shape(row, col)
         if block.shape != (bm, bn):
             raise ValueError(
@@ -181,8 +224,9 @@ class BlockSparseMatrix:
         self.valid = False
 
     def _make_batches(self, rows, cols, blocks, summation: bool):
-        """Validate, group by block shape and pre-reduce duplicates;
-        returns [(keys, (N, bm, bn) host array, summation)]."""
+        """Fold (symmetric kinds), validate, group by block shape and
+        pre-reduce duplicates; returns [(keys, (N, bm, bn) host array,
+        summation)]."""
         rows = np.ascontiguousarray(rows, np.int64)
         cols = np.ascontiguousarray(cols, np.int64)
         if len(rows) != len(cols):
@@ -195,6 +239,14 @@ class BlockSparseMatrix:
         if len(blocks) != len(rows):
             raise ValueError("blocks length mismatch")
         hdt = host_dtype(self.dtype)
+        # fold before grouping: folding transposes a block, which moves a
+        # rectangular off-diagonal block to another shape group
+        if self.matrix_type != NO_SYMMETRY:
+            fold = rows > cols
+            if fold.any():
+                blocks = [_fold_block(np.asarray(blocks[i]), self.matrix_type)
+                          if fold[i] else np.asarray(blocks[i]) for i in range(len(rows))]
+                rows, cols = np.where(fold, cols, rows), np.where(fold, rows, cols)
         if isinstance(blocks, np.ndarray) and blocks.ndim == 3:
             groups = [(np.arange(len(rows)), blocks.astype(hdt))]
         else:
@@ -306,15 +358,24 @@ class BlockSparseMatrix:
             return int(i)
         return -1
 
-    def get_block(self, row: int, col: int) -> Optional[np.ndarray]:
+    def get_block(self, row: int, col: int, unfold: bool = True) -> Optional[np.ndarray]:
         """Fetch one block to the host; None if absent (ref
-        `dbcsr_get_block_p`)."""
-        if (row, col) in self._work:
-            return self._work[(row, col)].copy()
-        e = self._find_entry(row, col)
-        if e < 0:
-            return None
-        return to_host(self.bins[self.ent_bin[e]].data[int(self.ent_slot[e])])
+        `dbcsr_get_block_p`).  A symmetric matrix's lower-triangle block
+        comes unfolded from its stored transpose unless ``unfold`` is
+        False."""
+        srow, scol, folded = row, col, False
+        if self.matrix_type != NO_SYMMETRY and row > col:
+            srow, scol, folded = col, row, True
+        if (srow, scol) in self._work:
+            blk = self._work[(srow, scol)].copy()
+        else:
+            e = self._find_entry(srow, scol)
+            if e < 0:
+                return None
+            blk = to_host(self.bins[self.ent_bin[e]].data[int(self.ent_slot[e])])
+        if folded and unfold:
+            blk = _fold_block(blk, self.matrix_type)
+        return blk
 
     def iterate_blocks(self) -> Iterator[Tuple[int, int, np.ndarray]]:
         """Iterate stored blocks in index order (ref `dbcsr_iterator_*`);
@@ -341,6 +402,41 @@ class BlockSparseMatrix:
             out[mask] = to_host(norms).astype(np.float64)[self.ent_slot[mask]]
         return out
 
+    def pattern_fingerprint(self) -> tuple:
+        """Content hash of the sparsity pattern: the keys, the blocking
+        vectors and the entries' bin and slot (plans index bins by id and
+        slot), memoized on the identity of the keys and binning arrays.
+        Every structure change replaces those arrays rather than writing
+        into them, and the memo holds them, so an identity cannot be
+        reused.  Keys the multiply's plan cache (ref
+        `dbcsr_tpu/core/matrix.py:672-692`, which hashes keys and
+        blocking)."""
+        if getattr(self, "_blk_fp", None) is None:
+            self._blk_fp = digests.digest(self.row_blk_sizes.tobytes(),
+                                          self.col_blk_sizes.tobytes())[:8]
+        src = getattr(self, "_fp_src", (None, None, None))
+        if src[0] is not self.keys or src[1] is not self.ent_bin or src[2] is not self.ent_slot:
+            self._fp_src = (self.keys, self.ent_bin, self.ent_slot)
+            shapes = np.asarray([b.shape for b in self.bins], np.int64)
+            self._fp = (self.nblkrows, self.nblkcols, len(self.keys), self._blk_fp,
+                        digests.index_digest(self.keys, self.ent_bin, self.ent_slot,
+                                             shapes)[:8])
+        return self._fp
+
+    def free(self) -> None:
+        """Drop this matrix's device storage (the `dbcsr_release` analog):
+        its bins return to the caching allocator once no other tensor
+        references them; the matrix is emptied and marked invalid."""
+        mempool.note_freed(sum(b.data.numel() * b.data.element_size() for b in self.bins))
+        self.bins = []
+        self.keys = np.empty(0, np.int64)
+        self.row_ptr = np.zeros(self.nblkrows + 1, np.int64)
+        self.ent_bin = np.empty(0, np.int32)
+        self.ent_slot = np.empty(0, np.int32)
+        self._work.clear()
+        self._work_batches.clear()
+        self.valid = False
+
     def copy(self, name: Optional[str] = None) -> "BlockSparseMatrix":
         """Deep copy: bins are cloned, since the engine updates C in place."""
         m = BlockSparseMatrix(name or self.name, self.row_blk_sizes,
@@ -359,7 +455,7 @@ class BlockSparseMatrix:
     def __repr__(self) -> str:
         return (f"BlockSparseMatrix({self.name!r}, {self.nblkrows}x{self.nblkcols} "
                 f"blocks, {self.nblks} stored, dtype={self.dtype}, "
-                f"device={self.device})")
+                f"type={self.matrix_type}, device={self.device})")
 
 
 def _bin_entries(row_blk_sizes, col_blk_sizes, rows, cols):

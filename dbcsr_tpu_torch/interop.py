@@ -7,7 +7,8 @@ The state holds ``row_blk_sizes``, ``col_blk_sizes``, ``matrix_type``,
 ``ent_bin``, ``ent_slot`` and ``bins``, a list of ``(bm, bn, data)`` with
 ``data`` the bin's first ``count`` blocks (a producer with padded bins
 slices them off).  bf16 data may come as float32 or as a numpy bfloat16
-extension array; both convert exactly.
+extension array; both convert exactly.  A symmetric kind ("S", "A"; a
+real "H" becomes "S") carries its stored upper triangle only.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Optional
 import numpy as np
 
 from dbcsr_tpu_torch.core.kinds import enum_of
-from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix, _Bin, to_device, to_host
+from dbcsr_tpu_torch.core.matrix import NO_SYMMETRY, BlockSparseMatrix, _Bin, to_device, to_host
 from dbcsr_tpu_torch.device import DeviceLike
 
 
@@ -36,13 +37,18 @@ def matrix_from_numpy_state(state: dict, device: Optional[DeviceLike] = None,
             raise ValueError(f"bin data of shape {data.shape} is not ({bm},{bn}) blocks")
         bins.append(_Bin((int(bm), int(bn)), to_device(data, m.dtype, m.device),
                          data.shape[0]))
-    keys = np.asarray(state["keys"], np.int64)
-    ent_bin = np.asarray(state["ent_bin"], np.int32)
-    ent_slot = np.asarray(state["ent_slot"], np.int32)
+    # copies: the matrix's index arrays are never written into, and must
+    # not alias the caller's (the pattern fingerprint is memoized on them)
+    keys = np.array(state["keys"], np.int64)
+    ent_bin = np.array(state["ent_bin"], np.int32)
+    ent_slot = np.array(state["ent_slot"], np.int32)
     if not (len(keys) == len(ent_bin) == len(ent_slot)):
         raise ValueError("keys/ent_bin/ent_slot lengths differ")
     if len(keys) and not np.all(np.diff(keys) > 0):
         raise ValueError("keys must be sorted and unique")
+    if m.matrix_type != NO_SYMMETRY and np.any(keys // m.nblkcols > keys % m.nblkcols):
+        raise ValueError(f"a matrix of kind {m.matrix_type!r} stores only "
+                         f"its upper triangle (row <= col)")
     for b_id, b in enumerate(bins):
         slots = ent_slot[ent_bin == b_id]
         if len(slots) != b.count or (len(slots) and slots.max() >= b.count):

@@ -3,9 +3,11 @@
 Counterpart of `dbcsr_tpu/ops/test_methods.py` (ref
 `src/ops/dbcsr_test_methods.F`).  `make_random_matrix` draws from the
 numpy Generator in exactly the JAX package's order -- first the
-``(nbr, nbc)`` occupancy draw, then one ``standard_normal(shape)`` per
-present block in ``np.nonzero`` order -- so the same seed gives the same
-matrix in both packages and the `.perf` checksum references hold.
+``(nbr, nbc)`` occupancy draw (its upper triangle for a symmetric
+kind), then one ``standard_normal(shape)`` per present block in
+``np.nonzero`` order, a diagonal block averaged with its fold -- so the
+same seed gives the same matrix in both packages and the `.perf`
+checksum references hold.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from dbcsr_tpu_torch.core.dist import Distribution
 from dbcsr_tpu_torch.core.kinds import dtype_of, host_dtype
-from dbcsr_tpu_torch.core.matrix import NO_SYMMETRY, BlockSparseMatrix
+from dbcsr_tpu_torch.core.matrix import NO_SYMMETRY, BlockSparseMatrix, _fold_block
 from dbcsr_tpu_torch.device import DeviceLike
 
 
@@ -40,20 +42,29 @@ def make_random_matrix(
                           matrix_type, device=device)
     hdt = host_dtype(dtype_of(dtype))
     present = rng.random((m.nblkrows, m.nblkcols)) < occupation
+    if m.matrix_type != NO_SYMMETRY:
+        present = np.triu(present)
     rows, cols = np.nonzero(present)
     for r, c in zip(rows, cols):
-        m.put_block(r, c, rng.standard_normal(m.block_shape(r, c)).astype(hdt))
+        blk = rng.standard_normal(m.block_shape(r, c))
+        if m.matrix_type != NO_SYMMETRY and r == c:
+            blk = (blk + _fold_block(blk, m.matrix_type)) / 2  # consistent diagonal
+        m.put_block(r, c, blk.astype(hdt))
     return m.finalize()
 
 
 def to_dense(matrix: BlockSparseMatrix) -> np.ndarray:
-    """Densify on the host (ref `dbcsr_to_dense_local`)."""
+    """Densify on the host (ref `dbcsr_to_dense_local`); a symmetric
+    kind's stored blocks are unfolded into the other triangle."""
     out = np.zeros((matrix.nfullrows, matrix.nfullcols), host_dtype(matrix.dtype))
     row_off = matrix.row_blk_offsets
     col_off = matrix.col_blk_offsets
     for r, c, blk in matrix.iterate_blocks():
         out[row_off[r]: row_off[r] + blk.shape[0],
             col_off[c]: col_off[c] + blk.shape[1]] = blk
+        if matrix.matrix_type != NO_SYMMETRY and r != c:
+            out[col_off[c]: col_off[c] + blk.shape[1],
+                row_off[r]: row_off[r] + blk.shape[0]] = _fold_block(blk, matrix.matrix_type)
     return out
 
 
@@ -76,13 +87,16 @@ def from_dense(name: str, dense: np.ndarray, row_blk_sizes, col_blk_sizes,
 
 def checksum(matrix: BlockSparseMatrix, pos: bool = False) -> float:
     """Scalar checksum (ref `dbcsr_checksum`, `src/dist/dbcsr_dist_util.F:431`):
-    the sum of squares of the stored elements from the per-block norms,
-    or with ``pos`` the position-dependent variant (`pd_blk_cs`,
+    the sum of squares of the elements from the per-block norms (a
+    symmetric kind's off-diagonal blocks counted twice), or with ``pos`` the position-dependent variant (`pd_blk_cs`,
     `dbcsr_dist_util.F:551`): sum of a[r,c] * log(grow * gcol) over
     1-based global element coordinates, one float64 device reduction
-    per bin."""
+    per bin over the stored blocks."""
     if not pos:
         norms = matrix.block_norms().astype(np.float64)
+        if matrix.matrix_type != NO_SYMMETRY:
+            rows, cols = matrix.entry_coords()
+            return float((np.where(rows == cols, 1.0, 2.0) * norms ** 2).sum())
         return float((norms ** 2).sum())
     row_off = matrix.row_blk_offsets
     col_off = matrix.col_blk_offsets

@@ -157,7 +157,7 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
     chksum_b = matrix_checksum(b)
     chksum_c_in = matrix_checksum(c)
 
-    times, phases, stack_s, flops_list = [], [], [], []
+    times, phases, stack_s, flops_list, cache = [], [], [], [], []
     counts0 = _launch_counts()
     for _ in range(cfg.nrep):
         c_run = c.copy()
@@ -169,6 +169,7 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
         times.append(time.perf_counter() - t0)
         flops_list.append(flops)
         phases.append(dict(c_run._mm_phase_s))
+        cache.append(c_run._mm_plan_cache)
         ev = getattr(c_run, "_mm_stack_events", None)
         stack_s.append(ev[0].elapsed_time(ev[1]) / 1e3 if ev else None)
     launches = {name: n - counts0[name] for name, n in _launch_counts().items()}
@@ -184,6 +185,9 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
         "host_s": [sum(p.values()) for p in phases],
         "host_phase_s": phases,
         "stack_device_s": stack_s,
+        # each repeat's plan-cache outcome: "miss", then "hit" for the
+        # repeats of the same product (mm/multiply.py)
+        "plan_cache": cache,
         # kernel launches over all repeats by kernel (first-use
         # validations included), calls of the plain versions, and the
         # last repeat's spans as (m, n, k, entries, kernel, longest run)

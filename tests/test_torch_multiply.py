@@ -219,8 +219,8 @@ def test_numpy_state_round_trip():
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError):
-        BlockSparseMatrix("S", MIXED, MIXED, matrix_type="S", device="cpu")
+    # symmetric kinds are ported (tests/test_torch_symmetric.py); complex
+    # kinds and limits still raise
     with pytest.raises(NotImplementedError):
         BlockSparseMatrix("Z", MIXED, MIXED, dtype=7, device="cpu")
     pm = port_tm.make_random_matrix("R", MIXED, MIXED, occupation=0.5,
@@ -229,10 +229,9 @@ def test_unported_features_raise():
         port_multiply("N", "N", 1.0, pm, pm, 0.0, pm.copy(), first_row=1)
     with pytest.raises(TypeError):
         port_multiply("N", "N", 1.0 + 1.0j, pm, pm, 0.0, pm.copy())
-    for cfg in (PerfConfig(m=20, n=20, k=20, symm_a="S"),
-                PerfConfig(m=20, n=20, k=20, limits=(1, 5, 0, 0, 0, 0))):
-        with pytest.raises(NotImplementedError):
-            run_perf(cfg, verbose=False, device="cpu")
+    with pytest.raises(NotImplementedError):
+        run_perf(PerfConfig(m=20, n=20, k=20, limits=(1, 5, 0, 0, 0, 0)),
+                 verbose=False, device="cpu")
 
 
 def test_bf16_matrix_rounds_like_jax():
