@@ -6,11 +6,14 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``dbcsr_tpu_torch/csrc`` with
-nvcc (both sources at once), then runs these phases, each printing one
-JSON line; any failure raises and the script exits non-zero:
+nvcc (both sources at once) and the multiply's host index engine from
+``dbcsr_tpu_torch/native`` with g++, then runs these phases, each
+printing one JSON line; any failure raises and the script exits
+non-zero:
 
 1. build: the card's name and power limit, CUDA version, nvcc seconds
-   and ptxas resource lines of each source, the persisting-L2 limit;
+   and ptxas resource lines of each source, the persisting-L2 limit,
+   and the index engine's g++ flags and seconds;
 2. kernel_vs_plain: the base stack kernel (K1) against its plain PyTorch
    version, f64/f32/bf16 at block shapes (23,23,23), (23,18,23),
    (18,23,18), (5,13,23), the warp path's edges (32,32,32), (33,24,23)
@@ -23,7 +26,8 @@ JSON line; any failure raises and the script exits non-zero:
    (3, 5) for (16,24,12), both paths again; (100,50,20) must plan onto
    K1 (P = 1);
 4. perf_gates: the `.perf` checksum gates through `run_perf` under
-   ``mm_driver="auto"`` (f64: K1 must launch, no plain version);
+   ``mm_driver="auto"`` on the stack format (f64: K1 must launch, no
+   plain version);
 5. perf_gates_crosspack: the same gates under ``mm_driver="pallas_cross"``
    (K3 must launch, except on the 100/50/20 blocks, which take K1);
 6. northstar: the north-star product (10k x 10k, 23x23 blocks,
@@ -31,7 +35,13 @@ JSON line; any failure raises and the script exits non-zero:
    repeat with ``mm_driver="torch"`` (the plain version) at rel <= 1e-10;
    repeats 2-3 must hit the multiply's plan cache, and the host "plan"
    seconds of the first repeat and of the hits are printed;
-7. northstar_stacks: K1 and its plain version compared and timed on the
+7. native_index: on the north star's operands, the native engine's
+   expansion and stack sort against the NumPy path and `np.lexsort`
+   (identical arrays and order), each piece of "index" and "plan" timed,
+   then the multiply's host phases, plan-cache miss and hit, under both
+   engines in turns (numpy, native, native, numpy), C bit for bit the
+   same, and "index" on 10 pairs of plan-cache hits in turns;
+   northstar_stacks: K1 and its plain version compared and timed on the
    north star's own stacks, with the least time the card could take
    (every stack of the ``*_stacks`` phases must take the warp path);
 8. northstar_f32: the north star as sreal through K3 (no K1 launch, no
@@ -43,20 +53,37 @@ JSON line; any failure raises and the script exits non-zero:
    in a temporary parameter directory, through K4, held against the
    ``"torch"`` driver likewise, then K4, K3 and the plain version timed
    on its stacks;
-10. models: the three linear-scaling DFT loops at `test_H2O`'s blocking
+10. formats: at the models' size (2208^2, 96 block rows of 23, full
+   operands, f64 and f32) ``mm_format`` forced to "stack", "dense" and
+   "composite" and left at "auto", and on a banded pattern with
+   independent row panels the same four; every leg against the stack
+   leg (f64 1e-12, f32 the kernel validation tolerance); the canvas
+   GEMM timed alone beside its bound; the north star forced dense
+   (`_dense_multiply_general`) beside its stack time and result; the
+   `.perf` gates under the planner ("auto");
+11. limits: block limits and unaligned element limits with beta 0.7 at
+   2208^2 under ``"auto"`` (K1) and ``"torch"``, against each other at
+   1e-12 and against a dense windowed oracle on the card; C outside the
+   window bit for bit as it was;
+12. models: the three linear-scaling DFT loops at `test_H2O`'s blocking
    (96 block rows of 23, 2208^2, f64) on `make_test_density(96, 23)`:
    McWeeny purification of the density, the filtered Newton-Schulz sign
    iteration of the density shifted by -0.5 on its diagonal, and the
    inverse square root of the density shifted by +0.5.  Each runs under
-   ``"auto"`` (K1 must launch, no plain call) and under ``"torch"``;
+   ``"auto"`` (the planner: the sign loop must launch K1, purify and
+   invsqrt must take the dense format; no plain call) and under
+   ``"torch"`` on the stack format;
    histories and final iterates must agree (1e-10, or 10 * filter_eps
    where filtered), invsqrt must reach its tol, and purify's and sign's
    convergence measures must fall.  Each run prints its multiplies,
    launches, plan-cache outcomes, host seconds per phase, the stacks'
-   device seconds (CUDA events), its wall time, the matrices its chains
-   freed and the caching allocator's peak bytes;
-11. models_f32: the sign iteration as f32 through K3, held against
-   ``"torch"`` elementwise at the kernel validation tolerance.
+   device seconds (CUDA events), its format decisions, its wall time,
+   the matrices its chains freed and the caching allocator's peak bytes;
+   then in turns: the sign loop under the NumPy index path and the
+   engine, purify and invsqrt under the planner and on the stack format;
+13. models_f32: the sign iteration as f32 on the stack format through
+   K3, held against ``"torch"`` elementwise at the kernel validation
+   tolerance.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints
@@ -76,6 +103,7 @@ import time
 import numpy as np
 import torch
 
+from dbcsr_tpu_torch import native
 from dbcsr_tpu_torch.acc import build, crosspack_kernel, params, stack_kernel
 from dbcsr_tpu_torch.acc.crosspack import choose_pack, resident_limit_bytes
 from dbcsr_tpu_torch.acc.smm import prepare_stack
@@ -85,7 +113,13 @@ from dbcsr_tpu_torch.core.kinds import name_of
 from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
 from dbcsr_tpu_torch.device import resolve_device
 from dbcsr_tpu_torch.mm import multiply as mm
-from dbcsr_tpu_torch.mm.multiply import _build_spans, _candidates, _effective
+from dbcsr_tpu_torch.mm.multiply import (
+    _build_spans,
+    _candidates,
+    _candidates_numpy,
+    _effective,
+    _to_dense_device,
+)
 from dbcsr_tpu_torch.models import (
     invsqrt_iteration,
     make_test_density,
@@ -102,9 +136,12 @@ from dbcsr_tpu_torch.ops.operations import (
     scale,
     trace,
 )
+from dbcsr_tpu_torch.ops.test_methods import make_random_matrix
 from dbcsr_tpu_torch.obs.costmodel import (
     crosspack_entries,
     kernel_validation_tolerance,
+    H100_BYTES_PER_S,
+    H100_PEAK_FLOPS,
     stack_bound_s,
     stack_bytes,
     stack_min_bytes,
@@ -175,6 +212,16 @@ def _calls(plan, resident=None):
             lambda c, a, b, al: crosspack_kernel.smm_crosspack_plain(c, a, b, *args, al))
 
 
+def _written(kernel, c, a, b, alpha):
+    """``kernel`` on a copy of ``c``, which it must mark as written (its
+    version counter moves, as `mm.multiply._dense_canvas_cached` needs)."""
+    out = c.clone()
+    version = out._version
+    kernel(out, a, b, alpha)
+    _require(out._version > version, "a kernel wrapper wrote C without bumping its version")
+    return out
+
+
 def _rel_err(got, want) -> float:
     diff = float((got.double() - want.double()).abs().max())
     return diff / max(float(want.double().abs().max()), 1.0)
@@ -187,13 +234,17 @@ def phase_build() -> str:
     card = smi.stdout.strip().splitlines()[0].strip()
     print(card, flush=True)
     build.build_all()
+    native.get_lib()
     _emit({"phase": "build", "card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
            "nvcc_s": {src: build.build_seconds[src] for src in build.SOURCES},
            "ptxas": {src: [ln.strip() for ln in build.build_logs.get(src, "").splitlines()
                            if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
                      for src in build.SOURCES},
-           "persisting_l2_bytes": resident_limit_bytes(resolve_device())})
+           "persisting_l2_bytes": resident_limit_bytes(resolve_device()),
+           "index_engine": {"compiler": "g++", "flags": list(native.FLAGS),
+                            "seconds": native.build_seconds,
+                            "library": os.path.basename(native.library_path())}})
     return card
 
 
@@ -232,7 +283,7 @@ def phase_kernel_vs_plain() -> None:
             kernel, plain = _calls(plan)
             path = stack_kernel.kernel_path(m, n, k)
             paths.add(path)
-            got = kernel(c.clone(), a, b, alpha)
+            got = _written(kernel, c, a, b, alpha)
             want = plain(c.clone(), a, b, alpha)
             torch.cuda.synchronize()
             rel = _rel_err(got, want)
@@ -284,7 +335,7 @@ def phase_crosspack_vs_plain() -> None:
             row["plain_ms"] = _time_ms(lambda: plain(scratch, a, b, alpha), 3)
             for tag, resident in (("cross", False), ("resident", True)):
                 kernel, _ = _calls(plan, resident=resident)
-                got = kernel(c.clone(), a, b, alpha)
+                got = _written(kernel, c, a, b, alpha)
                 torch.cuda.synchronize()
                 rel = _rel_err(got, want)
                 _require(np.isfinite(rel) and rel <= tol,
@@ -313,7 +364,7 @@ def phase_perf_gates(driver: str) -> None:
     """The `.perf` gates under ``mm_driver=driver``: "auto" (f64 takes
     K1) or "pallas_cross" (K3, except where P = 1)."""
     rows = []
-    set_config(mm_driver=driver)
+    set_config(mm_driver=driver, mm_format="stack")
     try:
         for name, nrep in PERF_GATES:
             cfg = parse_perf_file(os.path.join(INPUTS, f"{name}.perf"))
@@ -334,9 +385,9 @@ def phase_perf_gates(driver: str) -> None:
                          "launches": counts, "kernels": sorted({s[4] for s in res["spans"]}),
                          "times_s": res["times_s"], "gflops_best": res["gflops_best"]})
     finally:
-        set_config(mm_driver="auto")
+        set_config(mm_driver="auto", mm_format="auto")
     _emit({"phase": "perf_gates" if driver == "auto" else "perf_gates_crosspack",
-           "mm_driver": driver, "passed": len(rows), "inputs": rows})
+           "mm_driver": driver, "mm_format": "stack", "passed": len(rows), "inputs": rows})
 
 
 def _northstar_cfg(nrep: int, data_type: int = 3):
@@ -377,7 +428,8 @@ def _against_torch_driver(res, cfg, tol_el: float, tol_cs: float) -> dict:
 
 def _run_summary(res, nrep: int, counts: dict) -> dict:
     return {"nrep": nrep, "times_s": res["times_s"], "host_s": res["host_s"],
-            "host_phase_s": res["host_phase_s"], "stack_device_s": res["stack_device_s"],
+            "host_phase_s": res["host_phase_s"], "device_s": res["device_s"],
+            "algorithms": res["algorithms"],
             "flops": res["flops"],
             "gflops_true": [res["flops"] / t / 1e9 for t in res["times_s"]],
             "launches": counts,
@@ -395,6 +447,8 @@ def phase_northstar() -> dict:
     _require(counts["plain"] == 0, f"north star: the plain versions ran {counts['plain']} times")
     _require(res["plan_cache"][1:] == ["hit", "hit"],
              f"north star: repeats 2-3 did not hit the plan cache: {res['plan_cache']}")
+    _require(res["algorithms"] == ["stack"] * 3,
+             f"north star: the planner chose {res['algorithms']}, not the stack format")
     out = {"phase": "northstar", "shape": [10000, 10000, 10000], "block": 23,
            "occupancy": 0.1, "dtype": "float64", **_run_summary(res, 3, counts),
            "plan_cache": res["plan_cache"],
@@ -474,6 +528,319 @@ def _stacks_phase(phase: str, a, b, c, kernels=(None,), reps=5) -> dict:
            "min_bytes": min_bytes, "modeled_stack_bytes": modeled_bytes,
            "max_abs_err": tot["max_abs_err"]})
     return tot
+
+
+def _with_engine(on: bool, fn):
+    """``fn()`` with the native index engine on or off (the NumPy path)."""
+    prev = os.environ.get("DBCSR_TPU_TORCH_NATIVE")
+    os.environ["DBCSR_TPU_TORCH_NATIVE"] = "1" if on else "0"
+    try:
+        return fn()
+    finally:
+        if prev is None:
+            os.environ.pop("DBCSR_TPU_TORCH_NATIVE", None)
+        else:
+            os.environ["DBCSR_TPU_TORCH_NATIVE"] = prev
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def phase_native_index(a, b, c) -> None:
+    """The native engine on the north star's operands: its expansion and
+    stack sort identical to the NumPy path and `np.lexsort`, each piece
+    of the host's "index" and "plan" timed (in turns, 3 pairs), then the
+    multiply's host phases on a plan-cache miss and hit under both
+    engines in turns, with C bit for bit the same."""
+    pieces = {k: [] for k in ("expand_native", "expand_numpy", "union1d", "sort_native",
+                              "sort_lexsort")}
+    for rep in range(3):
+        for eng in (("numpy", "native") if rep % 2 == 0 else ("native", "numpy")):
+            if eng == "native":
+                got, sec = _timed(lambda: native.symbolic_product(
+                    a.row_ptr, a.keys % a.nblkcols, b.row_ptr, b.keys % b.nblkcols))
+            else:
+                want, sec = _timed(lambda: _candidates_numpy(a, b, None, None, None))
+            pieces[f"expand_{eng}"].append(sec)
+    _require(all(np.array_equal(x, y) for x, y in zip(got, want)),
+             "native_index: the native expansion differs from the NumPy path")
+    i, j, a_ent, _ = got
+    keys = i * c.nblkcols + j
+    new_keys, sec = _timed(lambda: np.union1d(c.keys, np.unique(keys)))
+    pieces["union1d"].append(sec)
+    _require(np.array_equal(new_keys, c.keys), "native_index: C's pattern is not the product's")
+    c_ent = np.searchsorted(c.keys, keys)
+    g = ((c.ent_bin[c_ent].astype(np.int64) * len(a.bins) + a.ent_bin[a_ent]) * len(b.bins)
+         + b.ent_bin[got[3]])
+    ngroups = len(c.bins) * len(a.bins) * len(b.bins)
+    c_slot = c.ent_slot[c_ent]
+    for rep in range(3):
+        for eng in (("lexsort", "native") if rep % 2 == 0 else ("native", "lexsort")):
+            if eng == "native":
+                (order, bounds), sec = _timed(lambda: native.group_sort_stacks(
+                    g, ngroups, c_slot, a_ent))
+            else:
+                lex, sec = _timed(lambda: np.lexsort((a_ent, c_slot, g)))
+            pieces[f"sort_{eng}"].append(sec)
+    _require(np.array_equal(order, lex), "native_index: the native sort differs from np.lexsort")
+    _require(np.array_equal(bounds, np.concatenate([[0], np.cumsum(np.bincount(
+        g, minlength=ngroups))])), "native_index: the native sort's group bounds are wrong")
+    groups = np.bincount(g, minlength=ngroups)
+    runs = {}
+    results = {}
+    for eng in ("numpy", "native", "native", "numpy"):
+        mm.clear_plan_cache()
+        mm.reset_totals()
+        phases = []
+        for _ in range(2):  # a plan-cache miss, then a hit
+            out = c.copy()
+
+            def run():
+                mm.multiply("N", "N", 1.0, a, b, 0.0, out)
+                torch.cuda.synchronize()
+            _with_engine(eng == "native", run)
+            phases.append(dict(out._mm_phase_s, plan_cache=out._mm_plan_cache))
+        totals = mm.read_totals()["index_engine"]
+        _require(totals["expand"][eng] == 2 and totals["sort"][eng] == 1,
+                 f"native_index: the {eng} engine did not run: {totals}")
+        runs.setdefault(eng, []).append(phases)
+        if eng not in results:
+            results[eng] = out
+        else:
+            del out
+    x, y = results["native"], results["numpy"]
+    _require(np.array_equal(x.keys, y.keys) and all(
+        bx.data.equal(by.data) for bx, by in zip(x.bins, y.bins)),
+        "native_index: C differs between the engines")
+    del results, x, y
+    # "index" on plan-cache hits, 10 pairs in turns
+    index_s = {"numpy": [], "native": []}
+    for rep in range(10):
+        for eng in (("numpy", "native") if rep % 2 == 0 else ("native", "numpy")):
+            out = c.copy()
+            _with_engine(eng == "native", lambda: mm.multiply("N", "N", 1.0, a, b, 0.0, out))
+            _require(out._mm_plan_cache == "hit", "native_index: a repeat missed the plan cache")
+            index_s[eng].append(out._mm_phase_s["index"])
+            del out
+    _emit({"phase": "native_index", "candidates": int(len(i)), "groups": int(ngroups),
+           "largest_group": int(groups.max()), "threads": torch.get_num_threads(),
+           "cpu_count": os.cpu_count(), "pieces_s": pieces,
+           "median_s": {k: float(np.median(v)) for k, v in pieces.items()},
+           "multiply_host_phase_s": runs, "index_s_hits_in_turns": index_s,
+           "index_median_s": {k: float(np.median(v)) for k, v in index_s.items()}})
+
+
+# the models' size: test_H2O's blocking, 96 block rows of 23 (2208^2)
+MODEL_BLOCKS, MODEL_BLOCK, MODEL_SEED = 96, 23, 0
+
+
+def _canvas_rel(x, y) -> float:
+    """max |x - y| over max |y|, on the card's dense canvases."""
+    dx, dy = _to_dense_device(x), _to_dense_device(y)
+    return float((dx - dy).abs().max()) / max(float(dy.abs().max()), 1e-300)
+
+
+def _launched_since(before: dict) -> dict:
+    """The launches counted since `_counts` gave ``before``."""
+    return {k: v - before[k] for k, v in _counts().items()}
+
+
+def _format_legs(a, b, c0, legs, tol, reps=3) -> dict:
+    """C = 0.7 A B + 0.5 C0 under each ``mm_format`` of ``legs``, after
+    one untimed run: wall seconds (synchronized), host phases and device
+    seconds of the last repeat, the format run, K1/K3 launches of the
+    last repeat and the difference to the "stack" leg (the first)."""
+    out, ref = {}, None
+    try:
+        for fmt in legs:
+            set_config(mm_format=fmt)
+            times = []
+            for rep in range(reps + 1):
+                c = c0.copy()
+                torch.cuda.synchronize()
+                before = _counts()
+                t0 = time.perf_counter()
+                mm.multiply("N", "N", 0.7, a, b, 0.5, c)
+                torch.cuda.synchronize()
+                if rep:
+                    times.append(time.perf_counter() - t0)
+            launched = _launched_since(before)
+            ev = c._mm_device_events
+            row = {"ran": c._mm_algorithm, "times_s": times, "host_phase_s": c._mm_phase_s,
+                   "device_s": ev[0].elapsed_time(ev[1]) / 1e3 if ev else None,
+                   "launches": launched, "c_blocks": int(c.nblks)}
+            if ref is None:
+                ref = c
+            else:
+                row["rel_to_stack"] = rel = _canvas_rel(c, ref)
+                _require(rel <= tol, f"formats: {fmt} differs from stack by {rel:.3e} > {tol:.1e}")
+            _require(launched["plain"] == 0, f"formats: {fmt} ran the plain versions")
+            out[fmt] = row
+    finally:
+        set_config(mm_format="auto")
+    return out
+
+
+def _gemm_ms(n: int, dtype) -> dict:
+    """The canvas GEMM alone (`torch.matmul` of two n x n canvases), by
+    CUDA events, beside the least time the card could take for it."""
+    x = torch.randn((n, n), dtype=dtype, device=resolve_device())
+    y = torch.randn((n, n), dtype=dtype, device=resolve_device())
+    ms = _time_ms(lambda: torch.matmul(x, y), 10)
+    flops = 2.0 * n ** 3
+    t_ops = flops / H100_PEAK_FLOPS[name_of(dtype)]
+    t_bytes = 3 * n * n * x.element_size() / H100_BYTES_PER_S
+    return {"n": n, "ms": ms, "tflops": flops / ms / 1e9, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _banded(name, band, rng, dtype):
+    """A 96 x 96 block matrix of 23 x 23 blocks within ``band`` of the
+    diagonal, standard-normal values."""
+    sizes = np.full(MODEL_BLOCKS, MODEL_BLOCK)
+    rows = [i for i in range(MODEL_BLOCKS) for j in range(MODEL_BLOCKS) if abs(i - j) <= band]
+    cols = [j for i in range(MODEL_BLOCKS) for j in range(MODEL_BLOCKS) if abs(i - j) <= band]
+    m = BlockSparseMatrix(name, sizes, sizes, dtype)
+    m.put_blocks(rows, cols, rng.standard_normal((len(rows), MODEL_BLOCK, MODEL_BLOCK)))
+    return m.finalize()
+
+
+def phase_formats() -> int:
+    """Every format on the models' size, the canvas GEMM alone, the north
+    star forced dense, and the `.perf` gates under the planner.  Returns
+    the K1 launches of the whole phase."""
+    sizes = np.full(MODEL_BLOCKS, MODEL_BLOCK)
+    out = {"phase": "formats", "n": MODEL_BLOCKS * MODEL_BLOCK, "block": MODEL_BLOCK}
+    _reset_counts()
+    mm.reset_totals()
+    for dtype in (torch.float64, torch.float32):
+        rng = np.random.default_rng(20261017)
+        full = [make_random_matrix(nm, sizes, sizes, dtype=dtype, occupation=occ, rng=rng)
+                for nm, occ in (("A", 1.0), ("B", 1.0), ("C", 0.3))]
+        band = [_banded("A", 4, rng, dtype), _banded("B", 4, rng, dtype), full[2]]
+        name = name_of(dtype)
+        tol = 1e-12 if dtype == torch.float64 else kernel_validation_tolerance(
+            "float32", MODEL_BLOCK, MODEL_BLOCKS)
+        legs = ("stack", "dense", "composite", "auto")
+        res = {"full": _format_legs(*full, legs, tol), "banded": _format_legs(*band, legs, tol)}
+        ran = {pat: {fmt: r["ran"] for fmt, r in legs_.items()} for pat, legs_ in res.items()}
+        _require(ran == {"full": {"stack": "stack", "dense": "dense", "composite": "stack",
+                                  "auto": "dense"},
+                         "banded": {"stack": "stack", "dense": "dense",
+                                    "composite": "composite", "auto": "stack"}},
+                 f"formats {name}: the formats run were {ran}")
+        wanted = "smm_stack" if dtype == torch.float64 else "smm_crosspack"
+        for pat in res:
+            _require(res[pat]["stack"]["launches"][wanted] > 0,
+                     f"formats {name} {pat}: the stack leg never launched {wanted}")
+        out[name] = {"tolerance": tol, "gemm": _gemm_ms(MODEL_BLOCKS * MODEL_BLOCK, dtype), **res}
+        del full, band
+    out["decisions"] = mm.read_totals()["formats"]
+    # the north star forced dense, beside its stack run
+    ns = {}
+    for fmt in ("stack", "dense"):
+        set_config(mm_format=fmt)
+        try:
+            res = run_perf(_northstar_cfg(2), verbose=False)
+        finally:
+            set_config(mm_format="auto")
+        _require(res["algorithms"] == [fmt] * 2, f"north star forced {fmt} ran {res['algorithms']}")
+        ns[fmt] = res
+    rel = _canvas_rel(ns["dense"]["matrices"]["c_out"], ns["stack"]["matrices"]["c_out"])
+    _require(rel <= 1e-12, f"north star: dense differs from stack by {rel:.3e}")
+    out["northstar_dense"] = {
+        fmt: {"times_s": r["times_s"], "host_phase_s": r["host_phase_s"],
+              "device_s": r["device_s"], "checksum": r["checksum"],
+              "c_blocks": int(r["matrices"]["c_out"].nblks)} for fmt, r in ns.items()}
+    out["northstar_dense"]["rel_dense_to_stack"] = rel
+    out["northstar_dense"]["gemm"] = _gemm_ms(10000, torch.float64)
+    del ns, res
+    # the .perf gates under the planner
+    gates = []
+    for name, nrep in PERF_GATES:
+        cfg = parse_perf_file(os.path.join(INPUTS, f"{name}.perf"))
+        cfg.nrep = nrep
+        res = run_perf(cfg, verbose=False)  # raises PerfChecksumError on mismatch
+        gates.append({"input": name, "algorithms": res["algorithms"], "checksum": res["checksum"],
+                      "refs": list(cfg.check_refs), "times_s": res["times_s"]})
+    out["perf_gates_auto"] = gates
+    out["launches"] = _counts()
+    _emit(out)
+    return out["launches"]["smm_stack"]
+
+
+LIMIT_CASES = (
+    ("block", dict(first_row=10, last_row=70, first_col=5, last_col=90, first_k=3, last_k=85)),
+    ("element", dict(element_limits=(101, 1700, 37, 2150, 11, 2000))),
+)
+
+
+def _window(c, limits) -> tuple:
+    """The element window (r0, r1, c0, c1, k0, k1), inclusive, of a limit set."""
+    if "element_limits" in limits:
+        return limits["element_limits"]
+    roff, coff = c.row_blk_offsets, c.col_blk_offsets
+    return (int(roff[limits["first_row"]]), int(roff[limits["last_row"] + 1]) - 1,
+            int(coff[limits["first_col"]]), int(coff[limits["last_col"] + 1]) - 1,
+            int(coff[limits["first_k"]]), int(coff[limits["last_k"] + 1]) - 1)
+
+
+def phase_limits() -> int:
+    """Block and unaligned element limits with beta 0.7 at 2208^2 under
+    "auto" (K1) and "torch"; returns the K1 launches under "auto"."""
+    sizes = np.full(MODEL_BLOCKS, MODEL_BLOCK)
+    rng = np.random.default_rng(20261018)
+    a, b, c0 = (make_random_matrix(nm, sizes, sizes, occupation=0.3, rng=rng) for nm in "ABC")
+    alpha, beta = 1.3, 0.7
+    da, db, dc = (_to_dense_device(m) for m in (a, b, c0))
+    rows, k1 = {}, 0
+    for case, limits in LIMIT_CASES:
+        r0, r1, c0w, c1w, k0, k1w = _window(c0, limits)
+        row = {"limits": limits, "window": [r0, r1, c0w, c1w, k0, k1w]}
+        got = {}
+        for driver in ("auto", "torch"):
+            set_config(mm_driver=driver)
+            try:
+                c = c0.copy()
+                _reset_counts()
+                t0 = time.perf_counter()
+                mm.multiply("N", "N", alpha, a, b, beta, c, **limits)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = _counts()
+            finally:
+                set_config(mm_driver="auto")
+            _require(c._mm_algorithm == "stack", f"limits {case}: ran {c._mm_algorithm}")
+            row[driver] = {"launches": counts, "wall_s": wall, "host_phase_s": c._mm_phase_s,
+                           "c_blocks": int(c.nblks)}
+            got[driver] = c
+        la, lt = row["auto"]["launches"], row["torch"]["launches"]
+        _require(la["smm_stack"] > 0 and la["plain"] == 0, f"limits {case}: auto launched {la}")
+        _require(lt["plain"] > 0 and lt["smm_stack"] == 0, f"limits {case}: torch launched {lt}")
+        k1 += la["smm_stack"]
+        _require(np.array_equal(got["auto"].keys, got["torch"].keys),
+                 f"limits {case}: C's patterns differ between the drivers")
+        row["rel_auto_to_torch"] = rel = _canvas_rel(got["auto"], got["torch"])
+        _require(rel <= 1e-12, f"limits {case}: auto vs torch {rel:.3e} > 1e-12")
+        want = dc.clone()
+        want[r0:r1 + 1, c0w:c1w + 1] = (alpha * (da[r0:r1 + 1, k0:k1w + 1] @ db[k0:k1w + 1,
+                                                                             c0w:c1w + 1])
+                                        + beta * dc[r0:r1 + 1, c0w:c1w + 1])
+        dgot = _to_dense_device(got["auto"])
+        row["rel_to_oracle"] = rel = float((dgot - want).abs().max()) / float(want.abs().max())
+        _require(rel <= 1e-12, f"limits {case}: against the dense oracle {rel:.3e} > 1e-12")
+        outside = torch.ones_like(dgot, dtype=torch.bool)
+        outside[r0:r1 + 1, c0w:c1w + 1] = False
+        _require(bool(torch.equal(dgot[outside], dc[outside])),
+                 f"limits {case}: C outside the window changed")
+        rows[case] = row
+        del got, want, dgot, outside
+    _emit({"phase": "limits", "n": MODEL_BLOCKS * MODEL_BLOCK, "block": MODEL_BLOCK,
+           "occupancy": 0.3, "alpha": alpha, "beta": beta, "tolerance": 1e-12, **rows})
+    return k1
 
 
 def _kernel_row(name: str, launches: int, timing: dict, ki: int = 0) -> dict:
@@ -608,21 +975,20 @@ def phase_resident_f32() -> dict:
     return _kernel_row("smm_crosspack_resident", counts["smm_crosspack_resident"], timing)
 
 
-# the models' workload: test_H2O's blocking (96 block rows of 23, 2208^2),
-# the density drawn from MODEL_SEED; steps and tolerances of each loop
-MODEL_BLOCKS, MODEL_BLOCK, MODEL_SEED = 96, 23, 0
+# the models' workload: the density drawn from MODEL_SEED at the models'
+# size; steps and tolerances of each loop
 PURIFY_STEPS = 6
 SIGN_STEPS, SIGN_EPS = 25, 1e-10
 INVSQRT_TOL = 1e-10
 SIGN_F32_STEPS = 3
 
 
-def _drive(driver: str, loop):
-    """``loop()`` under ``mm_driver=driver``, with the kernel counts, the
-    engine's totals and the allocator's peak set to 0 just before it and
-    read just after (``pool``: the chains' frees and the caching
-    allocator's bytes, `core.mempool.pool_stats`)."""
-    set_config(mm_driver=driver)
+def _drive(driver: str, loop, fmt: str = "auto"):
+    """``loop()`` under ``mm_driver=driver`` and ``mm_format=fmt``, with
+    the kernel counts, the engine's totals and the allocator's peak set
+    to 0 just before it and read just after (``pool``: the chains' frees
+    and the caching allocator's bytes, `core.mempool.pool_stats`)."""
+    set_config(mm_driver=driver, mm_format=fmt)
     try:
         _reset_counts()
         mm.reset_totals()
@@ -637,7 +1003,7 @@ def _drive(driver: str, loop):
         totals = mm.read_totals()
         pool = mempool.pool_stats(resolve_device(None))
     finally:
-        set_config(mm_driver="auto")
+        set_config(mm_driver="auto", mm_format="auto")
     for key in ("freed", "freed_bytes"):
         pool[key] -= freed0[key]
     return out, {"wall_s": wall, "launches": counts, **totals, "pool": pool}
@@ -696,6 +1062,20 @@ def _model_loops(p0, sign_steps: int, sign_eps):
     }
 
 
+def _in_turns(first: str, first_info: dict, second: str, drive, check) -> dict:
+    """Two variants of one loop in turns: the phase's own run of
+    ``first`` (``first_info``), then ``second``, ``first``, ``second``;
+    ``drive(variant)`` runs one and returns `_drive`'s (output, info),
+    and ``check(variant, output, info)`` holds it against the plain
+    version and returns what it found."""
+    keys = ("wall_s", "host_phase_s", "device_s", "formats", "index_engine", "launches")
+    out = {first: [{k: first_info[k] for k in keys}], second: []}
+    for variant in (second, first, second):
+        result, info = drive(variant)
+        out[variant].append({k: info[k] for k in keys} | check(variant, result, info))
+    return out
+
+
 def phase_models() -> dict:
     p0 = make_test_density(MODEL_BLOCKS, MODEL_BLOCK, occ=0.2, seed=MODEL_SEED)
     a, loops = _model_loops(p0, SIGN_STEPS, SIGN_EPS)
@@ -706,15 +1086,22 @@ def phase_models() -> dict:
     k1 = 0
     for name, loop in loops.items():
         runs = {}
-        for driver in ("auto", "torch"):
-            out, info = _drive(driver, loop)
+        # the planner under "auto"; the plain version on the stack format
+        for driver, fmt in (("auto", "auto"), ("torch", "stack")):
+            out, info = _drive(driver, loop, fmt)
             runs[driver] = (out, info)
         (xa, ha, *rest_a), info_a = runs["auto"]
         (xt, ht, *rest_t), info_t = runs["torch"]
         la, lt = info_a["launches"], info_t["launches"]
-        _require(la["smm_stack"] > 0 and la["plain"] == 0 and la["smm_crosspack"] == 0
+        _require(la["plain"] == 0 and la["smm_crosspack"] == 0
                  and la["smm_crosspack_resident"] == 0,
                  f"models {name} under auto: launches {la}")
+        dense = sum(n for d, n in info_a["formats"].items() if d.startswith("dense:"))
+        if name == "sign":
+            _require(la["smm_stack"] > 0, f"models sign under auto: K1 never launched: {la}")
+        else:
+            _require(dense > 0, f"models {name} under auto: no dense multiply: "
+                                f"{info_a['formats']}")
         _require(lt["plain"] > 0 and lt["smm_stack"] == 0 and lt["smm_crosspack"] == 0,
                  f"models {name} under torch: launches {lt}")
         k1 += la["smm_stack"]
@@ -746,6 +1133,25 @@ def phase_models() -> dict:
             m = row["measure"]
             _require(m["auto"] < m["start"] and m["torch"] < m["start"],
                      f"models {name}: the convergence measure did not fall: {m}")
+        def check(variant, result, info, name=name, xt=xt, ht=ht, bound=bound):
+            """Every run in turns against the "torch" run, and K1 on the
+            stack format's filled iterates."""
+            x, h = result[:2]
+            d_h, d_x = _history_diff(h, ht)["rel_bound"], _iterate_diff(x, xt)
+            _require(d_h <= bound and d_x <= bound,
+                     f"models {name} ({variant}, in turns) vs torch: history {d_h:.3e}, "
+                     f"iterate {d_x:.3e} > {bound:.1e}")
+            if variant in ("stack", "native", "numpy"):
+                _require(info["launches"]["smm_stack"] > 0,
+                         f"models {name} ({variant}, in turns): K1 never launched")
+            return {"history_rel_bound": d_h, "iterate_rel": d_x}
+
+        if name == "sign":  # the index engine against the NumPy path
+            row["in_turns"] = _in_turns("native", info_a, "numpy", lambda eng: _with_engine(
+                eng == "native", lambda: _drive("auto", loop)), check)
+        else:  # the planner's formats against the stack format through K1
+            row["in_turns"] = _in_turns("auto", info_a, "stack",
+                                        lambda fmt: _drive("auto", loop, fmt), check)
         rows[name] = row
         del runs, xa, xt
     _emit({"phase": "models", "blocks": MODEL_BLOCKS, "block": MODEL_BLOCK,
@@ -760,15 +1166,17 @@ def phase_models_f32() -> int:
     p0 = make_test_density(MODEL_BLOCKS, MODEL_BLOCK, occ=0.2, seed=MODEL_SEED,
                            dtype=torch.float32)
     _, loops = _model_loops(p0, SIGN_F32_STEPS, None)
-    (xa, ha), info_a = _drive("auto", loops["sign"])
-    (xt, ht), info_t = _drive("torch", loops["sign"])
+    # the stack format in both legs: this phase checks K3 on the loop
+    (xa, ha), info_a = _drive("auto", loops["sign"], "stack")
+    (xt, ht), info_t = _drive("torch", loops["sign"], "stack")
     la = info_a["launches"]
     _require(la["smm_crosspack"] > 0 and la["smm_stack"] == 0 and la["plain"] == 0,
              f"models_f32 under auto: launches {la}")
     tol = kernel_validation_tolerance("float32", MODEL_BLOCK, info_a["longest_run"])
     rel_x = _iterate_diff(xa, xt)
     _require(rel_x <= tol, f"models_f32: auto vs torch iterate {rel_x:.3e} > {tol:.1e}")
-    _emit({"phase": "models_f32", "loop": "sign", "dtype": "float32", "steps": SIGN_F32_STEPS,
+    _emit({"phase": "models_f32", "loop": "sign", "dtype": "float32", "mm_format": "stack",
+           "steps": SIGN_F32_STEPS,
            "history_auto": ha, "history_torch": ht, "iterate_rel": rel_x, "tolerance": tol,
            "longest_run": info_a["longest_run"], "auto": info_a, "torch": info_t})
     return la["smm_crosspack"]
@@ -786,11 +1194,13 @@ def main() -> int:
     phase_perf_gates("auto")
     phase_perf_gates("pallas_cross")
     ns = phase_northstar()
+    phase_native_index(ns["a"], ns["b"], ns["c"])
     k1 = _kernel_row("smm_stack", ns.pop("launches"),
                      _stacks_phase("northstar_stacks", ns.pop("a"), ns.pop("b"), ns.pop("c")))
     k3 = phase_northstar_f32()
     k4 = phase_resident_f32()
-    k1["launches_by_path"] = {"northstar": k1["launches"], "models": phase_models()}
+    k1["launches_by_path"] = {"northstar": k1["launches"], "formats": phase_formats(),
+                              "limits": phase_limits(), "models": phase_models()}
     k3["launches_by_path"] = {"northstar_f32": k3["launches"], "models_f32": phase_models_f32()}
     k4["launches_by_path"] = {"resident_f32": k4["launches"]}
     print(json.dumps({"kernels": [k1, k3, k4]}), flush=True)

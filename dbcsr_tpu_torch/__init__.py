@@ -1,9 +1,11 @@
 """dbcsr_tpu_torch: the PyTorch/CUDA port of dbcsr_tpu.
 
-Block-sparse (BCSR) matrices and their stack-format multiply on an
-NVIDIA GPU, with the stack of small block products computed by a CUDA
-kernel written for Hopper (``csrc/smm_stack.cu``, built with nvcc at
-first use).  The JAX package ``dbcsr_tpu`` is the reference this port is
+Block-sparse (BCSR) matrices and their multiply on an NVIDIA GPU: the
+stack format, whose small block products run in CUDA kernels written
+for Hopper (``csrc/``, built with nvcc at first use) after a C++ index
+engine plans them on the host (``native/``, built with g++ at first
+use), and the dense and composite formats, picked per product by
+``mm/format_planner.py``.  The JAX package ``dbcsr_tpu`` is the reference this port is
 tested against; this package imports nothing of it.
 
 Entry points place their tensors on the default device, "cuda" unless

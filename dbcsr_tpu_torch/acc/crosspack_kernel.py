@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from dbcsr_tpu_torch.acc import build
-from dbcsr_tpu_torch.acc.stack_kernel import _DTYPE_CODE, _full_precision_matmul
+from dbcsr_tpu_torch.acc.stack_kernel import _DTYPE_CODE, _full_precision_matmul, mark_written
 
 SOURCE = "smm_crosspack.cu"
 
@@ -178,6 +178,7 @@ def smm_crosspack(c, a, b, a_idx, b_idx, run_ptr, run_c, pack_runs, pack,
             f"smm_crosspack{'_resident' if resident else ''} launch failed "
             f"(m={m}, n={n}, k={k}, {c.dtype}, pack={tuple(pack)}, "
             f"npacks={npacks}): CUDA error {err}: {msg}")
+    mark_written(c)
     if resident:
         launches_resident += 1
     else:

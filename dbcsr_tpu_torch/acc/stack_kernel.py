@@ -116,8 +116,17 @@ def smm_stack(c, a, b, a_idx, b_idx, run_ptr, run_c, alpha=1.0):
         msg = lib.smm_stack_error_string(err).decode()
         raise RuntimeError(f"smm_stack launch failed (m={m}, n={n}, k={k}, "
                            f"{c.dtype}, nruns={nruns}): CUDA error {err}: {msg}")
+    mark_written(c)
     launches += 1
     return c
+
+
+def mark_written(c: torch.Tensor) -> None:
+    """Bump ``c``'s version counter after a kernel wrote it through its
+    raw pointer, as every in-place torch op does: caches keyed on
+    `tensor._version` (`mm.multiply._dense_canvas_cached`) then see the
+    write."""
+    torch.autograd.graph.increment_version(c)
 
 
 @contextlib.contextmanager

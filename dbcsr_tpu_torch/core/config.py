@@ -1,5 +1,5 @@
 """Global configuration: the subset of `dbcsr_tpu/core/config.py` the
-stack-format multiply reads (ref `dbcsr_cfg`, `src/core/dbcsr_config.F`).
+multiply reads (ref `dbcsr_cfg`, `src/core/dbcsr_config.F`).
 """
 
 from __future__ import annotations
@@ -7,6 +7,7 @@ from __future__ import annotations
 import dataclasses
 
 MM_DRIVERS = ("auto", "pallas", "pallas_cross", "torch")
+MM_FORMATS = ("auto", "stack", "dense", "composite")
 
 
 @dataclasses.dataclass
@@ -18,7 +19,8 @@ class Config:
     # crosspack kernel (the base kernel where the pack has P <= 1);
     # "torch" runs the base kernel's plain PyTorch version on any device
     # (the on-card comparison leg).  A kernel runs its plain version on
-    # a CPU tensor.
+    # a CPU tensor.  "pallas" also keeps every product on the stack
+    # format, as in the JAX package.
     mm_driver: str = "auto"
     # entries the plain version gathers per chunk (bounds its temporary
     # memory; ref MM_STACK_SIZE, dbcsr_config.F:77-79)
@@ -26,8 +28,20 @@ class Config:
     # check the stack kernel against a float64 host oracle on first use
     # per (m, n, k, dtype) (ref libsmm_acc.cpp:216 validate_kernel)
     validate_kernels: bool = True
-    # execution format; only the BCSR stack path is ported
-    mm_format: str = "stack"
+    # execution format of a product (mm/format_planner.py): "auto" (the
+    # planner picks stack, dense or composite), or a forced "stack",
+    # "dense" or "composite" (a forced format the product cannot take
+    # runs the stack format, reason "ineligible")
+    mm_format: str = "auto"
+    # dense mode for near-full products (ref MM_DENSE, dbcsr_mm.F:593-617):
+    # None = decided by the occupancy threshold, True forces, False forbids
+    mm_dense: object = None
+    dense_occ_threshold: float = 0.8
+    # composite panel packing (mm/multiply.py:composite_panels): the most
+    # row panels one batched GEMM carries, and the largest fraction of
+    # the k dimension a panel's k-support may span
+    composite_max_panels: int = 64
+    composite_ksup: float = 0.75
 
     def validate(self) -> None:
         if self.mm_driver not in MM_DRIVERS:
@@ -36,9 +50,13 @@ class Config:
                              f"got {self.mm_driver!r}")
         if self.mm_stack_size <= 0:
             raise ValueError("mm_stack_size must be positive")
-        if self.mm_format != "stack":
-            raise ValueError(f"mm_format must be 'stack' (the only format "
-                             f"ported), got {self.mm_format!r}")
+        if self.mm_format not in MM_FORMATS:
+            raise ValueError(f"mm_format must be 'auto'/'stack'/'dense'/'composite', "
+                             f"got {self.mm_format!r}")
+        if self.composite_max_panels < 2:
+            raise ValueError("composite_max_panels must be >= 2")
+        if not 0.0 < self.composite_ksup <= 1.0:
+            raise ValueError("composite_ksup must be in (0, 1]")
 
 
 _cfg = Config()

@@ -126,6 +126,8 @@ class BlockSparseMatrix:
         self._work: Dict[Tuple[int, int], np.ndarray] = {}
         # batched staging: (keys int64, blocks (N, bm, bn), summation)
         self._work_batches: List[Tuple[np.ndarray, np.ndarray, bool]] = []
+        # the dense format's cached canvas (mm/multiply.py:_dense_canvas_cached)
+        self._dense_canvas = None
         ch = mempool.current_chain()
         if ch is not None:
             ch.adopt(self)
@@ -346,6 +348,7 @@ class BlockSparseMatrix:
         self.ent_slot = slots
         by_shape = {b.shape: b for b in bins}
         self.bins = [by_shape[(int(bm), int(bn))] for (bm, bn) in shapes]
+        self._dense_canvas = None
         self._work.clear()
         self._work_batches.clear()
         self.valid = True
@@ -433,6 +436,7 @@ class BlockSparseMatrix:
         self.row_ptr = np.zeros(self.nblkrows + 1, np.int64)
         self.ent_bin = np.empty(0, np.int32)
         self.ent_slot = np.empty(0, np.int32)
+        self._dense_canvas = None
         self._work.clear()
         self._work_batches.clear()
         self.valid = False

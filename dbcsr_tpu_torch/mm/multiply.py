@@ -1,37 +1,45 @@
 """The multiply engine: C := alpha * op(A) * op(B) + beta * C.
 
 Counterpart of `dbcsr_tpu/mm/multiply.py` (ref `dbcsr_multiply_generic`,
-`src/mm/dbcsr_mm.F:336-1030`), stack format only:
+`src/mm/dbcsr_mm.F:336-1030`).  `mm/format_planner.py` picks one of
+three executions of the same product:
 
-* the symbolic product (every (i, k, j) triple) is computed up front on
-  the host with NumPy (`_candidates_numpy`);
-* C is restructured onto the product's pattern with beta applied on the
-  device (`_rebuild_c`);
-* the triples are grouped by shape-bin triple and sorted by
-  (group, C slot, A entry) -- the JAX package's sort contract
+* stack: the symbolic product (every (i, k, j) triple) is computed up
+  front on the host by the native index engine (`native/`; the NumPy
+  path `_candidates_numpy` when ``DBCSR_TPU_TORCH_NATIVE=0``); C is
+  restructured onto the product's pattern with beta applied on the
+  device (`_rebuild_c`); the triples are grouped by shape-bin triple and
+  sorted by (group, C slot, A entry) -- the JAX package's sort contract
   (`np.lexsort((a_ent, c_slot, group))`) -- and each group runs as one
-  stack through `acc.smm` (`_run_stacks`).  Groups that share a C bin
-  launch one after another on the current stream.
+  stack through `acc.smm` (`_run_stacks`);
+* dense: A and B are scattered onto dense canvases on the device, one
+  GEMM (`torch.matmul`) multiplies them, and the product is carved back
+  into C's full block pattern (`_dense_multiply`, with the general,
+  chunked and uniform paths of the JAX package);
+* composite: row panels with narrow k-support packed into one batched
+  GEMM (`_composite_multiply`).
 
 Accumulation order is fixed by the sort and the kernel's per-run loop,
-so a run reproduces its checksums bit for bit.  Filtering follows the
-reference (`dbcsr_mm.F:360-369`): skip a product when
+so a stack run reproduces its checksums bit for bit.  Filtering follows
+the reference (`dbcsr_mm.F:360-369`): skip a product when
 ||A_ik||^2 * ||B_kj||^2 < (eps / max(1, nblks in A's row i))^2 in single
 precision, then drop C blocks with ||C||^2 < eps^2 unless
 ``retain_sparsity``.  A symmetric operand is desymmetrized; a symmetric
-C keeps only its stored triangle's (i <= j) products.
+C keeps only its stored triangle's (i <= j) products.  Block limits and
+element limits restrict the product, and beta then scales C only inside
+the limited window (ref the windowed dgemm, `dbcsr_test_multiply.F:631-633`).
 
 Plan cache (ref `dbcsr_tpu/mm/multiply.py:290-329,1708-1870`): the
-spans of a product are kept under a key of the operands' pattern
-fingerprints, dtypes, device, C's kind, ``retain_sparsity``, the config
-fields planning reads and the tuned table's path and generation; a
-filtered product adds its eps and a digest of the surviving candidates
-(only while `core.mempool.enabled`).  A repeat of a same-pattern
-product still computes its candidates and rebuilds C, but skips the
-group sort and the uploads of `prepare_stack`.  Plans hold int32 device
-indices only, never a bin, and first-use validation stays keyed by
-kernel shape in `acc/smm.py`.  LRU of 16 entries and 256 MiB of index
-bytes.
+spans of a stack product are kept under a key of the operands' pattern
+fingerprints, dtypes, device, C's kind, ``retain_sparsity``, the limits,
+the config fields planning reads and the tuned table's path and
+generation; a filtered product adds its eps and a digest of the
+surviving candidates (only while `core.mempool.enabled`).  A repeat of
+a same-pattern product still computes its candidates and rebuilds C,
+but skips the group sort and the uploads of `prepare_stack`.  Plans
+hold int32 device indices only, never a bin, and first-use validation
+stays keyed by kernel shape in `acc/smm.py`.  LRU of 16 entries and 256
+MiB of index bytes.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from dbcsr_tpu_torch import native
 from dbcsr_tpu_torch.acc import params
 from dbcsr_tpu_torch.acc.smm import StackPlan, execute_stack, prepare_stack
 from dbcsr_tpu_torch.core import digests, mempool
@@ -55,8 +64,11 @@ from dbcsr_tpu_torch.core.matrix import (
     _bin_entries,
     to_index,
 )
-from dbcsr_tpu_torch.ops.operations import compress
+from dbcsr_tpu_torch.mm import format_planner
+from dbcsr_tpu_torch.ops.operations import compress, crop_matrix, window_mask
 from dbcsr_tpu_torch.ops.transformations import desymmetrize, new_transposed
+
+NO_LIMITS = (None,) * 6
 
 _PLAN_CACHE_MAX = 16
 _PLAN_CACHE_MAX_BYTES = 256 * 1024 * 1024
@@ -64,15 +76,18 @@ _plan_cache: "OrderedDict[tuple, _CachedSpans]" = OrderedDict()
 _plan_cache_bytes = 0
 
 # what every multiply since `reset_totals` did: the count, host seconds
-# per phase, plan-cache outcomes, the longest run of any stack, the
-# device seconds of the stack launches already read from their CUDA
-# event pairs, and the pairs still pending
+# per phase, plan-cache outcomes, format decisions, the engine that ran
+# each expansion and sort, the longest run of any stack, the device
+# seconds per format already read from their CUDA event pairs, and the
+# pairs still pending
 _totals: dict = {}
 
 
 def reset_totals() -> None:
-    _totals.update(multiplies=0, host_phase_s={}, longest_run=0, device_s=0.0, timed=0,
-                   events=[], plan_cache={"hit": 0, "miss": 0, "uncacheable": 0})
+    _totals.update(multiplies=0, host_phase_s={}, longest_run=0, device_s={}, timed={},
+                   events=[], plan_cache={"hit": 0, "miss": 0, "uncacheable": 0},
+                   formats={}, index_engine={"expand": {"native": 0, "numpy": 0},
+                                             "sort": {"native": 0, "numpy": 0}})
 
 
 reset_totals()
@@ -85,21 +100,28 @@ def _fold_events(wait: bool) -> None:
     pending = _totals["events"]
     if wait and pending:
         torch.cuda.synchronize()
-    while pending and (wait or pending[0][1].query()):
-        e0, e1 = pending.pop(0)
-        _totals["device_s"] += e0.elapsed_time(e1) / 1e3
+    while pending and (wait or pending[0][2].query()):
+        fmt, e0, e1 = pending.pop(0)
+        _totals["device_s"][fmt] = _totals["device_s"].get(fmt, 0.0) + e0.elapsed_time(e1) / 1e3
 
 
 def read_totals() -> dict:
     """The totals since `reset_totals`: ``multiplies``, ``host_phase_s``
-    (summed per phase), ``plan_cache`` outcome counts, ``longest_run``,
-    and ``stack_device_s``, the CUDA-event seconds of all stack launches
-    summed over the multiplies (synchronizes; None without events)."""
+    (summed per phase), ``plan_cache`` outcome counts, ``formats`` (the
+    planner's decisions as "format:reason" counts), ``index_engine`` (how
+    many expansions and sorts ran "native" or "numpy"), ``longest_run``,
+    ``device_s`` (CUDA-event seconds of each format's device work, summed
+    over the multiplies) and ``stack_device_s``, its stack share (None
+    without events).  Synchronizes."""
     _fold_events(wait=True)
     return {"multiplies": _totals["multiplies"],
             "host_phase_s": dict(_totals["host_phase_s"]),
-            "plan_cache": dict(_totals["plan_cache"]), "longest_run": _totals["longest_run"],
-            "stack_device_s": _totals["device_s"] if _totals["timed"] else None}
+            "plan_cache": dict(_totals["plan_cache"]), "formats": dict(_totals["formats"]),
+            "index_engine": {k: dict(v) for k, v in _totals["index_engine"].items()},
+            "longest_run": _totals["longest_run"],
+            "device_s": dict(_totals["device_s"]),
+            "stack_device_s": (_totals["device_s"].get("stack", 0.0)
+                               if _totals["timed"].get("stack") else None)}
 
 
 def clear_plan_cache() -> None:
@@ -151,13 +173,16 @@ def multiply(
     element_limits=None,
 ) -> int:
     """Multiply two block-sparse matrices into ``matrix_c``; returns the
-    true flop count.  Block and element limits are not ported yet."""
-    if element_limits is not None or any(
-            x is not None for x in (first_row, last_row, first_col, last_col,
-                                    first_k, last_k)):
-        raise NotImplementedError(
-            "multiply limits (and their windowed beta) are not ported to "
-            "dbcsr_tpu_torch yet")
+    true flop count.
+
+    The first/last row/col/k limits restrict the product to a block
+    submatrix (0-based, inclusive).  ``element_limits`` gives them at
+    element granularity instead, as a 6-tuple (first_row, last_row,
+    first_col, last_col, first_k, last_k) of 0-based inclusive element
+    indices (None = open): limits off the block boundaries are honoured
+    exactly by cropping op(A) and op(B) (ref `dbcsr_crop_matrix` in
+    `make_m2s`, `dbcsr_mm_cannon.F:194-220`).  With row or column limits,
+    beta scales C only inside the window; C outside keeps its values."""
     for m in (matrix_a, matrix_b, matrix_c):
         if not m.valid:
             m.finalize()
@@ -180,20 +205,91 @@ def multiply(
         raise TypeError(f"dtypes of A/B/C differ: {a.dtype}/{b.dtype}/{c.dtype}")
     if not (a.device == b.device == c.device):
         raise ValueError(f"devices of A/B/C differ: {a.device}/{b.device}/{c.device}")
-    return _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps)
+
+    limits = (first_row, last_row, first_col, last_col, first_k, last_k)
+    beta_window = None
+    if element_limits is not None:
+        if any(x is not None for x in limits):
+            raise ValueError("give block-index OR element limits, not both")
+        a, b, limits, beta_window = _apply_element_limits(a, b, c, element_limits)
+    elif any(x is not None for x in limits[:4]):
+        # the windowed beta of block limits: the window's element bounds
+        roff, coff = c.row_blk_offsets, c.col_blk_offsets
+        beta_window = (
+            int(roff[first_row]) if first_row is not None else 0,
+            int(roff[last_row + 1]) - 1 if last_row is not None else c.nfullrows - 1,
+            int(coff[first_col]) if first_col is not None else 0,
+            int(coff[last_col + 1]) - 1 if last_col is not None else c.nfullcols - 1,
+        )
+    return _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
+                          beta_window)
 
 
-def _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps) -> int:
-    """The stack-format engine body.  Leaves the host seconds of each
-    phase in ``c._mm_phase_s`` (the plan-cache lookup counts as "plan"),
-    the plan-cache outcome in ``c._mm_plan_cache``, each span's (m, n,
+def _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
+                   beta_window) -> int:
+    """The engine body.  Leaves the format in ``c._mm_algorithm``, the
+    host seconds of each phase in ``c._mm_phase_s`` ("format" for the
+    planner; "index", "assemble", "plan" -- the plan-cache lookup
+    included -- and "launch" for a stack product; "dense" or "composite"
+    for the calls of those formats), the plan-cache outcome in
+    ``c._mm_plan_cache`` (None off the stack format), each span's (m, n,
     k, entries, kernel, longest run) in ``c._mm_spans`` and, on a CUDA
-    device, a pair of CUDA events around the stack launches in
-    ``c._mm_stack_events``."""
-    c._mm_algorithm = get_config().mm_format  # "stack", the one format ported
-    phase = {}
+    device, a pair of CUDA events around the format's device work in
+    ``c._mm_device_events``."""
     t0 = time.perf_counter()
-    i, j, a_ent, b_ent = _candidates(a, b, filter_eps, sym_c=c.matrix_type != NO_SYMMETRY)
+    plan = format_planner.choose(a, b, c, filter_eps=filter_eps,
+                                 retain_sparsity=retain_sparsity,
+                                 no_limits=all(x is None for x in limits))
+    phase = {"format": time.perf_counter() - t0}
+    c._mm_algorithm = plan.fmt
+    if plan.fmt == "stack":
+        flops = _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
+                                beta_window, phase)
+    else:
+        t1 = time.perf_counter()
+        events = _start_events(c.device)
+        if plan.fmt == "composite":
+            flops = _composite_multiply(a, b, c, alpha, beta, plan.panels)
+        else:
+            flops = _dense_multiply(a, b, c, alpha, beta)
+        c._mm_device_events = _stop_events(events)
+        phase[plan.fmt] = time.perf_counter() - t1
+        c._mm_plan_cache = None
+        c._mm_spans = []
+    c._mm_phase_s = phase
+    _totals["multiplies"] += 1
+    decision = f"{plan.fmt}:{plan.reason}"
+    _totals["formats"][decision] = _totals["formats"].get(decision, 0) + 1
+    for name, sec in phase.items():
+        _totals["host_phase_s"][name] = _totals["host_phase_s"].get(name, 0.0) + sec
+    if c._mm_device_events is not None:
+        _totals["timed"][plan.fmt] = _totals["timed"].get(plan.fmt, 0) + 1
+        _totals["events"].append((plan.fmt, *c._mm_device_events))
+        _fold_events(wait=False)
+    return int(flops)
+
+
+def _start_events(device: torch.device):
+    if device.type != "cuda":
+        return None
+    events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    events[0].record()
+    return events
+
+
+def _stop_events(events):
+    if events is not None:
+        events[1].record()
+    return events
+
+
+def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
+                    beta_window, phase) -> int:
+    """The stack format: index, assemble, plan (or the cached plan) and
+    launch, then the filter's compress."""
+    t0 = time.perf_counter()
+    i, j, a_ent, b_ent = _candidates(a, b, filter_eps, sym_c=c.matrix_type != NO_SYMMETRY,
+                                     limits=limits)
     old_keys = c.keys
     old_fp = c.pattern_fingerprint()
     cand_keys = i * c.nblkcols + j
@@ -205,10 +301,11 @@ def _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps) -> int:
         new_keys = np.union1d(old_keys, np.unique(cand_keys))
     t1 = time.perf_counter()
     phase["index"] = t1 - t0
-    _rebuild_c(c, new_keys, beta)
+    _rebuild_c(c, new_keys, beta, beta_window)
     t2 = time.perf_counter()
     phase["assemble"] = t2 - t1
-    key = _plan_key(a, b, c, old_fp, retain_sparsity, filter_eps, cand_keys, a_ent, b_ent)
+    key = _plan_key(a, b, c, old_fp, retain_sparsity, filter_eps, limits, cand_keys, a_ent,
+                    b_ent)
     spans = _cached_spans(key)
     c._mm_plan_cache = "uncacheable" if key is None else "hit" if spans is not None else "miss"
     if spans is None:
@@ -219,25 +316,17 @@ def _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps) -> int:
     phase["plan"] = t3 - t2
     flops = _run_stacks(c, a, b, spans, alpha)
     phase["launch"] = time.perf_counter() - t3
-    c._mm_phase_s = phase
     c._mm_spans = [(sp.m, sp.n, sp.k, sp.entries, sp.driver, sp.plan.max_run)
                    for sp in spans]
     if filter_eps is not None and not retain_sparsity:
         norms = c.block_norms()
         compress(c, norms ** 2 >= float(filter_eps) ** 2)
-    _totals["multiplies"] += 1
-    for name, sec in phase.items():
-        _totals["host_phase_s"][name] = _totals["host_phase_s"].get(name, 0.0) + sec
     _totals["plan_cache"][c._mm_plan_cache] += 1
     _totals["longest_run"] = max([_totals["longest_run"]] + [sp.plan.max_run for sp in spans])
-    if c._mm_stack_events is not None:
-        _totals["timed"] += 1
-        _totals["events"].append(c._mm_stack_events)
-        _fold_events(wait=False)
-    return int(flops)
+    return flops
 
 
-def _plan_key(a, b, c, c_fp, retain_sparsity, filter_eps, cand_keys, a_ent, b_ent):
+def _plan_key(a, b, c, c_fp, retain_sparsity, filter_eps, limits, cand_keys, a_ent, b_ent):
     """The plan-cache key (ref `dbcsr_tpu/mm/multiply.py:299-329`), or
     None for a filtered product while `mempool.enabled` is off.  ``c_fp``
     is C's fingerprint before `_rebuild_c`.  The port's additions: the
@@ -248,7 +337,7 @@ def _plan_key(a, b, c, c_fp, retain_sparsity, filter_eps, cand_keys, a_ent, b_en
     cfg = get_config()
     key = (a.pattern_fingerprint(), b.pattern_fingerprint(), c_fp,
            name_of(a.dtype), name_of(b.dtype), name_of(c.dtype), str(c.device),
-           c.matrix_type, bool(retain_sparsity),
+           c.matrix_type, bool(retain_sparsity), tuple(limits),
            (cfg.mm_driver, cfg.validate_kernels, cfg.mm_format),
            params.params_path(), params.generation())
     if filter_eps is not None:
@@ -294,11 +383,53 @@ def mask_in_sorted(cand_keys: np.ndarray, sorted_keys: np.ndarray) -> np.ndarray
         sorted_keys[np.minimum(pos, len(sorted_keys) - 1)] == cand_keys)
 
 
-def _candidates(a, b, filter_eps, sym_c: bool = False):
+# ------------------------------------------------------------------ limits
+def _apply_element_limits(a, b, c, element_limits):
+    """Resolve element limits (ref `dbcsr_multiply`'s full-index limit
+    arguments): block-aligned limits reduce to block limits; unaligned
+    ones also crop op(A) and op(B) at element level (ref
+    `dbcsr_crop_matrix` in `make_m2s`, `dbcsr_mm_cannon.F:194-220`), so a
+    boundary block contributes only its in-window elements.  Returns
+    (a, b, block limits, beta window)."""
+    if len(element_limits) != 6:
+        raise ValueError("element_limits must be a 6-tuple")
+    fr, lr, fc, lc, fk, lk = element_limits
+    fr = 0 if fr is None else int(fr)
+    lr = c.nfullrows - 1 if lr is None else int(lr)
+    fc = 0 if fc is None else int(fc)
+    lc = c.nfullcols - 1 if lc is None else int(lc)
+    fk = 0 if fk is None else int(fk)
+    lk = a.nfullcols - 1 if lk is None else int(lk)
+    if not (0 <= fr <= lr < c.nfullrows and 0 <= fc <= lc < c.nfullcols
+            and 0 <= fk <= lk < a.nfullcols):
+        raise ValueError(f"element limits out of range: {element_limits}")
+
+    def axis(lo, hi, off, n_el):
+        b0 = int(np.searchsorted(off, lo, side="right") - 1)
+        b1 = int(np.searchsorted(off, hi, side="right") - 1)
+        aligned = off[b0] == lo and off[b1 + 1] - 1 == hi
+        return b0, b1, aligned, lo == 0 and hi == n_el - 1
+
+    rb0, rb1, r_al, r_full = axis(fr, lr, c.row_blk_offsets, c.nfullrows)
+    cb0, cb1, c_al, c_full = axis(fc, lc, c.col_blk_offsets, c.nfullcols)
+    kb0, kb1, k_al, k_full = axis(fk, lk, a.col_blk_offsets, a.nfullcols)
+    if not (r_al and c_al and k_al):
+        a = crop_matrix(a, row_bounds=(fr, lr), col_bounds=(fk, lk))
+        b = crop_matrix(b, row_bounds=(fk, lk), col_bounds=(fc, lc))
+    block_limits = (None if r_full else rb0, None if r_full else rb1,
+                    None if c_full else cb0, None if c_full else cb1,
+                    None if k_full else kb0, None if k_full else kb1)
+    beta_window = None if (r_full and c_full) else (fr, lr, fc, lc)
+    return a, b, block_limits, beta_window
+
+
+# ------------------------------------------------------------ stack format
+def _candidates(a, b, filter_eps, sym_c: bool = False, limits=NO_LIMITS):
     """Symbolic product with the reference's on-the-fly norm filter:
     squared f32 norms and a per-A-row eps (`dbcsr_mm_cannon.F:1098-1105`);
     ``sym_c`` keeps only C's stored triangle, i <= j (ref the symmetric
-    skip, `dbcsr_mm_csr.F:281`)."""
+    skip, `dbcsr_mm_csr.F:281`); ``limits`` are the block limits.  Runs
+    the native engine unless `native.enabled` is off."""
     na2 = nb2 = row_eps = None
     if filter_eps is not None:
         na2 = a.block_norms().astype(np.float32) ** 2
@@ -307,27 +438,46 @@ def _candidates(a, b, filter_eps, sym_c: bool = False):
         with np.errstate(over="ignore"):  # huge eps -> inf is a valid threshold
             row_eps = (np.float32(filter_eps)
                        / np.maximum(1, row_counts).astype(np.float32)) ** 2
-    return _candidates_numpy(a, b, na2, nb2, row_eps, sym_c)
+    if native.enabled():
+        _totals["index_engine"]["expand"]["native"] += 1
+        return native.symbolic_product(a.row_ptr, a.keys % a.nblkcols, b.row_ptr,
+                                       b.keys % b.nblkcols, na2, nb2, row_eps,
+                                       sym_c=sym_c, limits=limits)
+    _totals["index_engine"]["expand"]["numpy"] += 1
+    return _candidates_numpy(a, b, na2, nb2, row_eps, sym_c, limits)
 
 
-def _candidates_numpy(a, b, na2, nb2, row_eps, sym_c: bool = False):
+def _candidates_numpy(a, b, na2, nb2, row_eps, sym_c: bool = False, limits=NO_LIMITS):
     """All (i, k, j) triples of op(A) * op(B) as parallel arrays
     (i, j, a_ent, b_ent): a_ent indexes A's entries, b_ent B's."""
+    fr, lr, fc, lc, fk, lk = limits
     rows_a = np.repeat(np.arange(a.nblkrows, dtype=np.int64), np.diff(a.row_ptr))
     cols_a = (a.keys % a.nblkcols).astype(np.int64)  # k per A entry
     cols_b = (b.keys % b.nblkcols).astype(np.int64)  # j per B entry
-    counts = (b.row_ptr[cols_a + 1] - b.row_ptr[cols_a]).astype(np.int64)
+    a_sel = np.ones(len(a.keys), bool)
+    for x, lo, hi in ((rows_a, fr, lr), (cols_a, fk, lk)):
+        if lo is not None:
+            a_sel &= x >= lo
+        if hi is not None:
+            a_sel &= x <= hi
+    a_entries = np.nonzero(a_sel)[0]
+    k_of = cols_a[a_entries]
+    counts = (b.row_ptr[k_of + 1] - b.row_ptr[k_of]).astype(np.int64)
     tot = int(counts.sum())
     if tot == 0:
         z = np.empty(0, np.int64)
         return z, z, z, z
-    a_ent = np.repeat(np.arange(len(a.keys), dtype=np.int64), counts)
+    a_ent = np.repeat(a_entries, counts)
     starts = np.cumsum(counts) - counts
     b_ent = (np.arange(tot, dtype=np.int64) - np.repeat(starts, counts)
-             + np.repeat(b.row_ptr[cols_a], counts))
+             + np.repeat(b.row_ptr[k_of], counts))
     i = rows_a[a_ent]
     j = cols_b[b_ent]
     keep = np.ones(tot, bool)
+    if fc is not None:
+        keep &= j >= fc
+    if lc is not None:
+        keep &= j <= lc
     if sym_c:
         keep &= i <= j
     if na2 is not None:
@@ -337,25 +487,60 @@ def _candidates_numpy(a, b, na2, nb2, row_eps, sym_c: bool = False):
     return i, j, a_ent, b_ent
 
 
-def _rebuild_c(c: BlockSparseMatrix, new_keys: np.ndarray, beta) -> None:
-    """Restructure C onto the (possibly grown) pattern, old blocks
-    scaled by beta on the device, new blocks zero."""
+def _rebuild_c(c: BlockSparseMatrix, new_keys: np.ndarray, beta, beta_window=None) -> None:
+    """Restructure C onto the (possibly grown) pattern on the device: new
+    blocks zero, old blocks scaled by beta.  With ``beta_window`` = (r0,
+    r1, c0, c1), inclusive element bounds, beta applies only inside the
+    window: old blocks wholly outside are copied as they are, and blocks
+    straddling it get an element-masked scale."""
     old_keys, old_bins = c.keys, c.bins
     old_ent_bin, old_ent_slot = c.ent_bin, c.ent_slot
     rows = (new_keys // c.nblkcols).astype(np.int64)
     cols = (new_keys % c.nblkcols).astype(np.int64)
     nb, nsl, shapes = _bin_entries(c.row_blk_sizes, c.col_blk_sizes, rows, cols)
     pos_old = np.searchsorted(new_keys, old_keys)  # old keys are in new keys
+    n_old = len(old_keys)
+    dev = c.device
+    windowed = beta_window is not None and beta != 1 and n_old > 0
+    inside = np.ones(n_old, bool)
+    straddle = np.zeros(n_old, bool)
+    if windowed:
+        r0, r1, c0, c1 = beta_window
+        orows = (old_keys // c.nblkcols).astype(np.int64)
+        ocols = (old_keys % c.nblkcols).astype(np.int64)
+        blk_r0 = c.row_blk_offsets[orows]
+        blk_r1 = c.row_blk_offsets[orows + 1] - 1
+        blk_c0 = c.col_blk_offsets[ocols]
+        blk_c1 = c.col_blk_offsets[ocols + 1] - 1
+        overlap = (blk_r1 >= r0) & (blk_r0 <= r1) & (blk_c1 >= c0) & (blk_c0 <= c1)
+        inside = overlap & (blk_r0 >= r0) & (blk_r1 <= r1) & (blk_c0 >= c0) & (blk_c1 <= c1)
+        straddle = overlap & ~inside
     counts = np.bincount(nb, minlength=len(shapes))
     bins = []
     for b_id, (bm, bn) in enumerate(shapes):
-        data = torch.zeros((int(counts[b_id]), bm, bn), dtype=c.dtype,
-                           device=c.device)
-        sel = np.nonzero(nb[pos_old] == b_id)[0] if len(old_keys) else []
-        if beta != 0 and len(sel):
+        data = torch.zeros((int(counts[b_id]), bm, bn), dtype=c.dtype, device=dev)
+        in_bin = nb[pos_old] == b_id if n_old else np.zeros(0, bool)
+
+        def moved(mask):
+            """(old blocks of ``mask``, their destination slots), or None."""
+            sel = np.nonzero(mask)[0]
+            if not len(sel):
+                return None
             src = old_bins[old_ent_bin[sel[0]]].data
-            data[to_index(nsl[pos_old[sel]], c.device)] = \
-                beta * src[to_index(old_ent_slot[sel], c.device)]
+            return sel, src[to_index(old_ent_slot[sel], dev)], to_index(nsl[pos_old[sel]], dev)
+
+        if beta != 0 and (m := moved(in_bin & inside)) is not None:
+            data[m[2]] = beta * m[1]
+        if windowed:
+            if (m := moved(in_bin & ~inside & ~straddle)) is not None:
+                data[m[2]] = m[1]
+            if (m := moved(in_bin & straddle)) is not None:
+                sel = m[0]
+                lo_hi = (np.maximum(r0 - blk_r0[sel], 0), np.minimum(r1 - blk_r0[sel], bm - 1),
+                         np.maximum(c0 - blk_c0[sel], 0), np.minimum(c1 - blk_c0[sel], bn - 1))
+                mask = window_mask(bm, bn, *(to_index(x, dev) for x in lo_hi))
+                one = torch.ones((), dtype=c.dtype, device=dev)
+                data[m[2]] = m[1] * torch.where(mask, beta * one, one)
         bins.append(_Bin((bm, bn), data, int(counts[b_id])))
     c.set_structure_from_device(new_keys, bins, binning=(nb, nsl, shapes))
 
@@ -376,6 +561,19 @@ class Span(NamedTuple):
     driver: str
 
 
+def _sort_order(group, ngroups: int, c_slot, a_ent):
+    """The stack order by (group, C slot, A entry) and the ``ngroups`` + 1
+    group boundaries: the native engine's, or `np.lexsort`'s when
+    `native.enabled` is off (identical, as no two entries tie)."""
+    if native.enabled():
+        _totals["index_engine"]["sort"]["native"] += 1
+        return native.group_sort_stacks(group, ngroups, c_slot, a_ent)
+    _totals["index_engine"]["sort"]["numpy"] += 1
+    order = np.lexsort((a_ent, c_slot, group))
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(group, minlength=ngroups))])
+    return order, bounds
+
+
 def _build_spans(c, a, b, cand_keys, a_ent, b_ent):
     """Group the triples by (C bin, A bin, B bin), sort each group by
     (C slot, A entry), and prepare one stack per group.  Returns the
@@ -388,9 +586,7 @@ def _build_spans(c, a, b, cand_keys, a_ent, b_ent):
     bb = b.ent_bin[b_ent].astype(np.int64)
     c_slot = c.ent_slot[c_ent]
     g = (cb * len(a.bins) + ab) * len(b.bins) + bb
-    order = np.lexsort((a_ent, c_slot, g))
-    bounds = np.concatenate(
-        [[0], np.cumsum(np.bincount(g, minlength=len(c.bins) * len(a.bins) * len(b.bins)))])
+    order, bounds = _sort_order(g, len(c.bins) * len(a.bins) * len(b.bins), c_slot, a_ent)
     c_slot = c_slot[order]
     a_slot = a.ent_slot[a_ent][order]
     b_slot = b.ent_slot[b_ent][order]
@@ -411,17 +607,468 @@ def _build_spans(c, a, b, cand_keys, a_ent, b_ent):
 def _run_stacks(c, a, b, spans, alpha) -> int:
     """Execute the prepared spans in order, in place on C's bins; returns
     the true flops."""
-    events = None
-    if c.device.type == "cuda" and spans:
-        events = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        events[0].record()
+    events = _start_events(c.device) if spans else None
     flops = 0
     for sp in spans:
         execute_stack(c.bins[sp.cbin].data, a.bins[sp.abin].data,
                       b.bins[sp.bbin].data, sp.plan, alpha)
         flops += 2 * sp.m * sp.n * sp.k * sp.entries
-    if events is not None:
-        events[1].record()
-    c._mm_stack_events = events
+    c._mm_device_events = _stop_events(events)
     return flops
+
+
+# ------------------------------------------------------------ dense format
+# canvases beyond this element count make the dense path chunk (the JAX
+# package's cap, kept so both packages decide alike)
+_DENSE_MAX_CANVAS = 2 * 10**8
+
+
+def _uniform(m: BlockSparseMatrix) -> bool:
+    return len(np.unique(m.row_blk_sizes)) == 1 and len(np.unique(m.col_blk_sizes)) == 1
+
+
+def _near_uniform(sizes) -> bool:
+    """All block sizes equal except a possibly smaller last one, as every
+    ceil-division blocking (`perf.driver.expand_block_sizes`) gives."""
+    if len(sizes) == 0:
+        return False
+    s0 = int(sizes[0])
+    return bool(np.all(np.asarray(sizes[:-1]) == s0) and int(sizes[-1]) <= s0)
+
+
+def _true_product_flops(a, b) -> int:
+    """Exact flops of the block-sparse product without enumerating the
+    triples: sum_k 2 * W_m(k) * W_n(k) * k_k, with W_m(k) the row extent
+    of A's stored blocks in block column k and W_n(k) the column extent
+    of B's stored blocks in block row k (the 'true flops' of
+    `dbcsr_mm.F:664-667`)."""
+    if a.nblks == 0 or b.nblks == 0:
+        return 0
+    ar, ac = a.entry_coords()
+    br, bc = b.entry_coords()
+    wa = np.bincount(ac, weights=a.row_blk_sizes[ar].astype(np.float64), minlength=a.nblkcols)
+    wb = np.bincount(br, weights=b.col_blk_sizes[bc].astype(np.float64), minlength=b.nblkrows)
+    kk = a.col_blk_sizes.astype(np.float64)
+    return int(round(2.0 * float(np.dot(wa * kk, wb))))
+
+
+def _dense_chunking(nbr, nbc, nbk, bm, bn, bk):
+    """(block rows per m-strip, k block columns per k-strip, block columns
+    per n-strip) so every strip canvas (A: m-strip x k-strip, B: k-strip
+    x n-strip, C: m-strip x n-strip) fits `_DENSE_MAX_CANVAS` elements,
+    or None when not even single-block strips fit."""
+    cap = _DENSE_MAX_CANVAS
+    ncb = nbc
+    if bm * nbc * bn > cap:
+        ncb = min(nbc, max(1, cap // (bm * bn)))
+    n_el = ncb * bn
+    mrb = min(nbr, max(1, cap // (bm * n_el)))
+    kcb = min(nbk, max(1, cap // (bk * max(mrb * bm, n_el))))
+    if (mrb * bm) * (kcb * bk) > cap or (kcb * bk) * n_el > cap \
+            or (mrb * bm) * n_el > cap:
+        return None
+    return mrb, kcb, ncb
+
+
+def _dense_mode_wanted(a, b, c, filter_eps, retain_sparsity, no_limits) -> bool:
+    """The dense-mode decision (ref `dbcsr_mm.F:593-617`): an unfiltered,
+    unlimited product into a non-symmetric C goes dense when forced
+    (``mm_dense=True``) or when both operands are at least
+    ``dense_occ_threshold`` full.  The JAX package's flop-ratio model
+    for the dtypes a TPU emulates (`dbcsr_tpu/mm/multiply.py:469-509`)
+    has no counterpart: the H100 emulates none."""
+    cfg = get_config()
+    if cfg.mm_dense is False or cfg.mm_driver == "pallas":
+        return False
+    if filter_eps is not None or retain_sparsity or not no_limits:
+        return False
+    if c.matrix_type != NO_SYMMETRY:
+        return False
+    if cfg.mm_dense is True:
+        return True
+    th = cfg.dense_occ_threshold
+    return a.occupation() >= th and b.occupation() >= th
+
+
+def _check_matmul_precision(dtype: torch.dtype, device: torch.device) -> None:
+    """The JAX package multiplies its canvases at ``Precision.HIGHEST``:
+    a float32 canvas GEMM on the card must not run as TF32 (the global
+    switches are the caller's, so this raises rather than changes them)."""
+    if device.type == "cuda" and dtype == torch.float32 and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "dense/composite float32 products need full float32 GEMMs: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')")
+
+
+def _scatter_blocks(canvas: torch.Tensor, blocks: torch.Tensor, ro, co) -> None:
+    """Write (N, bm, bn) ``blocks`` into ``canvas`` at element offsets
+    (ro[s], co[s]): one indexed write (the make_dense data movement)."""
+    dev = canvas.device
+    bm, bn = blocks.shape[1], blocks.shape[2]
+    r = to_index(ro, dev)[:, None, None] + torch.arange(bm, device=dev)[None, :, None]
+    col = to_index(co, dev)[:, None, None] + torch.arange(bn, device=dev)[None, None, :]
+    canvas[r, col] = blocks
+
+
+def _gather_blocks(canvas: torch.Tensor, ro, co, bm: int, bn: int) -> torch.Tensor:
+    """(N, bm, bn) patches of ``canvas`` at element offsets (ro, co)."""
+    dev = canvas.device
+    r = to_index(ro, dev)[:, None, None] + torch.arange(bm, device=dev)[None, :, None]
+    col = to_index(co, dev)[:, None, None] + torch.arange(bn, device=dev)[None, None, :]
+    return canvas[r, col]
+
+
+def _to_dense_device(m: BlockSparseMatrix) -> torch.Tensor:
+    """``m`` as a dense canvas on its device (any blocking), one indexed
+    write per shape bin."""
+    canvas = torch.zeros((m.nfullrows, m.nfullcols), dtype=m.dtype, device=m.device)
+    if m.nblks == 0:
+        return canvas
+    rows, cols = m.entry_coords()
+    roff = m.row_blk_offsets[rows]
+    coff = m.col_blk_offsets[cols]
+    for b_id, b in enumerate(m.bins):
+        sel = np.nonzero(m.ent_bin == b_id)[0]
+        ro = np.empty(b.count, np.int64)
+        co = np.empty(b.count, np.int64)
+        ro[m.ent_slot[sel]] = roff[sel]
+        co[m.ent_slot[sel]] = coff[sel]
+        _scatter_blocks(canvas, b.data, ro, co)
+    return canvas
+
+
+def _dense_canvas_cached(m: BlockSparseMatrix) -> torch.Tensor:
+    """`_to_dense_device` of ``m``, cached on the matrix under the
+    identity of its index arrays and bins and each bin's version counter
+    (every in-place write by a torch op bumps it, and so does every
+    kernel wrapper that writes a bin through its raw pointer,
+    `acc.stack_kernel.mark_written`; the cache holds the tensors, so an
+    identity cannot be reused): a repeat with unchanged operands skips
+    the scatter.  Structure changes and `free` drop it.  Callers never
+    write into the canvas."""
+    held = (m.keys, m.ent_bin, m.ent_slot, *(b.data for b in m.bins))
+    versions = tuple(b.data._version for b in m.bins)
+    cache = m._dense_canvas
+    if (cache is not None and len(cache[0]) == len(held) and cache[1] == versions
+            and all(x is y for x, y in zip(cache[0], held))):
+        return cache[2]
+    canvas = _to_dense_device(m)
+    m._dense_canvas = (held, versions, canvas)
+    return canvas
+
+
+def _carve_padded_reshape(cd: torch.Tensor, nbr: int, nbc: int, bm: int, bn: int):
+    """The full row-major block pattern of a canvas whose blocking is
+    (near-)uniform with leading sizes (bm, bn): pad to (nbr*bm, nbc*bn)
+    and permute, (nbr*nbc, bm, bn), contiguous."""
+    pm, pn = nbr * bm - cd.shape[0], nbc * bn - cd.shape[1]
+    if pm or pn:
+        cd = torch.nn.functional.pad(cd, (0, pn, 0, pm))
+    return cd.reshape(nbr, bm, nbc, bn).permute(0, 2, 1, 3).reshape(nbr * nbc, bm, bn)
+
+
+def _full_pattern(c: BlockSparseMatrix, data: torch.Tensor) -> None:
+    """Install ``data`` (nblkrows*nblkcols, bm, bn), C's full row-major
+    pattern of a uniform blocking, as C's one bin."""
+    n = c.nblkrows * c.nblkcols
+    bm, bn = int(data.shape[1]), int(data.shape[2])
+    c.set_structure_from_device(
+        np.arange(n, dtype=np.int64), [_Bin((bm, bn), data, n)],
+        binning=(np.zeros(n, np.int32), np.arange(n, dtype=np.int32), [(bm, bn)]))
+
+
+def carve_full_pattern(c: BlockSparseMatrix, cd: torch.Tensor) -> None:
+    """Carve a dense canvas into ``c``'s FULL block pattern, bin by bin
+    (`dbcsr_make_undense`, `dbcsr_mm.F:770-810`).  A near-uniform
+    blocking (uniform but for a smaller last block row or column) carves
+    by the padded reshape, then one block-granular take per bin with the
+    edge blocks cropped; any other blocking by element-offset gathers."""
+    nbr, nbc = c.nblkrows, c.nblkcols
+    new_keys = np.arange(nbr * nbc, dtype=np.int64)
+    rows, cols = new_keys // nbc, new_keys % nbc
+    nb, nsl, shapes = _bin_entries(c.row_blk_sizes, c.col_blk_sizes, rows, cols)
+    carved = None
+    if _near_uniform(c.row_blk_sizes) and _near_uniform(c.col_blk_sizes):
+        carved = _carve_padded_reshape(cd, nbr, nbc, int(c.row_blk_sizes[0]),
+                                       int(c.col_blk_sizes[0]))
+    roff, coff = c.row_blk_offsets[rows], c.col_blk_offsets[cols]
+    dev = c.device
+    bins = []
+    for b_id, (bm, bn) in enumerate(shapes):
+        sel = np.nonzero(nb == b_id)[0]
+        if carved is not None and len(shapes) == 1:
+            data = carved
+        elif carved is not None:
+            idx = np.empty(len(sel), np.int64)
+            idx[nsl[sel]] = sel  # the flat key is the carved row
+            data = carved[to_index(idx, dev)][:, :bm, :bn].contiguous()
+        else:
+            ro = np.empty(len(sel), np.int64)
+            co = np.empty(len(sel), np.int64)
+            ro[nsl[sel]] = roff[sel]
+            co[nsl[sel]] = coff[sel]
+            data = _gather_blocks(cd, ro, co, bm, bn)
+        bins.append(_Bin((bm, bn), data, len(sel)))
+    c.set_structure_from_device(new_keys, bins, binning=(nb, nsl, shapes))
+
+
+def _dense_multiply(a, b, c, alpha, beta) -> int:
+    """The dense format (ref `dbcsr_make_dense` + `use_dense_mult`,
+    `dbcsr_mm.F:593-617,770-810`): scatter the operands onto canvases,
+    one GEMM, carve C back as its full block pattern.  Uniform blockings
+    carve by a reshape and merge beta*C block-granularly; others take
+    `_dense_multiply_general`; canvases over `_DENSE_MAX_CANVAS` elements
+    take `_dense_multiply_chunked`.  Returns the true flops."""
+    _check_matmul_precision(c.dtype, c.device)
+    if not (_uniform(a) and _uniform(b) and _uniform(c)):
+        return _dense_multiply_general(a, b, c, alpha, beta)
+    bm, bn = int(c.row_blk_sizes[0]), int(c.col_blk_sizes[0])
+    if max(a.nfullrows * a.nfullcols, a.nfullcols * b.nfullcols,
+           a.nfullrows * b.nfullcols) > _DENSE_MAX_CANVAS:
+        return _dense_multiply_chunked(a, b, c, alpha, beta)
+    cd = torch.matmul(_dense_canvas_cached(a), _dense_canvas_cached(b))
+    out = _carve_padded_reshape(cd, c.nblkrows, c.nblkcols, bm, bn)
+    del cd
+    if alpha != 1:
+        out.mul_(alpha)
+    if beta != 0 and c.nblks:
+        # one bin: its slots are the entries in key order
+        out.index_add_(0, to_index(c.keys, c.device), c.bins[0].data, alpha=beta)
+    _full_pattern(c, out)
+    return _true_product_flops(a, b)
+
+
+def _dense_multiply_general(a, b, c, alpha, beta) -> int:
+    """The dense format for any blocking (the north star's 434x23 + 18):
+    densify on the device, one GEMM, add beta * C's canvas, carve C back
+    into its own full blocking."""
+    cd = torch.matmul(_dense_canvas_cached(a), _dense_canvas_cached(b))
+    if alpha != 1:
+        cd.mul_(alpha)
+    if beta != 0 and c.nblks:
+        cd.add_(_to_dense_device(c), alpha=beta)
+    carve_full_pattern(c, cd)
+    return _true_product_flops(a, b)
+
+
+def _dense_multiply_chunked(a, b, c, alpha, beta) -> int:
+    """The dense format beyond the canvas cap, for uniform blockings:
+    tile over k-strips (and m- and n-strips when the C canvas is too big)
+    so every live canvas stays under `_DENSE_MAX_CANVAS` elements, each
+    C tile summing its k-strip products in order."""
+    bm, bn, bk = int(c.row_blk_sizes[0]), int(c.col_blk_sizes[0]), int(a.col_blk_sizes[0])
+    nbr, nbc, nbk = a.nblkrows, c.nblkcols, a.nblkcols
+    chunking = _dense_chunking(nbr, nbc, nbk, bm, bn, bk)
+    if chunking is None:
+        # not even single-block strips fit the cap: one canvas after all
+        return _dense_multiply_general(a, b, c, alpha, beta)
+    mrb, kcb, ncb = chunking
+    ar, ac = a.entry_coords()
+    br, bc = b.entry_coords()
+    cr, cc = c.entry_coords()
+    dev, dt = c.device, c.dtype
+
+    def strip(m, rows, cols, r0, r1, k0, k1, shape, rb, cb):
+        """A canvas of ``shape`` holding m's blocks in the block window
+        [r0, r1) x [k0, k1)."""
+        canvas = torch.zeros(shape, dtype=dt, device=dev)
+        sel = np.nonzero((rows >= r0) & (rows < r1) & (cols >= k0) & (cols < k1))[0]
+        if len(sel):
+            _scatter_blocks(canvas, m.bins[0].data[to_index(sel, dev)],
+                            (rows[sel] - r0) * rb, (cols[sel] - k0) * cb)
+        return canvas
+
+    parts = []
+    for r0 in range(0, nbr, mrb):
+        r1 = min(nbr, r0 + mrb)
+        tiles = []
+        for c0 in range(0, nbc, ncb):
+            c1 = min(nbc, c0 + ncb)
+            cd = torch.zeros((mrb * bm, ncb * bn), dtype=dt, device=dev)
+            for k0 in range(0, nbk, kcb):
+                k1 = min(nbk, k0 + kcb)
+                cd += torch.matmul(strip(a, ar, ac, r0, r1, k0, k1, (mrb * bm, kcb * bk), bm, bk),
+                                   strip(b, br, bc, k0, k1, c0, c1, (kcb * bk, ncb * bn), bk, bn))
+            out = _carve_padded_reshape(cd, mrb, ncb, bm, bn)
+            if alpha != 1:
+                out.mul_(alpha)
+            sel = np.nonzero((cr >= r0) & (cr < r1) & (cc >= c0) & (cc < c1))[0]
+            if beta != 0 and len(sel):
+                out.index_add_(0, to_index((cr[sel] - r0) * ncb + (cc[sel] - c0), dev),
+                               c.bins[0].data[to_index(sel, dev)], alpha=beta)
+            tiles.append(out.reshape(mrb, ncb, bm, bn)[: r1 - r0, : c1 - c0])
+        parts.append(torch.cat(tiles, dim=1).reshape((r1 - r0) * nbc, bm, bn))
+    _full_pattern(c, torch.cat(parts) if len(parts) > 1 else parts[0])
+    return _true_product_flops(a, b)
+
+
+# -------------------------------------------------------- composite format
+class _PanelPack:
+    """Host plan of the composite format: a greedy contiguous partition
+    of A's block rows into ``G`` row panels, each padded to ``mp`` block
+    rows and carrying its own compacted k-support of at most ``kp``
+    block columns, so one batched GEMM multiplies every panel against its
+    own copy of the B rows it needs."""
+
+    __slots__ = ("G", "mp", "kp", "row_panel", "row_local", "kmap")
+
+    def __init__(self, G, mp, kp, row_panel, row_local, kmap):
+        self.G = int(G)     # panel count (batch dim)
+        self.mp = int(mp)   # block rows per panel (padded)
+        self.kp = int(kp)   # k-support block columns per panel (padded)
+        self.row_panel = row_panel  # (nbr,) block row -> panel id
+        self.row_local = row_local  # (nbr,) block row -> row in panel
+        self.kmap = kmap    # (G, nbk) global k -> panel-local k or -1
+
+
+_panel_cache: OrderedDict = OrderedDict()
+
+
+def composite_panels(a, b, c) -> Optional[_PanelPack]:
+    """The composite plan of this product, or None when the pattern
+    offers no compression over one dense canvas.  Memoized by the
+    operands' pattern fingerprints and the packing limits."""
+    cfg = get_config()
+    if a.nblks == 0 or b.nblks == 0:
+        return None
+    if not (_uniform(a) and _uniform(b) and _uniform(c)):
+        return None
+    nbr, nbk = a.nblkrows, a.nblkcols
+    if nbr < 2 or float(nbr) * nbk > 5e7:
+        return None
+    key = (a.pattern_fingerprint(), b.pattern_fingerprint(),
+           int(cfg.composite_max_panels), float(cfg.composite_ksup))
+    if key in _panel_cache:
+        _panel_cache.move_to_end(key)
+        return _panel_cache[key]
+    pack = _build_panels(a, b, c, cfg)
+    _panel_cache[key] = pack
+    while len(_panel_cache) > 64:
+        _panel_cache.popitem(last=False)
+    return pack
+
+
+def _greedy_panel_partition(support, limit, max_panels):
+    """One greedy pass: walk the block rows in order, closing a panel when
+    its k-support union would exceed ``limit``; then merge the adjacent
+    pair with the smallest combined support until at most ``max_panels``
+    remain.  Returns (bounds, sups)."""
+    nbr = support.shape[0]
+    bounds, sups = [], []
+    cur, start = support[0].copy(), 0
+    for r in range(1, nbr):
+        new = cur | support[r]
+        if int(new.sum()) > limit:
+            bounds.append((start, r))
+            sups.append(cur)
+            start, cur = r, support[r].copy()
+        else:
+            cur = new
+    bounds.append((start, nbr))
+    sups.append(cur)
+    while len(bounds) > max_panels:
+        unions = [int((sups[i] | sups[i + 1]).sum()) for i in range(len(sups) - 1)]
+        i = int(np.argmin(unions))
+        bounds[i] = (bounds[i][0], bounds[i + 1][1])
+        sups[i] = sups[i] | sups[i + 1]
+        del bounds[i + 1], sups[i + 1]
+    return bounds, sups
+
+
+def _build_panels(a, b, c, cfg) -> Optional[_PanelPack]:
+    """Greedy contiguous panels (see `_PanelPack`): try a few k-support
+    close limits under ``composite_ksup * nbk`` and keep the partition
+    with the smallest padded volume.  None when batching cannot beat one
+    canvas (no k compression, padding or B-duplication blowup, or a
+    canvas over the cap)."""
+    nbr, nbk, nbc = a.nblkrows, a.nblkcols, b.nblkcols
+    bm, bn, bk = int(c.row_blk_sizes[0]), int(c.col_blk_sizes[0]), int(a.col_blk_sizes[0])
+    ar, ac = a.entry_coords()
+    if np.bincount(ar, minlength=nbr).max() >= nbk:
+        return None  # a full row of A: every panel's k-support is all of k
+    support = np.zeros((nbr, nbk), bool)
+    support[ar, ac] = True
+    ksup_limit = max(1, int(cfg.composite_ksup * nbk))
+    best = None
+    cap = _DENSE_MAX_CANVAS
+    n_el = nbc * bn
+    for lim in sorted({ksup_limit, max(1, nbk // 2), max(1, nbk // 4), max(1, nbk // 8)}):
+        if lim > ksup_limit:
+            continue
+        bounds, sups = _greedy_panel_partition(support, lim, cfg.composite_max_panels)
+        G = len(bounds)
+        if G < 2:
+            continue
+        mp = max(r1 - r0 for r0, r1 in bounds)
+        kp = max(int(s.sum()) for s in sups)
+        if kp >= nbk:
+            continue  # no k compression: plain dense dominates
+        if float(G) * mp * kp >= 0.9 * float(nbr) * nbk:
+            continue  # padding eats the compression
+        if sum(int(s.sum()) for s in sups) > 3 * nbk:
+            continue  # too many B rows copied into several panels
+        if (G * mp * bm * kp * bk > cap or G * kp * bk * n_el > cap
+                or G * mp * bm * n_el > cap):
+            continue
+        if best is None or G * mp * kp < best[0]:
+            best = (G * mp * kp, bounds, sups, G, mp, kp)
+    if best is None:
+        return None
+    _, bounds, sups, G, mp, kp = best
+    row_panel = np.empty(nbr, np.int64)
+    row_local = np.empty(nbr, np.int64)
+    kmap = np.full((G, nbk), -1, np.int64)
+    for g, (r0, r1) in enumerate(bounds):
+        row_panel[r0:r1] = g
+        row_local[r0:r1] = np.arange(r1 - r0)
+        supp_idx = np.nonzero(sups[g])[0]
+        kmap[g, supp_idx] = np.arange(len(supp_idx))
+    return _PanelPack(G, mp, kp, row_panel, row_local, kmap)
+
+
+def _composite_multiply(a, b, c, alpha, beta, pack: _PanelPack) -> int:
+    """The composite format: scatter the A panels and each panel's copy of
+    its B rows onto canvases, one batched GEMM (`torch.bmm`) over the
+    panels, then carve C's full pattern (panel-major reshape, one
+    block-granular take into key order) and merge beta*C.  Returns the
+    true flops."""
+    _check_matmul_precision(c.dtype, c.device)
+    bm, bn, bk = int(c.row_blk_sizes[0]), int(c.col_blk_sizes[0]), int(a.col_blk_sizes[0])
+    nbr, nbc = a.nblkrows, c.nblkcols
+    G, mp, kp = pack.G, pack.mp, pack.kp
+    dev, dt = c.device, c.dtype
+    ar, ac = a.entry_coords()
+    br, bc = b.entry_coords()
+    g_e = pack.row_panel[ar]
+    ad = torch.zeros((G * mp * bm, kp * bk), dtype=dt, device=dev)
+    # a panel's k-support is the union of its rows' columns: kmap >= 0
+    _scatter_blocks(ad, a.bins[0].data, (g_e * mp + pack.row_local[ar]) * bm,
+                    pack.kmap[g_e, ac] * bk)
+    dup, b_ro, b_co = [], [], []
+    for g in range(G):
+        kl = pack.kmap[g, br]
+        sel = np.nonzero(kl >= 0)[0]
+        dup.append(sel)
+        b_ro.append((g * kp + kl[sel]) * bk)
+        b_co.append(bc[sel] * bn)
+    bd = torch.zeros((G * kp * bk, nbc * bn), dtype=dt, device=dev)
+    _scatter_blocks(bd, b.bins[0].data[to_index(np.concatenate(dup), dev)],
+                    np.concatenate(b_ro), np.concatenate(b_co))
+    pd = torch.bmm(ad.view(G, mp * bm, kp * bk), bd.view(G, kp * bk, nbc * bn))
+    del ad, bd
+    carved = pd.reshape(G, mp, bm, nbc, bn).permute(0, 1, 3, 2, 4).reshape(G * mp * nbc, bm, bn)
+    del pd
+    keys = np.arange(nbr * nbc, dtype=np.int64)
+    rows = keys // nbc
+    out = carved[to_index((pack.row_panel[rows] * mp + pack.row_local[rows]) * nbc
+                          + keys % nbc, dev)]
+    del carved
+    if alpha != 1:
+        out.mul_(alpha)
+    if beta != 0 and c.nblks:
+        out.index_add_(0, to_index(c.keys, dev), c.bins[0].data, alpha=beta)
+    _full_pattern(c, out)
+    return _true_product_flops(a, b)

@@ -3,8 +3,8 @@
 Counterpart of `dbcsr_tpu/ops/operations.py` (ref
 `src/ops/dbcsr_operations.F`): compress and filter, scale, add (pattern
 union, same-pattern fast path) and its out-of-place `added`, copy,
-set/clear, trace, dot, the Frobenius, max-abs and Gershgorin norms, and
-diagonal access.  Index logic runs on the host with NumPy; block data is
+set/clear, trace, dot, the Frobenius, max-abs and Gershgorin norms,
+diagonal access, and the element crop the multiply's limits use.  Index logic runs on the host with NumPy; block data is
 touched in bulk, one batched torch call per shape bin, never block by
 block.  `scale`, `set_value`, `set_diag` and `add_on_diag` update bins
 in place where the JAX package rebinds a fresh array, which is safe
@@ -67,6 +67,57 @@ def compress(matrix: BlockSparseMatrix, keep: np.ndarray) -> BlockSparseMatrix:
             bins.append(_Bin(b.shape, b.data[to_index(slots, b.data.device)], len(slots)))
     matrix.set_structure_from_device(matrix.keys[keep], bins)
     return matrix
+
+
+def window_mask(bm: int, bn: int, r_lo: torch.Tensor, r_hi: torch.Tensor,
+                c_lo: torch.Tensor, c_hi: torch.Tensor) -> torch.Tensor:
+    """(N, bm, bn) bool mask of per-block element windows: True where the
+    block-local row is in [r_lo, r_hi] and the column in [c_lo, c_hi]
+    (inclusive, (N,) index tensors).  Shared by `crop_matrix` and the
+    multiply's windowed beta."""
+    ri = torch.arange(bm, device=r_lo.device)[None, :, None]
+    ci = torch.arange(bn, device=r_lo.device)[None, None, :]
+    return ((ri >= r_lo[:, None, None]) & (ri <= r_hi[:, None, None])
+            & (ci >= c_lo[:, None, None]) & (ci <= c_hi[:, None, None]))
+
+
+def crop_matrix(matrix: BlockSparseMatrix, row_bounds=None, col_bounds=None,
+                name: Optional[str] = None) -> BlockSparseMatrix:
+    """Copy restricted to an element range (ref `dbcsr_crop_matrix`,
+    `dbcsr_operations.F:1666-1847`).  Bounds are inclusive 0-based
+    element index pairs; the blocking is unchanged: blocks outside the
+    range are dropped, and blocks straddling a bound keep zeros outside
+    it (one masked write per shape bin)."""
+    _require_valid(matrix)
+    from dbcsr_tpu_torch.ops.transformations import desymmetrize
+
+    src = desymmetrize(matrix) if matrix.matrix_type != NO_SYMMETRY else matrix
+    out = src.copy(name or f"crop({matrix.name})")
+    r0, r1 = row_bounds if row_bounds is not None else (0, out.nfullrows - 1)
+    c0, c1 = col_bounds if col_bounds is not None else (0, out.nfullcols - 1)
+    roff, coff = out.row_blk_offsets, out.col_blk_offsets
+    rows, cols = out.entry_coords()
+    compress(out, (roff[rows + 1] - 1 >= r0) & (roff[rows] <= r1)
+             & (coff[cols + 1] - 1 >= c0) & (coff[cols] <= c1))
+    rows, cols = out.entry_coords()
+    r_lo = np.maximum(r0 - roff[rows], 0)
+    r_hi = np.minimum(r1 - roff[rows], out.row_blk_sizes[rows] - 1)
+    c_lo = np.maximum(c0 - coff[cols], 0)
+    c_hi = np.minimum(c1 - coff[cols], out.col_blk_sizes[cols] - 1)
+    partial = ((r_lo > 0) | (r_hi < out.row_blk_sizes[rows] - 1)
+               | (c_lo > 0) | (c_hi < out.col_blk_sizes[cols] - 1))
+    sel = np.nonzero(partial)[0]
+    dev = out.device
+    for b_id, b in enumerate(out.bins):
+        ss = sel[out.ent_bin[sel] == b_id]
+        if not len(ss):
+            continue
+        slots = to_index(out.ent_slot[ss], dev)
+        keep = window_mask(b.shape[0], b.shape[1], *(to_index(x[ss], dev)
+                                                      for x in (r_lo, r_hi, c_lo, c_hi)))
+        b.data[slots] = torch.where(keep, b.data[slots], torch.zeros((), dtype=b.data.dtype,
+                                                                     device=dev))
+    return out
 
 
 def filter_matrix(matrix: BlockSparseMatrix, eps: float) -> BlockSparseMatrix:

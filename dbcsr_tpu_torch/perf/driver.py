@@ -122,6 +122,14 @@ def expand_block_sizes(total: int, pattern: List[Tuple[int, int]]) -> np.ndarray
     return np.asarray(sizes, np.int32)
 
 
+def _element_limits(lim_lo: int, lim_hi: int) -> Tuple[Optional[int], Optional[int]]:
+    """1-based `.perf` limits (0 = open) as 0-based inclusive element
+    limits for `multiply(element_limits=...)`, each side open or not on
+    its own (ref `dbcsr_performance_multiply.F:171-178`)."""
+    return (None if lim_lo == 0 else lim_lo - 1,
+            None if lim_hi == 0 else lim_hi - 1)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -133,8 +141,6 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
     a result dict and raises `PerfChecksumError` when the input's check
     fails (ref `perf_multiply`, `dbcsr_performance_multiply.F:452-515`)."""
     dev = resolve_device(device)
-    if any(cfg.limits):
-        raise NotImplementedError("multiply limits are not ported yet")
     if cfg.npcols > 1:
         raise NotImplementedError("process grids (npcols > 1) are not ported yet")
     dtype = dtype_of(cfg.data_type)
@@ -153,40 +159,47 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
     c = make_random_matrix("C", m_sizes, n_sizes, dtype=dtype,
                            occupation=1.0 - cfg.sparsity_c,
                            matrix_type=cfg.symm_c, rng=rng, device=dev)
+    el = (*_element_limits(cfg.limits[0], cfg.limits[1]),
+          *_element_limits(cfg.limits[2], cfg.limits[3]),
+          *_element_limits(cfg.limits[4], cfg.limits[5]))
+    element_limits = el if any(x is not None for x in el) else None
     chksum_a = matrix_checksum(a)
     chksum_b = matrix_checksum(b)
     chksum_c_in = matrix_checksum(c)
 
-    times, phases, stack_s, flops_list, cache = [], [], [], [], []
+    times, phases, device_s, flops_list, cache, algorithms = [], [], [], [], [], []
     counts0 = _launch_counts()
     for _ in range(cfg.nrep):
         c_run = c.copy()
         _sync(dev)
         t0 = time.perf_counter()
         flops = multiply(cfg.transa, cfg.transb, cfg.alpha, a, b, cfg.beta, c_run,
-                         retain_sparsity=cfg.retain_sparsity)
+                         retain_sparsity=cfg.retain_sparsity, element_limits=element_limits)
         _sync(dev)
         times.append(time.perf_counter() - t0)
         flops_list.append(flops)
         phases.append(dict(c_run._mm_phase_s))
         cache.append(c_run._mm_plan_cache)
-        ev = getattr(c_run, "_mm_stack_events", None)
-        stack_s.append(ev[0].elapsed_time(ev[1]) / 1e3 if ev else None)
+        algorithms.append(c_run._mm_algorithm)
+        ev = c_run._mm_device_events
+        device_s.append(ev[0].elapsed_time(ev[1]) / 1e3 if ev else None)
     launches = {name: n - counts0[name] for name, n in _launch_counts().items()}
     gflops = [f / t / 1e9 for f, t in zip(flops_list, times)]
     cs = matrix_checksum(c_run)
     cs_pos = matrix_checksum(c_run, pos=True)
     result = {
         "times_s": times,
-        # host seconds inside multiply per phase (index build, C
-        # assembly, stack planning, launch calls) and device seconds
-        # from the first stack launch to the last (CUDA events; None on
-        # the CPU)
+        # host seconds inside multiply per phase (the format decision;
+        # for the stack format the index build, C assembly, stack
+        # planning and launch calls, else the dense or composite call)
+        # and device seconds of the format's device work (CUDA events
+        # around the stacks or the canvas work; None on the CPU)
         "host_s": [sum(p.values()) for p in phases],
         "host_phase_s": phases,
-        "stack_device_s": stack_s,
+        "device_s": device_s,
         # each repeat's plan-cache outcome: "miss", then "hit" for the
-        # repeats of the same product (mm/multiply.py)
+        # repeats of the same product (mm/multiply.py); None off the
+        # stack format
         "plan_cache": cache,
         # kernel launches over all repeats by kernel (first-use
         # validations included), calls of the plain versions, and the
@@ -203,7 +216,10 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
         "checksum_b": chksum_b,
         "checksum_c_in": chksum_c_in,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
-        "algorithm": c_run._mm_algorithm,
+        # the format the planner chose (mm/format_planner.py): the last
+        # repeat's, as the JAX driver reports it, and each repeat's
+        "algorithm": algorithms[-1],
+        "algorithms": algorithms,
         # the operands and the last repeat's product, for callers that
         # inspect the run further (chip_smoke.py re-plans its stacks)
         "matrices": {"a": a, "b": b, "c_out": c_run},

@@ -57,7 +57,8 @@ print(len(mods), "modules:", " ".join(mods))
 
 # modules the sweep must reach: one per layer of the stack path, the
 # crosspack kernel's planning, wrapper and tuned table included, and the
-# model loops with the operations, digests and residency chain they use
+# model loops with the operations, digests and residency chain they use,
+# the native index engine and the storage-format planner
 _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.crosspack",
              "dbcsr_tpu_torch.acc.crosspack_kernel", "dbcsr_tpu_torch.acc.params",
              "dbcsr_tpu_torch.acc.smm", "dbcsr_tpu_torch.acc.stack_kernel",
@@ -66,7 +67,8 @@ _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.cro
              "dbcsr_tpu_torch.core.mempool", "dbcsr_tpu_torch.models",
              "dbcsr_tpu_torch.models.purify", "dbcsr_tpu_torch.models.sign",
              "dbcsr_tpu_torch.models.invsqrt", "dbcsr_tpu_torch.ops.operations",
-             "dbcsr_tpu_torch.ops.transformations"}
+             "dbcsr_tpu_torch.ops.transformations", "dbcsr_tpu_torch.native",
+             "dbcsr_tpu_torch.mm.format_planner"}
 
 
 def _env(**extra):
@@ -80,7 +82,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          env=_env(), capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, _, names = out.stdout.partition("modules:")
-    assert int(count) >= 33
+    assert int(count) >= 35
     assert _REQUIRED <= set(names.split())
 
 

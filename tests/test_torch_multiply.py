@@ -1,8 +1,8 @@
 """The port's stack-format multiply held against the JAX package's on
 identical operands (numpy-seeded JAX matrices carried across with
 `dbcsr_tpu_torch.interop`), its `run_perf` against the committed `.perf`
-checksums, and its random matrices against the JAX package's, all on
-the CPU.
+checksums and the JAX driver's choice of format, and its random
+matrices against the JAX package's, all on the CPU.
 
 The JAX side is pinned to the stack format, with the Pallas kernel in
 interpret mode for f32 and the XLA stack driver for f64.  Tolerances,
@@ -21,6 +21,7 @@ from dbcsr_tpu.core.config import set_config as jax_set_config
 from dbcsr_tpu.core.kinds import enum_of as jax_enum_of
 from dbcsr_tpu.mm.multiply import multiply as jax_multiply
 from dbcsr_tpu.ops import test_methods as jax_tm
+from dbcsr_tpu.perf import driver as jax_driver
 
 from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
 from dbcsr_tpu_torch.interop import matrix_from_numpy_state, matrix_to_numpy_state
@@ -135,12 +136,19 @@ RUNNABLE = ["test_rect1_dense", "test_rect2_dense", "test_singleblock",
 
 
 @pytest.mark.parametrize("name", RUNNABLE)
-def test_run_perf_reproduces_committed_checksums(name):
+def test_run_perf_reproduces_committed_checksums(name, jax_stack_config):
+    """Each format the planner picks passes the gate, and it is the
+    format the JAX package's planner picks for the same input."""
     cfg = parse_perf_file(os.path.join(INPUTS, f"{name}.perf"))
     cfg.nrep = 1
     res = run_perf(cfg, verbose=False, device="cpu")  # raises on mismatch
     assert res["flops"] > 0
-    assert res["algorithm"] == "stack"
+    jax_set_config(mm_format="auto", incremental="off", mm_driver="xla")
+    want = jax_driver.run_perf(jax_driver.parse_perf_file(os.path.join(INPUTS, f"{name}.perf")),
+                               verbose=False, n_devices=1)
+    assert res["algorithm"] == want["algorithm"]
+    assert res["algorithms"] == [want["algorithm"]] * cfg.nrep
+    assert res["flops"] == want["flops"]
 
 
 def test_run_perf_checksum_mismatch_raises():
@@ -219,19 +227,24 @@ def test_numpy_state_round_trip():
 
 
 def test_unported_features_raise():
-    # symmetric kinds are ported (tests/test_torch_symmetric.py); complex
-    # kinds and limits still raise
+    # symmetric kinds (tests/test_torch_symmetric.py) and limits
+    # (tests/test_torch_limits.py) are ported: a limited multiply and a
+    # limited run_perf run; complex kinds and complex scalars raise
     with pytest.raises(NotImplementedError):
         BlockSparseMatrix("Z", MIXED, MIXED, dtype=7, device="cpu")
     pm = port_tm.make_random_matrix("R", MIXED, MIXED, occupation=0.5,
                                     rng=np.random.default_rng(1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        port_multiply("N", "N", 1.0, pm, pm, 0.0, pm.copy(), first_row=1)
+    c = pm.copy()
+    port_multiply("N", "N", 1.0, pm, pm, 0.0, c, first_row=1)
+    d = port_tm.to_dense(pm)
+    want = d @ d
+    want[: MIXED[0]] = d[: MIXED[0]]  # block row 0 is outside the window: C as it was
+    np.testing.assert_allclose(port_tm.to_dense(c), want, rtol=1e-12, atol=1e-12)
     with pytest.raises(TypeError):
         port_multiply("N", "N", 1.0 + 1.0j, pm, pm, 0.0, pm.copy())
-    with pytest.raises(NotImplementedError):
-        run_perf(PerfConfig(m=20, n=20, k=20, limits=(1, 5, 0, 0, 0, 0)),
-                 verbose=False, device="cpu")
+    res = run_perf(PerfConfig(m=20, n=20, k=20, limits=(1, 5, 0, 0, 0, 0)),
+                   verbose=False, device="cpu")
+    assert res["algorithm"] == "stack" and res["flops"] > 0
 
 
 def test_bf16_matrix_rounds_like_jax():
