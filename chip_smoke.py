@@ -84,6 +84,25 @@ non-zero:
 13. models_f32: the sign iteration as f32 on the stack format through
    K3, held against ``"torch"`` elementwise at the kernel validation
    tolerance.
+14. tensor_legs: the RI step of the water system below at cut depths
+   (`TENSOR_LEGS`): at 32 molecules a contraction into the mapping
+   (mu | nu,Q), then `tensor_copy` and `remap` back to (mu,nu | Q), bit
+   for bit the direct contraction; at 48 a batched contraction over 4
+   mu batches with ``filter_eps`` 1e-10 against one contraction
+   (<= 1e-12); at 48 as f32 through the kernel "auto" picks (its line
+   names it and its path) against ``"torch"`` at the kernel validation
+   tolerance; at 12 `contract_test` against a dense einsum on the host;
+15. tensor: (mu nu|P) M(P,Q) -> (mu nu|Q) at full width through
+   `tensor.contract` on `test_H2O`'s blocking: 96 molecules of 23
+   orbitals, T where the density's pair pattern has (mu,nu) and (mu,P)
+   (43,526 blocks of 23^3, 4.24 GB, seeded normals drawn on the card), M
+   the density, C 190,965 blocks (18.6 GB); the TAS split (64 groups of
+   block limits) runs K1's tiled path on (529,23,23) products.  It
+   prints nsplit, the wall time, the host phases, the stacks' device
+   time beside their bound, the plan-cache outcomes, the allocator's
+   peak and retries, and holds every block of C against the plain
+   driver (run in two mu batches with ``bounds_2``) at <= 1e-10, the
+   checksums at <= 1e-12.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints
@@ -92,6 +111,7 @@ no result.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import os
@@ -107,7 +127,7 @@ from dbcsr_tpu_torch import native
 from dbcsr_tpu_torch.acc import build, crosspack_kernel, params, stack_kernel
 from dbcsr_tpu_torch.acc.crosspack import choose_pack, resident_limit_bytes
 from dbcsr_tpu_torch.acc.smm import prepare_stack
-from dbcsr_tpu_torch.core import mempool
+from dbcsr_tpu_torch.core import mempool, timings
 from dbcsr_tpu_torch.core.config import set_config
 from dbcsr_tpu_torch.core.kinds import name_of
 from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
@@ -147,6 +167,15 @@ from dbcsr_tpu_torch.obs.costmodel import (
     stack_min_bytes,
 )
 from dbcsr_tpu_torch.perf.driver import expand_block_sizes, parse_perf_file, run_perf
+from dbcsr_tpu_torch.tensor import (
+    batched_contraction,
+    contract,
+    contract_test,
+    copy_matrix_to_tensor,
+    create_tensor,
+    remap,
+    tensor_copy,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 INPUTS = os.path.join(ROOT, "tests", "inputs")
@@ -1182,6 +1211,272 @@ def phase_models_f32() -> int:
     return la["smm_crosspack"]
 
 
+# the tensor phases: the RI step of the water system, (mu nu|P) M(P,Q) ->
+# (mu nu|Q), on test_H2O's blocking (MODEL_BLOCKS molecules of 23
+# orbitals) and the density's pair pattern; T's values from TENSOR_SEED
+TENSOR_SEED = 20261017
+# the legs' depths (molecules), each cut from MODEL_BLOCKS; the batched
+# leg runs TENSOR_BATCHES mu batches
+TENSOR_LEGS = {"remap": 32, "batched": 48, "f32": 48, "contract_test": 12}
+TENSOR_BATCHES = 4
+RI_KW = dict(contract_a=(2,), notcontract_a=(0, 1), contract_b=(0,), notcontract_b=(1,),
+             map_1=(0, 1), map_2=(2,))
+
+
+def _ri_pattern(d) -> dict:
+    """T's block indices (mu, nu, P) where the pair pattern ``d`` has (mu,
+    nu) and (mu, P), and the counts the phase reckons from the pattern:
+    T's and C's blocks and the block products."""
+    rows, cols = d.entry_coords()
+    per_row = [cols[rows == mu] for mu in range(d.nblkrows)]
+    idx = np.concatenate([np.stack([np.full(len(s) ** 2, mu), np.repeat(s, len(s)),
+                                    np.tile(s, len(s))], axis=1)
+                          for mu, s in enumerate(per_row) if len(s)]).astype(np.int64)
+    row_len = np.array([len(s) for s in per_row], np.int64)
+    c_blocks = sum(len(s) * len(np.unique(np.concatenate([per_row[p] for p in s])))
+                   for s in per_row if len(s))
+    return {"idx": idx, "t_blocks": len(idx), "c_blocks": int(c_blocks),
+            "products": int(row_len[idx[:, 2]].sum()), "m_blocks": int(d.nblks)}
+
+
+def _ri_operands(nmol: int, dtype=torch.float64):
+    """T(mu,nu,P), mapped rows (mu,nu) cols (P), with seeded normal blocks
+    drawn on the card; M(P,Q), the density as a rank-2 tensor; the
+    pattern's counts; and a maker of empty C tensors (mu,nu|Q)."""
+    d = make_test_density(nmol, MODEL_BLOCK, occ=0.2, seed=MODEL_SEED, dtype=dtype)
+    pat = _ri_pattern(d)
+    sizes = [[MODEL_BLOCK] * nmol] * 3
+    t = create_tensor("T", sizes, (0, 1), (2,), dtype=dtype)
+    idx = pat["idx"]
+    gen = torch.Generator(device=resolve_device()).manual_seed(TENSOR_SEED + nmol)
+    blocks = torch.randn((len(idx), MODEL_BLOCK ** 2, MODEL_BLOCK), generator=gen,
+                         dtype=dtype, device=resolve_device())
+    t.matrix.stage_device_blocks(idx[:, 0] * nmol + idx[:, 1], idx[:, 2], blocks)
+    del blocks
+    t.finalize()
+    m = copy_matrix_to_tensor(d, create_tensor("M", sizes[:2], (0,), (1,), dtype=dtype))
+    del d
+
+    def empty_c(name="C", row_dims=(0, 1), col_dims=(2,)):
+        return create_tensor(name, sizes, row_dims, col_dims, dtype=dtype).finalize()
+    return t, m, pat, empty_c
+
+
+def _blocks_rel(got, want) -> dict:
+    """C's patterns equal, then max |got - want| over max |want|, both on
+    the card a bounded chunk of blocks at a time, and both checksums."""
+    _require(np.array_equal(got.matrix.keys, want.matrix.keys),
+             "tensor: C's block patterns differ")
+    diff = scale_ = 0.0
+    for bg, bw in zip(got.matrix.bins, want.matrix.bins):
+        for xg, xw in zip(bg.data.split(1 << 12), bw.data.split(1 << 12)):
+            diff = max(diff, float((xg.double() - xw.double()).abs().max()))
+            scale_ = max(scale_, float(xw.double().abs().max()))
+    cs = {k: (got.checksum(pos=p), want.checksum(pos=p))
+          for k, p in (("checksum", False), ("checksum_pos", True))}
+    return {"rel_elementwise": diff / max(scale_, 1e-300),
+            "bit_identical": diff == 0.0,
+            **{f"rel_{k}": abs(g - w) / abs(w) for k, (g, w) in cs.items()},
+            **{k: g for k, (g, _) in cs.items()}}
+
+
+def _contract_run(driver: str, t, m, c, **kw) -> dict:
+    """``contract`` into ``c`` under ``mm_driver=driver``, with the kernel
+    counts, the engine's totals, the timer and the allocator's peak set to
+    0 just before it and read just after (``alloc_retries``: the times
+    the caching allocator had to free its cache and retry a cudaMalloc)."""
+    set_config(mm_driver=driver)
+    try:
+        _reset_counts()
+        mm.reset_totals()
+        timings.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        retries0 = mempool.pool_stats(resolve_device())["num_alloc_retries"]
+        t0 = time.perf_counter()
+        flops = contract(1.0, t, m, kw.pop("beta", 0.0), c, **RI_KW, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        totals = mm.read_totals()
+        retries = mempool.pool_stats(resolve_device())["num_alloc_retries"] - retries0
+    finally:
+        set_config(mm_driver="auto")
+    return {"driver": driver, "wall_s": wall, "flops": flops,
+            "nsplit": getattr(c.matrix, "_tas_nsplit", None), "alloc_retries": retries,
+            "launches": counts, **totals,
+            "timed_s": {k: {"calls": st.calls, "total": st.total, "self": st.self_time}
+                        for k, st in timings._stats.items()},
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "c_blocks": int(c.nblks)}
+
+
+def phase_tensor() -> dict:
+    """The RI contraction at full width through `tensor.contract` (TAS
+    split, K1's tiled path), held block by block against the plain
+    driver in two mu batches; returns K1's row for this path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t, m, pat, empty_c = _ri_operands(MODEL_BLOCKS)
+    _require(t.nblks == pat["t_blocks"] and m.nblks == pat["m_blocks"],
+             f"tensor: T/M hold {t.nblks}/{m.nblks} blocks, the pattern {pat['t_blocks']}/"
+             f"{pat['m_blocks']}")
+    mnk = (MODEL_BLOCK ** 2, MODEL_BLOCK, MODEL_BLOCK)
+    path = stack_kernel.kernel_path(*mnk)
+    _require(path == "tiled", f"tensor: (529,23,23) takes K1's {path} path")
+    c = empty_c()
+    run = _contract_run("auto", t, m, c)
+    ngroups = run["multiplies"]
+    la = run["launches"]
+    _require(la["smm_stack"] > 0 and la["plain"] == 0 and la["smm_crosspack"] == 0,
+             f"tensor: launches {la}")
+    _require(c.nblks == pat["c_blocks"], f"tensor: C holds {c.nblks} blocks, the pattern "
+                                         f"{pat['c_blocks']}")
+    _require(run["flops"] == 2 * int(np.prod(mnk)) * pat["products"],
+             f"tensor: {run['flops']} flops, the pattern {2 * int(np.prod(mnk)) * pat['products']}")
+    _require(all(f.startswith("stack:") for f in run["formats"]),
+             f"tensor: formats {run['formats']}")
+    _require(run["index_engine"]["expand"]["native"] == ngroups,
+             f"tensor: the native expansion ran {run['index_engine']}")
+    _require(run["plan_cache"]["hit"] == 0, f"tensor: the groups' plans collided: "
+                                            f"{run['plan_cache']}")
+    bound, by = stack_bound_s("float64", *mnk, pat["products"], pat["t_blocks"],
+                              pat["m_blocks"], pat["c_blocks"])
+    out = {"phase": "tensor", "molecules": MODEL_BLOCKS, "block": MODEL_BLOCK,
+           "dtype": "float64", "mnk": list(mnk), "path": path,
+           "t_blocks": pat["t_blocks"], "m_blocks": pat["m_blocks"],
+           "c_blocks": pat["c_blocks"], "products": pat["products"],
+           "t_bytes": pat["t_blocks"] * mnk[0] * mnk[2] * 8,
+           "c_bytes": pat["c_blocks"] * mnk[0] * mnk[1] * 8,
+           "groups": ngroups, "bound_ms": bound * 1e3, "bound_by": by,
+           "stack_ms": run["stack_device_s"] * 1e3, "auto": run}
+    # the plain driver, block by block, in two mu batches (a second C
+    # beside the first would need 18.6 GB more)
+    half = MODEL_BLOCKS // 2
+    refs, diffs = [], {"diff": 0.0, "scale": 0.0}
+    for lo, hi in ((0, half - 1), (half, MODEL_BLOCKS - 1)):
+        ref = empty_c("C_ref")
+        refs.append(_contract_run("torch", t, m, ref, bounds_2=[(lo, hi), None]))
+        lt = refs[-1]["launches"]
+        _require(lt["plain"] > 0 and lt["smm_stack"] == 0, f"tensor: torch launched {lt}")
+        rk = ref.matrix.keys
+        pos = np.searchsorted(c.matrix.keys, rk)
+        _require(bool(np.all(c.matrix.keys[np.minimum(pos, c.nblks - 1)] == rk)),
+                 "tensor: the plain batch holds blocks C lacks")
+        mu = rk // c.matrix.nblkcols // MODEL_BLOCKS
+        _require(bool(np.all((mu >= lo) & (mu <= hi))), "tensor: a batch left its mu range")
+        _require(len(c.matrix.bins) == len(ref.matrix.bins) == 1,
+                 "tensor: C has more than one block shape")
+        cb, rb = c.matrix.bins[0].data, ref.matrix.bins[0].data
+        slots = c.matrix.ent_slot[pos]
+        for s0 in range(0, len(rk), 1 << 12):
+            x = cb[torch.from_numpy(slots[s0: s0 + (1 << 12)].astype(np.int64)).to(cb.device)]
+            y = rb[torch.from_numpy(ref.matrix.ent_slot[s0: s0 + (1 << 12)].astype(
+                np.int64)).to(cb.device)]
+            diffs["diff"] = max(diffs["diff"], float((x - y).abs().max()))
+            diffs["scale"] = max(diffs["scale"], float(y.abs().max()))
+        refs[-1]["checksums"] = (ref.checksum(), ref.checksum(pos=True))
+        refs[-1]["c_blocks_batch"] = int(ref.nblks)
+        del ref, cb, rb
+    _require(sum(r["c_blocks_batch"] for r in refs) == c.nblks,
+             "tensor: the plain batches do not cover C")
+    rel = diffs["diff"] / diffs["scale"]
+    cs, cs_pos = c.checksum(), c.checksum(pos=True)
+    rel_cs = abs(cs - sum(r["checksums"][0] for r in refs)) / abs(cs)
+    rel_pos = abs(cs_pos - sum(r["checksums"][1] for r in refs)) / abs(cs_pos)
+    _require(rel <= 1e-10 and rel_cs <= 1e-12 and rel_pos <= 1e-12,
+             f"tensor: K1 vs the plain driver rel {rel:.3e} (<= 1e-10), checksums "
+             f"{rel_cs:.3e}/{rel_pos:.3e} (<= 1e-12)")
+    plain_ms = sum(r["stack_device_s"] for r in refs) * 1e3
+    out.update(rel_to_plain=rel, max_abs_err=diffs["diff"], rel_checksum=rel_cs,
+               rel_checksum_pos=rel_pos, checksum=cs, checksum_pos=cs_pos,
+               plain_stack_ms=plain_ms, torch_batches=refs)
+    _emit(out)
+    del c, t, m
+    return {"launches": la["smm_stack"], "path": path, "ms": out["stack_ms"],
+            "plain_ms": plain_ms, "bound_ms": out["bound_ms"], "bound_by": by,
+            "max_abs_err": diffs["diff"], "mnk": list(mnk)}
+
+
+def phase_tensor_legs() -> int:
+    """The smaller legs, each at a depth cut to `TENSOR_LEGS`: remap and
+    `tensor_copy` (32 molecules), a batched contraction (48), f32 (48)
+    and `contract_test` against a dense einsum on the host (12).
+    Returns K1's launches."""
+    out = {"phase": "tensor_legs"}
+    k1 = 0
+    # remap and tensor_copy: (mu|nu,Q), then back to (mu,nu|Q), bit for bit
+    n = TENSOR_LEGS["remap"]
+    t, m, _, empty_c = _ri_operands(n)
+    c1, c2 = empty_c("C1"), empty_c("C2", (0,), (1, 2))
+    r1 = _contract_run("auto", t, m, c1)
+    r2 = _contract_run("auto", t, m, c2)
+    c3 = empty_c("C3")
+    tensor_copy(c3, c2)
+    back = remap(c2, (0, 1), (2,), name="C2_back")
+    for name, x in (("tensor_copy", c3), ("remap", back)):
+        _require(np.array_equal(x.matrix.keys, c1.matrix.keys) and all(
+            bx.data.equal(b1.data) for bx, b1 in zip(x.matrix.bins, c1.matrix.bins)),
+            f"tensor_legs: {name} back to (mu,nu|Q) is not bit for bit the direct contraction")
+    k1 += r1["launches"]["smm_stack"] + r2["launches"]["smm_stack"]
+    out["remap"] = {"molecules": n, "c_blocks": int(c1.nblks), "bit_identical": True,
+                    "direct": r1, "via_remap": r2}
+    del t, m, c1, c2, c3, back
+    # batched: four mu batches with filter_eps, against one contraction
+    n = TENSOR_LEGS["batched"]
+    per = -(-n // TENSOR_BATCHES)
+    t, m, _, empty_c = _ri_operands(n)
+    cu, cb = empty_c("Cu"), empty_c("Cb")
+    ru = _contract_run("auto", t, m, cu, filter_eps=1e-10)
+    batches = []
+    with batched_contraction(cb):
+        for lo in range(0, n, per):
+            batches.append(_contract_run("auto", t, m, cb, beta=1.0, filter_eps=1e-10,
+                                         bounds_2=[(lo, min(lo + per, n) - 1), None]))
+    cmp = _blocks_rel(cb, cu)
+    _require(cmp["rel_elementwise"] <= 1e-12, f"tensor_legs: batched vs one contraction "
+                                              f"{cmp['rel_elementwise']:.3e} > 1e-12")
+    k1 += ru["launches"]["smm_stack"] + sum(b["launches"]["smm_stack"] for b in batches)
+    out["batched"] = {"molecules": n, "batches": len(batches), "filter_eps": 1e-10, **cmp,
+                      "unbatched": ru, "batched_wall_s": [b["wall_s"] for b in batches],
+                      "batched_nsplit": [b["nsplit"] for b in batches]}
+    del cu, cb
+    # f32 through the kernel "auto" picks, against the plain driver
+    n = TENSOR_LEGS["f32"]
+    t32, m32, _, empty_c32 = _ri_operands(n, torch.float32)
+    ca, ct = empty_c32("Ca"), empty_c32("Ct")
+    ra = _contract_run("auto", t32, m32, ca)
+    rt = _contract_run("torch", t32, m32, ct)
+    kernel = [k for k in ("smm_stack", "smm_crosspack", "smm_crosspack_resident")
+              if ra["launches"][k]]
+    _require(len(kernel) == 1 and ra["launches"]["plain"] == 0,
+             f"tensor_legs f32: launches {ra['launches']}")
+    mnk = (MODEL_BLOCK ** 2, MODEL_BLOCK, MODEL_BLOCK)
+    path = (stack_kernel.kernel_path(*mnk) if kernel[0] == "smm_stack"
+            else crosspack_kernel.kernel_path(torch.float32, choose_pack(*mnk), *mnk))
+    tol = kernel_validation_tolerance("float32", MODEL_BLOCK, ra["longest_run"])
+    cmp = _blocks_rel(ca, ct)
+    _require(cmp["rel_elementwise"] <= tol and cmp["rel_checksum"] <= 1e-6,
+             f"tensor_legs f32: {cmp['rel_elementwise']:.3e} > {tol:.1e} or checksum "
+             f"{cmp['rel_checksum']:.3e} > 1e-6")
+    if kernel[0] == "smm_stack":
+        k1 += ra["launches"]["smm_stack"]
+    out["f32"] = {"molecules": n, "kernel": kernel[0], "path": path, "tolerance": tol,
+                  **cmp, "auto": ra, "torch": rt}
+    del t32, m32, ca, ct
+    # contract_test: the dense einsum oracle on the host
+    n = TENSOR_LEGS["contract_test"]
+    t, m, _, empty_c = _ri_operands(n)
+    msgs = []
+    ok = contract_test(1.0, t, m, 0.0, empty_c(), **RI_KW, io=msgs.append)
+    _require(ok, f"tensor_legs: contract_test failed: {msgs}")
+    out["contract_test"] = {"molecules": n, "ok": ok, "message": msgs[0].strip()}
+    out["k1_launches"] = k1
+    _emit(out)
+    return k1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; "
@@ -1202,6 +1497,12 @@ def main() -> int:
     k1["launches_by_path"] = {"northstar": k1["launches"], "formats": phase_formats(),
                               "limits": phase_limits(), "models": phase_models()}
     k3["launches_by_path"] = {"northstar_f32": k3["launches"], "models_f32": phase_models_f32()}
+    # the legs first: they validate K1 at (529, 23, 23) for f64 and f32,
+    # so the full-width run's stack times hold no first-use check
+    k1["launches_by_path"]["tensor_legs"] = phase_tensor_legs()
+    tensor = phase_tensor()
+    k1["launches_by_path"]["tensor"] = tensor.pop("launches")
+    k1["by_path"] = {"tensor": {**tensor, "library_ms": None}}
     k4["launches_by_path"] = {"resident_f32": k4["launches"]}
     print(json.dumps({"kernels": [k1, k3, k4]}), flush=True)
     print(json.dumps({"ok": True, "device": {

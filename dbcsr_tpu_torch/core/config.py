@@ -1,5 +1,6 @@
 """Global configuration: the subset of `dbcsr_tpu/core/config.py` the
-multiply reads (ref `dbcsr_cfg`, `src/core/dbcsr_config.F`).
+multiply and the TAS split read (ref `dbcsr_cfg`,
+`src/core/dbcsr_config.F`).
 """
 
 from __future__ import annotations
@@ -42,6 +43,9 @@ class Config:
     # the k dimension a panel's k-support may span
     composite_max_panels: int = 64
     composite_ksup: float = 0.75
+    # multiplier on the TAS split-factor estimate (tas/mm.py; ref
+    # TAS_SPLIT_FACTOR, dbcsr_config.F:170)
+    tas_split_factor: float = 1.0
 
     def validate(self) -> None:
         if self.mm_driver not in MM_DRIVERS:
@@ -57,6 +61,8 @@ class Config:
             raise ValueError("composite_max_panels must be >= 2")
         if not 0.0 < self.composite_ksup <= 1.0:
             raise ValueError("composite_ksup must be in (0, 1]")
+        if self.tas_split_factor <= 0:
+            raise ValueError("tas_split_factor must be positive")
 
 
 _cfg = Config()

@@ -32,7 +32,7 @@ import torch
 
 from dbcsr_tpu_torch.core import digests, mempool
 from dbcsr_tpu_torch.core.dist import Distribution
-from dbcsr_tpu_torch.core.kinds import dtype_of, host_dtype
+from dbcsr_tpu_torch.core.kinds import dtype_of, host_dtype, name_of
 from dbcsr_tpu_torch.device import DeviceLike, resolve_device
 
 # matrix_type flags, ref dbcsr_type_no_symmetry/_symmetric/_antisymmetric/
@@ -82,6 +82,26 @@ def to_device(arr: np.ndarray, dtype: torch.dtype,
     if not arr.flags.writeable:  # torch.from_numpy wants a writable buffer
         arr = arr.copy()
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
+# bytes of blocks one gather moves at a time: a bin of a large matrix
+# (18.6 GB for the 3-center tensor of the water system) is never copied
+# whole into a temporary
+_MOVE_CHUNK_BYTES = 1 << 28
+
+
+def move_blocks(dst: torch.Tensor, dst_slots: np.ndarray, src: torch.Tensor,
+                src_slots: np.ndarray, factor=None) -> None:
+    """``dst[dst_slots] = src[src_slots]`` (times ``factor`` when given),
+    one bounded chunk of blocks at a time, so the gather's temporary
+    stays small whatever the bin's size."""
+    n = len(dst_slots)
+    per = max(1, _MOVE_CHUNK_BYTES // max(1, src[0].numel() * src.element_size()))
+    for s0 in range(0, n, per):
+        blocks = src[to_index(src_slots[s0: s0 + per], src.device)]
+        if factor is not None:
+            blocks.mul_(factor)
+        dst[to_index(dst_slots[s0: s0 + per], dst.device)] = blocks
 
 
 class BlockSparseMatrix:
@@ -172,6 +192,33 @@ class BlockSparseMatrix:
         full = self.nfullrows * self.nfullcols
         return self.nnz / full if full else 0.0
 
+    def setname(self, name: str) -> None:
+        """Ref `dbcsr_setname`."""
+        self.name = str(name)
+
+    def get_info(self) -> dict:
+        """Structure summary (ref `dbcsr_get_info`, `dbcsr_api.F`); a
+        bin's capacity is its count, so ``data_size`` is the stored
+        element count."""
+        return {
+            "name": self.name,
+            "matrix_type": self.matrix_type,
+            "data_type": name_of(self.dtype),
+            "nblkrows_total": self.nblkrows,
+            "nblkcols_total": self.nblkcols,
+            "nfullrows_total": self.nfullrows,
+            "nfullcols_total": self.nfullcols,
+            "nblks": self.nblks,
+            "nze": self.nnz,
+            "data_size": int(sum(b.count * b.shape[0] * b.shape[1] for b in self.bins)),
+            "occupation": self.occupation(),
+            "row_blk_sizes": self.row_blk_sizes.copy(),
+            "col_blk_sizes": self.col_blk_sizes.copy(),
+            "row_blk_offsets": self.row_blk_offsets[:-1].copy(),
+            "col_blk_offsets": self.col_blk_offsets[:-1].copy(),
+            "distribution": self.dist,
+        }
+
     def block_shape(self, row: int, col: int) -> Tuple[int, int]:
         return int(self.row_blk_sizes[row]), int(self.col_blk_sizes[col])
 
@@ -224,6 +271,48 @@ class BlockSparseMatrix:
         are summed when ``summation``, last-write-wins otherwise."""
         self._work_batches.extend(self._make_batches(rows, cols, blocks, summation))
         self.valid = False
+
+    def stage_device_blocks(self, rows, cols, blocks: torch.Tensor,
+                            summation: bool = False) -> None:
+        """Stage an (N, bm, bn) tensor of same-shape blocks that already
+        lies on the device, without a host round-trip: the device-side
+        sibling of `put_blocks` (the tensor layer's remap and copy, ref
+        `dbcsr_t_reshape`'s block alltoall, `dbcsr_tensor_reshape.F:67,288`).
+        The batch merges at `finalize` like a host batch, into new bins
+        (so every bin written is a new tensor, and caches keyed on the
+        old bins' identity or version miss).
+
+        Caller contract, as in the JAX package: (row, col) pairs are
+        unique within the batch, and the matrix has no symmetry (device
+        blocks are not folded)."""
+        if self.matrix_type != NO_SYMMETRY:
+            raise NotImplementedError("stage_device_blocks requires a non-symmetric matrix")
+        rows = np.ascontiguousarray(rows, np.int64)
+        cols = np.ascontiguousarray(cols, np.int64)
+        if blocks.dim() != 3 or len(rows) != len(cols) or len(rows) != blocks.shape[0]:
+            raise ValueError("rows/cols/blocks length mismatch")
+        if len(rows) == 0:
+            return
+        if rows.min() < 0 or rows.max() >= self.nblkrows or cols.min() < 0 \
+                or cols.max() >= self.nblkcols:
+            raise IndexError("block coordinates out of range")
+        bm, bn = int(blocks.shape[1]), int(blocks.shape[2])
+        if not (np.all(self.row_blk_sizes[rows] == bm) and np.all(self.col_blk_sizes[cols] == bn)):
+            raise ValueError(f"batch of shape ({bm},{bn}) does not match "
+                             f"the blocking at all its coordinates")
+        if blocks.device != self.device:
+            raise ValueError(f"blocks lie on {blocks.device}, the matrix on {self.device}")
+        keys = rows * self.nblkcols + cols
+        self._work_batches.append((keys, blocks.to(self.dtype), summation))
+        self.valid = False
+
+    def reserve_block(self, row: int, col: int) -> None:
+        """Ref `dbcsr_reserve_block2d`: allocate a zero block."""
+        row, col, _ = self._canonicalize(row, col, None)
+        if (row, col) not in self._work and self._find_entry(row, col) < 0:
+            self._work[(row, col)] = np.zeros(self.block_shape(row, col),
+                                              host_dtype(self.dtype))
+            self.valid = False
 
     def _make_batches(self, rows, cols, blocks, summation: bool):
         """Fold (symmetric kinds), validate, group by block shape and
@@ -314,13 +403,14 @@ class BlockSparseMatrix:
                 if not len(old_sel):
                     continue
                 src = self.bins[self.ent_bin[old_sel[0]]].data
-                datas[b][to_index(nsl[pos_old[old_sel]], self.device)] = \
-                    src[to_index(self.ent_slot[old_sel], self.device)]
-        # 2) staged batches in call order (each is one shape -> one bin)
+                move_blocks(datas[b], nsl[pos_old[old_sel]], src, self.ent_slot[old_sel])
+        # 2) staged batches in call order (each is one shape -> one bin);
+        # a batch is a host array, or a device tensor (`stage_device_blocks`)
         for keys_b, arr, summation in self._work_batches:
-            b = shape_to_bin[(arr.shape[1], arr.shape[2])]
+            b = shape_to_bin[(int(arr.shape[1]), int(arr.shape[2]))]
             slots = to_index(nsl[np.searchsorted(merged, keys_b)], self.device)
-            blocks = to_device(arr, self.dtype, self.device)
+            blocks = arr if isinstance(arr, torch.Tensor) else to_device(arr, self.dtype,
+                                                                        self.device)
             if summation:
                 datas[b].index_add_(0, slots, blocks)
             else:
@@ -380,6 +470,44 @@ class BlockSparseMatrix:
             blk = _fold_block(blk, self.matrix_type)
         return blk
 
+    def get_blocks(self, rows, cols, unfold: bool = True) -> List:
+        """Fetch many blocks with one device gather per shape bin instead
+        of one copy per block (ref `dbcsr_tpu/core/matrix.py:574`): a
+        list aligned with ``rows``/``cols``, None where a block is
+        absent; blocks still in the work buffer come from the host."""
+        rows = np.ascontiguousarray(rows, np.int64)
+        cols = np.ascontiguousarray(cols, np.int64)
+        if len(rows) != len(cols):
+            raise ValueError("rows/cols length mismatch")
+        n = len(rows)
+        out: List = [None] * n
+        if n == 0:
+            return out
+        if rows.min() < 0 or rows.max() >= self.nblkrows or cols.min() < 0 \
+                or cols.max() >= self.nblkcols:
+            raise IndexError("block coordinates out of range")
+        folded = np.zeros(n, bool)
+        srows, scols = rows, cols
+        if self.matrix_type != NO_SYMMETRY:
+            folded = rows > cols
+            srows, scols = np.where(folded, cols, rows), np.where(folded, rows, cols)
+        keys = srows * self.nblkcols + scols
+        pos = np.minimum(np.searchsorted(self.keys, keys), max(len(self.keys) - 1, 0))
+        found = (self.keys[pos] == keys) if len(self.keys) else np.zeros(n, bool)
+        for b_id, b in enumerate(self.bins):
+            sel = np.nonzero(found & (self.ent_bin[pos] == b_id))[0]
+            if len(sel):
+                fetched = to_host(b.data[to_index(self.ent_slot[pos[sel]], b.data.device)])
+                for i, e in enumerate(sel):
+                    out[e] = fetched[i]
+        for e in range(n):
+            key = (int(srows[e]), int(scols[e]))
+            if key in self._work:
+                out[e] = self._work[key].copy()
+            if out[e] is not None and folded[e] and unfold:
+                out[e] = _fold_block(out[e], self.matrix_type)
+        return out
+
     def iterate_blocks(self) -> Iterator[Tuple[int, int, np.ndarray]]:
         """Iterate stored blocks in index order (ref `dbcsr_iterator_*`);
         fetches each bin from the device once."""
@@ -400,7 +528,11 @@ class BlockSparseMatrix:
                 continue
             d = b.data
             acc = torch.float32 if d.dtype == torch.bfloat16 else d.dtype
-            norms = torch.sqrt((d * d).sum(dim=(1, 2), dtype=acc)).to(d.dtype)
+            # a bounded chunk of blocks at a time: the squares' temporary
+            # is never the size of a large bin (each norm is the same)
+            per = max(1, _MOVE_CHUNK_BYTES // max(1, d[0].numel() * d.element_size()))
+            norms = torch.cat([torch.sqrt((x * x).sum(dim=(1, 2), dtype=acc)).to(d.dtype)
+                               for x in d.split(per)])
             mask = self.ent_bin == b_id
             out[mask] = to_host(norms).astype(np.float64)[self.ent_slot[mask]]
         return out
@@ -452,7 +584,8 @@ class BlockSparseMatrix:
         m.ent_slot = self.ent_slot.copy()
         m.bins = [_Bin(b.shape, b.data.clone(), b.count) for b in self.bins]
         m._work = {k: v.copy() for k, v in self._work.items()}
-        m._work_batches = [(k.copy(), a.copy(), s) for (k, a, s) in self._work_batches]
+        m._work_batches = [(k.copy(), a.clone() if isinstance(a, torch.Tensor) else a.copy(), s)
+                           for (k, a, s) in self._work_batches]
         m.valid = self.valid
         return m
 

@@ -13,7 +13,8 @@ tensors of the same size reuse them without a `cudaMalloc`.
 * `chain`: a context manager that adopts every matrix created inside it
   (`BlockSparseMatrix.__init__` asks `current_chain`).  ``retire`` frees
   an adopted matrix now, ``detach`` lets a result escape (to the
-  enclosing chain when there is one), and whatever is still adopted at
+  enclosing chain when there is one), ``scope`` frees what one split of
+  a loop adopted (the TAS split loop), and whatever is still adopted at
   exit is freed.
 
 The JAX package's buffer recycling (`zeros`/`release`), index mirrors
@@ -24,6 +25,7 @@ only the models' integrity guard, which is not ported either.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from typing import Optional
@@ -127,6 +129,21 @@ class chain:
         tracked = self._adopted.pop(id(m), None)
         if tracked is not None:
             tracked.free()
+
+    @contextlib.contextmanager
+    def scope(self):
+        """One split or iteration of a loop inside this chain (ref
+        `dbcsr_tpu/core/mempool.py:568`): the matrices adopted while the
+        scope is open (engine temporaries: desymmetrized operands,
+        transposes, remapped tensors) are freed at its exit unless they
+        were retired or detached meanwhile.  Matrices adopted before it
+        (and the caller's, never adopted) are untouched."""
+        before = set(self._adopted)
+        try:
+            yield self
+        finally:
+            for key in [k for k in self._adopted if k not in before]:
+                self._adopted.pop(key).free()
 
     def detach(self, m) -> object:
         """Release ``m`` from this chain's free: to the enclosing chain

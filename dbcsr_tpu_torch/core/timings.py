@@ -1,0 +1,114 @@
+"""Timer framework: the routine registry of `dbcsr_tpu/core/timings.py`.
+
+Analog of the reference timing subsystem (`src/core/dbcsr_timings.F`:
+timeset/timestop handlers with a call stack, per-routine self and
+inclusive time; report at `dbcsr_timings_report.F:51`; cachegrind
+callgraph export at :303).  A host application can take the timer
+over with `set_hooks`, as `dbcsr_base_hooks.F:88-110` allows.
+
+`timed` also opens a `torch.profiler.record_function` range named
+``dbcsr_tpu_torch:<name>``, so a `torch.profiler` trace shows the
+engine's regions beside the card's kernels (the JAX package opens a
+`jax.profiler.TraceAnnotation`).  The JAX package also feeds every
+region to its span tracer (`obs/tracer.py`); the port has no tracer
+yet, and its `report` has no rank-aggregated table (no multi-process
+world yet).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+
+import torch
+
+
+@dataclasses.dataclass
+class _RoutineStat:
+    calls: int = 0
+    total: float = 0.0  # inclusive
+    self_time: float = 0.0  # exclusive
+    callees: dict = dataclasses.field(default_factory=dict)  # name -> (calls, time)
+
+
+_stats: dict[str, _RoutineStat] = {}
+_stack: list[list] = []  # entries: [name, t_start, child_time]
+_hooks = None  # optional (timeset_fn, timestop_fn) override
+
+
+def set_hooks(timeset_fn, timestop_fn) -> None:
+    """Install host-application timer hooks (ref `dbcsr_init_lib_hooks`,
+    `dbcsr_base_hooks.F:54-110`); ``set_hooks(None, None)`` restores
+    the built-in timer."""
+    global _hooks
+    _hooks = None if timeset_fn is None and timestop_fn is None else (
+        timeset_fn, timestop_fn)
+
+
+def timeset(name: str) -> None:
+    if _hooks:
+        _hooks[0](name)
+        return
+    _stack.append([name, time.perf_counter(), 0.0])
+
+
+def timestop(name: str) -> None:
+    if _hooks:
+        _hooks[1](name)
+        return
+    ent = _stack.pop()
+    if ent[0] != name:
+        raise RuntimeError(f"timer mismatch: stopped {name}, open {ent[0]}")
+    dt = time.perf_counter() - ent[1]
+    st = _stats.setdefault(name, _RoutineStat())
+    st.calls += 1
+    st.total += dt
+    st.self_time += dt - ent[2]
+    if _stack:
+        parent = _stack[-1]
+        parent[2] += dt
+        pst = _stats.setdefault(parent[0], _RoutineStat())
+        c, t = pst.callees.get(name, (0, 0.0))
+        pst.callees[name] = (c + 1, t + dt)
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Host timer plus a profiler range around the block."""
+    timeset(name)
+    try:
+        with torch.profiler.record_function(f"dbcsr_tpu_torch:{name}"):
+            yield
+    finally:
+        timestop(name)
+
+
+def reset() -> None:
+    _stats.clear()
+    _stack.clear()
+
+
+def report(out=print, top: int = 30) -> None:
+    """Per-routine table, self-time ordered (ref timings_report.F:51)."""
+    if not _stats:
+        return
+    out(" " + "-" * 70)
+    out(" -" + "T I M I N G".center(68) + "-")
+    out(" " + "-" * 70)
+    out(f" {'SUBROUTINE':<36} {'CALLS':>8} {'SELF [s]':>11} {'TOTAL [s]':>11}")
+    rows = sorted(_stats.items(), key=lambda kv: -kv[1].self_time)[:top]
+    for name, st in rows:
+        out(f" {name:<36} {st.calls:>8} {st.self_time:>11.3f} {st.total:>11.3f}")
+    out(" " + "-" * 70)
+
+
+def export_callgraph(path: str) -> None:
+    """Cachegrind-format callgraph (ref timings_report.F:303-351)."""
+    with open(path, "w") as f:
+        f.write("events: Walltime_usec\n\n")
+        for name, st in _stats.items():
+            f.write(f"fn={name}\n1 {int(st.self_time * 1e6)}\n")
+            for callee, (calls, t) in st.callees.items():
+                f.write(f"cfn={callee}\ncalls={calls} 1\n1 {int(t * 1e6)}\n")
+            f.write("\n")

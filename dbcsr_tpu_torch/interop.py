@@ -1,6 +1,6 @@
-"""State carried across packages: a matrix as a plain dict of numpy
-arrays, so that another implementation (the JAX package, in the tests)
-and this one can compute on identical operands.
+"""State carried across packages: a matrix or a tensor as a plain dict
+of numpy arrays, so that another implementation (the JAX package, in
+the tests) and this one can compute on identical operands.
 
 The state holds ``row_blk_sizes``, ``col_blk_sizes``, ``matrix_type``,
 ``dtype`` (the reference enum: 1 f32, 3 f64, 9 bf16), ``keys``,
@@ -9,6 +9,11 @@ The state holds ``row_blk_sizes``, ``col_blk_sizes``, ``matrix_type``,
 slices them off).  bf16 data may come as float32 or as a numpy bfloat16
 extension array; both convert exactly.  A symmetric kind ("S", "A"; a
 real "H" becomes "S") carries its stored upper triangle only.
+
+A tensor's state holds ``blk_sizes`` (one array per dimension),
+``row_dims`` and ``col_dims`` (the nd->2d mapping), ``dtype`` (the enum),
+``indices``, an (N, ndim) int64 array of block multi-indices, and
+``blocks``, the N rank-d blocks in the same order.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import numpy as np
 from dbcsr_tpu_torch.core.kinds import enum_of
 from dbcsr_tpu_torch.core.matrix import NO_SYMMETRY, BlockSparseMatrix, _Bin, to_device, to_host
 from dbcsr_tpu_torch.device import DeviceLike
+from dbcsr_tpu_torch.tensor.types import BlockSparseTensor
 
 
 def matrix_from_numpy_state(state: dict, device: Optional[DeviceLike] = None,
@@ -72,4 +78,60 @@ def matrix_to_numpy_state(m: BlockSparseMatrix) -> dict:
         "ent_bin": m.ent_bin.copy(),
         "ent_slot": m.ent_slot.copy(),
         "bins": [(b.shape[0], b.shape[1], to_host(b.data[: b.count])) for b in m.bins],
+    }
+
+
+def tensor_from_numpy_state(state: dict, device: Optional[DeviceLike] = None,
+                            name: str = "T") -> BlockSparseTensor:
+    """Build a finalized tensor on ``device`` from a numpy state dict: the
+    blocks of each nd shape are laid out in the mapping's matrix order
+    on the host and staged as one batch."""
+    t = BlockSparseTensor(name, state["blk_sizes"], state["row_dims"], state["col_dims"],
+                          int(state["dtype"]), device=device)
+    idx = np.asarray(state["indices"], np.int64).reshape(-1, t.ndim)
+    blocks = state["blocks"]
+    if len(blocks) != len(idx):
+        raise ValueError(f"{len(blocks)} blocks for {len(idx)} indices")
+    if len(idx) == 0:
+        return t.finalize()
+    nblks = t.nblks_per_dim
+    if idx.min() < 0 or np.any(idx >= np.asarray(nblks)):
+        raise IndexError("block indices out of range")
+    shp = np.stack([t.blk_sizes[d][idx[:, d]] for d in range(t.ndim)], axis=1)
+    perm = t.row_dims + t.col_dims
+    rows = np.zeros(len(idx), np.int64)
+    cols = np.zeros(len(idx), np.int64)
+    for d in t.row_dims:
+        rows = rows * nblks[d] + idx[:, d]
+    for d in t.col_dims:
+        cols = cols * nblks[d] + idx[:, d]
+    _, group = np.unique(shp, axis=0, return_inverse=True)
+    for g in range(int(group.max()) + 1):
+        sel = np.nonzero(group.reshape(-1) == g)[0]
+        s = shp[sel[0]]
+        arr = np.stack([np.asarray(blocks[i]) for i in sel])
+        if arr.shape[1:] != tuple(int(x) for x in s):
+            raise ValueError(f"block of shape {arr.shape[1:]} where the blocking "
+                             f"gives {tuple(int(x) for x in s)}")
+        if arr.dtype.kind != "f" or arr.dtype.itemsize < 4:
+            arr = arr.astype(np.float32)  # numpy bfloat16 extension type
+        mat = arr.transpose((0,) + tuple(1 + d for d in perm)).reshape(
+            len(sel), int(np.prod([s[d] for d in t.row_dims], dtype=np.int64)),
+            int(np.prod([s[d] for d in t.col_dims], dtype=np.int64)))
+        t.matrix.put_blocks(rows[sel], cols[sel], mat)
+    return t.finalize()
+
+
+def tensor_to_numpy_state(t: BlockSparseTensor) -> dict:
+    """The numpy state dict of a finalized tensor, blocks in the matrix's
+    key order (bf16 data as float32)."""
+    if not t.matrix.valid:
+        raise RuntimeError("finalize() before exporting")
+    return {
+        "blk_sizes": [s.copy() for s in t.blk_sizes],
+        "row_dims": tuple(t.row_dims),
+        "col_dims": tuple(t.col_dims),
+        "dtype": enum_of(t.dtype),
+        "indices": t.entry_multi_coords(),
+        "blocks": [blk for _, blk in t.iterate_blocks()],
     }

@@ -62,6 +62,7 @@ from dbcsr_tpu_torch.core.matrix import (
     BlockSparseMatrix,
     _Bin,
     _bin_entries,
+    move_blocks,
     to_index,
 )
 from dbcsr_tpu_torch.mm import format_planner
@@ -521,26 +522,26 @@ def _rebuild_c(c: BlockSparseMatrix, new_keys: np.ndarray, beta, beta_window=Non
         data = torch.zeros((int(counts[b_id]), bm, bn), dtype=c.dtype, device=dev)
         in_bin = nb[pos_old] == b_id if n_old else np.zeros(0, bool)
 
-        def moved(mask):
-            """(old blocks of ``mask``, their destination slots), or None."""
+        def move(mask, factor=None):
+            """Copy the old blocks of ``mask`` to their new slots (times
+            ``factor``), a bounded chunk at a time; returns them, or None."""
             sel = np.nonzero(mask)[0]
-            if not len(sel):
-                return None
-            src = old_bins[old_ent_bin[sel[0]]].data
-            return sel, src[to_index(old_ent_slot[sel], dev)], to_index(nsl[pos_old[sel]], dev)
+            if len(sel):
+                move_blocks(data, nsl[pos_old[sel]], old_bins[old_ent_bin[sel[0]]].data,
+                            old_ent_slot[sel], factor)
+            return sel if len(sel) else None
 
-        if beta != 0 and (m := moved(in_bin & inside)) is not None:
-            data[m[2]] = beta * m[1]
+        if beta != 0:
+            move(in_bin & inside, None if beta == 1 else beta)
         if windowed:
-            if (m := moved(in_bin & ~inside & ~straddle)) is not None:
-                data[m[2]] = m[1]
-            if (m := moved(in_bin & straddle)) is not None:
-                sel = m[0]
+            move(in_bin & ~inside & ~straddle)
+            if (sel := move(in_bin & straddle)) is not None:
                 lo_hi = (np.maximum(r0 - blk_r0[sel], 0), np.minimum(r1 - blk_r0[sel], bm - 1),
                          np.maximum(c0 - blk_c0[sel], 0), np.minimum(c1 - blk_c0[sel], bn - 1))
                 mask = window_mask(bm, bn, *(to_index(x, dev) for x in lo_hi))
                 one = torch.ones((), dtype=c.dtype, device=dev)
-                data[m[2]] = m[1] * torch.where(mask, beta * one, one)
+                slots = to_index(nsl[pos_old[sel]], dev)
+                data[slots] = data[slots] * torch.where(mask, beta * one, one)
         bins.append(_Bin((bm, bn), data, int(counts[b_id])))
     c.set_structure_from_device(new_keys, bins, binning=(nb, nsl, shapes))
 

@@ -113,10 +113,17 @@ def checksum(matrix: BlockSparseMatrix, pos: bool = False) -> float:
         co[slots] = col_off[cols[mask]]
         dev = b.data.device
         bm, bn = b.shape
-        grow = (torch.from_numpy(ro).to(dev)[:, None, None] + 1.0
-                + torch.arange(bm, dtype=torch.float64, device=dev)[None, :, None])
-        gcol = (torch.from_numpy(co).to(dev)[:, None, None] + 1.0
-                + torch.arange(bn, dtype=torch.float64, device=dev)[None, None, :])
-        w = torch.log(torch.abs(grow * gcol))
-        total += float((b.data[: b.count].to(torch.float64) * w).sum())
+        ro_t = torch.from_numpy(ro).to(dev)[:, None, None] + 1.0
+        co_t = torch.from_numpy(co).to(dev)[:, None, None] + 1.0
+        ri = torch.arange(bm, dtype=torch.float64, device=dev)[None, :, None]
+        ci = torch.arange(bn, dtype=torch.float64, device=dev)[None, None, :]
+        # the weights of a bounded chunk of blocks at a time (a bin of a
+        # large matrix would need several times its own size at once);
+        # the chunks' sums add in chunk order
+        per = max(1, (1 << 24) // (bm * bn))
+        part = torch.zeros((), dtype=torch.float64, device=dev)
+        for s0 in range(0, b.count, per):
+            w = torch.log(torch.abs((ro_t[s0: s0 + per] + ri) * (co_t[s0: s0 + per] + ci)))
+            part += (b.data[s0: min(s0 + per, b.count)].to(torch.float64) * w).sum()
+        total += float(part)
     return total

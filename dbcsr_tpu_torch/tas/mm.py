@@ -1,0 +1,160 @@
+"""TAS multiply: CARMA-style split of the long dimension.
+
+Counterpart of `dbcsr_tpu/tas/mm.py` (ref `dbcsr_tas_multiply`,
+`dbcsr_tas_mm.F:79`): pick the long dimension of C = op(A) op(B); split
+it into nsplit groups; run an ordinary multiply per group.  The
+reference replicates the small matrix into each process group and
+redistributes and sums afterwards (`redistribute_and_sum`, :783); on one
+device the group loop reuses the engine's block-index limits, which
+bound each group's working set while keeping a fixed, deterministic
+accumulation order.
+
+The distributed path (``mesh=``, the JAX package's per-group Cannons)
+needs the port's `parallel/` package, which does not exist yet: a mesh
+raises instead of running on one device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+from dbcsr_tpu_torch.core import mempool
+from dbcsr_tpu_torch.core.config import get_config
+from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
+from dbcsr_tpu_torch.core.timings import timed
+from dbcsr_tpu_torch.mm.multiply import multiply
+from dbcsr_tpu_torch.ops.operations import scale
+from dbcsr_tpu_torch.tas.base import TASMatrix
+from dbcsr_tpu_torch.tas.split import choose_nsplit, estimate_split_factor
+
+# ref default_nsplit_accept_ratio (`dbcsr_tas_split.F:57`): a cached
+# batch split survives while within this factor of the current optimum
+_NSPLIT_ACCEPT_RATIO = 3.0
+
+
+def _unwrap(x: Union[TASMatrix, BlockSparseMatrix]) -> BlockSparseMatrix:
+    return x.matrix if isinstance(x, TASMatrix) else x
+
+
+def tas_multiply(
+    transa: str,
+    transb: str,
+    alpha,
+    matrix_a: Union[TASMatrix, BlockSparseMatrix],
+    matrix_b: Union[TASMatrix, BlockSparseMatrix],
+    beta,
+    matrix_c: Union[TASMatrix, BlockSparseMatrix],
+    filter_eps: Optional[float] = None,
+    nsplit: Optional[int] = None,
+    ngroups_max: int = 64,
+    mesh=None,
+) -> int:
+    """C = alpha op(A) op(B) + beta C with long-dimension splitting.
+
+    Returns total flops.  ``nsplit=None`` chooses the split from the
+    split-factor estimate (ref `dbcsr_tas_mm.F:1427`) times
+    ``tas_split_factor``; ``nsplit=1`` is a single multiply.  The split
+    taken is left in ``c._tas_nsplit``.  ``mesh`` raises
+    `NotImplementedError` (no `parallel/` package in the port yet)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "tas_multiply(mesh=...) runs the distributed per-group Cannon "
+            "multiplies of dbcsr_tpu_torch.parallel, which is not ported yet; "
+            "call it without a mesh for the single-device split loop")
+    a = _unwrap(matrix_a)
+    b = _unwrap(matrix_b)
+    c = _unwrap(matrix_c)
+    for m in (a, b, c):
+        if not m.valid:
+            m.finalize()
+    # op() shapes
+    m_full = c.nfullrows
+    n_full = c.nfullcols
+    k_full = a.nfullcols if transa.upper() == "N" else a.nfullrows
+    nblk_k = a.nblkcols if transa.upper() == "N" else a.nblkrows
+
+    # batched-MM state machine (ref dbcsr_tas_mm.F:1595-1692): defer
+    # filtering to the batch finalize, reuse the split decision
+    explicit_nsplit = nsplit is not None
+    batch = getattr(c, "_tas_batched_state", None)
+    if batch is not None:
+        if filter_eps is not None:
+            batch["filter_eps"] = filter_eps
+        filter_eps = None
+        if not explicit_nsplit:
+            nsplit = batch.get("nsplit")
+
+    with timed("tas_multiply"):
+        dims = {"m": m_full, "n": n_full, "k": k_full}
+        long_dim = max(dims, key=dims.get)
+
+        def _fresh_opt() -> int:
+            long_blks = max(c.nblkrows, c.nblkcols, nblk_k)
+            sf = estimate_split_factor(
+                m_full, n_full, k_full, a.nnz, b.nnz, c.nnz
+            ) * get_config().tas_split_factor  # ref TAS_SPLIT_FACTOR knob
+            return choose_nsplit(sf, ngroups_max, long_blks)
+
+        if nsplit is None:
+            for t in (matrix_a, matrix_b, matrix_c):
+                if isinstance(t, TASMatrix) and t.nsplit:
+                    nsplit = t.nsplit
+                    break
+        if nsplit is None:
+            nsplit = _fresh_opt()
+        if batch is not None:
+            if explicit_nsplit or batch.get("nsplit") is None:
+                batch["nsplit"] = nsplit  # (re)set the batch's split
+                if explicit_nsplit:
+                    batch["nsplit_explicit"] = True
+            elif not batch.get("nsplit_explicit"):
+                # split re-optimization between batches (the analog of the
+                # batched pgrid re-optimization, `dbcsr_tensor.F:1964-2186`):
+                # keep the cached split while it stays within the
+                # reference's acceptance window of the current optimum
+                # (`dbcsr_tas_split.F:57,229-230`), else re-split.  nnz
+                # reads are O(nblks) host work, so the optimum is recomputed
+                # only when the block-count triple drifted beyond the
+                # acceptance ratio since it was last checked
+                ratio = _NSPLIT_ACCEPT_RATIO
+                cnt_now = (a.nblks, b.nblks, c.nblks)
+                cnt_ref = batch.get("nblks_checked")
+                drifted = cnt_ref is None or any(
+                    now > ratio * max(ref, 1) or now * ratio < ref
+                    for now, ref in zip(cnt_now, cnt_ref))
+                if drifted:
+                    batch["nblks_checked"] = cnt_now
+                    opt = _fresh_opt()
+                    if not (opt / ratio <= nsplit <= opt * ratio):
+                        batch["nsplit"] = nsplit = opt
+                        batch["resplit_count"] = batch.get("resplit_count", 0) + 1
+
+        c._tas_nsplit = int(max(nsplit, 1))
+        if nsplit <= 1:
+            return multiply(transa, transb, alpha, a, b, beta, c, filter_eps=filter_eps)
+
+        # beta applies once to all of C, then groups accumulate
+        if beta != 1.0:
+            scale(c, beta)
+        flops = 0
+        if long_dim == "m":
+            nblk, limit_lo, limit_hi = c.nblkrows, "first_row", "last_row"
+        elif long_dim == "n":
+            nblk, limit_lo, limit_hi = c.nblkcols, "first_col", "last_col"
+        else:
+            nblk, limit_lo, limit_hi = nblk_k, "first_k", "last_k"
+        per = -(-nblk // nsplit)
+        # the split loop is a chained workload (core.mempool): each
+        # group's multiply runs in a chain scope, so engine temporaries
+        # (op() transposes, desymmetrized copies) return to the allocator
+        # as soon as the group is done.  C itself is the caller's
+        # (created outside the chain): never adopted, never freed here.
+        with mempool.chain() as ch:
+            for g0 in range(0, nblk, per):
+                g1 = min(g0 + per, nblk)
+                with ch.scope():
+                    flops += multiply(transa, transb, alpha, a, b, 1.0, c,
+                                      filter_eps=filter_eps,
+                                      **{limit_lo: g0, limit_hi: g1 - 1})
+        return flops
+

@@ -24,6 +24,8 @@ from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
 from dbcsr_tpu_torch.interop import matrix_from_numpy_state, matrix_to_numpy_state
 from dbcsr_tpu_torch.ops.test_methods import make_random_matrix
 from dbcsr_tpu_torch.perf.driver import PerfConfig, run_perf
+from dbcsr_tpu_torch.tas import TASMatrix
+from dbcsr_tpu_torch.tensor import create_tensor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -68,7 +70,10 @@ _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.cro
              "dbcsr_tpu_torch.models.purify", "dbcsr_tpu_torch.models.sign",
              "dbcsr_tpu_torch.models.invsqrt", "dbcsr_tpu_torch.ops.operations",
              "dbcsr_tpu_torch.ops.transformations", "dbcsr_tpu_torch.native",
-             "dbcsr_tpu_torch.mm.format_planner"}
+             "dbcsr_tpu_torch.mm.format_planner", "dbcsr_tpu_torch.core.timings",
+             "dbcsr_tpu_torch.tas.mm", "dbcsr_tpu_torch.tas.batched",
+             "dbcsr_tpu_torch.tensor.contract", "dbcsr_tpu_torch.tensor.types",
+             "dbcsr_tpu_torch.tensor.batched"}
 
 
 def _env(**extra):
@@ -110,6 +115,14 @@ def test_constructors_raise_without_cuda_unless_cpu_is_asked(no_cuda):
         matrix_from_numpy_state(state)
     with pytest.raises(RuntimeError, match="cuda"):
         matrix_from_numpy_state(state, "cuda:0")
+    for make in (lambda **kw: create_tensor("T", [[2], [3], [4]], **kw),
+                 lambda **kw: TASMatrix.create("T", [5, 13], [23], **kw)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+        with pytest.raises(RuntimeError, match="cuda"):
+            make(device="cuda")
+        t = make(device="cpu")
+        assert t.matrix.device.type == "cpu"
 
 
 def test_set_default_device_cpu_is_explicit(no_cuda):

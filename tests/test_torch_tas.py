@@ -1,0 +1,319 @@
+"""The port's tall-and-skinny (TAS) multiply held against the JAX package
+on the CPU.
+
+The cases of `tests/test_tas.py` and the TAS cases of
+`tests/test_tensor.py` that need no device mesh, after
+`dbcsr_tas_unittest.F:48-100`: the same numpy-seeded operands (JAX
+matrices carried across with `dbcsr_tpu_torch.interop`) go through both
+packages' `tas_multiply`, where the port's K1 wrapper runs its plain
+version on the CPU tensors; the JAX package runs its "xla" driver.  The
+mesh cases wait for the port's `parallel/`: here ``mesh=`` must raise.
+
+Tolerances: C's pattern equal to the JAX package's; C relative to max
+|C| within 1e-12 of it (f64) or within `kernel_validation_tolerance`
+(f32), and within 1e-12 (f64) of the dense oracle.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dbcsr_tpu.core.config import get_config as jax_get_config
+from dbcsr_tpu.core.config import set_config as jax_set_config
+from dbcsr_tpu.core.kinds import enum_of as jax_enum_of
+from dbcsr_tpu.ops import test_methods as jax_tm
+from dbcsr_tpu.tas import batched_mm as jax_batched_mm
+from dbcsr_tpu.tas import tas_multiply as jax_tas_multiply
+
+from dbcsr_tpu_torch.core import timings
+from dbcsr_tpu_torch.core.config import get_config, set_config
+from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
+from dbcsr_tpu_torch.interop import matrix_from_numpy_state
+from dbcsr_tpu_torch.mm.multiply import multiply as port_multiply
+from dbcsr_tpu_torch.obs.costmodel import kernel_validation_tolerance
+from dbcsr_tpu_torch.ops import test_methods as port_tm
+from dbcsr_tpu_torch.tas import (
+    TASMatrix,
+    batched_mm,
+    batched_mm_finalize,
+    batched_mm_init,
+    choose_nsplit,
+    choose_nsplit_traffic,
+    estimate_split_factor,
+    estimate_split_traffic,
+    tas_multiply,
+)
+from dbcsr_tpu_torch.tas import split as port_split
+
+
+@pytest.fixture(autouse=True)
+def jax_xla_config():
+    cfg = jax_get_config()
+    prev = {"mm_driver": cfg.mm_driver, "mm_format": cfg.mm_format,
+            "incremental": cfg.incremental}
+    jax_set_config(mm_format="stack", incremental="off", mm_driver="xla")
+    yield
+    jax_set_config(**prev)
+
+
+def jax_state(m) -> dict:
+    return {
+        "row_blk_sizes": m.row_blk_sizes, "col_blk_sizes": m.col_blk_sizes,
+        "matrix_type": m.matrix_type, "dtype": jax_enum_of(m.dtype),
+        "keys": m.keys, "ent_bin": m.ent_bin, "ent_slot": m.ent_slot,
+        "bins": [(b.shape[0], b.shape[1], np.asarray(b.data[: b.count])) for b in m.bins],
+    }
+
+
+def _pair(name, rows, cols, occ, rng, dtype=np.float64):
+    jm = jax_tm.make_random_matrix(name, rows, cols, dtype=dtype, occupation=occ, rng=rng)
+    return jm, matrix_from_numpy_state(jax_state(jm), "cpu", name=name)
+
+
+def _tall(nlong, nshort, seed):
+    rng = np.random.default_rng(seed)
+    long_sizes = rng.integers(2, 6, nlong).astype(np.int32)
+    short_sizes = rng.integers(2, 6, nshort).astype(np.int32)
+    return long_sizes, short_sizes, rng
+
+
+def _rel(got, want) -> float:
+    return float(np.max(np.abs(got - want), initial=0.0)) / max(float(np.max(np.abs(want),
+                                                                           initial=0.0)), 1.0)
+
+
+def _agree(pc, jc, oracle=None, tol=1e-12):
+    """The port's C against the JAX package's (pattern and values) and,
+    when given, against the dense oracle."""
+    assert np.array_equal(pc.keys, jc.keys)
+    got = port_tm.to_dense(pc).astype(np.float64)
+    assert _rel(got, jax_tm.to_dense(jc).astype(np.float64)) <= tol
+    if oracle is not None:
+        assert _rel(got, oracle) <= tol
+
+
+@pytest.mark.parametrize("transa,transb", [("N", "N"), ("T", "N"), ("N", "T"), ("T", "T")])
+def test_tas_multiply_transposes(transa, transb):
+    """Tall A (m long), small B; all transpose combos, nsplit 4."""
+    ls, ss, rng = _tall(30, 4, seed=1)
+    a_shape = (ls, ss) if transa == "N" else (ss, ls)
+    ja, pa = _pair("a", *a_shape, 0.3, rng)
+    jb, pb = _pair("b", ss, ss, 0.6, rng)
+    jc, pc = _pair("c", ls, ss, 0.0, rng)
+    jf = jax_tas_multiply(transa, transb, 1.0, ja, jb, 0.0, jc, nsplit=4)
+    pf = tas_multiply(transa, transb, 1.0, pa, pb, 0.0, pc, nsplit=4)
+    assert pf == jf and pc._tas_nsplit == 4
+    da = jax_tm.to_dense(ja) if transa == "N" else jax_tm.to_dense(ja).T
+    db = jax_tm.to_dense(jb) if transb == "N" else jax_tm.to_dense(jb).T
+    _agree(pc, jc, da @ db)
+
+
+def test_tas_k_split_inner_product():
+    """A^T B with k long (two tall matrices) splits over k and sums."""
+    ls, ss, rng = _tall(40, 3, seed=2)
+    ja, pa = _pair("a", ls, ss, 0.4, rng)
+    jb, pb = _pair("b", ls, ss, 0.4, rng)
+    jc, pc = _pair("c", ss, ss, 0.0, rng)
+    jax_tas_multiply("T", "N", 1.0, ja, jb, 0.0, jc, nsplit=5)
+    tas_multiply("T", "N", 1.0, pa, pb, 0.0, pc, nsplit=5)
+    _agree(pc, jc, jax_tm.to_dense(ja).T @ jax_tm.to_dense(jb))
+
+
+def test_tas_n_long_splits_columns():
+    """A wide C (n long) splits its block columns."""
+    ls, ss, rng = _tall(36, 3, seed=12)
+    ja, pa = _pair("a", ss, ss, 0.8, rng)
+    jb, pb = _pair("b", ss, ls, 0.4, rng)
+    jc, pc = _pair("c", ss, ls, 0.3, rng)
+    c0 = jax_tm.to_dense(jc)
+    jax_tas_multiply("N", "N", 1.5, ja, jb, 0.5, jc, nsplit=6)
+    tas_multiply("N", "N", 1.5, pa, pb, 0.5, pc, nsplit=6)
+    _agree(pc, jc, 1.5 * jax_tm.to_dense(ja) @ jax_tm.to_dense(jb) + 0.5 * c0)
+
+
+def test_tas_beta_accumulate():
+    ls, ss, rng = _tall(20, 3, seed=3)
+    ja, pa = _pair("a", ls, ss, 0.5, rng)
+    jb, pb = _pair("b", ss, ss, 0.8, rng)
+    jc, pc = _pair("c", ls, ss, 0.3, rng)
+    c0 = jax_tm.to_dense(jc)
+    jax_tas_multiply("N", "N", 2.0, ja, jb, 0.5, jc, nsplit=3)
+    tas_multiply("N", "N", 2.0, pa, pb, 0.5, pc, nsplit=3)
+    _agree(pc, jc, 2.0 * jax_tm.to_dense(ja) @ jax_tm.to_dense(jb) + 0.5 * c0)
+
+
+def test_tas_matches_single_multiply():
+    """nsplit > 1 gives the same result as one multiply, bit for bit (each
+    C block sums its products in the same order)."""
+    ls, ss, rng = _tall(25, 4, seed=4)
+    ja, pa = _pair("a", ls, ss, 0.4, rng)
+    jb, pb = _pair("b", ss, ss, 0.7, rng)
+    jc, pc1 = _pair("c", ls, ss, 0.0, rng)
+    pc2 = pc1.copy()
+    port_multiply("N", "N", 1.0, pa, pb, 0.0, pc1)
+    tas_multiply("N", "N", 1.0, pa, pb, 0.0, pc2, nsplit=6)
+    jax_tas_multiply("N", "N", 1.0, ja, jb, 0.0, jc, nsplit=6)
+    assert np.array_equal(pc1.keys, pc2.keys)
+    assert np.array_equal(port_tm.to_dense(pc1), port_tm.to_dense(pc2))
+    _agree(pc2, jc)
+
+
+def test_tas_wrapper_and_auto_split():
+    ls, ss, rng = _tall(50, 3, seed=5)
+    ja, pa = _pair("a", ls, ss, 0.2, rng)
+    jb, pb = _pair("b", ss, ss, 0.9, rng)
+    jc, pc = _pair("c", ls, ss, 0.0, rng)
+    a, b, c = TASMatrix(pa), TASMatrix(pb), TASMatrix(pc)
+    assert a.long_dim == "rows" and b.long_dim == "rows"
+    assert a.nblkrows == 50 and a.nblkcols == 3 and a.dtype == torch.float64
+    assert a.row_groups(4) == [(0, 13), (13, 26), (26, 39), (39, 50)]
+    assert b.col_groups(2) == [(0, 2), (2, 3)]
+    jax_tas_multiply("N", "N", 1.0, ja, jb, 0.0, jc)  # auto nsplit
+    tas_multiply("N", "N", 1.0, a, b, 0.0, c)
+    want_split = choose_nsplit(estimate_split_factor(
+        pc.nfullrows, pc.nfullcols, pa.nfullcols, pa.nnz, pb.nnz, 0), 64, 50)
+    assert c.matrix._tas_nsplit == want_split > 1
+    _agree(c.matrix, jc, jax_tm.to_dense(ja) @ jax_tm.to_dense(jb))
+
+
+def test_tas_split_factor_knob():
+    """``tas_split_factor`` scales the estimate before the split is chosen."""
+    ls, ss, rng = _tall(50, 3, seed=5)
+    _, pa = _pair("a", ls, ss, 0.2, rng)
+    _, pb = _pair("b", ss, ss, 0.9, rng)
+    splits = []
+    prev = get_config().tas_split_factor
+    try:
+        for f in (1.0, 0.01):
+            set_config(tas_split_factor=f)
+            c = BlockSparseMatrix("c", ls, ss, device="cpu")
+            tas_multiply("N", "N", 1.0, pa, pb, 0.0, c)
+            splits.append(c._tas_nsplit)
+        with pytest.raises(ValueError, match="tas_split_factor"):
+            set_config(tas_split_factor=0.0)
+    finally:
+        set_config(tas_split_factor=prev)
+    assert splits[0] > 1 and splits[1] == 1
+
+
+def test_split_heuristics_are_the_jax_packages():
+    from dbcsr_tpu.tas import split as jax_split
+
+    sf = estimate_split_factor(10000, 100, 100, 10**5, 10**4, 10**5)
+    assert sf > 1
+    assert choose_nsplit(sf, ngroups_max=8, nblks_long=1000) <= 8
+    assert choose_nsplit(0.5, 8, 10) == 1
+    assert choose_nsplit(100.0, 8, 3) == 3
+    for args in ((10000, 100, 100, 10**5, 10**4, 10**5), (2208**2, 2208, 2208, 529_600_000,
+                                                           1_062_232, 0)):
+        assert port_split.estimate_split_factor(*args) == jax_split.estimate_split_factor(*args)
+    for long_dim in ("m", "n", "k"):
+        for g in (1, 3, 8):
+            args = (long_dim, g, 1000, 200, 500.0, 8, 2, 2)
+            assert estimate_split_traffic(*args) == jax_split.estimate_split_traffic(*args)
+        args = (long_dim, 400, 50, 60, 4000, 800, 0, 8, 2, 2, 64, 48)
+        assert choose_nsplit_traffic(*args) == jax_split.choose_nsplit_traffic(*args)
+
+
+def test_tas_batched_mm_state_machine():
+    """Repeated TAS multiplies in one batch: the filter is deferred to the
+    finalize and the split is kept."""
+    rng = np.random.default_rng(41)
+    rbs, cbs = [3] * 20, [4, 4]
+    ja, pa = _pair("A", rbs, cbs, 0.7, rng)
+    jb, pb = _pair("B", cbs, cbs, 1.0, rng)
+    jc, pc = _pair("C", rbs, cbs, 0.0, rng)
+    want = np.zeros((sum(rbs), sum(cbs)))
+    with jax_batched_mm(jc):
+        for _ in range(3):
+            jax_tas_multiply("N", "N", 1.0, ja, jb, 1.0, jc, filter_eps=1e-12)
+    with batched_mm(pc):
+        state = pc._tas_batched_state
+        for _ in range(3):
+            tas_multiply("N", "N", 1.0, pa, pb, 1.0, pc, filter_eps=1e-12)
+            want += port_tm.to_dense(pa) @ port_tm.to_dense(pb)
+        assert state["filter_eps"] == 1e-12 and state["nsplit"] >= 1
+    assert pc._tas_batched_state is None
+    _agree(pc, jc, want, tol=1e-10)
+
+
+def test_tas_batched_mm_pinned_split_and_errors():
+    rng = np.random.default_rng(42)
+    rbs, cbs = [3] * 12, [4, 4]
+    _, pa = _pair("A", rbs, cbs, 0.7, rng)
+    _, pb = _pair("B", cbs, cbs, 1.0, rng)
+    _, pc = _pair("C", rbs, cbs, 0.0, rng)
+    batched_mm_init(TASMatrix(pc), nsplit=2)
+    with pytest.raises(RuntimeError, match="already"):
+        batched_mm_init(pc)
+    tas_multiply("N", "N", 1.0, pa, pb, 0.0, pc)
+    assert pc._tas_nsplit == 2 and pc._tas_batched_state["nsplit_explicit"]
+    batched_mm_finalize(pc)
+    with pytest.raises(RuntimeError, match="not in"):
+        batched_mm_finalize(pc)
+
+
+def test_tas_batched_split_reoptimizes_on_sparsity_change():
+    """A stale cached split leaves the acceptance window of the current
+    optimum and is re-chosen once (ref `dbcsr_tas_split.F:57`)."""
+    rng = np.random.default_rng(43)
+    rbs, cbs = [3] * 64, [4, 4]
+    ja, pa = _pair("A", rbs, cbs, 0.9, rng)
+    jb, pb = _pair("B", cbs, cbs, 1.0, rng)
+    jc, pc = _pair("C", rbs, cbs, 0.0, rng)
+    for tas, bmm, a, b, c in ((jax_tas_multiply, jax_batched_mm, ja, jb, jc),
+                              (tas_multiply, batched_mm, pa, pb, pc)):
+        with bmm(c):
+            state = c._tas_batched_state
+            state["nsplit"] = 1
+            state["nblks_checked"] = None
+            tas(("N"), "N", 1.0, a, b, 1.0, c)
+            assert state["nsplit"] > 1 and state["resplit_count"] == 1
+            tas("N", "N", 1.0, a, b, 1.0, c)
+            assert state["resplit_count"] == 1
+    want = 2 * port_tm.to_dense(pa) @ port_tm.to_dense(pb)
+    _agree(pc, jc, want, tol=1e-10)
+
+
+def test_tas_multiply_float32_matches_jax():
+    ls, ss, rng = _tall(24, 3, seed=6)
+    ja, pa = _pair("a", ls, ss, 0.5, rng, np.float32)
+    jb, pb = _pair("b", ss, ss, 0.8, rng, np.float32)
+    jc, pc = _pair("c", ls, ss, 0.2, rng, np.float32)
+    jax_tas_multiply("N", "N", 1.0, ja, jb, 0.5, jc, nsplit=4)
+    tas_multiply("N", "N", 1.0, pa, pb, 0.5, pc, nsplit=4)
+    assert pc.dtype == torch.float32
+    _agree(pc, jc, tol=kernel_validation_tolerance("float32", int(ss.max()), len(ss)))
+
+
+def test_tas_multiply_is_timed():
+    ls, ss, rng = _tall(16, 3, seed=7)
+    _, pa = _pair("a", ls, ss, 0.5, rng)
+    _, pb = _pair("b", ss, ss, 0.8, rng)
+    _, pc = _pair("c", ls, ss, 0.0, rng)
+    timings.reset()
+    tas_multiply("N", "N", 1.0, pa, pb, 0.0, pc, nsplit=2)
+    assert timings._stats["tas_multiply"].calls == 1
+
+
+def test_tas_multiply_on_a_mesh_raises():
+    """The distributed split waits for the port's parallel/: no silent
+    single-device run for a mesh."""
+    ls, ss, rng = _tall(10, 2, seed=8)
+    _, pa = _pair("a", ls, ss, 0.5, rng)
+    _, pb = _pair("b", ss, ss, 0.8, rng)
+    _, pc = _pair("c", ls, ss, 0.0, rng)
+    before = pc.nblks
+    with pytest.raises(NotImplementedError, match="parallel"):
+        tas_multiply("N", "N", 1.0, pa, pb, 0.0, pc, nsplit=2, mesh=object())
+    assert pc.nblks == before
+
+
+def test_tas_create_places_on_the_asked_device():
+    t = TASMatrix.create("T", [3, 4], [5], device="cpu", nsplit=2)
+    assert t.matrix.device.type == "cpu" and t.nsplit == 2
+    t.put_block(1, 0, np.ones((4, 5)))
+    t.finalize()
+    assert np.array_equal(t.get_block(1, 0), np.ones((4, 5)))
+    assert [blk.shape for _, _, blk in t.iterate_blocks()] == [(4, 5)]
+    assert "nsplit=2" in repr(t)
