@@ -102,7 +102,39 @@ non-zero:
    time beside their bound, the plan-cache outcomes, the allocator's
    peak and retries, and holds every block of C against the plain
    driver (run in two mu batches with ``bounds_2``) at <= 1e-10, the
-   checksums at <= 1e-12.
+   checksums at <= 1e-12;
+16. resilience: faults injected on the card at `test_H2O`'s blocking
+   (2208^2), each counted exactly, and no faulted product on the card
+   ever runs a plain version (the card's chain holds the kernels only):
+   ``pallas:raise,times=1`` (K1 fails over to the crosspack kernel K3,
+   within 1e-12 of the clean product, one ``runtime`` failure and one
+   fallback), ``execute_stack:nan,times=1`` (classified ``nan`` and
+   recovered on K3), ``pallas:raise`` three times (the shape's breaker
+   opens; the next product launches no K1 and runs on K3), ``dense:raise,times=1``
+   on full operands (the canvas falls over to the stack format within
+   1e-12), ``pallas_cross:raise`` and ``pallas_cross:oom`` on f32 (K3 fails
+   over to K1; a runtime failure demotes the shape, so the next product
+   plans onto K1, an out-of-memory one does not); ``mm_driver="host"`` on
+   CPU matrices against ``"torch"`` (1e-12, both timed) and refused on the
+   card's tensors; and `test_H2O.perf`'s checksum gate under a failing
+   K1 launch;
+17. integrity: on the models' operands (f64, 2208^2) the three loops
+   under ``abft="verify"`` and ``"off"`` in turns, histories and iterates
+   bit for bit alike, no mismatch and no rollback; each loop with ABFT
+   off under a flip its chain invariant catches in the same step
+   (`INVARIANT_FLIPS`: it rolls back, bit for bit on the clean loop) and
+   under ``execute_stack:flip,seed=13,times=1`` (`FLIP`: each loop must
+   end as the JAX package's guarded loop ends at this size,
+   `FLIP_OFF_REFERENCE`), and under `FLIP` with "verify" (the probe
+   recovers, nothing rolls back, bit for bit); purify under
+   ``dense:flip,times=1`` (the canvas probe condemns the product, the
+   stack format redoes it, within 1e-12); the north star, f64 (K1) and
+   f32 (K3), under "verify" against "off" in turns, C bit for bit, with
+   the probe's milliseconds beside the stacks'.
+
+Every phase but the last two injects nothing and must end with no driver
+failure, fallback, ABFT mismatch or rollback (`_clean`); the last two
+clear their faults and reset the breakers whatever happens.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints
@@ -124,7 +156,8 @@ import numpy as np
 import torch
 
 from dbcsr_tpu_torch import native
-from dbcsr_tpu_torch.acc import build, crosspack_kernel, params, stack_kernel
+from dbcsr_tpu_torch.acc import abft, build, crosspack_kernel, params, stack_kernel
+from dbcsr_tpu_torch.acc import smm as port_smm
 from dbcsr_tpu_torch.acc.crosspack import choose_pack, resident_limit_bytes
 from dbcsr_tpu_torch.acc.smm import prepare_stack
 from dbcsr_tpu_torch.core import mempool, timings
@@ -140,6 +173,7 @@ from dbcsr_tpu_torch.mm.multiply import (
     _effective,
     _to_dense_device,
 )
+from dbcsr_tpu_torch.models import integrity
 from dbcsr_tpu_torch.models import (
     invsqrt_iteration,
     make_test_density,
@@ -157,6 +191,7 @@ from dbcsr_tpu_torch.ops.operations import (
     trace,
 )
 from dbcsr_tpu_torch.ops.test_methods import make_random_matrix
+from dbcsr_tpu_torch.obs import metrics
 from dbcsr_tpu_torch.obs.costmodel import (
     crosspack_entries,
     kernel_validation_tolerance,
@@ -167,6 +202,7 @@ from dbcsr_tpu_torch.obs.costmodel import (
     stack_min_bytes,
 )
 from dbcsr_tpu_torch.perf.driver import expand_block_sizes, parse_perf_file, run_perf
+from dbcsr_tpu_torch.resilience import breaker, faults
 from dbcsr_tpu_torch.tensor import (
     batched_contraction,
     contract,
@@ -1477,32 +1513,440 @@ def phase_tensor_legs() -> int:
     return k1
 
 
+# the integrity plane's counters that a phase injecting nothing must
+# leave at zero: a kernel that starts failing on the card fails the
+# smoke instead of running on another driver
+_INTEGRITY_COUNTERS = ("dbcsr_tpu_driver_failures_total", "dbcsr_tpu_driver_fallback_total",
+                       "dbcsr_tpu_abft_mismatches_total", "dbcsr_tpu_chain_rollback_total")
+
+
+def _integrity_counts() -> dict:
+    return {name: {json.dumps(lab, sort_keys=True): v for lab, v in metrics.counter_items(name)}
+            for name in _INTEGRITY_COUNTERS}
+
+
+def _clean(phase: str, fn, *args):
+    """Run a phase that injects nothing: no fault may be configured, and
+    it must end with zero driver failures, fallbacks, ABFT mismatches
+    and rollbacks."""
+    _require(not faults.active(), f"{phase}: a fault spec is configured")
+    metrics.reset()
+    out = fn(*args)
+    took = {k: v for k, v in _integrity_counts().items() if v}
+    _require(not took, f"{phase} injects nothing but took the integrity plane: {took}")
+    return out
+
+
+def _ctr(name: str, **labels) -> float:
+    return sum(v for lab, v in metrics.counter_items(name)
+               if all(lab.get(k) == x for k, x in labels.items()))
+
+
+def _expect_counts(what: str, failures: dict, fallbacks: dict) -> dict:
+    """The failure and fallback counters must read exactly ``failures``
+    ({(driver, kind): n}) and ``fallbacks`` ({(from, to): n})."""
+    got_f = {(lab["driver"], lab["kind"]): v
+             for lab, v in metrics.counter_items("dbcsr_tpu_driver_failures_total")}
+    got_b = {(lab["from"], lab["to"]): v
+             for lab, v in metrics.counter_items("dbcsr_tpu_driver_fallback_total")}
+    _require(got_f == failures and got_b == fallbacks,
+             f"resilience {what}: failures {got_f} (want {failures}), "
+             f"fallbacks {got_b} (want {fallbacks})")
+    return {"failures": {f"{d}:{k}": v for (d, k), v in got_f.items()},
+            "fallbacks": {f"{a}->{b}": v for (a, b), v in got_b.items()}}
+
+
+def _product(a, b, c0, alpha=0.7, beta=0.5):
+    """C = alpha A B + beta C0 on a copy of C0, synchronized."""
+    c = c0.copy()
+    mm.multiply("N", "N", alpha, a, b, beta, c)
+    torch.cuda.synchronize()
+    return c
+
+
+def _resilience_operands(dtype, occ=(0.2, 0.2, 0.3), seed=20261018, device=None):
+    sizes = np.full(MODEL_BLOCKS, MODEL_BLOCK)
+    rng = np.random.default_rng(seed)
+    return [make_random_matrix(nm, sizes, sizes, dtype=dtype, occupation=o, rng=rng,
+                               device=device) for nm, o in zip("ABC", occ)]
+
+
+def phase_resilience() -> dict:
+    """The failover chain on the card, at `test_H2O`'s blocking (2208^2),
+    f64 and f32: a failed K1 launch, non-finite output, the breaker, the
+    crosspack demotion, the canvas failover and the host driver, each
+    fault counted exactly; then one `.perf` gate under a failing launch.
+    Returns K1's and K3's launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "resilience", "n": MODEL_BLOCKS * MODEL_BLOCK, "block": MODEL_BLOCK}
+    key64, key32 = (MODEL_BLOCK,) * 3 + ("float64",), (MODEL_BLOCK,) * 3 + ("float32",)
+    _reset_counts()
+    try:
+        set_config(mm_format="stack")
+        a, b, c0 = _resilience_operands(torch.float64)
+        ref = _product(a, b, c0)
+        _require(stack_kernel.launches > 0, "resilience: the clean product never took K1")
+
+        def faulted(spec, what, failures, fallbacks, tol=1e-12, ops=(a, b, c0), want=ref):
+            # a failover heals the cached plan: every product here plans
+            # anew, and each case starts from closed breakers
+            mm.clear_plan_cache()
+            breaker.reset_board()
+            metrics.reset()
+            before = _counts()
+            with faults.inject_faults(spec) as sp:
+                c = _product(*ops)
+            took = _launched_since(before)
+            mm.clear_plan_cache()
+            rel = _canvas_rel(c, want)
+            _require(sp[0].fired == 1 and rel <= tol and took["plain"] == 0,
+                     f"resilience {what}: fired {sp[0].fired}, rel {rel:.3e} > {tol:.1e}, "
+                     f"launched {took}")
+            return {"spec": spec, "rel": rel, "launched": took,
+                    **_expect_counts(what, failures, fallbacks)}
+
+        out["launch_failover"] = faulted("pallas:raise,times=1", "launch failover",
+                                         {("pallas", "runtime"): 1},
+                                         {("pallas", "pallas_cross"): 1})
+        out["non_finite"] = faulted("execute_stack:nan,times=1", "non-finite output",
+                                    {("pallas", "nan"): 1}, {("pallas", "pallas_cross"): 1})
+        # the breaker: three failures open it, the next launch skips K1
+        breaker.reset_board()
+        metrics.reset()
+        board = breaker.get_board()
+        with faults.inject_faults("pallas:raise") as sp:
+            for _ in range(3):
+                mm.clear_plan_cache()
+                _product(a, b, c0)
+            state = board.state("pallas", key64)
+            _require(state == breaker.OPEN, f"resilience breaker: {state} after 3 failures")
+            calls, before = sp[0].calls, _counts()
+            mm.clear_plan_cache()
+            c = _product(a, b, c0)
+            took = _launched_since(before)
+            _require(sp[0].calls == calls and took["smm_stack"] == 0
+                     and took["smm_crosspack"] > 0 and took["plain"] == 0,
+                     f"resilience breaker: the quarantined product launched {took}")
+        mm.clear_plan_cache()
+        rel = _canvas_rel(c, ref)
+        _require(rel <= 1e-12, f"resilience breaker: quarantined product rel {rel:.3e}")
+        out["breaker"] = {"state_after_3": state, "board": board.snapshot(), "rel": rel,
+                          "quarantined_launched": took,
+                          **_expect_counts("breaker", {("pallas", "runtime"): 3},
+                                           {("pallas", "pallas_cross"): 4})}
+        breaker.reset_board()
+        # the canvas failover on full operands
+        full = _resilience_operands(torch.float64, occ=(1.0, 1.0, 0.3))
+        set_config(mm_format="dense")
+        ref_dense = _product(*full)
+        _require(ref_dense._mm_algorithm == "dense", "resilience: the clean canvas leg ran "
+                 f"{ref_dense._mm_algorithm}")
+        out["canvas_failover"] = faulted("dense:raise,times=1", "canvas failover",
+                                         {("dense", "runtime"): 1}, {("dense", "stack"): 1},
+                                         ops=full, want=ref_dense)
+        set_config(mm_format="stack")
+        del full, ref_dense
+        # the crosspack demotion, f32: a deterministic failure demotes the
+        # shape, an out-of-memory one does not
+        a32, b32, c32 = _resilience_operands(torch.float32)
+        k3_before = crosspack_kernel.launches_cross
+        ref32 = _product(a32, b32, c32)
+        _require(crosspack_kernel.launches_cross > k3_before, "resilience: f32 never took K3")
+        tol32 = kernel_validation_tolerance("float32", MODEL_BLOCK, MODEL_BLOCKS)
+        demotion = {}
+        for kind in ("raise", "oom"):
+            port_smm._cross_disabled.discard(key32)
+            demotion[kind] = faulted(f"pallas_cross:{kind},times=1", f"crosspack {kind}",
+                                     {("pallas_cross", "oom" if kind == "oom" else "runtime"): 1},
+                                     {("pallas_cross", "pallas"): 1}, tol=tol32,
+                                     ops=(a32, b32, c32), want=ref32)
+            demoted = key32 in port_smm._cross_disabled
+            _require(demoted == (kind == "raise"),
+                     f"resilience crosspack {kind}: demoted {demoted}")
+            before = _counts()
+            c = _product(a32, b32, c32)  # planned anew, without a fault
+            took = _launched_since(before)
+            want = "smm_stack" if demoted else "smm_crosspack"
+            _require(took[want] > 0 and took["plain"] == 0,
+                     f"resilience crosspack {kind}: the next product launched {took}")
+            rel = _canvas_rel(c, ref32)
+            _require(rel <= tol32, f"resilience crosspack {kind}: next product rel {rel:.3e}")
+            demotion[kind].update(demoted=demoted, next_product=took, next_rel=rel)
+        port_smm._cross_disabled.discard(key32)
+        out["crosspack_demotion"] = demotion
+        del a32, b32, c32, ref32
+        # the host driver: CPU matrices on the card's host, against the
+        # plain version; the same request on the card's tensors raises
+        cpu = _resilience_operands(torch.float64, device="cpu")
+        host = {}
+        for driver in ("host", "torch", "host", "torch"):
+            set_config(mm_driver=driver)
+            c = cpu[2].copy()
+            t0 = time.perf_counter()
+            mm.multiply("N", "N", 0.7, cpu[0], cpu[1], 0.5, c)
+            host.setdefault(driver, {"wall_s": [], "c": c})["wall_s"].append(
+                time.perf_counter() - t0)
+        rel = (maxabs_norm(added(host["host"]["c"], host["torch"]["c"], 1.0, -1.0))
+               / maxabs_norm(host["torch"]["c"]))
+        _require(rel <= 1e-12, f"resilience host driver vs torch: rel {rel:.3e}")
+        set_config(mm_driver="host")
+        mm.clear_plan_cache()
+        try:
+            mm.multiply("N", "N", 0.7, a, b, 0.5, c0.copy())
+        except ValueError as exc:
+            refused = str(exc)
+        else:
+            raise RuntimeError("resilience: mm_driver='host' ran on the card's tensors")
+        out["host_driver"] = {"stacks": "cpu", "rel_to_torch": rel, "cuda_refused": refused,
+                              "wall_s": {d: v["wall_s"] for d, v in host.items()}}
+        set_config(mm_driver="auto")
+        del cpu, host
+        # one `.perf` gate with a failing K1 launch: the checksum holds
+        cfg = parse_perf_file(os.path.join(INPUTS, "test_H2O.perf"))
+        cfg.nrep = 1
+        mm.clear_plan_cache()
+        metrics.reset()
+        before = _counts()
+        with faults.inject_faults("pallas:raise,times=1") as sp:
+            res = run_perf(cfg, verbose=False)  # raises PerfChecksumError on mismatch
+        took = _launched_since(before)
+        _require(took["plain"] == 0, f"resilience perf gate: launched {took}")
+        out["perf_gate"] = {"input": "test_H2O", "checksum": res["checksum"], "fired":
+                            sp[0].fired, "launched": took,
+                            **_expect_counts("perf gate", {("pallas", "runtime"): 1},
+                                             {("pallas", "pallas_cross"): 1})}
+    finally:
+        faults.clear()
+        breaker.reset_board()
+        mm.clear_plan_cache()
+        port_smm._cross_disabled.discard(key32)
+        set_config(mm_driver="auto", mm_format="auto", abft="off")
+    counts = _counts()
+    out["launches"] = counts
+    _emit(out)
+    return {"smm_stack": counts["smm_stack"], "smm_crosspack": counts["smm_crosspack"]}
+
+
+def _probe_ms(a, b, c, reps: int = 5) -> dict:
+    """Each stack of ``c = a * b`` timed by CUDA events beside its ABFT
+    probe: the first-touch form (C was zero) and the delta form (a
+    pristine copy of C subtracted), summed per multiply."""
+    i, j, a_ent, b_ent = _candidates(a, b, None)
+    spans = _build_spans(c, a, b, i * c.nblkcols + j, a_ent, b_ent)
+    tot = {"stack_ms": 0.0, "probe_ms_c_zero": 0.0, "probe_ms_delta": 0.0, "spans": len(spans)}
+    for sp in spans:
+        ad, bd, cd = a.bins[sp.abin].data, b.bins[sp.bbin].data, c.bins[sp.cbin].data
+        kernel, _ = _calls(sp.plan)
+        scratch, base = cd.clone(), torch.zeros_like(cd)
+        tot["stack_ms"] += _time_ms(lambda: kernel(scratch, ad, bd, 1.0), reps)
+        tot["probe_ms_c_zero"] += _time_ms(
+            lambda: abft.stack_probe(None, cd, ad, bd, sp.plan, 1.0, c_zero=True), reps)
+        tot["probe_ms_delta"] += _time_ms(
+            lambda: abft.stack_probe(base, cd, ad, bd, sp.plan, 1.0), reps)
+        del scratch, base
+    return tot
+
+
+def _same_bits(x, y) -> bool:
+    return np.array_equal(x.keys, y.keys) and all(
+        bx.data.equal(by.data) for bx, by in zip(x.bins, y.bins))
+
+
+# the silent flip of the integrity phase, and for each loop a flip its
+# chain invariant catches in the same step at the models' size (ABFT
+# off): purify's trace bound sees a diagonal element of its first
+# product, the sign bound a flip in X' (the step's second product),
+# invsqrt's residual contraction a flip in the second residual.
+FLIP = "execute_stack:flip,seed=13,times=1"
+# `FLIP` with ABFT off, as the JAX package's own guarded loops end at
+# this size on the CPU (`tools/flip_reference.py --package jax`): purify
+# misses the off-diagonal flip and runs on to a wrong iterate, sign sees
+# it a step late, after accepting the iterate, and raises; invsqrt rolls
+# it back.  (outcome, rollbacks), required of the port alike.
+FLIP_OFF_REFERENCE = {"purify": ("differs", 0), "sign": ("ChainIntegrityError", 1),
+                      "invsqrt": ("bitwise", 1)}
+INVARIANT_FLIPS = {"purify": "execute_stack:flip@stack==1,seed=0,times=1",
+                   "sign": "execute_stack:flip@stack==2,seed=13,times=1",
+                   "invsqrt": "execute_stack:flip@stack==4,seed=13,times=1"}
+
+
+def phase_integrity() -> dict:
+    """The integrity plane on the models' operands (2208^2, f64): the
+    three loops under ``abft="verify"`` bit for bit as without it, in
+    turns; a silent flip caught by the chain invariant (ABFT off,
+    `INVARIANT_FLIPS`) and by the probe (verify, `FLIP`), both ending bit
+    for bit on the clean loop, and `FLIP` with ABFT off ending as the JAX
+    package's loops end (`FLIP_OFF_REFERENCE`); a canvas flip in purify
+    redone on the stack format; and the north star
+    (f64, K1; f32, K3) under "verify" against "off" in turns, with the
+    probe's milliseconds beside the stacks'.  Returns K1's and K3's
+    launches."""
+    p0 = make_test_density(MODEL_BLOCKS, MODEL_BLOCK, occ=0.2, seed=MODEL_SEED)
+    _, loops = _model_loops(p0, SIGN_STEPS, SIGN_EPS)
+    out = {"phase": "integrity", "n": MODEL_BLOCKS * MODEL_BLOCK, "dtype": "float64"}
+    _reset_counts()
+    try:
+        rows = {}
+        for name, loop in loops.items():
+            runs = {"off": [], "verify": []}
+            for mode in ("off", "verify", "verify", "off"):
+                set_config(abft=mode)
+                metrics.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x, hist = loop()[:2]
+                torch.cuda.synchronize()
+                runs[mode].append((time.perf_counter() - t0, x, hist,
+                                   _ctr("dbcsr_tpu_abft_checks_total")))
+                took = {k: v for k, v in _integrity_counts().items() if v}
+                _require(not took, f"integrity {name} ({mode}, no fault) took {took}")
+            set_config(abft="off")
+            x0, h0 = runs["off"][0][1:3]
+            for mode, rs in runs.items():
+                for _, x, h, _ in rs:
+                    _require(list(h) == list(h0) and _same_bits(x, x0),
+                             f"integrity {name}: a run under {mode} differs from the "
+                             f"unguarded loop")
+            row = {"wall_s": {m: [r[0] for r in rs] for m, rs in runs.items()},
+                   "abft_checks": runs["verify"][0][3], "steps": len(h0)}
+            # a silent flip: the chain invariant with ABFT off, on a launch
+            # it catches at this size, and on the first launch (as the
+            # reference ends); then the probe under "verify"
+            for case, mode, spec in (("flip_off", "off", INVARIANT_FLIPS[name]),
+                                     ("flip_off_first_launch", "off", FLIP),
+                                     ("flip_verify", "verify", FLIP)):
+                set_config(abft=mode)
+                metrics.reset()
+                outcome = None
+                try:
+                    with faults.inject_faults(spec) as sp:
+                        x, h = loop()[:2]
+                except (integrity.ChainIntegrityError, port_smm.CorruptedOutputError) as exc:
+                    outcome = type(exc).__name__
+                finally:
+                    set_config(abft="off")
+                    # a failover heals cached plans and feeds the breakers:
+                    # the next run starts from neither
+                    mm.clear_plan_cache()
+                    breaker.reset_board()
+                if outcome is None:
+                    outcome = "bitwise" if (_same_bits(x, x0) and list(h) == list(h0)) \
+                        else "differs"
+                rollbacks = _ctr("dbcsr_tpu_chain_rollback_total")
+                recov = _ctr("dbcsr_tpu_abft_recoveries_total")
+                row[case] = {"spec": spec, "fired": sp[0].fired, "outcome": outcome,
+                             "rollbacks": rollbacks, "abft_recoveries": recov,
+                             "abft_mismatches": _ctr("dbcsr_tpu_abft_mismatches_total")}
+                if case == "flip_off_first_launch":
+                    want = FLIP_OFF_REFERENCE[name]
+                    row[case]["reference"] = want
+                    _require(sp[0].fired == 1 and (outcome, rollbacks) == want,
+                             f"integrity {name} {case}: {row[case]}, the JAX package "
+                             f"ends {want}")
+                    continue
+                detector = rollbacks if mode == "off" else recov
+                _require(sp[0].fired == 1 and detector >= 1 and outcome == "bitwise"
+                         and (mode == "off" or rollbacks == 0),
+                         f"integrity {name} {case}: {row[case]}")
+            rows[name] = row
+            del runs
+        # a canvas flip in purify: the canvas probe condemns it and the
+        # product is redone on the stack format
+        set_config(abft="verify")
+        metrics.reset()
+        with faults.inject_faults("dense:flip,times=1") as sp:
+            x, h = loops["purify"]()
+        set_config(abft="off")
+        x0 = mcweeny_purify(p0, steps=PURIFY_STEPS)[0]
+        rel = _iterate_diff(x, x0)
+        _require(sp[0].fired == 1 and rel <= 1e-12
+                 and _ctr("dbcsr_tpu_abft_mismatches_total", driver="dense") == 1
+                 and _ctr("dbcsr_tpu_abft_recoveries_total", driver="dense") == 1
+                 and _ctr("dbcsr_tpu_driver_fallback_total", **{"from": "dense",
+                                                                "to": "stack"}) == 1,
+                 f"integrity canvas flip: fired {sp[0].fired}, rel {rel:.3e}, "
+                 f"{_integrity_counts()}")
+        rows["purify"]["canvas_flip"] = {"rel": rel, **_integrity_counts()}
+        out["loops"] = rows
+        # the north star under "verify" against "off", in turns
+        ns = {}
+        for dtype_code, dname in ((3, "float64"), (1, "float32")):
+            res = run_perf(_northstar_cfg(1, dtype_code), verbose=False)
+            a, b = res["matrices"]["a"], res["matrices"]["b"]
+            c_out = res["matrices"]["c_out"]
+            empty = BlockSparseMatrix("C", c_out.row_blk_sizes, c_out.col_blk_sizes, c_out.dtype)
+            walls = {"off": [], "verify": []}
+            ref = None
+            for mode in ("off", "verify", "verify", "off"):
+                set_config(abft=mode)
+                metrics.reset()
+                for rep in range(3):
+                    c = empty.copy()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+                    torch.cuda.synchronize()
+                    if rep:
+                        walls[mode].append(time.perf_counter() - t0)
+                took = {k: v for k, v in _integrity_counts().items() if v}
+                _require(not took, f"integrity north star {dname} ({mode}) took {took}")
+                if ref is None:
+                    ref = c
+                _require(_same_bits(c, ref), f"integrity north star {dname} ({mode}): C differs")
+            set_config(abft="off")
+            ns[dname] = {"s_per_multiply": walls, **_probe_ms(a, b, c_out)}
+            del res, a, b, c_out, c, ref
+        out["northstar"] = ns
+    finally:
+        faults.clear()
+        breaker.reset_board()
+        mm.clear_plan_cache()
+        abft.discard_pending()
+        set_config(abft="off", mm_driver="auto", mm_format="auto")
+    counts = _counts()
+    out["launches"] = counts
+    _emit(out)
+    return {"smm_stack": counts["smm_stack"], "smm_crosspack": counts["smm_crosspack"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; "
               "this script runs only on a machine with an NVIDIA GPU", file=sys.stderr)
         return 2
     set_config(mm_driver="auto", validate_kernels=True)
-    phase_build()
-    phase_kernel_vs_plain()
-    phase_crosspack_vs_plain()
-    phase_perf_gates("auto")
-    phase_perf_gates("pallas_cross")
-    ns = phase_northstar()
-    phase_native_index(ns["a"], ns["b"], ns["c"])
-    k1 = _kernel_row("smm_stack", ns.pop("launches"),
-                     _stacks_phase("northstar_stacks", ns.pop("a"), ns.pop("b"), ns.pop("c")))
-    k3 = phase_northstar_f32()
-    k4 = phase_resident_f32()
-    k1["launches_by_path"] = {"northstar": k1["launches"], "formats": phase_formats(),
-                              "limits": phase_limits(), "models": phase_models()}
-    k3["launches_by_path"] = {"northstar_f32": k3["launches"], "models_f32": phase_models_f32()}
+    # every phase but resilience and integrity injects nothing, so each
+    # must end without a failover, a fallback, an ABFT mismatch or a
+    # rollback (`_clean`)
+    _clean("build", phase_build)
+    _clean("kernel_vs_plain", phase_kernel_vs_plain)
+    _clean("crosspack_vs_plain", phase_crosspack_vs_plain)
+    _clean("perf_gates", phase_perf_gates, "auto")
+    _clean("perf_gates_crosspack", phase_perf_gates, "pallas_cross")
+    ns = _clean("northstar", phase_northstar)
+    _clean("native_index", phase_native_index, ns["a"], ns["b"], ns["c"])
+    k1 = _kernel_row("smm_stack", ns.pop("launches"), _clean(
+        "northstar_stacks", _stacks_phase, "northstar_stacks", ns.pop("a"), ns.pop("b"),
+        ns.pop("c")))
+    k3 = _clean("northstar_f32", phase_northstar_f32)
+    k4 = _clean("resident_f32", phase_resident_f32)
+    k1["launches_by_path"] = {"northstar": k1["launches"],
+                              "formats": _clean("formats", phase_formats),
+                              "limits": _clean("limits", phase_limits),
+                              "models": _clean("models", phase_models)}
+    k3["launches_by_path"] = {"northstar_f32": k3["launches"],
+                              "models_f32": _clean("models_f32", phase_models_f32)}
     # the legs first: they validate K1 at (529, 23, 23) for f64 and f32,
     # so the full-width run's stack times hold no first-use check
-    k1["launches_by_path"]["tensor_legs"] = phase_tensor_legs()
-    tensor = phase_tensor()
+    k1["launches_by_path"]["tensor_legs"] = _clean("tensor_legs", phase_tensor_legs)
+    tensor = _clean("tensor", phase_tensor)
     k1["launches_by_path"]["tensor"] = tensor.pop("launches")
     k1["by_path"] = {"tensor": {**tensor, "library_ms": None}}
+    for phase, fn in (("resilience", phase_resilience), ("integrity", phase_integrity)):
+        launched = fn()
+        k1["launches_by_path"][phase] = launched["smm_stack"]
+        k3["launches_by_path"][phase] = launched["smm_crosspack"]
     k4["launches_by_path"] = {"resident_f32": k4["launches"]}
     print(json.dumps({"kernels": [k1, k3, k4]}), flush=True)
     print(json.dumps({"ok": True, "device": {

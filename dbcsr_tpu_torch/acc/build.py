@@ -6,6 +6,9 @@ compiled by ``nvcc`` for Hopper (``sm_90a``) into
 source, every shared header of ``csrc/`` (``*.cuh``) and the flags, so an
 edited source or header rebuilds and an unchanged one is reused.  The library is loaded with ctypes by the kernel's wrapper.
 Several sources build in parallel, one ``nvcc`` each (`build_all`).
+A failed build or load raises `BuildError`, which the stack-driver
+failover chain (`acc/smm.py`) never takes up: a kernel that does not
+build fails loudly instead of running on another driver.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+class BuildError(RuntimeError):
+    """A kernel library of the port failed to build or load."""
+
 
 # every source of the port (csrc/): the base stack kernel and the
 # crosspack kernel, which both include the warp path (smm_warp.cuh)
@@ -50,8 +57,8 @@ def find_nvcc() -> str:
     for c in candidates:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
-                       "the CUDA kernels of dbcsr_tpu_torch are built at first use")
+    raise BuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                     "the CUDA kernels of dbcsr_tpu_torch are built at first use")
 
 
 def library_path(source: str, csrc_dir: str = CSRC_DIR) -> str:
@@ -94,7 +101,7 @@ def build_all(sources: Iterable[str] = SOURCES) -> Dict[str, str]:
             build_logs[src] = log
             del running[src]
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src} (rc {proc.returncode}):\n{log}")
+                raise BuildError(f"nvcc failed for {src} (rc {proc.returncode}):\n{log}")
             os.replace(tmp, out[src])
     finally:
         for proc, tmp, _ in running.values():
@@ -107,5 +114,9 @@ def load(source: str) -> ctypes.CDLL:
     """The loaded library of ``source``, built first if needed."""
     lib = _loaded.get(source)
     if lib is None:
-        lib = _loaded[source] = ctypes.CDLL(build_all([source])[source])
+        path = build_all([source])[source]
+        try:
+            lib = _loaded[source] = ctypes.CDLL(path)
+        except OSError as exc:
+            raise BuildError(f"loading {path} failed: {exc}") from exc
     return lib

@@ -13,8 +13,9 @@ replaces `dbcsr_tpu/acc/pallas_smm.py:_crosspack_kernel` (K3) and the
 resident launch, which keeps one operand bin in persisting L2, replaces
 `_crosspack_vmem_kernel` (K4).  On a CPU tensor it runs
 `smm_crosspack_plain`, the same function over the same pack layout.
-Nothing falls back from the kernel to the plain version or to the base
-kernel: a CUDA launch that fails raises.
+The wrapper never falls back to the plain version or to the base
+kernel: a CUDA launch that fails raises, and `acc.smm.execute_stack`
+counts the failure, demotes the shape and fails the stack over.
 """
 
 from __future__ import annotations

@@ -10,8 +10,9 @@ of ``csrc/smm_stack.cu``, its warp path or its tiled path by shape
 (`kernel_path`; it replaces the Pallas kernel
 `dbcsr_tpu/acc/pallas_smm.py:_smm_kernel`, base and kmerge variants); on
 a CPU tensor it runs `smm_stack_plain`, the same function as
-gather -> `torch.bmm` -> `index_add_` in stack order.  Nothing falls back
-from the kernel to the plain version: a CUDA launch that fails raises.
+gather -> `torch.bmm` -> `index_add_` in stack order.  The wrapper never
+falls back to the plain version: a CUDA launch that fails raises, and
+`acc.smm.execute_stack` counts the failure and fails the stack over.
 """
 
 from __future__ import annotations

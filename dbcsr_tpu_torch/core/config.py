@@ -1,5 +1,5 @@
 """Global configuration: the subset of `dbcsr_tpu/core/config.py` the
-multiply and the TAS split read (ref `dbcsr_cfg`,
+multiply, the TAS split and the integrity plane read (ref `dbcsr_cfg`,
 `src/core/dbcsr_config.F`).
 """
 
@@ -7,7 +7,8 @@ from __future__ import annotations
 
 import dataclasses
 
-MM_DRIVERS = ("auto", "pallas", "pallas_cross", "torch")
+MM_DRIVERS = ("auto", "pallas", "pallas_cross", "torch", "host")
+ABFT_MODES = ("off", "verify", "recover")
 MM_FORMATS = ("auto", "stack", "dense", "composite")
 
 
@@ -19,9 +20,11 @@ class Config:
     # "pallas" forces the base stack kernel and "pallas_cross" the
     # crosspack kernel (the base kernel where the pack has P <= 1);
     # "torch" runs the base kernel's plain PyTorch version on any device
-    # (the on-card comparison leg).  A kernel runs its plain version on
-    # a CPU tensor.  "pallas" also keeps every product on the stack
-    # format, as in the JAX package.
+    # (the on-card comparison leg); "host" runs the native C++ stack
+    # driver (native/host_smm.cpp) and serves CPU tensors only (a CUDA
+    # tensor raises).  A kernel runs its plain version on a CPU tensor.
+    # "pallas" also keeps every product on the stack format, as in the
+    # JAX package.
     mm_driver: str = "auto"
     # entries the plain version gathers per chunk (bounds its temporary
     # memory; ref MM_STACK_SIZE, dbcsr_config.F:77-79)
@@ -46,6 +49,13 @@ class Config:
     # multiplier on the TAS split-factor estimate (tas/mm.py; ref
     # TAS_SPLIT_FACTOR, dbcsr_config.F:170)
     tas_split_factor: float = 1.0
+    # ABFT probe checksums at the stack and canvas boundaries
+    # (acc/abft.py): "off" (no probe), "verify" (a rank-1 probe per
+    # launch; a mismatch is classified "sdc" and the stack re-executes
+    # down the failover chain), "recover" (verify, and every recovery is
+    # itself probed).  It also arms the models' chain guard
+    # (models/integrity.py).
+    abft: str = "off"
 
     def validate(self) -> None:
         if self.mm_driver not in MM_DRIVERS:
@@ -63,6 +73,8 @@ class Config:
             raise ValueError("composite_ksup must be in (0, 1]")
         if self.tas_split_factor <= 0:
             raise ValueError("tas_split_factor must be positive")
+        if self.abft not in ABFT_MODES:
+            raise ValueError(f"abft must be 'off'/'verify'/'recover', got {self.abft!r}")
 
 
 _cfg = Config()

@@ -17,10 +17,18 @@ tensors of the same size reuse them without a `cudaMalloc`.
   a loop adopted (the TAS split loop), and whatever is still adopted at
   exit is freed.
 
-The JAX package's buffer recycling (`zeros`/`release`), index mirrors
-(`upload_index`) and `snapshot`/`restore` are not ported: the allocator
-recycles, plans keep their own device indices, and the snapshots serve
-only the models' integrity guard, which is not ported either.
+* `snapshot_matrix`/`restore_matrix` and ``chain.snapshot``/``restore``
+  (ref `dbcsr_tpu/core/mempool.py:372-560`): the models' integrity guard
+  checkpoints each accepted iterate and rolls back to it.  A snapshot
+  clones the bins (the port's tensors are mutable); a restore installs
+  fresh clones, so one snapshot can be restored twice, and the matrix's
+  new bins make the plan cache, the canvas cache and the norm memo miss.
+  Restoring a matrix its chain retired after the snapshot raises
+  `SnapshotError`.
+
+The JAX package's buffer recycling (`zeros`/`release`) and index mirrors
+(`upload_index`) are not ported: the allocator recycles, and plans keep
+their own device indices.
 """
 
 from __future__ import annotations
@@ -67,6 +75,58 @@ def pool_stats(device=None) -> dict:
                     "num_alloc_retries"):
             out[key] = int(ms.get(key, 0))
     return out
+
+
+class SnapshotError(RuntimeError):
+    """A checkpoint/rollback contract violation (restoring a snapshot
+    whose matrix was retired after it)."""
+
+
+class MatrixSnapshot:
+    """A point-in-time checkpoint of one matrix: copies of its index
+    arrays and clones of its bins on their device, owned by the snapshot
+    alone, so it stays valid whatever later happens to the matrix."""
+
+    __slots__ = ("matrix", "keys", "row_ptr", "ent_bin", "ent_slot", "bins", "valid",
+                 "chain_owner")
+
+    def __init__(self, m, chain_owner: Optional["chain"] = None):
+        self.matrix = m
+        self.keys = m.keys.copy()
+        self.row_ptr = m.row_ptr.copy()
+        self.ent_bin = m.ent_bin.copy()
+        self.ent_slot = m.ent_slot.copy()
+        self.bins = [(b.shape, b.data.clone(), b.count) for b in m.bins]
+        self.valid = m.valid
+        self.chain_owner = chain_owner
+
+    def nbytes(self) -> int:
+        return sum(d.numel() * d.element_size() for _, d, _ in self.bins)
+
+
+def snapshot_matrix(m, chain_owner: Optional["chain"] = None) -> MatrixSnapshot:
+    """Checkpoint ``m``'s structure and device data."""
+    return MatrixSnapshot(m, chain_owner=chain_owner)
+
+
+def restore_matrix(snap: MatrixSnapshot):
+    """Roll ``snap.matrix`` back to the snapshot: its index arrays
+    replaced by copies and its bins by fresh clones of the snapshot's
+    (which stays reusable).  Returns the matrix."""
+    from dbcsr_tpu_torch.core.matrix import _Bin
+
+    m = snap.matrix
+    m.keys = snap.keys.copy()
+    m.row_ptr = snap.row_ptr.copy()
+    m.ent_bin = snap.ent_bin.copy()
+    m.ent_slot = snap.ent_slot.copy()
+    m.bins = [_Bin(shape, data.clone(), count) for shape, data, count in snap.bins]
+    m._work.clear()
+    m._work_batches.clear()
+    m._dense_canvas = None
+    m._norms_memo = None
+    m.valid = snap.valid
+    return m
 
 
 # per-thread chain stack: a chain entered on one thread never adopts
@@ -128,7 +188,28 @@ class chain:
         does not own (a caller's input is never freed)."""
         tracked = self._adopted.pop(id(m), None)
         if tracked is not None:
+            # stamped on the matrix, not kept as an id: a retired
+            # matrix's id may be reused by a later one
+            tracked._chain_retired = True
             tracked.free()
+
+    def snapshot(self, m) -> MatrixSnapshot:
+        """Checkpoint ``m`` (chain-owned or a caller's input), restorable
+        through `restore`: the models checkpoint the accepted iterate
+        before a step and roll back to it instead of iterating on a
+        corrupted one."""
+        return snapshot_matrix(m, chain_owner=self)
+
+    def restore(self, snap: MatrixSnapshot):
+        """Roll the snapshotted matrix back to its checkpoint; ownership
+        does not change.  A matrix retired after the snapshot raises
+        `SnapshotError` (its storage was given up)."""
+        if getattr(snap.matrix, "_chain_retired", False):
+            raise SnapshotError(
+                f"cannot restore {snap.matrix.name!r}: the matrix was retired after the "
+                f"snapshot (take the snapshot before retiring, or retire once the "
+                f"iterate is validated)")
+        return restore_matrix(snap)
 
     @contextlib.contextmanager
     def scope(self):

@@ -40,6 +40,17 @@ but skips the group sort and the uploads of `prepare_stack`.  Plans
 hold int32 device indices only, never a bin, and first-use validation
 stays keyed by kernel shape in `acc/smm.py`.  LRU of 16 entries and 256
 MiB of index bytes.
+
+Integrity (ref `dbcsr_tpu/mm/multiply.py:246-270,512-535,1891-2025`):
+each multiply opens an event-bus product and a flight record
+(`obs.events.product_scope`).  The dense and composite formats have the
+``dense`` fault site and `_dense_guard` (the corruption hook, the opt-in
+finite check) before their result reaches C, and the ABFT canvas probe
+while ``abft`` is on; a canvas failure falls over to the stack format
+while C still holds the bins it held (`_note_dense_fallback` counts it).
+A beta = 0 stack product defers its launches' ABFT probes to one flush
+at its end; a mismatch there zeroes C's bins and redoes the product with
+immediate checks (`_run_stacks`).
 """
 
 from __future__ import annotations
@@ -52,7 +63,8 @@ import numpy as np
 import torch
 
 from dbcsr_tpu_torch import native
-from dbcsr_tpu_torch.acc import params
+from dbcsr_tpu_torch.acc import abft, params
+from dbcsr_tpu_torch.acc import smm as _smm
 from dbcsr_tpu_torch.acc.smm import StackPlan, execute_stack, prepare_stack
 from dbcsr_tpu_torch.core import digests, mempool
 from dbcsr_tpu_torch.core.config import get_config
@@ -66,8 +78,10 @@ from dbcsr_tpu_torch.core.matrix import (
     to_index,
 )
 from dbcsr_tpu_torch.mm import format_planner
+from dbcsr_tpu_torch.obs import events, flight
 from dbcsr_tpu_torch.ops.operations import compress, crop_matrix, window_mask
 from dbcsr_tpu_torch.ops.transformations import desymmetrize, new_transposed
+from dbcsr_tpu_torch.resilience import faults
 
 NO_LIMITS = (None,) * 6
 
@@ -222,8 +236,15 @@ def multiply(
             int(coff[first_col]) if first_col is not None else 0,
             int(coff[last_col + 1]) - 1 if last_col is not None else c.nfullcols - 1,
         )
-    return _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
-                          beta_window)
+    with events.product_scope("multiply", c.name, m=c.nfullrows, n=c.nfullcols,
+                              k=a.nfullcols, filter_eps=filter_eps,
+                              retain_sparsity=retain_sparsity):
+        flops = _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
+                               beta_window)
+        flight.note("flops", flops)
+        flight.note("algorithm", c._mm_algorithm)
+        flight.note("phases_ms", {k: round(v * 1e3, 3) for k, v in c._mm_phase_s.items()})
+    return flops
 
 
 def _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
@@ -242,21 +263,13 @@ def _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
                                  retain_sparsity=retain_sparsity,
                                  no_limits=all(x is None for x in limits))
     phase = {"format": time.perf_counter() - t0}
-    c._mm_algorithm = plan.fmt
-    if plan.fmt == "stack":
+    flops = None
+    if plan.fmt != "stack":
+        flops = _canvas_multiply(a, b, c, alpha, beta, plan, phase)
+    c._mm_algorithm = plan.fmt if flops is not None else "stack"
+    if flops is None:
         flops = _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
                                 beta_window, phase)
-    else:
-        t1 = time.perf_counter()
-        events = _start_events(c.device)
-        if plan.fmt == "composite":
-            flops = _composite_multiply(a, b, c, alpha, beta, plan.panels)
-        else:
-            flops = _dense_multiply(a, b, c, alpha, beta)
-        c._mm_device_events = _stop_events(events)
-        phase[plan.fmt] = time.perf_counter() - t1
-        c._mm_plan_cache = None
-        c._mm_spans = []
     c._mm_phase_s = phase
     _totals["multiplies"] += 1
     decision = f"{plan.fmt}:{plan.reason}"
@@ -264,10 +277,64 @@ def _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
     for name, sec in phase.items():
         _totals["host_phase_s"][name] = _totals["host_phase_s"].get(name, 0.0) + sec
     if c._mm_device_events is not None:
-        _totals["timed"][plan.fmt] = _totals["timed"].get(plan.fmt, 0) + 1
-        _totals["events"].append((plan.fmt, *c._mm_device_events))
+        fmt = c._mm_algorithm
+        _totals["timed"][fmt] = _totals["timed"].get(fmt, 0) + 1
+        _totals["events"].append((fmt, *c._mm_device_events))
         _fold_events(wait=False)
     return int(flops)
+
+
+def _canvas_multiply(a, b, c, alpha, beta, plan, phase):
+    """The dense or composite format; None when it failed while C still
+    held its bins, so the caller runs the stack format instead (the
+    canvas paths and the stack format compute the same product, and the
+    canvas paths install C's new bins last)."""
+    # a float32 GEMM under TF32 is the caller's setting to fix, not a
+    # failure to fall over from
+    _check_matmul_precision(c.dtype, c.device)
+    held = [(bn.data, bn.data._version) for bn in c.bins]
+    t1 = time.perf_counter()
+    ev = _start_events(c.device)
+    try:
+        if plan.fmt == "composite":
+            flops = _composite_multiply(a, b, c, alpha, beta, plan.panels)
+        else:
+            flops = _dense_multiply(a, b, c, alpha, beta)
+    except Exception as exc:  # noqa: BLE001 -- classified and counted, or raised
+        if len(c.bins) != len(held) or any(bn.data is not d or bn.data._version != v
+                                           for bn, (d, v) in zip(c.bins, held)):
+            raise  # C already restructured: nothing to fall over from
+        _note_dense_fallback(exc, driver=plan.fmt)
+        return None
+    c._mm_device_events = _stop_events(ev)
+    phase[plan.fmt] = time.perf_counter() - t1
+    c._mm_plan_cache = None
+    c._mm_spans = []
+    return flops
+
+
+def _note_dense_fallback(exc: BaseException, driver: str = "dense") -> None:
+    """Count a canvas-to-stack failover with the stack chain's counters
+    and events (ref `dbcsr_tpu/mm/multiply.py:512-526`); a canvas
+    condemned by its probe counts as recovered, since the stack format
+    recomputes the product from an untouched C."""
+    kind = _smm._classify_failure(exc)
+    _smm._record_driver_failure(driver, kind, exc, ())
+    _smm._record_fallback(driver, "stack", ())
+    if kind == "sdc":
+        abft.record_recovery(driver)
+    flight.note("dense_fallback", f"{type(exc).__name__}: {exc}"[:200])
+
+
+def _dense_guard(x: torch.Tensor) -> torch.Tensor:
+    """The ``dense`` corruption hook and the opt-in finite check on a
+    canvas format's result, before it reaches C (ref
+    `dbcsr_tpu/mm/multiply.py:527-535`)."""
+    if faults.active():
+        faults.corrupt("dense", x)
+    if _smm._output_checks_enabled() and _smm._output_corrupted(x):
+        raise _smm.CorruptedOutputError("dense path produced non-finite output")
+    return x
 
 
 def _start_events(device: torch.device):
@@ -315,7 +382,7 @@ def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
             _plan_cache_insert(key, spans)
     t3 = time.perf_counter()
     phase["plan"] = t3 - t2
-    flops = _run_stacks(c, a, b, spans, alpha)
+    flops = _run_stacks(c, a, b, spans, alpha, c_zero=beta == 0 and beta_window is None)
     phase["launch"] = time.perf_counter() - t3
     c._mm_spans = [(sp.m, sp.n, sp.k, sp.entries, sp.driver, sp.plan.max_run)
                    for sp in spans]
@@ -548,8 +615,7 @@ def _rebuild_c(c: BlockSparseMatrix, new_keys: np.ndarray, beta, beta_window=Non
 
 class Span(NamedTuple):
     """One stack of the product: the bins it reads and writes, its block
-    shape, its entry count, its prepared plan, and the kernel that plan
-    chose (`StackPlan.kernel`)."""
+    shape, its entry count and its prepared plan."""
 
     cbin: int
     abin: int
@@ -559,7 +625,12 @@ class Span(NamedTuple):
     k: int
     entries: int
     plan: StackPlan
-    driver: str
+
+    @property
+    def driver(self) -> str:
+        """The kernel the plan launches (`StackPlan.kernel`; a failover
+        heals the plan, and this follows it)."""
+        return self.plan.kernel
 
 
 def _sort_order(group, ngroups: int, c_slot, a_ent):
@@ -601,20 +672,55 @@ def _build_spans(c, a, b, cand_keys, a_ent, b_ent):
         n = b.bins[bbin].shape[1]
         plan = prepare_stack(c.bins[cbin].data, a.bins[abin].data, b.bins[bbin].data,
                              a_slot[s0:s1], b_slot[s0:s1], c_slot[s0:s1])
-        spans.append(Span(cbin, abin, bbin, m, n, k, s1 - s0, plan, plan.kernel))
+        spans.append(Span(cbin, abin, bbin, m, n, k, s1 - s0, plan))
     return spans
 
 
-def _run_stacks(c, a, b, spans, alpha) -> int:
+def _run_stacks(c, a, b, spans, alpha, c_zero: bool = False) -> int:
     """Execute the prepared spans in order, in place on C's bins; returns
-    the true flops."""
-    events = _start_events(c.device) if spans else None
-    flops = 0
-    for sp in spans:
-        execute_stack(c.bins[sp.cbin].data, a.bins[sp.abin].data,
-                      b.bins[sp.bbin].data, sp.plan, alpha)
-        flops += 2 * sp.m * sp.n * sp.k * sp.entries
-    c._mm_device_events = _stop_events(events)
+    the true flops.  ``c_zero``: every C bin is zero (beta = 0, no
+    window), so each bin's first span needs no pristine copy, and under
+    ABFT the product defers those spans' probes to one `abft.flush`; a
+    mismatch there zeroes every bin and redoes the product with immediate
+    checks, where the stack failover localizes and heals it (ref
+    `dbcsr_tpu/mm/multiply.py:1891,1988-2025`)."""
+
+    def exec_spans(defer: bool) -> int:
+        zero_bins = set(range(len(c.bins))) if c_zero else set()
+        flops = 0
+        for sp in spans:
+            execute_stack(c.bins[sp.cbin].data, a.bins[sp.abin].data,
+                          b.bins[sp.bbin].data, sp.plan, alpha,
+                          c_zero=sp.cbin in zero_bins, abft_defer=defer)
+            zero_bins.discard(sp.cbin)
+            flops += 2 * sp.m * sp.n * sp.k * sp.entries
+        return flops
+
+    ev = _start_events(c.device) if spans else None
+    recovered_from = []
+    for attempt in (0, 1):
+        defer = c_zero and abft.enabled() and attempt == 0
+        if defer:
+            abft.discard_pending()
+        try:
+            flops = exec_spans(defer)
+        except BaseException:
+            if defer:  # an aborted product's probes are charged to no later one
+                abft.discard_pending()
+            raise
+        if not defer:
+            break
+        try:
+            abft.flush()
+            break
+        except abft.AbftMismatchError as exc:
+            _smm.note_deferred_sdc(exc)
+            recovered_from = exc.mismatch_drivers
+            for bin_ in c.bins:
+                bin_.data.zero_()
+    for drv in recovered_from:
+        abft.record_recovery(drv)
+    c._mm_device_events = _stop_events(ev)
     return flops
 
 
@@ -823,21 +929,31 @@ def _dense_multiply(a, b, c, alpha, beta) -> int:
     carve by a reshape and merge beta*C block-granularly; others take
     `_dense_multiply_general`; canvases over `_DENSE_MAX_CANVAS` elements
     take `_dense_multiply_chunked`.  Returns the true flops."""
-    _check_matmul_precision(c.dtype, c.device)
+    if faults.active():
+        faults.maybe_inject("dense")
     if not (_uniform(a) and _uniform(b) and _uniform(c)):
         return _dense_multiply_general(a, b, c, alpha, beta)
     bm, bn = int(c.row_blk_sizes[0]), int(c.col_blk_sizes[0])
     if max(a.nfullrows * a.nfullcols, a.nfullcols * b.nfullcols,
            a.nfullrows * b.nfullcols) > _DENSE_MAX_CANVAS:
         return _dense_multiply_chunked(a, b, c, alpha, beta)
-    cd = torch.matmul(_dense_canvas_cached(a), _dense_canvas_cached(b))
-    out = _carve_padded_reshape(cd, c.nblkrows, c.nblkcols, bm, bn)
+    ad, bd = _dense_canvas_cached(a), _dense_canvas_cached(b)
+    cd = torch.matmul(ad, bd)
+    nbr, nbc = c.nblkrows, c.nblkcols
+    out = _carve_padded_reshape(cd, nbr, nbc, bm, bn)
     del cd
     if alpha != 1:
         out.mul_(alpha)
     if beta != 0 and c.nblks:
         # one bin: its slots are the entries in key order
         out.index_add_(0, to_index(c.keys, c.device), c.bins[0].data, alpha=beta)
+    out = _dense_guard(out)
+    if abft.enabled():
+        # the carved blocks are a permutation of the result canvas
+        res = out.reshape(nbr, nbc, bm, bn).permute(0, 2, 1, 3).reshape(nbr * bm, nbc * bn)
+        c_old = _to_dense_device(c) if beta != 0 and c.nblks else None
+        abft.check_dense_canvas(res, ad, bd, c_old, alpha, beta, dtype=c.dtype)
+        del res, c_old
     _full_pattern(c, out)
     return _true_product_flops(a, b)
 
@@ -846,11 +962,17 @@ def _dense_multiply_general(a, b, c, alpha, beta) -> int:
     """The dense format for any blocking (the north star's 434x23 + 18):
     densify on the device, one GEMM, add beta * C's canvas, carve C back
     into its own full blocking."""
-    cd = torch.matmul(_dense_canvas_cached(a), _dense_canvas_cached(b))
+    ad, bd = _dense_canvas_cached(a), _dense_canvas_cached(b)
+    cd = torch.matmul(ad, bd)
     if alpha != 1:
         cd.mul_(alpha)
-    if beta != 0 and c.nblks:
-        cd.add_(_to_dense_device(c), alpha=beta)
+    c_old = _to_dense_device(c) if beta != 0 and c.nblks else None
+    if c_old is not None:
+        cd.add_(c_old, alpha=beta)
+    cd = _dense_guard(cd)
+    if abft.enabled():
+        abft.check_dense_canvas(cd, ad, bd, c_old, alpha, beta, dtype=c.dtype)
+    del c_old
     carve_full_pattern(c, cd)
     return _true_product_flops(a, b)
 
@@ -902,7 +1024,7 @@ def _dense_multiply_chunked(a, b, c, alpha, beta) -> int:
                                c.bins[0].data[to_index(sel, dev)], alpha=beta)
             tiles.append(out.reshape(mrb, ncb, bm, bn)[: r1 - r0, : c1 - c0])
         parts.append(torch.cat(tiles, dim=1).reshape((r1 - r0) * nbc, bm, bn))
-    _full_pattern(c, torch.cat(parts) if len(parts) > 1 else parts[0])
+    _full_pattern(c, _dense_guard(torch.cat(parts) if len(parts) > 1 else parts[0]))
     return _true_product_flops(a, b)
 
 
@@ -1036,7 +1158,8 @@ def _composite_multiply(a, b, c, alpha, beta, pack: _PanelPack) -> int:
     panels, then carve C's full pattern (panel-major reshape, one
     block-granular take into key order) and merge beta*C.  Returns the
     true flops."""
-    _check_matmul_precision(c.dtype, c.device)
+    if faults.active():
+        faults.maybe_inject("dense")
     bm, bn, bk = int(c.row_blk_sizes[0]), int(c.col_blk_sizes[0]), int(a.col_blk_sizes[0])
     nbr, nbc = a.nblkrows, c.nblkcols
     G, mp, kp = pack.G, pack.mp, pack.kp
@@ -1058,7 +1181,10 @@ def _composite_multiply(a, b, c, alpha, beta, pack: _PanelPack) -> int:
     bd = torch.zeros((G * kp * bk, nbc * bn), dtype=dt, device=dev)
     _scatter_blocks(bd, b.bins[0].data[to_index(np.concatenate(dup), dev)],
                     np.concatenate(b_ro), np.concatenate(b_co))
-    pd = torch.bmm(ad.view(G, mp * bm, kp * bk), bd.view(G, kp * bk, nbc * bn))
+    ad, bd = ad.view(G, mp * bm, kp * bk), bd.view(G, kp * bk, nbc * bn)
+    pd = _dense_guard(torch.bmm(ad, bd))
+    if abft.enabled():
+        abft.check_dense_canvas_batched(pd, ad, bd, dtype=c.dtype)
     del ad, bd
     carved = pd.reshape(G, mp, bm, nbc, bn).permute(0, 1, 3, 2, 4).reshape(G * mp * nbc, bm, bn)
     del pd

@@ -2,14 +2,15 @@
 
 P_{n+1} = 3 P_n^2 - 2 P_n^3, the canonical linear-scaling-DFT workload
 DBCSR serves (CP2K's `dm_ls_scf`): two filtered block-sparse multiplies
-per step.  Counterpart of `dbcsr_tpu/models/purify.py:27-169,238-255`
-without the integrity guard, the adaptive-precision scope and the reuse
-events (not ported: `ROADMAP.md`), which the JAX package's default
-leaves off, so both run the same loop.
+per step.  Counterpart of `dbcsr_tpu/models/purify.py:27-169,238-255`,
+with the integrity guard (`models/integrity.py`) and without the
+adaptive-precision scope and the reuse events (not ported yet:
+`ROADMAP.md`); the JAX package's default leaves both inert.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -19,7 +20,8 @@ from dbcsr_tpu_torch.core import mempool
 from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
 from dbcsr_tpu_torch.device import DeviceLike
 from dbcsr_tpu_torch.mm.multiply import multiply
-from dbcsr_tpu_torch.ops.operations import add, add_on_diag, scale, trace
+from dbcsr_tpu_torch.models import integrity as _integrity
+from dbcsr_tpu_torch.ops.operations import add, add_on_diag, frobenius_norm, scale, trace
 from dbcsr_tpu_torch.ops.test_methods import make_random_matrix
 from dbcsr_tpu_torch.ops.transformations import desymmetrize
 
@@ -45,21 +47,73 @@ def mcweeny_step(p: BlockSparseMatrix,
     return out
 
 
+def _purify_invariant(new: BlockSparseMatrix, norm_ref: float, history) -> tuple:
+    """The integrity invariant of a purification iterate (ref
+    `dbcsr_tpu/models/purify.py:51-83`): the norm growth bound, and,
+    while the iterate can be a density matrix, the trace inside [0, N]
+    and the trace change at most 4 times the last.  Returns (ok, trace,
+    norm)."""
+    tr = trace(new)
+    nn = frobenius_norm(new)
+    n = new.nfullrows
+    slack = 0.5 + 1e-6 * n
+    # ||3P²-2P³||_F <= 3||P||² + 2||P||³ on any input
+    ok = _integrity.norm_ok(nn, 3.0 * norm_ref ** 2 + 2.0 * norm_ref ** 3)
+    # spectra in [-0.5, 1.5] imply ||P||_F <= 1.5 sqrt(N)
+    if ok and norm_ref <= 1.5 * n ** 0.5 + 1.0:
+        ok = math.isfinite(tr) and -slack <= tr <= n + slack
+        if ok and len(history) >= 2:
+            d_prev = abs(history[-1] - history[-2])
+            ok = abs(tr - history[-1]) <= max(4.0 * d_prev, d_prev + 1.0)
+    return ok, tr, nn
+
+
 def mcweeny_purify(p: BlockSparseMatrix, steps: int = 5,
                    filter_eps: Optional[float] = None, tol: Optional[float] = None):
     """Iterate purification; stop early when the trace moves less than
     ``tol``.  Returns (P_final, trace_history).  The loop shares one
     chain: each iterate is retired once its successor exists; the
-    caller's input is never touched."""
+    caller's input is never touched.
+
+    Integrity guard (`models/integrity.py`, armed when ``abft`` is on or
+    faults are active): the accepted iterate is checkpointed before each
+    step, the new one is held to `_purify_invariant`, and a violating
+    step rolls back to the checkpoint and is recomputed."""
+    guard = _integrity.guard_enabled()
     history = []
     with mempool.chain() as ch:
         cur = p
-        for _ in range(steps):
+        cur_norm = frobenius_norm(cur) if guard else None
+        for step_i in range(steps):
+            snap = ch.snapshot(cur) if guard else None
             new = mcweeny_step(cur, filter_eps=filter_eps)
+            tr_new = None
+            if guard:
+                ok, tr_new, nn = _purify_invariant(new, cur_norm, history)
+                if not ok:
+                    _integrity.record_rollback("purify", step_i, "invariant",
+                                               detail=f"norm {nn:.3e} ref {cur_norm:.3e}")
+                    ch.retire(new)
+                    if cur is not p:
+                        cur = ch.restore(snap)
+                    seen = {}
+
+                    def _build(cur=cur):
+                        return mcweeny_step(cur, filter_eps=filter_eps)
+
+                    def _validate(cand):
+                        ok2, seen["tr"], seen["nn"] = _purify_invariant(cand, cur_norm, history)
+                        return ok2
+
+                    new = _integrity.recompute_step(ch, _build, _validate, "purify", step_i,
+                                                    "invariant")
+                    nn, tr_new = seen["nn"], seen["tr"]
+                cur_norm = nn
             if cur is not p:
                 ch.retire(cur)
             cur = new
-            history.append(trace(cur))
+            # the guard already paid trace(new)
+            history.append(trace(cur) if tr_new is None else tr_new)
             if tol is not None and len(history) > 1 and abs(history[-1] - history[-2]) < tol:
                 break
         ch.detach(cur)

@@ -1,20 +1,24 @@
-"""The multiply's host index engine: C++ with OpenMP, bound with ctypes.
+"""The multiply's host index engine and the host stack driver: C++ with
+OpenMP, bound with ctypes.
 
 Counterpart of `dbcsr_tpu/native/__init__.py`, with its two multiply
-entry points: `symbolic_product` (every (i, k, j) triple of op(A)·op(B)
+entry points, `symbolic_product` (every (i, k, j) triple of op(A)·op(B)
 with the norm filter, the symmetric-C skip and the block limits) and
-`group_sort_stacks` (the stack order by (group, C slot, A entry)).
+`group_sort_stacks` (the stack order by (group, C slot, A entry)), and
+`host_smm`, the native stack driver (``host_smm.cpp``) that
+``mm_driver="host"`` and the failover chain run on CPU tensors.
 
-``index_engine.cpp`` is compiled at first use with
-``g++ -O3 -march=native -fopenmp -fPIC -shared`` into
+``index_engine.cpp`` and ``host_smm.cpp`` are compiled together at
+first use with ``g++ -O3 -march=native -fopenmp -fPIC -shared`` into
 ``dbcsr_tpu_torch/_build/libdbcsr_index.<hash>.so``; the hash covers the
-source, the flags and the CPU's feature flags (``-march=native`` code
+sources, the flags and the CPU's feature flags (``-march=native`` code
 must not run on another CPU), so an edited source or another host
 rebuilds.  The compiler writes a file of its own name and the result is
 renamed into place, so processes that build at once never load half a
 library.
 
-There is no quiet fallback: a failed build or load raises.  The
+There is no quiet fallback: a failed build or load raises
+`acc.build.BuildError`, which the failover chain never takes up.  The
 multiply's NumPy path runs only when the caller asks for it with
 ``DBCSR_TPU_TORCH_NATIVE=0`` (`enabled`), and `mm.multiply.read_totals`
 counts which engine ran.
@@ -32,8 +36,12 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
-SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "index_engine.cpp")
+from dbcsr_tpu_torch.acc.build import BuildError
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+SOURCES = tuple(os.path.join(_DIR, f) for f in ("index_engine.cpp", "host_smm.cpp"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "_build")
 FLAGS = ("-O3", "-march=native", "-fopenmp", "-fPIC", "-shared")
@@ -66,11 +74,12 @@ def _cpu_flags() -> bytes:
 
 
 def library_path() -> str:
-    """Content-hashed path of the library for this source, these flags
+    """Content-hashed path of the library for these sources, these flags
     and this CPU."""
     h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(FLAGS).encode())
     h.update(_cpu_flags())
     return os.path.join(BUILD_DIR, f"libdbcsr_index.{h.hexdigest()[:16]}.so")
@@ -87,18 +96,18 @@ def build() -> str:
         return path
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the host index engine of dbcsr_tpu_torch is "
-                           "built at first use (DBCSR_TPU_TORCH_NATIVE=0 selects the "
-                           "NumPy path)")
+        raise BuildError("g++ not found: the host index engine of dbcsr_tpu_torch is "
+                         "built at first use (DBCSR_TPU_TORCH_NATIVE=0 selects the "
+                         "NumPy path)")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     t0 = time.perf_counter()
     try:
-        out = subprocess.run([cxx, *FLAGS, SOURCE, "-o", tmp], capture_output=True,
+        out = subprocess.run([cxx, *FLAGS, *SOURCES, "-o", tmp], capture_output=True,
                              text=True, timeout=300)
         if out.returncode != 0:
-            raise RuntimeError(f"g++ failed for {SOURCE} (rc {out.returncode}):\n"
-                               f"{out.stdout}{out.stderr}")
+            raise BuildError(f"g++ failed for {' '.join(SOURCES)} (rc {out.returncode}):\n"
+                             f"{out.stdout}{out.stderr}")
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
@@ -112,7 +121,10 @@ def get_lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            try:
+                lib = ctypes.CDLL(build())
+            except OSError as exc:
+                raise BuildError(f"loading the native library failed: {exc}") from exc
             lib.dbcsr_symbolic_product.restype = ctypes.c_int64
             lib.dbcsr_symbolic_product.argtypes = [
                 _I64P, ctypes.c_int64, _I32P, _I64P, _I32P,
@@ -124,6 +136,12 @@ def get_lib() -> ctypes.CDLL:
             lib.dbcsr_group_sort_stacks.restype = None
             lib.dbcsr_group_sort_stacks.argtypes = [
                 ctypes.c_int64, _I64P, ctypes.c_int64, _I32P, _I64P, _I64P, _I64P,
+            ]
+            lib.dbcsr_host_smm.restype = ctypes.c_int32
+            lib.dbcsr_host_smm.argtypes = [
+                ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                _I32P, _I32P, _I32P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_double, ctypes.c_double,
             ]
             lib.dbcsr_native_version.restype = ctypes.c_int32
             lib.dbcsr_native_version.argtypes = []
@@ -190,3 +208,53 @@ def group_sort_stacks(group, ngroups: int, c_slot, a_ent):
                                 _ptr(c_slot, ctypes.c_int32), _ptr(a_ent, ctypes.c_int64),
                                 _ptr(order, ctypes.c_int64), _ptr(bounds, ctypes.c_int64))
     return order, bounds
+
+
+# the reference's datatype codes the host driver takes (r4, r8)
+_HOST_DTYPE_CODE = {torch.float32: 1, torch.float64: 3}
+
+
+def host_smm_supports(dtype: torch.dtype) -> bool:
+    """Whether `host_smm` takes this dtype (bf16 it does not)."""
+    return dtype in _HOST_DTYPE_CODE
+
+
+def host_smm(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             ai: np.ndarray, bi: np.ndarray, ci: np.ndarray, alpha) -> torch.Tensor:
+    """``C[ci[s]] += alpha * A[ai[s]] @ B[bi[s]]`` over a stack sorted by
+    ``ci``, in place on ``c``, by the native host driver (ref
+    `dbcsr_mm_hostdrv.F:90`).  The block arrays must be contiguous CPU
+    tensors of one dtype (float32 or float64); returns ``c``."""
+    for name, t in (("A", a), ("B", b), ("C", c)):
+        if t.device.type != "cpu":
+            raise ValueError(f"host_smm serves CPU tensors only; {name} is on {t.device}")
+        if not t.is_contiguous() or t.dim() != 3:
+            raise ValueError(f"host_smm needs contiguous 3-D block arrays; {name} is not")
+    if not (a.dtype == b.dtype == c.dtype) or not host_smm_supports(c.dtype):
+        raise TypeError(f"host_smm takes float32/float64 blocks of one dtype, got "
+                        f"{a.dtype}/{b.dtype}/{c.dtype}")
+    m, k = a.shape[1:]
+    n = b.shape[2]
+    if b.shape[1] != k or tuple(c.shape[1:]) != (m, n):
+        raise ValueError(f"block shapes A{tuple(a.shape)} B{tuple(b.shape)} "
+                         f"C{tuple(c.shape)} do not chain")
+    ai, bi, ci = (np.ascontiguousarray(x, np.int32) for x in (ai, bi, ci))
+    s = len(ai)
+    if len(bi) != s or len(ci) != s:
+        raise ValueError("a_idx/b_idx/c_idx lengths differ")
+    if s == 0:
+        return c
+    for name, idx, bound in (("a_idx", ai, a.shape[0]), ("b_idx", bi, b.shape[0]),
+                             ("c_idx", ci, c.shape[0])):
+        if idx.min() < 0 or idx.max() >= bound:
+            raise IndexError(f"{name} out of range [0, {bound})")
+    if np.any(np.diff(ci) < 0):
+        raise ValueError("stack must be sorted by c_idx")
+    rc = get_lib().dbcsr_host_smm(
+        _HOST_DTYPE_CODE[c.dtype], c.data_ptr(), a.data_ptr(), b.data_ptr(),
+        _ptr(ai, ctypes.c_int32), _ptr(bi, ctypes.c_int32), _ptr(ci, ctypes.c_int32),
+        s, m, n, k, float(alpha), 0.0)
+    if rc != 0:
+        raise RuntimeError(f"dbcsr_host_smm refused dtype {c.dtype} (rc {rc})")
+    torch.autograd.graph.increment_version(c)  # written through its raw pointer
+    return c

@@ -42,6 +42,19 @@ def kernel_validation_tolerance(dtype: str, k: int, depth: int) -> float:
                4.0 * eps_in * float(k + 1) ** 0.5)
 
 
+def abft_tolerance(dtype: str, k: int, depth: int) -> float:
+    """Relative tolerance of an ABFT probe comparison (`acc/abft.py`):
+    ``C·v`` against ``A·(B·v)`` is one bilinear form summed in two
+    orders, so they differ by rounding only, bounded by the
+    accumulation epsilon times the reduction lengths (``k`` terms per
+    product, ``depth`` accumulated per C block) with the JAX package's
+    margin (`dbcsr_tpu/obs/costmodel.py:200-213`)."""
+    eps = _ACC_EPS.get(str(dtype), 1.1920929e-07)
+    k = max(int(k), 1)
+    depth = max(int(depth), 1)
+    return 64.0 * eps * (k + 1) * float(depth + 1) ** 0.5
+
+
 # NVIDIA H100 SXM data sheet, dense rates at the full 700 W power limit:
 # HBM3 bandwidth, and the peak for each operand type (f64: FP64 tensor
 # cores; f32: CUDA cores; bf16: tensor cores)

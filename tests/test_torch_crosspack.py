@@ -41,8 +41,10 @@ from dbcsr_tpu_torch.obs.costmodel import (
     kernel_validation_tolerance,
     stack_bound_s,
 )
+from dbcsr_tpu_torch.obs import metrics
 from dbcsr_tpu_torch.ops import test_methods as port_tm
 from dbcsr_tpu_torch.perf.driver import parse_perf_file, run_perf
+from dbcsr_tpu_torch.resilience import breaker, faults
 
 INPUTS = os.path.join(os.path.dirname(__file__), "inputs")
 ALPHA = 1.3
@@ -101,6 +103,22 @@ def port_config_restored():
     prev = {"mm_driver": cfg.mm_driver, "validate_kernels": cfg.validate_kernels}
     yield
     set_config(**prev)
+
+
+@pytest.fixture(autouse=True)
+def clean_resilience():
+    """A failure a test provokes leaves no fault spec, open breaker,
+    counter or demoted shape behind."""
+    demoted = set(port_smm._cross_disabled)
+    faults.clear()
+    breaker.reset_board()
+    metrics.reset()
+    yield
+    faults.clear()
+    breaker.reset_board()
+    metrics.reset()
+    port_smm._cross_disabled.clear()
+    port_smm._cross_disabled.update(demoted)
 
 
 # (block shape, forced pack) -- None: choose_pack's
@@ -381,6 +399,35 @@ def test_first_use_validation_raises_on_corrupted_plain_version(monkeypatch,
         port_smm.process_stack(t[2], t[0], t[1], ai, bi, ci, ALPHA, variant="crosspack")
 
 
+def test_first_use_validation_failure_raises_and_demotes_nothing(monkeypatch,
+                                                                 port_config_restored):
+    """A crosspack kernel proven wrong by its oracle reaches the caller
+    with C as it was: it is counted and quarantined, nothing fails over,
+    and the shape is not demoted (a numeric failure is no launch
+    failure)."""
+    set_config(validate_kernels=True)
+    a, b, c, ai, bi, ci, _ = _stack(16, 23, 23, 23)
+    real = crosspack_kernel.smm_crosspack_plain
+
+    def corrupted(c_data, *args, **kw):
+        out = real(c_data, *args, **kw)
+        out += 1.0
+        return out
+
+    monkeypatch.setattr(crosspack_kernel, "smm_crosspack_plain", corrupted)
+    monkeypatch.setattr(port_smm, "_validated_kernels", set())
+    t = [torch.from_numpy(x) for x in (a, b, c)]
+    got = t[2].clone()
+    with pytest.raises(port_smm.KernelValidationError, match="smm_crosspack"):
+        port_smm.process_stack(got, t[0], t[1], ai, bi, ci, ALPHA, variant="crosspack")
+    assert torch.equal(got, t[2])
+    assert metrics.counter_items("dbcsr_tpu_driver_failures_total") == [
+        ({"driver": "pallas_cross", "kind": "validation"}, 1.0)]
+    assert metrics.counter_items("dbcsr_tpu_driver_fallback_total") == []
+    assert breaker.get_board().state("pallas_cross", (23, 23, 23, "float64")) == breaker.OPEN
+    assert (23, 23, 23, "float64") not in port_smm._cross_disabled
+
+
 def test_validation_keys_variant_and_pack(monkeypatch, port_config_restored):
     set_config(validate_kernels=True)
     a, b, c, ai, bi, ci, _ = _stack(17, 16, 24, 12)
@@ -396,6 +443,36 @@ def test_validation_keys_variant_and_pack(monkeypatch, port_config_restored):
 
 
 def test_failing_launch_raises_and_nothing_demotes(monkeypatch, port_config_restored):
+    """An out-of-memory launch failure is transient: with every other
+    driver of the chain failing too it reaches the caller, C is left as
+    it was, and the shape is not demoted."""
+    a, b, c, ai, bi, ci, _ = _stack(18, 23, 23, 23)
+
+    def refuse(*args, **kw):
+        raise RuntimeError("smm_crosspack launch failed: CUDA error 2: out of memory")
+
+    monkeypatch.setattr(crosspack_kernel, "smm_crosspack", refuse)
+    t = [torch.from_numpy(x) for x in (a, b, c)]
+    c_before = t[2].clone()
+    set_config(mm_driver="pallas_cross")
+    for validate in (True, False):
+        set_config(validate_kernels=validate)
+        stack_kernel.reset_counts()
+        with faults.inject_faults("pallas:raise;torch:raise;host:raise"):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                port_smm.process_stack(t[2], t[0], t[1], ai, bi, ci, ALPHA)
+        assert stack_kernel.launches == 0 and stack_kernel.plain_calls == 0
+        assert torch.equal(t[2], c_before)
+        breaker.reset_board()
+    # the shape is not demoted: the next plan takes crosspack again
+    assert port_smm.prepare_stack(t[2], t[0], t[1], ai, bi, ci).driver == "crosspack"
+    assert metrics.counter_items("dbcsr_tpu_driver_fallback_total") == []
+
+
+def test_failing_launch_fails_over_and_demotes(monkeypatch, port_config_restored):
+    """A launch that fails with a runtime error fails over to the base
+    kernel, is counted once, and demotes the shape: the next plan takes
+    the base kernel (ref `dbcsr_tpu/acc/smm.py:1470-1505`)."""
     a, b, c, ai, bi, ci, _ = _stack(18, 23, 23, 23)
 
     def refuse(*args, **kw):
@@ -403,15 +480,19 @@ def test_failing_launch_raises_and_nothing_demotes(monkeypatch, port_config_rest
 
     monkeypatch.setattr(crosspack_kernel, "smm_crosspack", refuse)
     t = [torch.from_numpy(x) for x in (a, b, c)]
-    set_config(mm_driver="pallas_cross")
-    for validate in (True, False):
-        set_config(validate_kernels=validate)
-        stack_kernel.reset_counts()
-        with pytest.raises(RuntimeError, match="launch failed"):
-            port_smm.process_stack(t[2], t[0], t[1], ai, bi, ci, ALPHA)
-        assert stack_kernel.launches == 0 and stack_kernel.plain_calls == 0
-    # the shape is not demoted: the next plan takes crosspack again
-    assert port_smm.prepare_stack(t[2], t[0], t[1], ai, bi, ci).driver == "crosspack"
+    set_config(mm_driver="pallas_cross", validate_kernels=False)
+    stack_kernel.reset_counts()
+    got = port_smm.process_stack(t[2].clone(), t[0], t[1], ai, bi, ci, ALPHA)
+    assert stack_kernel.plain_calls == 1  # K1's plain version on the CPU
+    want = port_smm.process_stack(t[2].clone(), t[0], t[1], ai, bi, ci, ALPHA,
+                                  variant="kmerge")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert metrics.counter_items("dbcsr_tpu_driver_failures_total") == [
+        ({"driver": "pallas_cross", "kind": "runtime"}, 1.0)]
+    assert metrics.counter_items("dbcsr_tpu_driver_fallback_total") == [
+        ({"from": "pallas_cross", "to": "pallas"}, 1.0)]
+    assert (23, 23, 23, "float64") in port_smm._cross_disabled
+    assert port_smm.prepare_stack(t[2], t[0], t[1], ai, bi, ci).driver == "kernel"
 
 
 def test_wrapper_rejects_bad_packs_and_devices():

@@ -4,7 +4,8 @@
   neither JAX nor any module of the JAX package (checked in a fresh
   interpreter that refuses those imports).
 * Entry points raise without CUDA unless the CPU is asked for, and a
-  CUDA request never silently runs on the CPU.
+  CUDA request never silently runs on the CPU: neither a kernel wrapper
+  nor ``mm_driver="host"``, which serves CPU tensors only.
 * `chip_smoke.py` exits non-zero and prints no result without CUDA, and
   when it is run alone, away from the repository.
 """
@@ -19,7 +20,9 @@ import pytest
 import torch
 
 from dbcsr_tpu_torch import device as port_device
+from dbcsr_tpu_torch.acc import smm as port_smm
 from dbcsr_tpu_torch.acc import stack_kernel
+from dbcsr_tpu_torch.core.config import get_config, set_config
 from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
 from dbcsr_tpu_torch.interop import matrix_from_numpy_state, matrix_to_numpy_state
 from dbcsr_tpu_torch.ops.test_methods import make_random_matrix
@@ -60,7 +63,8 @@ print(len(mods), "modules:", " ".join(mods))
 # modules the sweep must reach: one per layer of the stack path, the
 # crosspack kernel's planning, wrapper and tuned table included, and the
 # model loops with the operations, digests and residency chain they use,
-# the native index engine and the storage-format planner
+# the native index engine and the storage-format planner, and the
+# integrity plane (faults, breakers, ABFT, events, chain guard)
 _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.crosspack",
              "dbcsr_tpu_torch.acc.crosspack_kernel", "dbcsr_tpu_torch.acc.params",
              "dbcsr_tpu_torch.acc.smm", "dbcsr_tpu_torch.acc.stack_kernel",
@@ -73,7 +77,11 @@ _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.cro
              "dbcsr_tpu_torch.mm.format_planner", "dbcsr_tpu_torch.core.timings",
              "dbcsr_tpu_torch.tas.mm", "dbcsr_tpu_torch.tas.batched",
              "dbcsr_tpu_torch.tensor.contract", "dbcsr_tpu_torch.tensor.types",
-             "dbcsr_tpu_torch.tensor.batched"}
+             "dbcsr_tpu_torch.tensor.batched", "dbcsr_tpu_torch.acc.abft",
+             "dbcsr_tpu_torch.resilience", "dbcsr_tpu_torch.resilience.faults",
+             "dbcsr_tpu_torch.resilience.breaker", "dbcsr_tpu_torch.resilience.sites",
+             "dbcsr_tpu_torch.obs.metrics", "dbcsr_tpu_torch.obs.events",
+             "dbcsr_tpu_torch.obs.flight", "dbcsr_tpu_torch.models.integrity"}
 
 
 def _env(**extra):
@@ -87,7 +95,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          env=_env(), capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, _, names = out.stdout.partition("modules:")
-    assert int(count) >= 35
+    assert int(count) >= 44
     assert _REQUIRED <= set(names.split())
 
 
@@ -149,6 +157,22 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     with pytest.raises(ValueError, match="no stack kernel"):
         stack_kernel.smm_stack(c, a, b, idx, idx, ptr, run_c)
     assert stack_kernel.plain_calls == 0 and stack_kernel.launches == 0
+
+
+def test_host_driver_refuses_a_device_tensor():
+    """``mm_driver="host"`` on a tensor off the CPU (a CUDA tensor on the
+    card; a meta tensor stands in for it here) raises instead of moving
+    the stack to the host."""
+    a = torch.empty((4, 5, 6), dtype=torch.float64, device="meta")
+    b = torch.empty((4, 6, 7), dtype=torch.float64, device="meta")
+    c = torch.empty((3, 5, 7), dtype=torch.float64, device="meta")
+    prev = get_config().mm_driver
+    try:
+        set_config(mm_driver="host")
+        with pytest.raises(ValueError, match="CPU tensors only"):
+            port_smm.prepare_stack(c, a, b, [0, 1], [0, 1], [0, 2])
+    finally:
+        set_config(mm_driver=prev)
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -22,10 +22,29 @@ from dbcsr_tpu.obs.costmodel import kernel_validation_tolerance as jax_tolerance
 
 from dbcsr_tpu_torch.acc import smm as port_smm
 from dbcsr_tpu_torch.acc import stack_kernel
+from dbcsr_tpu_torch.core.config import get_config, set_config
+from dbcsr_tpu_torch.obs import metrics
 from dbcsr_tpu_torch.obs.costmodel import kernel_validation_tolerance
+from dbcsr_tpu_torch.resilience import breaker, faults
 
 SHAPES = [(23, 23, 23), (5, 13, 23), (18, 23, 18)]
 ALPHA = -1.25
+
+
+@pytest.fixture(autouse=True)
+def clean_resilience():
+    """A failure a test provokes leaves no breaker open, no fault spec, no
+    counter and no demoted shape behind."""
+    demoted = set(port_smm._cross_disabled)
+    faults.clear()
+    breaker.reset_board()
+    metrics.reset()
+    yield
+    faults.clear()
+    breaker.reset_board()
+    metrics.reset()
+    port_smm._cross_disabled.clear()
+    port_smm._cross_disabled.update(demoted)
 
 
 def _stack(seed, m, n, k, long_run=40):
@@ -141,6 +160,9 @@ def test_wrapper_rejects_mismatched_arguments():
 
 
 def test_first_use_validation_raises_on_corrupted_plain_version(monkeypatch):
+    """A kernel proven wrong by its first-use oracle reaches the caller:
+    the failure is counted and quarantines the shape, nothing fails over,
+    and C is left as it was (the oracle runs before the launch)."""
     a, b, c, ai, bi, ci, _ = _stack(16, 5, 13, 23)
     real = stack_kernel.smm_stack_plain
 
@@ -152,8 +174,104 @@ def test_first_use_validation_raises_on_corrupted_plain_version(monkeypatch):
     monkeypatch.setattr(stack_kernel, "smm_stack_plain", corrupted)
     monkeypatch.setattr(port_smm, "_validated_kernels", set())
     t = [torch.from_numpy(x) for x in (a, b, c)]
+    c_before = t[2].clone()
     with pytest.raises(port_smm.KernelValidationError):
         port_smm.process_stack(t[2], t[0], t[1], ai, bi, ci, ALPHA)
+    assert torch.equal(t[2], c_before)
+    assert metrics.counter_items("dbcsr_tpu_driver_failures_total") == [
+        ({"driver": "pallas", "kind": "validation"}, 1.0)]
+    assert metrics.counter_items("dbcsr_tpu_driver_fallback_total") == []
+    assert breaker.get_board().state("pallas", (5, 13, 23, "float64")) == breaker.OPEN
+
+
+@pytest.mark.parametrize("on_card", [False, True])
+def test_first_use_validation_failure_never_fails_over(monkeypatch, on_card):
+    """A kernel that fails its first-use check never gives way to another
+    driver, on the CPU's chain as on the card's: it raises, and so does
+    a failover candidate that fails its own check (the JAX package fails
+    such a kernel over, `dbcsr_tpu/acc/smm.py:1260-1345`)."""
+    monkeypatch.setattr(port_smm, "_on_card", lambda c_data: on_card)
+    a, b, c, ai, bi, ci, _ = _stack(16, 5, 13, 23)
+    real = stack_kernel.smm_stack
+
+    def corrupted(c_data, *args, **kw):
+        out = real(c_data, *args, **kw)
+        out += 1.0
+        return out
+
+    monkeypatch.setattr(stack_kernel, "smm_stack", corrupted)
+    monkeypatch.setattr(port_smm, "_validated_kernels", set())
+    t = [torch.from_numpy(x) for x in (a, b, c)]
+    plan = port_smm.prepare_stack(t[2], t[0], t[1], ai, bi, ci)
+    assert plan.driver == "kernel"
+    stack_kernel.reset_counts()
+    got = t[2].clone()
+    with pytest.raises(port_smm.KernelValidationError):
+        port_smm.execute_stack(got, t[0], t[1], plan, ALPHA)
+    assert torch.equal(got, t[2]) and plan.driver == "kernel"
+    assert stack_kernel.plain_calls == 1  # the oracle's launch, on a scratch C
+    assert metrics.counter_items("dbcsr_tpu_driver_failures_total") == [
+        ({"driver": "pallas", "kind": "validation"}, 1.0)]
+    assert metrics.counter_items("dbcsr_tpu_driver_fallback_total") == []
+    # a K1 failure other than validation fails over; K1 failing its own
+    # check as the candidate still raises
+    monkeypatch.setattr(port_smm, "_validated_kernels", set())
+    breaker.reset_board()
+    metrics.reset()
+    set_config(mm_driver="pallas_cross")
+    try:
+        cplan = port_smm.prepare_stack(t[2], t[0], t[1], ai, bi, ci)
+        assert cplan.driver == "crosspack"
+        with faults.inject_faults("pallas_cross:raise,times=1"):
+            with pytest.raises(port_smm.KernelValidationError):
+                port_smm.execute_stack(got, t[0], t[1], cplan, ALPHA)
+    finally:
+        set_config(mm_driver="auto")
+    assert torch.equal(got, t[2])
+    assert dict((lab["driver"] + ":" + lab["kind"], v) for lab, v in
+                metrics.counter_items("dbcsr_tpu_driver_failures_total")) == {
+        "pallas_cross:runtime": 1.0, "pallas:validation": 1.0}
+    assert metrics.counter_items("dbcsr_tpu_driver_fallback_total") == []
+
+
+def test_card_stack_never_runs_the_plain_driver(monkeypatch):
+    """On the card the chain holds the hand-written kernels only (a
+    patched `_on_card` stands in for CUDA tensors): a failed K1 launch
+    fails over to the crosspack kernel, and when no kernel admits the
+    stack the launch raises and C is left as it was."""
+    monkeypatch.setattr(port_smm, "_on_card", lambda c_data: True)
+    a, b, c, ai, bi, ci, _ = _stack(18, 23, 23, 23)
+    t = [torch.from_numpy(x) for x in (a, b, c)]
+    key = (23, 23, 23, "float64")
+    prev = get_config().validate_kernels
+    set_config(validate_kernels=False)
+    try:
+        assert port_smm._chain_candidates("pallas", t[2]) == ["pallas_cross"]
+        assert port_smm._chain_candidates("pallas_cross", t[2]) == ["pallas"]
+        want = port_smm.process_stack(t[2].clone(), t[0], t[1], ai, bi, ci, ALPHA)
+        got = t[2].clone()
+        stack_kernel.reset_counts()
+        with faults.inject_faults("pallas:raise,times=1") as sp:
+            port_smm.process_stack(got, t[0], t[1], ai, bi, ci, ALPHA)
+        assert sp[0].fired == 1 and stack_kernel.plain_calls == 0
+        torch.testing.assert_close(got, want, rtol=1e-14, atol=1e-14)
+        assert metrics.counter_items("dbcsr_tpu_driver_fallback_total") == [
+            ({"from": "pallas", "to": "pallas_cross"}, 1.0)]
+        # no kernel admits the stack: K1 fails, crosspack is demoted for
+        # the shape, and the plain version is never a candidate
+        breaker.reset_board()
+        metrics.reset()
+        port_smm._cross_disabled.add(key)
+        got = t[2].clone()
+        with faults.inject_faults("pallas:raise") as sp:
+            with pytest.raises(RuntimeError, match="injected"):
+                port_smm.process_stack(got, t[0], t[1], ai, bi, ci, ALPHA)
+        assert sp[0].fired == 2  # the launch and its last-resort retry
+        assert torch.equal(got, t[2]) and stack_kernel.plain_calls == 0
+        assert metrics.counter_items("dbcsr_tpu_driver_fallback_total") == []
+    finally:
+        port_smm._cross_disabled.discard(key)
+        set_config(validate_kernels=prev)
 
 
 def test_validation_passes_and_is_cached(monkeypatch):
