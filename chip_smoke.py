@@ -131,12 +131,44 @@ non-zero:
    stack format redoes it, within 1e-12); the north star, f64 (K1) and
    f32 (K3), under "verify" against "off" in turns, C bit for bit, with
    the probe's milliseconds beside the stacks'.
+18. complex (before resilience): the north star's pattern at complex128
+   and complex64 through `run_perf` on K1's complex form (the tiled
+   path; no crosspack, no plain call), against ``"torch"`` (1e-10 at
+   complex128, the kernel validation tolerance at complex64), its
+   stacks timed beside their bound; and C = alpha A B^H at 2208^2
+   (``transb="C"``) against the plain driver and a dense oracle;
+19. precision (before resilience): every demoted form of K1 against its
+   plain version on both paths (runs up to 5000 entries) within the
+   rounding of the form's sums (`form_tolerance`; every ``*_stacks``
+   phase holds each span so); the f64 north star under ``precision="adaptive"``
+   and ``abft="verify"`` (every stack demoted, every probe passing, C
+   within the ceiling of native, seconds per multiply native and
+   demoted in turns); the forced modes "f32" and "bf16" and a tuned
+   ``precision`` column on `test_H2O` (each form's launches and stacks);
+   a forced promote (ceiling sabotaged; beta 0 and 0.5): a native
+   re-execution bit for bit the native product, the cell native after;
+   the sign loop under adaptive + verify demoting, promoting once and
+   ending below the iteration's tolerance as the native loop does;
+20. incremental (after integrity): the f32 north star on K3 and a
+   2208^2 f64 product on K1, each repeated until the result cache
+   installs, then a zero delta, one block row of A and 0.1%, 1% and 5%
+   of A's blocks: every reuse bit for bit an ``incremental="full"`` run,
+   its outcome counted (a splice, or a full recompute where a splice
+   as large lost), each case timed against "full" in turns with its host phases;
+   at 2208^2 the full-product probe under "verify", and an
+   ``incremental:flip`` caught, counted and recomputed; the f64 north
+   star never cached (its C is over the 512 MB budget); the three DFT
+   loops under the default "auto" against "off" in turns, bit for bit.
 
-Every phase but the last two injects nothing and must end with no driver
-failure, fallback, ABFT mismatch or rollback (`_clean`); the last two
-clear their faults and reset the breakers whatever happens.
+The phases before `incremental` run with ``incremental="off"``, as the
+perf driver's repeats do: they time the engine.  Every phase but
+resilience, integrity and incremental injects nothing and must end with
+no driver failure, fallback, ABFT mismatch or rollback (`_clean`); those
+three clear their faults and reset the breakers whatever happens.
 
-The line before the last is the kernels' JSON summary; the last line is
+The line before the last is the kernels' JSON summary (K1's entry lists
+its complex and demoted ``forms``, each with its launches on its
+phase's main path, time, error and bound); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints
 no result.
 """
@@ -157,14 +189,16 @@ import torch
 
 from dbcsr_tpu_torch import native
 from dbcsr_tpu_torch.acc import abft, build, crosspack_kernel, params, stack_kernel
+from dbcsr_tpu_torch.acc import precision as port_precision
 from dbcsr_tpu_torch.acc import smm as port_smm
 from dbcsr_tpu_torch.acc.crosspack import choose_pack, resident_limit_bytes
 from dbcsr_tpu_torch.acc.smm import prepare_stack
 from dbcsr_tpu_torch.core import mempool, timings
 from dbcsr_tpu_torch.core.config import set_config
-from dbcsr_tpu_torch.core.kinds import name_of
+from dbcsr_tpu_torch.core.kinds import dtype_of, name_of
 from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
 from dbcsr_tpu_torch.device import resolve_device
+from dbcsr_tpu_torch.mm import incremental as port_inc
 from dbcsr_tpu_torch.mm import multiply as mm
 from dbcsr_tpu_torch.mm.multiply import (
     _build_spans,
@@ -191,9 +225,12 @@ from dbcsr_tpu_torch.ops.operations import (
     trace,
 )
 from dbcsr_tpu_torch.ops.test_methods import make_random_matrix
-from dbcsr_tpu_torch.obs import metrics
+from dbcsr_tpu_torch.obs import costmodel as port_costmodel
+from dbcsr_tpu_torch.obs import events, metrics
 from dbcsr_tpu_torch.obs.costmodel import (
     crosspack_entries,
+    demoted_abft_tolerance,
+    form_tolerance,
     kernel_validation_tolerance,
     H100_BYTES_PER_S,
     H100_PEAK_FLOPS,
@@ -264,12 +301,14 @@ def _counts() -> dict:
 
 def _calls(plan, resident=None):
     """(kernel, plain) callables running ``plan``'s kernel and its plain
-    version as ``f(c, a, b, alpha)``; ``resident`` overrides a crosspack
-    plan's launch."""
+    version as ``f(c, a, b, alpha)`` (at the plan's precision);
+    ``resident`` overrides a crosspack plan's launch."""
     if plan.driver != "crosspack":
         args = (plan.a_idx, plan.b_idx, plan.run_ptr, plan.run_c)
-        return (lambda c, a, b, al: stack_kernel.smm_stack(c, a, b, *args, al),
-                lambda c, a, b, al: stack_kernel.smm_stack_plain(c, a, b, *args, al))
+        prec = plan.precision
+        return (lambda c, a, b, al: stack_kernel.smm_stack(c, a, b, *args, al, precision=prec),
+                lambda c, a, b, al: stack_kernel.smm_stack_plain(c, a, b, *args, al,
+                                                                 precision=prec))
     args = (plan.a_idx, plan.b_idx, plan.run_ptr, plan.run_c, plan.pack_runs, plan.pack)
     res = plan.resident if resident is None else resident
     return (lambda c, a, b, al: crosspack_kernel.smm_crosspack(
@@ -287,9 +326,14 @@ def _written(kernel, c, a, b, alpha):
     return out
 
 
+def _wide(t):
+    """``t`` in float64, or complex128 for a complex tensor."""
+    return t.to(torch.complex128 if t.is_complex() else torch.float64)
+
+
 def _rel_err(got, want) -> float:
-    diff = float((got.double() - want.double()).abs().max())
-    return diff / max(float(want.double().abs().max()), 1.0)
+    diff = float((_wide(got) - _wide(want)).abs().max())
+    return diff / max(float(_wide(want).abs().max()), 1.0)
 
 
 def phase_build() -> str:
@@ -478,7 +522,7 @@ def _against_torch_driver(res, cfg, tol_el: float, tol_cs: float) -> dict:
     rel_cs = abs(res["checksum"] - ref["checksum"]) / abs(ref["checksum"])
     rel_pos = abs(res["checksum_pos"] - ref["checksum_pos"]) / abs(ref["checksum_pos"])
     scale = max(float(b.data.abs().max()) for b in c_ref.bins if b.count)
-    rel_el = max(float((x.data.double() - y.data.double()).abs().max())
+    rel_el = max(float((_wide(x.data) - _wide(y.data)).abs().max())
                  for x, y in zip(c_out.bins, c_ref.bins) if x.count) / scale
     _require(rel_cs <= tol_cs and rel_pos <= tol_cs and rel_el <= tol_el,
              f"kernel vs torch driver rel {rel_cs:.3e}/{rel_pos:.3e}/{rel_el:.3e} "
@@ -525,12 +569,14 @@ def phase_northstar() -> dict:
             "b": res["matrices"]["b"], "c": res["matrices"]["c_out"]}
 
 
-def _stacks_phase(phase: str, a, b, c, kernels=(None,), reps=5) -> dict:
+def _stacks_phase(phase: str, a, b, c, kernels=(None,), reps=5, path="warp") -> dict:
     """Each stack of the product ``c = a * b``, re-planned from its
-    operands (every one must take its kernel's warp path), run through
+    operands under the config in force (every one must take its kernel's
+    ``path``), run through
     its plan's kernel (``kernels``: None for the
     plan's own launch, False/True to force a crosspack plan's plain or
-    resident launch) and its plain version: compared, and timed by CUDA
+    resident launch) and its plain version: compared (within the form's
+    `form_tolerance` at the stack's k and longest run), and timed by CUDA
     events (kernel mean of ``reps`` launches, plain mean of 2); times
     summed per multiply, beside the least time the card could take."""
     t0 = time.perf_counter()
@@ -550,18 +596,27 @@ def _stacks_phase(phase: str, a, b, c, kernels=(None,), reps=5) -> dict:
         _, plain = _calls(plan)
         want = plain(cd.clone(), ad, bd, alpha)
         scratch = cd.clone()
-        path = (crosspack_kernel.kernel_path(cd.dtype, plan.pack, sp.m, sp.n, sp.k)
-                if plan.driver == "crosspack" else stack_kernel.kernel_path(sp.m, sp.n, sp.k))
-        _require(path == "warp", f"{phase}: the {(sp.m, sp.n, sp.k)} span took the {path} path")
+        kpath = (crosspack_kernel.kernel_path(cd.dtype, plan.pack, sp.m, sp.n, sp.k)
+                 if plan.driver == "crosspack"
+                 else stack_kernel.kernel_path(sp.m, sp.n, sp.k, cd.dtype))
+        _require(kpath == path, f"{phase}: the {(sp.m, sp.n, sp.k)} span took the {kpath} path")
         row = {"mnk": [sp.m, sp.n, sp.k], "entries": sp.entries, "runs": plan.nruns,
-               "kernel": sp.driver, "path": path, "ms": [], "max_abs_err": []}
+               "kernel": sp.driver, "path": kpath, "ms": [], "max_abs_err": [],
+               "form": stack_kernel.form_name(cd.dtype, plan.precision)}
         if plan.driver == "crosspack":
             row["pack"] = list(plan.pack)
             row["entry_slots"] = crosspack_entries(plan)
+        tol = form_tolerance(name_of(cd.dtype), plan.precision, sp.k, plan.max_run)
+        row["tolerance"] = tol
         for ki, resident in enumerate(kernels):
             kernel, _ = _calls(plan, resident=resident)
             got = kernel(cd.clone(), ad, bd, alpha)
-            err = float((got.double() - want.double()).abs().max())
+            err = float((_wide(got) - _wide(want)).abs().max())
+            rel = _rel_err(got, want)
+            _require(np.isfinite(rel) and rel <= tol,
+                     f"{phase}: {row['form']} {(sp.m, sp.n, sp.k)} ({kpath} path) against its "
+                     f"plain version: rel {rel:.3e} > {tol:.1e}")
+            row.setdefault("max_rel_err", []).append(rel)
             del got
             ms = _time_ms(lambda: kernel(scratch, ad, bd, alpha), reps)
             row["ms"].append(ms)
@@ -572,7 +627,7 @@ def _stacks_phase(phase: str, a, b, c, kernels=(None,), reps=5) -> dict:
         del scratch, want
         counts = (name_of(cd.dtype), sp.m, sp.n, sp.k, sp.entries,
                   len(torch.unique(plan.a_idx)), len(torch.unique(plan.b_idx)), plan.nruns)
-        bound, by = stack_bound_s(*counts)
+        bound, by = stack_bound_s(*counts, precision=plan.precision)
         min_bytes += stack_min_bytes(*counts)
         modeled_bytes += stack_bytes(sp.m, sp.n, sp.k, sp.entries, nseg=plan.nruns,
                                      itemsize=cd.element_size())
@@ -1910,15 +1965,596 @@ def phase_integrity() -> dict:
     return {"smm_stack": counts["smm_stack"], "smm_crosspack": counts["smm_crosspack"]}
 
 
+# ----------------------------------------------------------------- complex
+COMPLEX_NREP = 2
+
+
+def _form_row(form: str, launches: int, timing: dict) -> dict:
+    """One of K1's forms in the kernels line: its launches on the main
+    path beside its stacks' times, error and bound (one `_stacks_phase`)."""
+    return {"form": form, "launches": launches, "max_abs_err": timing["max_abs_err"][0],
+            "ms": timing["ms"][0], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"], "library_ms": None}
+
+
+def _forms_since_reset() -> dict:
+    return dict(stack_kernel.launches_by_form)
+
+
+def phase_complex() -> dict:
+    """The north star's pattern (10,000^2, 23x23 blocks, occupancy 0.1) at
+    complex128 and then complex64 through `run_perf`, on K1's complex form
+    (its tiled path): no crosspack launch, no plain call; C against one
+    repeat under ``"torch"`` (elementwise and checksums within 1e-10 at
+    complex128, the kernel validation tolerance at complex64); the stacks
+    by CUDA events beside their bound and the plain version's time; then
+    C = alpha A B^H at `test_H2O`'s blocking (2208^2), ``transb="C"``,
+    against the plain driver and a dense oracle on the card.  Returns
+    K1's launches and its complex form rows."""
+    out = {"phase": "complex", "northstar": {}}
+    forms, launches = [], 0
+    for data_type in (7, 5):
+        dtype = dtype_of(data_type)
+        dname = name_of(dtype)
+        _reset_counts()
+        res = run_perf(_northstar_cfg(COMPLEX_NREP, data_type), verbose=False)
+        counts, by_form = _counts(), _forms_since_reset()
+        _require(counts["smm_stack"] > 0 and counts["plain"] == 0
+                 and counts["smm_crosspack"] == 0 and counts["smm_crosspack_resident"] == 0,
+                 f"complex north star {dname}: launches {counts}")
+        _require(set(by_form) == {dname}, f"complex north star {dname}: forms {by_form}")
+        longest = max(s[5] for s in res["spans"])
+        tol = 1e-10 if dtype == torch.complex128 else kernel_validation_tolerance(dname, 23,
+                                                                                  longest)
+        row = {"dtype": dname, "path": stack_kernel.kernel_path(23, 23, 23, dtype),
+               **_run_summary(res, COMPLEX_NREP, counts), "launches_by_form": by_form,
+               "longest_run": longest, "a_bytes": sum(x.data.numel() * x.data.element_size()
+                                                      for x in res["matrices"]["a"].bins),
+               "c_bytes": sum(x.data.numel() * x.data.element_size()
+                              for x in res["matrices"]["c_out"].bins)}
+        row.update(_against_torch_driver(res, _northstar_cfg(1, data_type), tol, tol))
+        row.pop("spans")
+        out["northstar"][dname] = row
+        launches += counts["smm_stack"]
+        operands = _operands(res, _northstar_cfg(1, data_type))
+        del res
+        timing = _stacks_phase(f"complex_{dname}_stacks", *operands, path="tiled")
+        forms.append(_form_row(dname, counts["smm_stack"], timing))
+        del operands
+    # C = alpha A B^H at 2208^2, complex128
+    a, b = _resilience_operands(torch.complex128, seed=20261019)[:2]
+    c = BlockSparseMatrix("C", a.row_blk_sizes, b.row_blk_sizes, torch.complex128)
+    alpha = 0.5 - 0.25j
+    _reset_counts()
+    mm.multiply("N", "C", alpha, a, b, 0.0, c)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _require(counts["smm_stack"] > 0 and counts["plain"] == 0, f"A B^H: launches {counts}")
+    launches += counts["smm_stack"]
+    set_config(mm_driver="torch")
+    try:
+        ref = BlockSparseMatrix("R", a.row_blk_sizes, b.row_blk_sizes, torch.complex128)
+        mm.multiply("N", "C", alpha, a, b, 0.0, ref)
+    finally:
+        set_config(mm_driver="auto")
+    oracle = alpha * (_to_dense_device(a) @ _to_dense_device(b).conj().T)
+    rel_plain, rel_dense = _canvas_rel(c, ref), float(
+        (_to_dense_device(c) - oracle).abs().max()) / float(oracle.abs().max())
+    _require(rel_plain <= 1e-12 and rel_dense <= 1e-12,
+             f"A B^H: rel {rel_plain:.3e} vs the plain driver, {rel_dense:.3e} vs dense")
+    out["hermitian_product"] = {"n": MODEL_BLOCKS * MODEL_BLOCK, "transb": "C",
+                                "alpha": [alpha.real, alpha.imag], "launches": counts,
+                                "rel_plain_driver": rel_plain, "rel_dense_oracle": rel_dense,
+                                "spans": c._mm_spans}
+    out["forms"] = forms
+    _emit(out)
+    return {"launches": launches, "forms": forms}
+
+
+# --------------------------------------------------------------- precision
+# every demoted form of K1 and the data dtypes it takes
+DEMOTED_FORMS = ((torch.float64, ("float32", False)), (torch.float64, ("float32", True)),
+                 (torch.float64, ("bfloat16", False)), (torch.float64, ("bfloat16", True)),
+                 (torch.float32, ("bfloat16", False)), (torch.float32, ("bfloat16", True)))
+# one shape on each K1 path: the north star's (warp) and 100/50/20 (tiled)
+DEMOTED_SHAPES = ((23, 23, 23), (100, 50, 20))
+
+
+def _demoted_vs_plain() -> list:
+    """Every demoted form on both K1 paths against its plain version on
+    synthetic stacks (runs of 1-4 and one of 5000), timed: both round the
+    same operands, so they agree within the rounding of the form's sums
+    (`form_tolerance` at the stack's k and longest run), far inside the
+    demotion ceiling."""
+    rng = np.random.default_rng(20261020)
+    alpha = -0.75
+    cases, paths = [], set()
+    for dtype, spec in DEMOTED_FORMS:
+        for m, n, k in DEMOTED_SHAPES:
+            a, b, c, a_idx, b_idx, c_idx = _synthetic_stack(rng, m, n, k, dtype)
+            plan = prepare_stack(c, a, b, a_idx, b_idx, c_idx, variant="kmerge")
+            args = (plan.a_idx, plan.b_idx, plan.run_ptr, plan.run_c)
+
+            def kernel(c_, a_, b_, al, spec=spec, args=args):
+                return stack_kernel.smm_stack(c_, a_, b_, *args, al, precision=spec)
+
+            def plain(c_, a_, b_, al, spec=spec, args=args):
+                return stack_kernel.smm_stack_plain(c_, a_, b_, *args, al, precision=spec)
+            path = stack_kernel.kernel_path(m, n, k, dtype)
+            paths.add(path)
+            got = _written(kernel, c, a, b, alpha)
+            want = plain(c.clone(), a, b, alpha)
+            torch.cuda.synchronize()
+            rel = _rel_err(got, want)
+            tol = form_tolerance(name_of(dtype), spec, k, plan.max_run)
+            _require(np.isfinite(rel) and rel <= tol,
+                     f"demoted {spec} != plain for {dtype} {(m, n, k)} ({path} path): "
+                     f"rel {rel:.3e} > {tol:.1e}")
+            scratch = c.clone()
+            bound, by = stack_bound_s(name_of(dtype), m, n, k, plan.entries,
+                                      len(np.unique(a_idx)), len(np.unique(b_idx)), plan.nruns,
+                                      precision=spec)
+            cases.append({"form": stack_kernel.form_name(dtype, spec), "mnk": [m, n, k],
+                          "path": path, "entries": plan.entries, "runs": plan.nruns,
+                          "longest_run": plan.max_run, "max_rel_err": rel, "tolerance": tol,
+                          "ms": _time_ms(lambda: kernel(scratch, a, b, alpha), 10),
+                          "plain_ms": _time_ms(lambda: plain(scratch, a, b, alpha), 3),
+                          "bound_ms": bound * 1e3, "bound_by": by})
+            del a, b, c, got, want, scratch
+    _require(paths == {"warp", "tiled"}, f"the demoted forms ran the paths {sorted(paths)}")
+    return cases
+
+
+def _demoted_counts() -> int:
+    return int(_ctr("dbcsr_tpu_precision_launches_total"))
+
+
+def _h2o_form(data_type: int, mode: str, column=None) -> tuple:
+    """`test_H2O` at ``data_type`` under ``precision=mode`` (a tuned row's
+    ``precision`` column where given) against its native run: checksums
+    and C within the form's ceiling; returns (row, main-path launches by
+    form, the stacks' timing)."""
+    cfg = parse_perf_file(os.path.join(INPUTS, "test_H2O.perf"))
+    cfg.data_type, cfg.nrep, cfg.check = data_type, 1, False
+    native_res = run_perf(cfg, verbose=False)
+    set_config(precision=mode, abft="verify" if mode == "adaptive" else "off")
+    try:
+        if column is not None:
+            for m, n, k in _block_shapes(cfg):
+                params.save_entry({"m": m, "n": n, "k": k, "dtype": name_of(dtype_of(data_type)),
+                                   "driver": "pallas", "precision": column, "gflops": 0.0})
+        _reset_counts()
+        metrics.reset()
+        res = run_perf(cfg, verbose=False)
+        counts, by_form = _counts(), _forms_since_reset()
+        timing = _stacks_phase(f"precision_h2o_{data_type}_{mode}_{column}_stacks",
+                               *_operands(res, cfg))
+    finally:
+        set_config(precision="native", abft="off")
+    spec = {"f32": ("float32", True), "bf16": ("bfloat16", True)}.get(mode) or \
+        port_precision.column_spec(column, dtype_of(data_type))
+    form = stack_kernel.form_name(dtype_of(data_type), spec)
+    _require(set(by_form) == {form} and counts["plain"] == 0 and counts["smm_crosspack"] == 0,
+             f"test_H2O {mode}/{column}: launches {counts}, forms {by_form}, want {form}")
+    longest = max(s[5] for s in res["spans"])
+    tol = demoted_abft_tolerance(name_of(dtype_of(data_type)), *spec, 23, longest)
+    rel_cs = abs(res["checksum"] - native_res["checksum"]) / abs(native_res["checksum"])
+    rel_el = _canvas_rel(res["matrices"]["c_out"], native_res["matrices"]["c_out"])
+    _require(rel_cs <= tol and rel_el <= tol,
+             f"test_H2O {form}: rel {rel_cs:.3e}/{rel_el:.3e} against native > {tol:.1e}")
+    row = {"form": form, "mode": mode, "column": column, "launches": counts,
+           "demoted_launches": _demoted_counts(), "times_s": res["times_s"],
+           "native_times_s": native_res["times_s"], "rel_checksum": rel_cs,
+           "rel_elementwise": rel_el, "tolerance": tol,
+           "abft_mismatches": _ctr("dbcsr_tpu_abft_mismatches_total")}
+    return row, by_form.get(form, 0), timing
+
+
+def _sabotaged(fn):
+    """``fn()`` with every demotion ceiling at 1e-30: each demoted probe
+    breaches."""
+    real = port_costmodel.demoted_abft_tolerance
+    port_costmodel.demoted_abft_tolerance = lambda *args: 1e-30
+    try:
+        return fn()
+    finally:
+        port_costmodel.demoted_abft_tolerance = real
+
+
+def phase_precision() -> dict:
+    """The precision planner and K1's demoted forms: every form against its
+    plain version on both paths; the f64 north star under
+    ``precision="adaptive"``, ``abft="verify"`` (every stack demoted,
+    every probe passing, C within the ceiling of the native product,
+    seconds per multiply native and demoted in turns); the forced modes
+    and the tuned ``precision`` column on `test_H2O`; a forced promote
+    (the ceiling sabotaged for one product, beta = 0 and beta = 0.5):
+    native re-execution bit for bit, the cell native afterwards; and the
+    sign loop at the models' size under adaptive + verify, demoting,
+    promoting and converging as the native loop does.  Returns K1's
+    launches on the main path and its demoted form rows."""
+    out = {"phase": "precision", "kernel_vs_plain": _demoted_vs_plain()}
+    forms, launches = {}, 0
+    port_precision.reset()
+    # the f64 north star, native and adaptive, under verify
+    cfg = _northstar_cfg(1)
+    res = run_perf(cfg, verbose=False)
+    a, b, c_nat = _operands(res, cfg)
+    empty = BlockSparseMatrix("C", c_nat.row_blk_sizes, c_nat.col_blk_sizes, c_nat.dtype)
+    del res
+    set_config(abft="verify")
+    try:
+        walls = {"native": [], "adaptive": []}
+        c_dem = None
+        for mode in ("native", "adaptive", "adaptive", "native"):
+            set_config(precision=mode)
+            for rep in range(2):
+                metrics.reset()
+                _reset_counts()
+                c = empty.copy()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+                torch.cuda.synchronize()
+                walls[mode].append(time.perf_counter() - t0)
+                if mode == "adaptive":
+                    spans = len(c._mm_spans)
+                    _require(_demoted_counts() == spans
+                             and _ctr("dbcsr_tpu_abft_checks_total") >= spans
+                             and not _ctr("dbcsr_tpu_abft_mismatches_total")
+                             and not _ctr("dbcsr_tpu_precision_promotions_total"),
+                             f"adaptive north star: {_demoted_counts()} demoted launches of "
+                             f"{spans} stacks, {metrics.snapshot()}")
+                    if c_dem is None:
+                        c_dem, launches = c, stack_kernel.launches
+                        forms["float64:float32"] = stack_kernel.launches_by_form.get(
+                            "float64:float32", 0)
+        longest = max(s[5] for s in c_dem._mm_spans)
+        tol = demoted_abft_tolerance("float64", "float32", False, 23, longest)
+        rel = _canvas_rel(c_dem, c_nat)
+        _require(0 < rel <= tol, f"adaptive north star: rel {rel:.3e} to native, ceiling {tol:.1e}")
+        cells = port_precision.cells_snapshot()
+        _require(cells and all(i["state"] == "demoted" for i in cells.values()),
+                 f"adaptive north star: cells {cells}")
+        out["northstar"] = {"s_per_multiply": walls, "rel_to_native": rel, "ceiling": tol,
+                            "spans": len(c_dem._mm_spans), "cells": {
+                                "x".join(map(str, k)): v for k, v in cells.items()}}
+        set_config(precision="adaptive")
+        ns_timing = _stacks_phase("precision_northstar_stacks", a, b, c_dem)
+    finally:
+        set_config(precision="native", abft="off")
+    del a, b, c_nat, c_dem, c, empty
+    rows = [_form_row("float64:float32", forms["float64:float32"], ns_timing)]
+    # the forced modes and the tuned column on test_H2O
+    prev_dir = os.environ.get("DBCSR_TPU_TORCH_PARAMS_DIR")
+    h2o = []
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["DBCSR_TPU_TORCH_PARAMS_DIR"] = tmp
+        try:
+            for data_type, mode, column in ((3, "f32", None), (3, "bf16", None),
+                                            (1, "bf16", None), (3, "adaptive", "bf16"),
+                                            (1, "adaptive", "bf16")):
+                port_precision.reset()
+                row, n, timing = _h2o_form(data_type, mode, column)
+                h2o.append(row)
+                rows.append(_form_row(row["form"], n, timing))
+                launches += n
+        finally:
+            if prev_dir is None:
+                os.environ.pop("DBCSR_TPU_TORCH_PARAMS_DIR", None)
+            else:
+                os.environ["DBCSR_TPU_TORCH_PARAMS_DIR"] = prev_dir
+            params.invalidate()
+    out["test_H2O"] = h2o
+    # a forced promote at 2208^2: the deferred flush (beta 0) and the
+    # immediate check (beta 0.5)
+    promote = {}
+    a, b, c0 = _resilience_operands(torch.float64, seed=20261021)
+    for beta in (0.0, 0.5):
+        port_precision.reset()
+        want = _product(a, b, c0, beta=beta)
+        set_config(precision="adaptive", abft="verify")
+        try:
+            metrics.reset()
+            events.clear()
+            got = _sabotaged(lambda: _product(a, b, c0, beta=beta))
+            cells = port_precision.cells_snapshot()
+            _require(_same_bits(got, want), f"forced promote (beta {beta}): C is not the native C")
+            _require(cells and all(i["state"] == "promoted" for i in cells.values())
+                     and port_precision.resolve(23, 23, 23, torch.float64) is None
+                     and events.records(kind="precision_promote_reexec"),
+                     f"forced promote (beta {beta}): cells {cells}")
+            took = {k: v for k, v in _integrity_counts().items() if v}
+            _require(not took, f"forced promote (beta {beta}) took the integrity plane: {took}")
+            again = _product(a, b, c0, beta=beta)  # resolves native up front
+            _require(_same_bits(again, want), "after the promote: C is not the native C")
+            promote[f"beta_{beta}"] = {
+                "promotions": _ctr("dbcsr_tpu_precision_promotions_total"),
+                "reexecutions": len(events.records(kind="precision_promote_reexec")),
+                "demoted_launches": _demoted_counts(), "bitwise_native": True}
+        finally:
+            set_config(precision="native", abft="off")
+    out["forced_promote"] = promote
+    del a, b, c0, want, got, again
+    # the sign loop: native, then adaptive + verify
+    p0 = make_test_density(MODEL_BLOCKS, MODEL_BLOCK, occ=0.2, seed=MODEL_SEED)
+    steps = 2 * SIGN_STEPS  # room to converge: the loops stop at their tolerance
+    sign = {}
+    for mode in ("native", "adaptive"):
+        port_precision.reset()
+        set_config(precision=mode, abft="verify" if mode == "adaptive" else "off")
+        try:
+            events.clear()
+            metrics.reset()
+            _, loops = _model_loops(p0, steps, SIGN_EPS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, hist = loops["sign"]()
+            torch.cuda.synchronize()
+            evs = events.records(kind="precision_schedule")
+            sign[mode] = {"wall_s": time.perf_counter() - t0, "steps": len(hist),
+                          "history": list(hist), "demoted_launches": _demoted_counts(),
+                          "schedule": [e["precision"] for e in evs],
+                          "promoted_at": [e["step"] for e in evs if e.get("promoted")],
+                          "floor": evs[0]["floor"] if evs else None, "x": x}
+        finally:
+            set_config(precision="native", abft="off")
+    nat, dem = sign["native"], sign["adaptive"]
+    tol = 1e-10  # sign_iteration's tolerance, which the native loop reaches
+    _require(nat["history"][-1] < tol, f"native sign loop ends {nat['history'][-1]:.3e}")
+    _require(dem["schedule"] and dem["schedule"][0] == "demoted"
+             and dem["schedule"][-1] == "native" and len(dem["promoted_at"]) == 1
+             and dem["promoted_at"][0] < len(dem["schedule"]) and dem["demoted_launches"] > 0,
+             f"adaptive sign loop: schedule {dem['schedule']}")
+    _require(dem["history"][-1] < tol,
+             f"sign loops: native ends {nat['history'][-1]:.3e}, adaptive "
+             f"{dem['history'][-1]:.3e} (tolerance {tol:.3e})")
+    sign["tolerance"] = tol
+    sign["adaptive"]["iterate_rel_to_native"] = _iterate_diff(dem.pop("x"), nat.pop("x"))
+    out["sign"] = sign
+    out["forms"] = rows
+    _emit(out)
+    return {"launches": launches, "forms": rows}
+
+
+# ------------------------------------------------------------- incremental
+def _new_values(m, sel, rng) -> int:
+    """New values, same pattern, in ``m``'s entries ``sel`` (a
+    same-pattern finalize: the journal sees exactly those keys)."""
+    r, col = m.entry_coords()
+    m.put_blocks(r[sel], col[sel], [rng.standard_normal(m.block_shape(r[e], col[e]))
+                                    for e in sel])
+    m.finalize()
+    return len(sel)
+
+
+def _rows_delta(m, rows, rng) -> int:
+    return _new_values(m, np.nonzero(np.isin(m.entry_coords()[0], rows))[0], rng)
+
+
+def _blocks_delta(m, frac, rng) -> int:
+    return _new_values(m, np.sort(rng.choice(m.nblks, max(1, int(frac * m.nblks)),
+                                             replace=False)), rng)
+
+
+def _inc_counts() -> dict:
+    return {lab["result"]: v for lab, v in metrics.counter_items("dbcsr_tpu_incremental_total")}
+
+
+def _incremental_leg(name: str, a, b, kernel: str) -> dict:
+    """The incremental multiply on one product C = A B (beta 0): full
+    products until the cache installs, a zero delta, a delta of one
+    block row of A and deltas of 0.1%, 1% and 5% of A's blocks.  A delta
+    is spliced, or recomputed in full when a splice at least as large
+    lost to the full run (``fallback_costly``) or it dirties more than
+    `mm.incremental`'s share of the product (``fallback_all_dirty``);
+    either way C is bit for bit an ``incremental="full"`` run; each case
+    timed against "full" in turns (auto, full, full, auto; a fresh delta
+    before every run of a delta case), with the host's phases of each."""
+    empty = BlockSparseMatrix("C", a.row_blk_sizes, b.col_blk_sizes, a.dtype)
+    c = empty.copy()
+    rng = np.random.default_rng(20261022)
+    set_config(incremental="auto")
+    port_inc.reset()
+    _reset_counts()
+    # the first product's key has C's empty pattern, the second's the
+    # product's: its repeat, the third, installs
+    for _ in range(3):
+        mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+    counts = _counts()
+    _require(counts[kernel] > 0 and counts["plain"] == 0, f"incremental {name}: {counts}")
+    launches = counts[kernel]
+    _require(port_inc.cache_snapshot()["entries"] == 1, f"incremental {name}: nothing cached")
+    row0 = int(a.keys[0] // a.nblkcols)
+    cases = {"zero": lambda: 0, "row": lambda: _rows_delta(a, [row0], rng),
+             "blocks_0.1pct": lambda: _blocks_delta(a, 0.001, rng),
+             "blocks_1pct": lambda: _blocks_delta(a, 0.01, rng),
+             "blocks_5pct": lambda: _blocks_delta(a, 0.05, rng)}
+    out = {"c_bytes": port_inc.cache_snapshot()["bytes"],
+           "max_recompute_fraction": port_inc._MAX_RECOMPUTE_FRACTION, "cases": {}}
+    for case, delta in cases.items():
+        walls = {"auto": [], "full": []}
+        phases = {"auto": [], "full": []}
+        info, outcomes = {}, []
+        for mode in ("auto", "full", "full", "auto"):
+            dirty = delta()
+            set_config(incremental=mode)
+            metrics.reset()
+            _reset_counts()
+            before = port_inc.stats_snapshot()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            phases[mode].append(dict(c._mm_phase_s))
+            if mode == "auto":
+                got = _inc_counts()
+                wants = (("hit_unchanged",) if case == "zero"
+                         else ("hit_splice", "fallback_costly", "fallback_all_dirty"))
+                _require(sum(got.values()) == 1 and any(got.get(w) == 1 for w in wants),
+                         f"incremental {name} {case}: outcomes {got}")
+                outcomes.append(got)
+                info = {"dirty_blocks": dirty, "outcomes": outcomes, "launches": _counts(),
+                        "phase_s": dict(c._mm_phase_s), "reuse": port_inc.reuse_delta(before)}
+                # the "full" rerun into a C of the same pattern: it keys and
+                # refreshes the same cache entry (a C of another pattern
+                # would install a second 396 MB entry and evict this one)
+                set_config(incremental="full")
+                ref = c.copy()
+                mm.multiply("N", "N", 1.0, a, b, 0.0, ref)
+                torch.cuda.synchronize()
+                _require(_same_bits(c, ref),
+                         f"incremental {name} {case}: the reuse is not bit for bit the full C")
+                del ref
+        info["s_per_multiply"] = walls
+        info["host_phase_s"] = phases
+        info["median_ratio_auto_to_full"] = float(np.median(walls["auto"])
+                                                  / np.median(walls["full"]))
+        out["cases"][case] = info
+    set_config(incremental="off")
+    out["totals"] = port_inc.stats_snapshot()
+    out["launches"] = launches
+    return out
+
+
+def _models_under_default() -> dict:
+    """The three DFT loops at 2208^2 through the planner under the
+    default ``incremental="auto"`` against "off", in turns (off, auto,
+    auto, off; the result cache emptied before each run): every run bit
+    for bit the first, the reuse outcomes of the "auto" runs counted,
+    seconds each."""
+    p0 = make_test_density(MODEL_BLOCKS, MODEL_BLOCK, occ=0.2, seed=MODEL_SEED)
+    _, loops = _model_loops(p0, SIGN_STEPS, SIGN_EPS)
+    out = {}
+    for name, loop in loops.items():
+        walls = {"off": [], "auto": []}
+        row = {"outcomes": {}, "reuse": {}}
+        ref = None
+        for mode in ("off", "auto", "auto", "off"):
+            set_config(incremental=mode)
+            port_inc.reset()
+            metrics.reset()
+            (x, hist, *_), info = _drive("auto", loop)
+            walls[mode].append(info["wall_s"])
+            if ref is None:
+                ref = (x, hist)
+            else:
+                _require(hist == ref[1] and _same_bits(x, ref[0]),
+                         f"models {name} under incremental={mode}: not bit for bit the off run")
+            if mode == "auto":
+                row["outcomes"] = _inc_counts()
+                row["reuse"] = port_inc.stats_snapshot()
+        set_config(incremental="off")
+        row["wall_s"] = walls
+        row["median_ratio_auto_to_off"] = float(np.median(walls["auto"])
+                                                / np.median(walls["off"]))
+        out[name] = row
+        del ref, x
+    return out
+
+
+def phase_incremental() -> dict:
+    """The delta-aware incremental multiply on the card: the f32 north star
+    on K3 and a 2208^2 f64 product on K1 (`_incremental_leg`); at 2208^2
+    also the full-product probe under ``abft="verify"`` and an
+    ``incremental:flip`` fault, caught, counted and recomputed in full;
+    and the f64 north star, whose C (792 MB) is over the 512 MB cache
+    budget and is never cached; then the models' loops under the default
+    ``incremental="auto"`` against "off" (`_models_under_default`).
+    Returns K1's and K3's launches."""
+    out = {"phase": "incremental", "cache_max_bytes": port_inc.cache_snapshot()["max_bytes"]}
+    try:
+        cfg = _northstar_cfg(1, data_type=1)
+        res = run_perf(cfg, verbose=False)
+        a, b, _ = _operands(res, cfg)
+        del res
+        out["northstar_f32"] = _incremental_leg("northstar_f32", a, b, "smm_crosspack")
+        k3 = out["northstar_f32"]["launches"]
+        del a, b
+        a, b = _resilience_operands(torch.float64, seed=20261023)[:2]
+        out["h2o_f64"] = _incremental_leg("h2o_f64", a, b, "smm_stack")
+        k1 = out["h2o_f64"]["launches"]
+        # the full-product probe, clean and under a flip
+        set_config(incremental="auto", abft="verify")
+        c = BlockSparseMatrix("C", a.row_blk_sizes, b.col_blk_sizes, a.dtype)
+        rng = np.random.default_rng(20261024)
+        for _ in range(3):
+            mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+        # the probe cases need their splices to run: forget the leg's
+        # verdicts on what a splice of this product costs
+        port_inc._lost_at.clear()
+        _rows_delta(a, [1], rng)
+        metrics.reset()
+        mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+        clean = {"outcomes": _inc_counts(),
+                 "checks": _ctr("dbcsr_tpu_abft_checks_total", driver="incremental")}
+        _require(clean["outcomes"].get("hit_splice") == 1 and clean["checks"] == 1
+                 and not _ctr("dbcsr_tpu_abft_mismatches_total"),
+                 f"incremental probe: {clean}")
+        port_inc._lost_at.clear()
+        _rows_delta(a, [2], rng)
+        metrics.reset()
+        with faults.inject_faults("incremental:flip,times=1") as sp:
+            mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+        set_config(incremental="full")
+        ref = BlockSparseMatrix("R", a.row_blk_sizes, b.col_blk_sizes, a.dtype)
+        mm.multiply("N", "N", 1.0, a, b, 0.0, ref)
+        torch.cuda.synchronize()
+        flip = {"fired": sp[0].fired, "outcomes": _inc_counts(),
+                "mismatches": _ctr("dbcsr_tpu_abft_mismatches_total", driver="incremental"),
+                "recoveries": _ctr("dbcsr_tpu_abft_recoveries_total", driver="incremental")}
+        _require(sp[0].fired == 1 and flip["outcomes"].get("fallback_abft") == 1
+                 and flip["mismatches"] == 1 and flip["recoveries"] == 1
+                 and _same_bits(c, ref), f"incremental flip: {flip}")
+        _require(not _ctr("dbcsr_tpu_driver_failures_total")
+                 and not _ctr("dbcsr_tpu_driver_fallback_total"),
+                 "incremental flip: a stack driver failed")
+        out["h2o_f64"]["probe"] = {"clean": clean, "flip": flip}
+        del a, b, c, ref
+        # the f64 north star: never cached
+        set_config(incremental="auto", abft="off")
+        port_inc.reset()
+        cfg = _northstar_cfg(1)
+        res = run_perf(cfg, verbose=False)
+        a, b, c_out = _operands(res, cfg)
+        c_bytes = sum(x.data.numel() * x.data.element_size() for x in c_out.bins)
+        del res, c_out
+        metrics.reset()
+        for _ in range(3):
+            c = BlockSparseMatrix("C", a.row_blk_sizes, b.col_blk_sizes, a.dtype)
+            mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+            del c
+        snap = port_inc.cache_snapshot()
+        _require(snap["entries"] == 0 and c_bytes > snap["max_bytes"]
+                 and port_inc.stats_snapshot()["products"] == 0,
+                 f"f64 north star: {snap}, C {c_bytes} B")
+        out["northstar_f64"] = {"c_bytes": c_bytes, "cache": snap, "outcomes": _inc_counts(),
+                                "note": "C exceeds the cache budget: never cached, "
+                                        "every repeat recomputes"}
+        del a, b
+        out["models_default"] = _models_under_default()
+    finally:
+        faults.clear()
+        breaker.reset_board()
+        mm.clear_plan_cache()
+        port_inc.reset()
+        set_config(incremental="off", abft="off")
+    _emit(out)
+    return {"smm_stack": k1, "smm_crosspack": k3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; "
               "this script runs only on a machine with an NVIDIA GPU", file=sys.stderr)
         return 2
-    set_config(mm_driver="auto", validate_kernels=True)
-    # every phase but resilience and integrity injects nothing, so each
-    # must end without a failover, a fallback, an ABFT mismatch or a
-    # rollback (`_clean`)
+    # the engine's phases time the engine: the incremental multiply is
+    # off but in its own phase, as in the perf driver's repeats
+    set_config(mm_driver="auto", validate_kernels=True, incremental="off")
+    # every phase but resilience, integrity and incremental injects
+    # nothing, so each must end without a failover, a fallback, an ABFT
+    # mismatch or a rollback (`_clean`)
     _clean("build", phase_build)
     _clean("kernel_vs_plain", phase_kernel_vs_plain)
     _clean("crosspack_vs_plain", phase_crosspack_vs_plain)
@@ -1943,7 +2579,15 @@ def main() -> int:
     tensor = _clean("tensor", phase_tensor)
     k1["launches_by_path"]["tensor"] = tensor.pop("launches")
     k1["by_path"] = {"tensor": {**tensor, "library_ms": None}}
-    for phase, fn in (("resilience", phase_resilience), ("integrity", phase_integrity)):
+    # K1's complex and demoted forms, each beside its launches on its
+    # phase's main path
+    cx = _clean("complex", phase_complex)
+    pr = _clean("precision", phase_precision)
+    k1["launches_by_path"]["complex"] = cx["launches"]
+    k1["launches_by_path"]["precision"] = pr["launches"]
+    k1["forms"] = cx["forms"] + pr["forms"]
+    for phase, fn in (("resilience", phase_resilience), ("integrity", phase_integrity),
+                      ("incremental", phase_incremental)):
         launched = fn()
         k1["launches_by_path"][phase] = launched["smm_stack"]
         k3["launches_by_path"][phase] = launched["smm_crosspack"]

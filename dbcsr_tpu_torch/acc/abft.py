@@ -32,11 +32,17 @@ product's first touch) may defer its probe (`check_stack` with
 immediate check costs one sync per launch.
 
 `check_dense_canvas` and `check_dense_canvas_batched` probe the dense
-and composite formats' canvases.  Not ported yet (`ROADMAP.md`):
-`check_superstack`, `tree_probe`/`shift_conserved`, `matrix_probe`,
-`verify_product` and the adaptive-precision ceilings
-(`PrecisionExceededError`); they come with the superstack, parallel,
-serve and precision modules.
+and composite formats' canvases; `matrix_probe` and `verify_product`
+probe a whole product (the incremental multiply's splice,
+`mm/incremental.py`).  A launch run at a demoted compute dtype
+(`acc/precision.py`) is held to its demotion ceiling
+(`obs.costmodel.demoted_abft_tolerance`): a breach promotes its cells to
+native and raises `PrecisionExceededError`, which `acc.smm` answers with
+a native re-execution, never as corruption; a pass records the residual
+for the cell.  Complex stacks are probed alike (complex probe sums, real
+errors).  Not ported yet (`ROADMAP.md`): `check_superstack` and
+`tree_probe`/`shift_conserved`; they come with the superstack and
+parallel modules.
 
 Every probe, mismatch and recovery is counted:
 ``dbcsr_tpu_abft_{checks,mismatches,recoveries}_total{driver}``, with
@@ -52,7 +58,7 @@ import numpy as np
 import torch
 
 from dbcsr_tpu_torch.core.config import get_config
-from dbcsr_tpu_torch.core.kinds import name_of
+from dbcsr_tpu_torch.core.kinds import name_of, real_dtype_of
 from dbcsr_tpu_torch.obs import costmodel as _costmodel
 from dbcsr_tpu_torch.obs import events as _events
 from dbcsr_tpu_torch.obs import metrics as _metrics
@@ -65,6 +71,15 @@ class AbftMismatchError(RuntimeError):
     """A probe checksum disagreed beyond tolerance: the launch produced a
     wrong, possibly finite, answer.  Classified "sdc" by
     `acc.smm._classify_failure`."""
+
+
+class PrecisionExceededError(AbftMismatchError):
+    """A demoted launch's probe residual breached its demotion ceiling:
+    the adaptive planner's promote signal, not corruption.
+    `acc.smm.execute_stack` answers it by re-executing natively (the
+    cells were promoted as it was raised).  A subclass of
+    `AbftMismatchError`, so a layer that does not know it still rejects
+    the result."""
 
 
 def mode() -> str:
@@ -114,10 +129,13 @@ def _uv(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, base: Optional[torch.
     with ``peak`` max |x| (else None), a bounded chunk of blocks at a
     time."""
     per = max(1, _CHUNK_BYTES // max(1, x[0].numel() * x.element_size())) if len(x) else 1
-    parts, top = [], torch.zeros((), dtype=acc, device=x.device) if peak else None
+    real = real_dtype_of(acc)
+    parts, top = [], torch.zeros((), dtype=real, device=x.device) if peak else None
     for s0 in range(0, x.shape[0], per):
         d = x[s0: s0 + per].to(acc)
-        if peak:
+        if peak and d.is_complex():
+            top = torch.maximum(top, d.abs().max())
+        elif peak:
             lo, hi = torch.aminmax(d)  # one reduction, no |d| temporary
             top = torch.maximum(top, torch.maximum(-lo, hi))
         if base is not None:
@@ -155,7 +173,8 @@ def stack_probe(base, out, a_data, b_data, plan, alpha, c_zero: bool = False) ->
         ua_abs = a_acc.abs().sum(dim=1)  # |u| = 1: uᵀ|A| sums the rows
         bv_abs = b_acc.abs().sum(dim=2)
         s_abs = (ua_abs[ai] * bv_abs[bi]).sum(dim=1)
-        scale = abs(alpha) * torch.zeros(nseg, dtype=acc, device=dev).index_add_(0, ci, s_abs).max()
+        scale = abs(alpha) * torch.zeros(nseg, dtype=s_abs.dtype,
+                                         device=dev).index_add_(0, ci, s_abs).max()
     else:
         scale = torch.maximum(p.abs().max(), out_max) if nseg else out_max
     return torch.stack([err, scale])
@@ -196,10 +215,30 @@ def record_recovery(driver: str) -> None:
 
 
 def _check_scalars(err: float, scale: float, *, dtype: str, k: int, depth: int,
-                   driver: str, shape, site: str) -> None:
-    tol = _costmodel.abft_tolerance(dtype, k, depth)
+                   driver: str, shape, site: str, prec=None, cells=None) -> None:
+    """Hold one probe's ``[err, scale]`` to its tolerance.  ``prec`` and
+    ``cells`` mark a demoted launch (its spec and its (m, n, k, dtype)
+    cells): its ceiling is the demotion tolerance, a breach promotes the
+    cells and raises `PrecisionExceededError`, and a pass records the
+    residual (ref `dbcsr_tpu/acc/abft.py:283-320`)."""
+    from dbcsr_tpu_torch.acc import precision as _precision
+
+    if prec is not None:
+        tol = _costmodel.demoted_abft_tolerance(dtype, prec[0], prec[1], k, depth)
+    else:
+        tol = _costmodel.abft_tolerance(dtype, k, depth)
+    rel = err / max(scale, 1e-30)
     if not np.isfinite(err) or err > tol * max(scale, 1e-30):
-        _mismatch(driver, err / max(scale, 1e-30), tol, scale, shape, site)
+        if prec is not None:
+            _precision.note_exceeded(cells, rel, tol)
+            raise PrecisionExceededError(
+                f"demoted-precision probe residual at {site} (driver {driver!r}, shape "
+                f"{'x'.join(str(x) for x in shape)}, compute {prec[0]}"
+                f"{'+comp' if prec[1] else ''}): relative error {rel:.3e} > demotion "
+                f"ceiling {tol:.3e} -- cells promoted to native")
+        _mismatch(driver, rel, tol, scale, shape, site)
+    elif prec is not None and cells:
+        _precision.note_probe_ok(cells, rel)
 
 
 # -------------------------------------------------------- deferred checks
@@ -228,17 +267,26 @@ def flush() -> None:
     Each mismatch is counted and published; then the first one is raised
     again with ``.driver``, ``.shape_key`` and ``.mismatch_drivers`` (one
     driver per mismatched launch) attached, so the caller feeds the
-    breakers and redoes the product."""
+    breakers and redoes the product.  A demoted launch's breach
+    (`PrecisionExceededError`) stays out of the mismatch accounting and
+    is raised only when no corruption was found: the caller's redo
+    re-executes natively (ref `dbcsr_tpu/acc/abft.py:340-392`)."""
     pend = _pending_list()
     if not pend:
         return
     items, pend[:] = list(pend), []
     pairs = torch.stack([es.to(torch.float64) for es, _, _ in items]).cpu().numpy()
     first: Optional[AbftMismatchError] = None
+    first_prec: Optional[PrecisionExceededError] = None
     drivers: list = []
     for (_, meta, shape_key), (err, scale) in zip(items, pairs):
         try:
             _check_scalars(float(err), float(scale), **meta)
+        except PrecisionExceededError as exc:
+            exc.driver = meta["driver"]
+            exc.shape_key = shape_key
+            if first_prec is None:
+                first_prec = exc
         except AbftMismatchError as exc:
             exc.driver = meta["driver"]
             exc.shape_key = shape_key
@@ -248,6 +296,8 @@ def flush() -> None:
     if first is not None:
         first.mismatch_drivers = drivers
         raise first
+    if first_prec is not None:
+        raise first_prec
 
 
 # ----------------------------------------------------------- the checks
@@ -265,8 +315,10 @@ def check_stack(base, out, a_data, b_data, plan, alpha, c_zero: bool = False,
     es = stack_probe(base, out, a_data, b_data, plan, alpha, c_zero=c_zero)
     # the double-sided probe folds the u (length-m) contraction into every
     # compared scalar: the accumulation depth widens by max(m, n)
+    prec = plan.precision
     meta = dict(dtype=name_of(out.dtype), k=k, depth=max(plan.max_run, 1) * max(m, n),
-                driver=plan.label, shape=(m, n, k), site="stack")
+                driver=plan.label, shape=(m, n, k), site="stack", prec=prec,
+                cells=[(m, n, k, name_of(out.dtype))] if prec is not None else None)
     if defer:
         _pending_list().append((es, meta, shape_key))
         return
@@ -313,3 +365,73 @@ def check_dense_canvas_batched(pd, ad, bd, *, dtype: torch.dtype,
     if not np.isfinite(err) or err > tol * max(scale, 1e-30):
         _mismatch(driver, err / max(scale, 1e-30), tol, scale,
                   (int(pd.shape[0]), int(pd.shape[1]), n, k), "dense")
+
+
+# ------------------------------------------------------ whole-matrix probes
+def matrix_probe(m, v: torch.Tensor) -> torch.Tensor:
+    """``M @ v`` as a device vector of length ``m.nfullrows`` (``v`` has
+    ``m.nfullcols``), one block mat-vec and row scatter-add per bin (ref
+    `dbcsr_tpu/acc/abft.py:613-650`); a symmetric kind probes as stored
+    (the callers desymmetrize first)."""
+    from dbcsr_tpu_torch.core.matrix import to_index
+
+    acc = _acc_dtype(m.dtype)
+    out = torch.zeros(m.nfullrows, dtype=acc, device=m.device)
+    if m.nblks == 0:
+        return out
+    rows, cols = m.entry_coords()
+    roff, coff = m.row_blk_offsets[rows], m.col_blk_offsets[cols]
+    v = v.to(acc)
+    for b_id, b in enumerate(m.bins):
+        if b.count == 0:
+            continue
+        sel = np.nonzero(m.ent_bin == b_id)[0]
+        ro = np.empty(b.count, np.int64)
+        co = np.empty(b.count, np.int64)
+        ro[m.ent_slot[sel]] = roff[sel]
+        co[m.ent_slot[sel]] = coff[sel]
+        bm, bn = b.shape
+        vseg = v[to_index(co, m.device)[:, None] + torch.arange(bn, device=m.device)[None, :]]
+        prod = torch.einsum("sij,sj->si", b.data.to(acc), vseg)
+        idx = to_index(ro, m.device)[:, None] + torch.arange(bm, device=m.device)[None, :]
+        out.index_add_(0, idx.reshape(-1), prod.reshape(-1))
+    return out
+
+
+def product_probeable(params: dict) -> bool:
+    """Whether a product admits the whole-product probe identity: no
+    value-dependent filter, no pattern lock, plain "N" operands."""
+    return (params.get("filter_eps") is None and not params.get("retain_sparsity")
+            and str(params.get("transa", "N")).upper() == "N"
+            and str(params.get("transb", "N")).upper() == "N")
+
+
+def verify_product(a, b, c, alpha, beta, r_old: Optional[torch.Tensor], *,
+                   request_id: str = "", driver: str = "serve", site: str = "serve_execute",
+                   precisions=()) -> None:
+    """Probe a completed product ``C = alpha A B + beta C_old`` through
+    ``C·v == alpha A·(B·v) + beta (C_old·v)``; ``r_old`` is C_old's probe
+    (None for beta = 0).  ``precisions``: the demoted specs any of C's
+    blocks were computed at, whose ceilings (at A's widest block
+    column) the tolerance widens to.  Raises `AbftMismatchError` on a
+    disagreement (ref `dbcsr_tpu/acc/abft.py:666-704`)."""
+    k = a.nfullcols
+    _record_check(driver)
+    v = probe_vector(c.nfullcols, c.dtype, device=c.device)
+    r_c = matrix_probe(c, v)
+    rhs = alpha * matrix_probe(a, matrix_probe(b, v))
+    if r_old is not None:
+        rhs = rhs + beta * r_old
+    err, scale = torch.stack([(r_c - rhs).abs().max(),
+                              torch.maximum(r_c.abs().max(), rhs.abs().max())]).tolist()
+    depth = max(a.nblkcols, 1) * 4
+    tol = _costmodel.abft_tolerance(name_of(c.dtype), k, depth)
+    kb = int(np.max(a.col_blk_sizes)) if a.nblkcols else 1
+    for spec in precisions:
+        tol = max(tol, _costmodel.demoted_abft_tolerance(name_of(c.dtype), *spec, kb, depth))
+    if not np.isfinite(err) or err > tol * max(scale, 1e-30):
+        rel = err / max(scale, 1e-30)
+        record_mismatch(driver, site, rel_err=rel, tolerance=tol, request_id=request_id,
+                        shape=f"{c.nfullrows}x{c.nfullcols}x{k}")
+        raise AbftMismatchError(f"ABFT probe mismatch on product {request_id or '?'}: "
+                                f"relative error {rel:.3e} > {tol:.3e}")

@@ -11,6 +11,12 @@ in both packages: ``{"m", "n", "k", "dtype", "stack_size", "driver",
 family (here the CUDA kernels); ``variant`` is ``"kmerge"``,
 ``"crosspack"`` or ``"crosspack_vmem"`` (the operands-resident
 crosspack); for a crosspack row ``grouping`` is R and ``pack_p`` is P.
+An optional ``precision`` column (``"native"``, ``"f32"``, ``"f32c"``,
+``"bf16"``, ``"bf16c"``; ref `dbcsr_tpu/acc/params.py:12-14`) names the
+compute dtype `acc.precision.resolve` uses for the cell in adaptive
+mode, a trailing "c" the compensated form; ``"native"`` pins the cell to
+its own dtype.  A row's ``driver: "host"`` sends an untuned-driver
+("auto") CPU stack to the host driver, ahead of adaptive demotion.
 
 The table lives in ``dbcsr_tpu_torch/acc/params/`` (one
 ``parameters_<kind>.json`` per device kind), or in the directory that
@@ -37,6 +43,8 @@ _cache: Dict[str, Dict] = {}
 _table_gen = 0  # bumped by save_entry, delete_entry and invalidate
 _predict_cache: Dict[tuple, Optional[Dict]] = {}
 
+# the values of a row's ``precision`` column
+PRECISION_COLUMN = ("native", "f32", "f32c", "bf16", "bf16c")
 # a donor row only predicts for shapes within this flop-count ratio;
 # farther shapes get no opinion (the default dispatch rules apply)
 _PREDICT_MAX_FLOP_RATIO = 16.0
@@ -182,6 +190,9 @@ def save_entry(entry: Dict, kind: Optional[str] = None) -> str:
     """Merge one row into the device kind's parameter file; returns its
     path."""
     global _table_gen
+    col = entry.get("precision")
+    if col is not None and col not in PRECISION_COLUMN:
+        raise ValueError(f"precision column must be one of {PRECISION_COLUMN}, got {col!r}")
     kind = kind or device_kind()
     table = _load(kind)
     with _lock:

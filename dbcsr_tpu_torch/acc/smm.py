@@ -64,6 +64,24 @@ guard keeps a clone of the C bin from before the launch (none for a
 retry or failover starts from it.  With no fault configured, ABFT off
 and no breaker ever tripped, a launch costs a few attribute checks: no
 clone and no host sync.
+
+**Precision** (`acc/precision.py`; ref `dbcsr_tpu/acc/smm.py:587-651,
+1221-1258`).  Unless the config forces a driver ("pallas",
+"pallas_cross", "host"), planning resolves the stack's compute spec; a
+demoted plan (``plan.precision``) runs on K1's demoted form (the JAX
+package's XLA family), or on the plain version where the config asks
+for "torch" or the tensor lies on the CPU, and never on crosspack.  A
+tuned ``host`` row outranks adaptive demotion, not the forced modes.
+Each demoted launch is counted (``dbcsr_tpu_precision_launches_total``)
+and probed against its demotion ceiling; a breach
+(`abft.PrecisionExceededError`) is no corruption: the stack re-plans
+natively, heals the cached plan and re-executes from the pristine C,
+with no breaker or failover (`_promote_execute`).
+
+**Complex** stacks run on K1's complex forms (its tiled path) on the
+card, on the plain version or the host driver on the CPU, never on
+crosspack: ``mm_driver="pallas_cross"`` or a crosspack variant on a
+complex stack raises `TypeError`, as ``"host"`` does for bf16.
 """
 
 from __future__ import annotations
@@ -76,13 +94,14 @@ import torch
 
 from dbcsr_tpu_torch import native
 from dbcsr_tpu_torch.acc import abft, crosspack_kernel, params, stack_kernel
+from dbcsr_tpu_torch.acc import precision as _precision
 from dbcsr_tpu_torch.acc.build import BuildError
 from dbcsr_tpu_torch.acc.crosspack import choose_pack, prepare_crosspack, runs, supports_resident
 from dbcsr_tpu_torch.core.config import get_config
 from dbcsr_tpu_torch.core.kinds import name_of
 from dbcsr_tpu_torch.core.matrix import to_host
 from dbcsr_tpu_torch.obs import events, flight, metrics
-from dbcsr_tpu_torch.obs.costmodel import kernel_validation_tolerance
+from dbcsr_tpu_torch.obs.costmodel import form_tolerance
 from dbcsr_tpu_torch.resilience import breaker, faults
 
 # kernels that passed first-use validation: (m, n, k, dtype, device type)
@@ -129,11 +148,12 @@ class StackPlan:
     for the launch that keeps the operand bin ``window`` in persisting
     L2) or "host" (`native.host_smm`, CPU tensors, with ``host_idx`` the
     stack's host (a, b, c) arrays); ``label`` is its config name.  The
-    kernels run their plain versions on a CPU tensor."""
+    kernels run their plain versions on a CPU tensor.  ``precision`` is
+    the demoted compute spec the plan runs with (None: native)."""
 
     __slots__ = ("driver", "a_idx", "b_idx", "run_ptr", "run_c", "entries",
                  "nruns", "max_run", "pack", "pack_runs", "pack_longest",
-                 "resident", "window", "val_idx", "host_idx")
+                 "resident", "window", "val_idx", "host_idx", "precision")
 
     def __init__(self):
         self.driver = "kernel"
@@ -148,6 +168,7 @@ class StackPlan:
         self.window = "a"         # crosspack, resident: the bin kept in L2
         self.val_idx = None  # host (a, b, c) prefix for first-use validation
         self.host_idx = None  # host int32 (a, b, c): the host driver's stack
+        self.precision = None  # demoted compute spec (acc/precision.py)
 
     @property
     def label(self) -> str:
@@ -205,6 +226,8 @@ def _crosspack_choice(driver, c_data, a_data, b_data, s, variant, pack):
     (the config's ``mm_driver``), without the TPU's bf16 guard (:704-717).
     A demoted shape takes the base kernel unless ``variant`` forces
     crosspack."""
+    if c_data.dtype.is_complex:
+        return None  # complex stacks run on the base kernel
     if variant == "kmerge" or (variant is None and driver in ("pallas", "torch")):
         return None
     if variant is None and _stack_shape_key(c_data, a_data, b_data) in _cross_disabled:
@@ -263,7 +286,8 @@ def _check_host(c_data) -> None:
     if c_data.device.type != "cpu":
         raise ValueError(f"mm_driver='host' serves CPU tensors only; C is on {c_data.device}")
     if not native.host_smm_supports(c_data.dtype):
-        raise TypeError(f"mm_driver='host' takes float32/float64, got {c_data.dtype}")
+        raise TypeError(f"mm_driver='host' takes float32/float64/complex64/complex128, "
+                        f"got {c_data.dtype}")
 
 
 def prepare_stack(c_data, a_data, b_data, a_idx, b_idx, c_idx,
@@ -282,8 +306,13 @@ def prepare_stack(c_data, a_data, b_data, a_idx, b_idx, c_idx,
                                             variant)
     if len(a_idx) == 0:
         return None
+    # a refused request raises, never re-plans
     if variant is None and get_config().mm_driver == "host":
-        _check_host(c_data)  # a refused request raises, never re-plans
+        _check_host(c_data)
+    if c_data.dtype.is_complex and (variant in _CROSS_VARIANTS or (
+            variant is None and get_config().mm_driver == "pallas_cross")):
+        raise TypeError(f"the crosspack kernel takes no {c_data.dtype} stack "
+                        f"(complex stacks run on the base kernel)")
     try:
         if faults.active():
             faults.maybe_inject("prepare_stack")
@@ -313,10 +342,27 @@ def _prepare_stack_impl(c_data, a_data, b_data, a_idx, b_idx, c_idx,
     s = len(a_idx)
     dev = c_data.device
     plan = StackPlan()
+    prec = None
+    if variant is None and driver not in ("pallas", "pallas_cross", "host"):
+        m, k = a_data.shape[1:]
+        tuned = params.predict(m, b_data.shape[2], k, c_data.dtype, stack_size=s)
+        prec = _precision.resolve(m, b_data.shape[2], k, c_data.dtype, tuned=tuned)
+        if (driver == "auto" and tuned and tuned.get("driver") == "host"
+                and c_data.device.type == "cpu" and native.host_smm_supports(c_data.dtype)
+                and (prec is None or not _precision.forced())):
+            # a tuned host row outranks adaptive demotion, not the forced
+            # modes (dbcsr_tpu/acc/smm.py:601-617)
+            prec, driver = None, "host"
     if driver == "host" and variant is None:
         _check_host(c_data)
         plan.driver = "host"
         plan.host_idx = tuple(np.ascontiguousarray(x, np.int32) for x in (a_idx, b_idx, c_idx))
+        run_ptr, run_c = runs(c_idx)
+    elif prec is not None:
+        # a demoted plan: K1's demoted form (the plain version where the
+        # config asks for "torch"), never crosspack
+        plan.driver = "torch" if driver == "torch" else "kernel"
+        plan.precision = tuple(prec)
         run_ptr, run_c = runs(c_idx)
     else:
         choice = _crosspack_choice(driver, c_data, a_data, b_data, s, variant, pack)
@@ -346,6 +392,8 @@ def _prepare_stack_impl(c_data, a_data, b_data, a_idx, b_idx, c_idx,
         plan.val_idx = (a_idx[:p], b_idx[:p], c_idx[:p])
     flight.note_driver(plan.label, driver if variant is None else f"variant:{variant}",
                        mnk=_stack_shape_key(c_data, a_data, b_data)[:3], entries=s)
+    if plan.precision is not None:
+        flight.note("precision", f"{prec[0]}{'+comp' if prec[1] else ''}")
     return plan
 
 
@@ -575,6 +623,10 @@ def execute_stack(c_data, a_data, b_data, plan: Optional[StackPlan], alpha=1.0,
                  defer=abft_defer, shape_key=shape_key)
     except BuildError:
         raise
+    except abft.PrecisionExceededError as exc:
+        # an adaptive promote, not corruption: the cells were promoted
+        # when the probe raised; re-execute natively
+        return _promote_execute(c_data, a_data, b_data, plan, alpha, c_zero, base, exc)
     except Exception as exc:  # noqa: BLE001 -- classified and recorded
         if _record_failure(plan.label, shape_key, exc) == "validation":
             raise  # the oracle ran before the launch: C is untouched
@@ -583,13 +635,39 @@ def execute_stack(c_data, a_data, b_data, plan: Optional[StackPlan], alpha=1.0,
     return c_data
 
 
+def _promote_execute(c_data, a_data, b_data, plan: StackPlan, alpha, c_zero: bool, base, exc):
+    """A demoted launch's probe breached its ceiling
+    (`abft.PrecisionExceededError`; its cells were promoted as it
+    raised): plan the stack again, natively, from the plan's own device
+    arrays (the plan keeps no host copy), heal the cached plan in place,
+    and run it from the pristine C.  No breaker, no failover: the
+    condemned result was off by demoted rounding only (ref
+    `dbcsr_tpu/acc/smm.py:1221-1258`).  Without a pristine C (no clone
+    was taken) the error reaches the caller."""
+    if base is None and not c_zero:
+        raise exc
+    events.publish("precision_promote_reexec",
+                   {"driver": plan.label,
+                    "shape": "x".join(str(x) for x in _stack_shape_key(c_data, a_data, b_data))},
+                   flight=("precision_promote_reexec", {"driver": plan.label}))
+    _restore(c_data, base, c_zero)
+    new = _prepare_stack_impl(c_data, a_data, b_data, *plan.stack())
+    # the forced modes would demote again: the re-execution is native
+    new.precision = None
+    for slot in StackPlan.__slots__:  # cached plans heal too
+        setattr(plan, slot, getattr(new, slot))
+    return execute_stack(c_data, a_data, b_data, plan, alpha, c_zero=c_zero)
+
+
 def _execute_plan(c_data, a_data, b_data, plan: StackPlan, alpha=1.0):
     """Run one plan on its driver, in place on ``c_data`` (the dispatch
     proper; the guard lives in `execute_stack`)."""
+    if plan.precision is not None:
+        _precision.note_launch(name_of(c_data.dtype), plan.precision)
     if plan.driver == "torch":
         return stack_kernel.smm_stack_plain(
             c_data, a_data, b_data, plan.a_idx, plan.b_idx, plan.run_ptr,
-            plan.run_c, alpha, chunk=get_config().mm_stack_size)
+            plan.run_c, alpha, chunk=get_config().mm_stack_size, precision=plan.precision)
     if plan.driver == "host":
         return native.host_smm(c_data, a_data, b_data, *plan.host_idx, alpha)
     _ensure_validated(c_data, a_data, b_data, plan)
@@ -599,7 +677,7 @@ def _execute_plan(c_data, a_data, b_data, plan: StackPlan, alpha=1.0):
             plan.run_c, plan.pack_runs, plan.pack, alpha,
             resident=plan.resident, window=plan.window)
     return stack_kernel.smm_stack(c_data, a_data, b_data, plan.a_idx, plan.b_idx,
-                                  plan.run_ptr, plan.run_c, alpha)
+                                  plan.run_ptr, plan.run_c, alpha, precision=plan.precision)
 
 
 def _ensure_validated(c_data, a_data, b_data, plan: StackPlan) -> None:
@@ -609,17 +687,41 @@ def _ensure_validated(c_data, a_data, b_data, plan: StackPlan) -> None:
            name_of(c_data.dtype), c_data.device.type)
     if plan.driver == "crosspack":
         key += ("crosspack_vmem" if plan.resident else "crosspack", plan.pack)
+    elif plan.precision is not None:
+        key += ("precision", plan.precision)
     if key in _validated_kernels:
         return
     _validate_kernel(c_data, a_data, b_data, plan, *plan.val_idx)
     _validated_kernels.add(key)
 
 
+def _oracle_products(a: torch.Tensor, b: torch.Tensor, precision) -> np.ndarray:
+    """The block products ``a[s] @ b[s]`` a host oracle holds a form
+    against, in float64 (complex128): of the operands, or of the parts a
+    demoted form multiplies (the operands rounded to the compute dtype,
+    or their hi/lo splits without lo*lo, as `stack_kernel.batch_dot`
+    takes them), so only the kernel's order of the sums is tested."""
+    if precision is None:
+        pairs = [(a, b)]
+    else:
+        cdt = stack_kernel.compute_dtype(precision)
+        if precision[1]:
+            ah, al = stack_kernel.split_hi_lo(a, cdt)
+            bh, bl = stack_kernel.split_hi_lo(b, cdt)
+            pairs = [(ah, bh), (ah, bl), (al, bh)]
+        else:
+            pairs = [(a.to(cdt), b.to(cdt))]
+    wide = torch.complex128 if a.dtype.is_complex else torch.float64
+    return sum(np.einsum("smk,skn->smn", x.to(wide).cpu().numpy(), y.to(wide).cpu().numpy())
+               for x, y in pairs)
+
+
 def _validate_kernel(c_data, a_data, b_data, plan: StackPlan, ai, bi, ci) -> None:
     """Run the plan's kernel on a stack prefix into a zeroed, compacted C
     (one block per distinct destination of the prefix) and hold it
-    against a float64 host oracle (ref `validate_kernel`,
-    `libsmm_acc.cpp:216`)."""
+    against a float64 (complex128) host oracle of the same form (ref
+    `validate_kernel`, `libsmm_acc.cpp:216`), within the rounding of
+    the form's sums (`obs.costmodel.form_tolerance`)."""
     m, k = a_data.shape[1:]
     n = b_data.shape[2]
     dest, cc = np.unique(ci, return_inverse=True)
@@ -636,20 +738,22 @@ def _validate_kernel(c_data, a_data, b_data, plan: StackPlan, ai, bi, ci) -> Non
     else:
         run_ptr, run_c = runs(cc)
         stack_kernel.smm_stack(got, a_data, b_data, a_dev, b_dev,
-                               _upload(run_ptr, dev), _upload(run_c, dev), 1.0)
-    a_h = to_host(a_data[torch.from_numpy(ai).to(dev)]).astype(np.float64)
-    b_h = to_host(b_data[torch.from_numpy(bi).to(dev)]).astype(np.float64)
-    ref = np.zeros((len(dest), m, n), np.float64)
-    np.add.at(ref, cc, np.einsum("smk,skn->smn", a_h, b_h))
+                               _upload(run_ptr, dev), _upload(run_c, dev), 1.0,
+                               precision=plan.precision)
+    wide = np.complex128 if c_data.dtype.is_complex else np.float64
+    ref = np.zeros((len(dest), m, n), wide)
+    np.add.at(ref, cc, _oracle_products(a_data[torch.from_numpy(ai).to(dev)],
+                                        b_data[torch.from_numpy(bi).to(dev)], plan.precision))
     scale = max(float(np.max(np.abs(ref))), 1.0)
-    err = float(np.max(np.abs(to_host(got).astype(np.float64) - ref))) / scale
+    err = float(np.max(np.abs(to_host(got).astype(wide) - ref))) / scale
     depth = int(np.diff(run_ptr).max())
-    tol = kernel_validation_tolerance(name_of(c_data.dtype), k, depth)
+    tol = form_tolerance(name_of(c_data.dtype), plan.precision, k, depth)
     if not np.isfinite(err) or err > tol:
         raise KernelValidationError(
             f"{plan.kernel} validation failed for (m={m}, n={n}, k={k}, "
             f"dtype={c_data.dtype}, device={dev}"
             + (f", pack={plan.pack}" if plan.driver == "crosspack" else "")
+            + (f", compute={plan.precision}" if plan.precision is not None else "")
             + f"): relative error {err:.3e} > {tol:.1e} vs host oracle")
 
 

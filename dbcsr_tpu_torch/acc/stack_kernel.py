@@ -13,6 +13,15 @@ a CPU tensor it runs `smm_stack_plain`, the same function as
 gather -> `torch.bmm` -> `index_add_` in stack order.  The wrapper never
 falls back to the plain version: a CUDA launch that fails raises, and
 `acc.smm.execute_stack` counts the failure and fails the stack over.
+
+Besides float64, float32 and bfloat16, the kernel has two groups of
+forms that the JAX package computes in XLA, never in Pallas
+(`dbcsr_tpu/acc/smm.py:78-135`): complex64/complex128 (the tiled path,
+complex alpha), and the demoted compute forms of a ``precision`` spec
+(`acc/precision.py`): ("float32", False), ("float32", True),
+("bfloat16", False) and ("bfloat16", True) for float64 data, the bf16
+pair for float32 data, on both paths.  The plain version computes each
+form as `_batch_dot` does.
 """
 
 from __future__ import annotations
@@ -27,11 +36,21 @@ from dbcsr_tpu_torch.acc import build
 SOURCE = "smm_stack.cu"
 
 # launches of the CUDA kernel, and calls of the plain version, since the
-# last reset (chip_smoke.py reads them around the main path)
+# last reset (chip_smoke.py reads them around the main path); the
+# launches again by form, "<dtype>" or "<dtype>:<compute>[+comp]"
 launches = 0
 plain_calls = 0
+launches_by_form: dict = {}
 
-_DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
+_DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
+               torch.complex64: 3, torch.complex128: 4}
+# the demoted compute forms by precision spec, and the data dtypes each
+# takes (the resolver never demotes bf16 or complex data)
+_COMPUTE_CODE = {None: 0, ("float32", False): 1, ("float32", True): 2,
+                 ("bfloat16", False): 3, ("bfloat16", True): 4}
+_COMPUTE_DTYPES = {1: (torch.float64,), 2: (torch.float64,),
+                   3: (torch.float64, torch.float32), 4: (torch.float64, torch.float32)}
+_COMPUTE_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _lib = None
 
 
@@ -39,6 +58,15 @@ def reset_counts() -> None:
     global launches, plain_calls
     launches = 0
     plain_calls = 0
+    launches_by_form.clear()
+
+
+def form_name(dtype: torch.dtype, precision=None) -> str:
+    """A form's name: the data dtype, and a demoted compute spec."""
+    name = str(dtype).replace("torch.", "")
+    if precision is None:
+        return name
+    return f"{name}:{precision[0]}{'+comp' if precision[1] else ''}"
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -46,14 +74,14 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load(SOURCE)
         lib.smm_stack_launch.argtypes = [
-            ctypes.c_int,
+            ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_double, ctypes.c_void_p,
+            ctypes.c_double, ctypes.c_double, ctypes.c_void_p,
         ]
         lib.smm_stack_launch.restype = ctypes.c_int
-        lib.smm_stack_path.argtypes = [ctypes.c_int] * 3
+        lib.smm_stack_path.argtypes = [ctypes.c_int] * 4
         lib.smm_stack_path.restype = ctypes.c_int
         lib.smm_stack_error_string.argtypes = [ctypes.c_int]
         lib.smm_stack_error_string.restype = ctypes.c_char_p
@@ -61,15 +89,26 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
-def kernel_path(m: int, n: int, k: int) -> str:
+def kernel_path(m: int, n: int, k: int, dtype: torch.dtype = torch.float64) -> str:
     """Which hand-written path of ``csrc/smm_stack.cu`` a launch of (m, n, k)
-    blocks takes: "warp" (one warp per run, m, n, k <= 32) or "tiled"."""
-    return "warp" if _kernel_lib().smm_stack_path(m, n, k) == 1 else "tiled"
+    blocks of ``dtype`` takes: "warp" (one warp per run, m, n, k <= 32,
+    real dtypes) or "tiled" (complex always)."""
+    return "warp" if _kernel_lib().smm_stack_path(_DTYPE_CODE[dtype], m, n, k) == 1 else "tiled"
+
+
+def compute_code(dtype: torch.dtype, precision) -> int:
+    """The kernel's compute form of a ``precision`` spec for ``dtype`` data;
+    raises TypeError for a spec the kernel has no form of."""
+    code = _COMPUTE_CODE.get(None if precision is None else tuple(precision))
+    if code is None or (code and dtype not in _COMPUTE_DTYPES[code]):
+        raise TypeError(f"stack kernel has no {precision} form for {dtype}")
+    return code
 
 
 def _check(c, a, b, a_idx, b_idx, run_ptr, run_c) -> None:
     if c.dtype not in _DTYPE_CODE:
-        raise TypeError(f"stack kernel takes float64/float32/bfloat16, got {c.dtype}")
+        raise TypeError(f"stack kernel takes float64/float32/bfloat16/complex64/complex128, "
+                        f"got {c.dtype}")
     if a.dtype != c.dtype or b.dtype != c.dtype:
         raise TypeError(f"operand dtypes {a.dtype}/{b.dtype} differ from C's {c.dtype}")
     if a.dim() != 3 or b.dim() != 3 or c.dim() != 3:
@@ -92,13 +131,18 @@ def _check(c, a, b, a_idx, b_idx, run_ptr, run_c) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def smm_stack(c, a, b, a_idx, b_idx, run_ptr, run_c, alpha=1.0):
+def smm_stack(c, a, b, a_idx, b_idx, run_ptr, run_c, alpha=1.0, precision=None):
     """Apply the stack to ``c`` in place and return it: the CUDA kernel on
-    a CUDA tensor, `smm_stack_plain` on a CPU tensor."""
+    a CUDA tensor, `smm_stack_plain` on a CPU tensor.  ``precision`` is a
+    demoted compute spec or None (native); ``alpha`` may be complex for
+    complex data."""
     global launches
     _check(c, a, b, a_idx, b_idx, run_ptr, run_c)
+    compute = compute_code(c.dtype, precision)
+    alpha = complex(alpha) if c.dtype.is_complex else float(alpha)
     if c.device.type == "cpu":
-        return smm_stack_plain(c, a, b, a_idx, b_idx, run_ptr, run_c, alpha)
+        return smm_stack_plain(c, a, b, a_idx, b_idx, run_ptr, run_c, alpha,
+                               precision=precision)
     if c.device.type != "cuda":
         raise ValueError(f"no stack kernel for device {c.device}")
     nruns = run_c.numel()
@@ -110,15 +154,19 @@ def smm_stack(c, a, b, a_idx, b_idx, run_ptr, run_c, alpha=1.0):
     stream = torch.cuda.current_stream(c.device).cuda_stream
     with torch.cuda.device(c.device):
         err = lib.smm_stack_launch(
-            _DTYPE_CODE[c.dtype], a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            _DTYPE_CODE[c.dtype], compute, a.data_ptr(), b.data_ptr(), c.data_ptr(),
             a_idx.data_ptr(), b_idx.data_ptr(), run_ptr.data_ptr(),
-            run_c.data_ptr(), nruns, m, n, k, float(alpha), stream)
+            run_c.data_ptr(), nruns, m, n, k, complex(alpha).real, complex(alpha).imag,
+            stream)
     if err != 0:
         msg = lib.smm_stack_error_string(err).decode()
         raise RuntimeError(f"smm_stack launch failed (m={m}, n={n}, k={k}, "
-                           f"{c.dtype}, nruns={nruns}): CUDA error {err}: {msg}")
+                           f"{c.dtype}, compute {precision}, nruns={nruns}): "
+                           f"CUDA error {err}: {msg}")
     mark_written(c)
     launches += 1
+    form = form_name(c.dtype, precision)
+    launches_by_form[form] = launches_by_form.get(form, 0) + 1
     return c
 
 
@@ -144,13 +192,46 @@ def _full_precision_matmul(device: torch.device):
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def compute_dtype(precision) -> torch.dtype:
+    """The compute dtype of a demoted ``precision`` spec."""
+    return _COMPUTE_DTYPE[precision[0]]
+
+
+def split_hi_lo(x: torch.Tensor, cdt: torch.dtype):
+    """The two-product operand split: hi = compute(x), lo = compute(x - hi)
+    (`dbcsr_tpu/acc/smm.py:_split_hi_lo`)."""
+    hi = x.to(cdt)
+    return hi, (x - hi.to(x.dtype)).to(cdt)
+
+
+def batch_dot(a: torch.Tensor, b: torch.Tensor, acc: torch.dtype, precision=None):
+    """The block products ``a[s] @ b[s]`` in ``acc`` at the executed
+    precision (`dbcsr_tpu/acc/smm.py:_batch_dot`): native; demoted
+    uncompensated (the compute-dtype operands multiplied with a float32
+    accumulator, widened after); or compensated (hi*hi + (hi*lo + lo*hi)
+    of the splits, each product summed in ``acc``)."""
+    if precision is None:
+        return torch.bmm(a.to(acc), b.to(acc))
+    cdt = compute_dtype(precision)
+    if not precision[1]:
+        # float32 holds a bf16 value exactly: a float32 product of the
+        # rounded operands is a bf16 dot with float32 accumulation
+        return torch.bmm(a.to(cdt).float(), b.to(cdt).float()).to(acc)
+    ah, al = split_hi_lo(a, cdt)
+    bh, bl = split_hi_lo(b, cdt)
+
+    def dot(x, y):
+        return torch.bmm(x.to(acc), y.to(acc))
+    return dot(ah, bh) + (dot(ah, bl) + dot(al, bh))
+
+
 def smm_stack_plain(c, a, b, a_idx, b_idx, run_ptr, run_c, alpha=1.0,
-                    chunk: int = 30000):
+                    chunk: int = 30000, precision=None):
     """Plain PyTorch version of the kernel's function, in place on ``c``:
-    gather ``chunk`` entries at a time, `torch.bmm`, sum each run's
-    products in stack order with `index_add_`, then
-    ``C[run_c] = C[run_c] + alpha * sums``.  bf16 computes in float32,
-    as the kernel does."""
+    gather ``chunk`` entries at a time, `batch_dot` (`torch.bmm` at the
+    executed precision), sum each run's products in stack order with
+    `index_add_`, then ``C[run_c] = C[run_c] + alpha * sums``.  bf16
+    computes in float32, as the kernel does."""
     global plain_calls
     plain_calls += 1
     nruns = run_c.numel()
@@ -166,7 +247,7 @@ def smm_stack_plain(c, a, b, a_idx, b_idx, run_ptr, run_c, alpha=1.0,
         for s0 in range(0, a_idx.numel(), chunk):
             ai = a_idx[s0: s0 + chunk].long()
             bi = b_idx[s0: s0 + chunk].long()
-            prod = torch.bmm(a[ai].to(acc), b[bi].to(acc))
+            prod = batch_dot(a[ai], b[bi], acc, precision)
             sums.index_add_(0, run_id[s0: s0 + chunk], prod)
     rc = run_c.long()
     c[rc] = (c[rc].to(acc) + alpha * sums).to(c.dtype)

@@ -10,6 +10,8 @@ import dataclasses
 MM_DRIVERS = ("auto", "pallas", "pallas_cross", "torch", "host")
 ABFT_MODES = ("off", "verify", "recover")
 MM_FORMATS = ("auto", "stack", "dense", "composite")
+PRECISION_MODES = ("native", "adaptive", "f32", "bf16")
+INCREMENTAL_MODES = ("auto", "off", "full")
 
 
 @dataclasses.dataclass
@@ -56,6 +58,21 @@ class Config:
     # itself probed).  It also arms the models' chain guard
     # (models/integrity.py).
     abft: str = "off"
+    # compute dtype of the stack engine (acc/precision.py): "native"
+    # (every stack at its own dtype), "adaptive" (demote eligible stacks
+    # -- float64 to float32 off a TPU -- with wide accumulation, each
+    # launch certified by the ABFT probe and promoted back to native per
+    # (m, n, k, dtype) cell on a breach; inert unless ``abft`` is on),
+    # "f32"/"bf16" (force the demoted compute dtype with two-product
+    # compensation, no certificate: test and comparison legs)
+    precision: str = "native"
+    # the delta-aware incremental multiply (mm/incremental.py): "auto"
+    # (a repeated beta = 0 product whose operands changed in a known set
+    # of blocks recomputes only the C blocks those reach and splices the
+    # rest from the cached result, bit for bit the full product), "off"
+    # (no tracking, no cache), "full" (keep the cache but always
+    # recompute: the comparison leg that pays the bookkeeping)
+    incremental: str = "auto"
 
     def validate(self) -> None:
         if self.mm_driver not in MM_DRIVERS:
@@ -75,6 +92,12 @@ class Config:
             raise ValueError("tas_split_factor must be positive")
         if self.abft not in ABFT_MODES:
             raise ValueError(f"abft must be 'off'/'verify'/'recover', got {self.abft!r}")
+        if self.precision not in PRECISION_MODES:
+            raise ValueError(f"precision must be 'native'/'adaptive'/'f32'/'bf16', "
+                             f"got {self.precision!r}")
+        if self.incremental not in INCREMENTAL_MODES:
+            raise ValueError(f"incremental must be 'auto'/'off'/'full', "
+                             f"got {self.incremental!r}")
 
 
 _cfg = Config()

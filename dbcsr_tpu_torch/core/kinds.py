@@ -2,7 +2,7 @@
 
 Counterpart of `dbcsr_tpu/core/kinds.py`.  The enum values match the
 reference (`acc_libsmm.h`: r4=1, r8=3, c4=5, c8=7) plus bf16=9, so the
-`.perf` inputs read the same.  Complex kinds are not ported yet.
+`.perf` inputs read the same.
 """
 
 from __future__ import annotations
@@ -19,23 +19,23 @@ dbcsr_type_bfloat16 = 9
 _ENUM_TO_DTYPE = {
     dbcsr_type_real_4: torch.float32,
     dbcsr_type_real_8: torch.float64,
+    dbcsr_type_complex_4: torch.complex64,
+    dbcsr_type_complex_8: torch.complex128,
     dbcsr_type_bfloat16: torch.bfloat16,
 }
 _DTYPE_TO_ENUM = {v: k for k, v in _ENUM_TO_DTYPE.items()}
-_COMPLEX_ENUMS = (dbcsr_type_complex_4, dbcsr_type_complex_8)
+_BY_NAME = {str(dt).replace("torch.", ""): dt for dt in _DTYPE_TO_ENUM}
 
 # numpy dtype used for host-side staging of each torch dtype (numpy has
 # no bfloat16: bf16 blocks are staged in float32 and rounded on upload)
 _HOST_DTYPE = {
     torch.float32: np.dtype(np.float32),
     torch.float64: np.dtype(np.float64),
+    torch.complex64: np.dtype(np.complex64),
+    torch.complex128: np.dtype(np.complex128),
     torch.bfloat16: np.dtype(np.float32),
 }
-
-
-def _complex_error(kind) -> NotImplementedError:
-    return NotImplementedError(
-        f"complex data type {kind!r} is not ported to dbcsr_tpu_torch yet")
+_REAL_OF = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
 def dtype_of(kind) -> torch.dtype:
@@ -44,8 +44,6 @@ def dtype_of(kind) -> torch.dtype:
     if isinstance(kind, torch.dtype):
         dt = kind
     elif isinstance(kind, (int, np.integer)) and not isinstance(kind, bool):
-        if int(kind) in _COMPLEX_ENUMS:
-            raise _complex_error(kind)
         if int(kind) not in _ENUM_TO_DTYPE:
             raise ValueError(f"unknown data type enum {kind!r}")
         dt = _ENUM_TO_DTYPE[int(kind)]
@@ -53,15 +51,10 @@ def dtype_of(kind) -> torch.dtype:
         name = kind if isinstance(kind, str) else getattr(kind, "name", None)
         if name is None:
             name = np.dtype(kind).name
-        dt = {"float32": torch.float32, "float64": torch.float64,
-              "bfloat16": torch.bfloat16}.get(str(name))
+        dt = _BY_NAME.get(str(name))
         if dt is None:
-            if "complex" in str(name):
-                raise _complex_error(kind)
             raise ValueError(f"unsupported dtype {kind!r}")
     if dt not in _DTYPE_TO_ENUM:
-        if dt.is_complex:
-            raise _complex_error(kind)
         raise ValueError(f"unsupported dtype {dt}")
     return dt
 
@@ -79,3 +72,14 @@ def host_dtype(dtype) -> np.dtype:
 def name_of(dtype) -> str:
     """The dtype's name as the reference tolerances key it ("float64")."""
     return str(dtype_of(dtype)).replace("torch.", "")
+
+
+def is_complex(dtype) -> bool:
+    return dtype_of(dtype).is_complex
+
+
+def real_dtype_of(dtype) -> torch.dtype:
+    """The real dtype of matching precision (for norms): complex64 ->
+    float32, complex128 -> float64, a real dtype itself."""
+    dt = dtype_of(dtype)
+    return _REAL_OF.get(dt, dt)

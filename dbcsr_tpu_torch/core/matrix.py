@@ -15,11 +15,22 @@ Counterpart of `dbcsr_tpu/core/matrix.py` (ref `dbcsr_type`,
 
 Tensors are mutable here: the multiply engine updates C's bins in
 place, and `copy()` therefore clones the data.  Symmetric,
-antisymmetric and (real, hence symmetric) hermitian matrices store the
-canonical upper triangle only (row <= col), as the reference does:
-`put_block` folds a lower-triangle write onto the stored transpose and
-`get_block` unfolds it.  A matrix created inside a `core.mempool.chain`
-is adopted by it.
+antisymmetric and hermitian matrices store the canonical upper triangle
+only (row <= col), as the reference does: `put_block` folds a
+lower-triangle write onto the stored transpose (conjugated for a
+hermitian kind; a real hermitian matrix is symmetric) and `get_block`
+unfolds it.  A matrix created inside a `core.mempool.chain` is adopted
+by it.
+
+The mutation journal (ref `dbcsr_tpu/core/matrix.py:141-152,694-745`):
+every funnel that changes values bumps ``mutation_epoch`` and records
+the block keys it touched, or None for a change of structure;
+`dirty_keys_since` answers which keys may have changed since an epoch,
+or None when it cannot tell.  The incremental multiply
+(`mm/incremental.py`) keys its reuse on it.  Bins that a cache holds
+(``_bins_shared``) are copy-on-write: `own_bins` gives the matrix fresh
+clones before any in-place write, so a cached result is never written
+through (the JAX package needs no such rule: its arrays are immutable).
 """
 
 from __future__ import annotations
@@ -32,7 +43,7 @@ import torch
 
 from dbcsr_tpu_torch.core import digests, mempool
 from dbcsr_tpu_torch.core.dist import Distribution
-from dbcsr_tpu_torch.core.kinds import dtype_of, host_dtype, name_of
+from dbcsr_tpu_torch.core.kinds import dtype_of, host_dtype, name_of, real_dtype_of
 from dbcsr_tpu_torch.device import DeviceLike, resolve_device
 
 # matrix_type flags, ref dbcsr_type_no_symmetry/_symmetric/_antisymmetric/
@@ -54,12 +65,13 @@ class _Bin:
 
 
 def _fold_block(block: np.ndarray, matrix_type: str) -> np.ndarray:
-    """A lower-triangle block's stored upper-triangle image (real kinds:
-    a hermitian matrix is symmetric)."""
+    """A lower-triangle block's stored upper-triangle image."""
     if matrix_type == SYMMETRIC:
         return block.T
     if matrix_type == ANTISYMMETRIC:
         return -block.T
+    if matrix_type == HERMITIAN:
+        return block.conj().T
     raise AssertionError(matrix_type)
 
 
@@ -67,7 +79,7 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     """Fetch a tensor to a numpy array (bf16 widens to float32)."""
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.detach().cpu().numpy()
+    return t.detach().cpu().resolve_conj().numpy()
 
 
 def to_index(idx: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -128,8 +140,8 @@ class BlockSparseMatrix:
         if matrix_type != NO_SYMMETRY:
             if not np.array_equal(self.row_blk_sizes, self.col_blk_sizes):
                 raise ValueError("symmetric matrix needs identical row/col blocking")
-            if matrix_type == HERMITIAN:
-                matrix_type = SYMMETRIC  # the ported kinds are all real
+            if matrix_type == HERMITIAN and not self.dtype.is_complex:
+                matrix_type = SYMMETRIC  # a real hermitian matrix is symmetric
         self.matrix_type = matrix_type
         self.dist = dist or Distribution.trivial(
             len(self.row_blk_sizes), len(self.col_blk_sizes))
@@ -150,6 +162,13 @@ class BlockSparseMatrix:
         self._dense_canvas = None
         # block_norms' memo: (held arrays, bin versions, norms)
         self._norms_memo = None
+        # a cache holds these bins: write only after `own_bins`
+        self._bins_shared = False
+        # the mutation journal: a monotone epoch and the (epoch, keys or
+        # None) entries since the last change of structure; `copy` starts
+        # its own
+        self._epoch = 0
+        self._delta_log: List = []
         ch = mempool.current_chain()
         if ch is not None:
             ch.adopt(self)
@@ -387,6 +406,9 @@ class BlockSparseMatrix:
             self._work.clear()
         staged_keys = np.unique(np.concatenate([k for (k, _, _) in self._work_batches]))
         merged = np.union1d(self.keys, staged_keys)
+        # a same-pattern finalize (a loop's value update) journals exactly
+        # the staged keys; a new key changes the structure
+        same_pattern = len(merged) == len(self.keys)
         rows = (merged // self.nblkcols).astype(np.int64)
         cols = (merged % self.nblkcols).astype(np.int64)
         nb, nsl, shapes = _bin_entries(self.row_blk_sizes, self.col_blk_sizes,
@@ -419,14 +441,19 @@ class BlockSparseMatrix:
                 datas[b][slots] = blocks
         bins = [_Bin(s, datas[i], int(counts[i])) for i, s in enumerate(shapes)]
         self._work_batches.clear()
-        self.set_structure_from_device(merged, bins, binning=(nb, nsl, shapes))
+        self.set_structure_from_device(merged, bins, binning=(nb, nsl, shapes),
+                                       value_delta_keys=staged_keys if same_pattern else None)
         return self
 
     def set_structure_from_device(self, keys: np.ndarray, bins: List[_Bin],
-                                  binning=None) -> None:
+                                  binning=None, value_delta_keys=None) -> None:
         """Adopt a prebuilt index + device bins (the multiply engine
         assembles C on the device).  ``binning`` optionally carries a
-        precomputed `_bin_entries` result."""
+        precomputed `_bin_entries` result.  ``value_delta_keys`` names
+        the keys whose values changed when the pattern did not (a
+        same-pattern finalize); None journals a change of structure.
+        The bins must be fresh tensors no other matrix holds, so the
+        matrix owns them again (``_bins_shared`` clears)."""
         keys = np.ascontiguousarray(keys, np.int64)
         rows = (keys // self.nblkcols).astype(np.int64)
         cols = (keys % self.nblkcols).astype(np.int64)
@@ -443,7 +470,78 @@ class BlockSparseMatrix:
         self._dense_canvas = None
         self._work.clear()
         self._work_batches.clear()
+        self._bins_shared = False
+        self._note_mutation(value_delta_keys)
         self.valid = True
+
+    # ------------------------------------------------------ value deltas
+    # a bounded journal: a baseline older than it reaches reads as
+    # unknown (a full recompute), never as a wrong delta
+    _DELTA_LOG_MAX = 64
+
+    @property
+    def mutation_epoch(self) -> int:
+        """The monotone mutation counter: every value funnel bumps it."""
+        return self._epoch
+
+    def _note_mutation(self, keys) -> None:
+        """Journal one mutation: ``keys``, the int64 block keys whose
+        values it changed (structure unchanged), or None for a change of
+        structure or an unknown extent, which restarts the journal."""
+        self._epoch += 1
+        if keys is None:
+            self._delta_log = [(self._epoch, None)]
+            return
+        self._delta_log.append((self._epoch, np.asarray(keys, np.int64)))
+        if len(self._delta_log) > self._DELTA_LOG_MAX:
+            del self._delta_log[0]
+
+    def dirty_keys_since(self, epoch: int):
+        """The block keys whose values may have changed since ``epoch`` (a
+        `mutation_epoch` read earlier): an int64 array, empty when none
+        did, or None when the journal cannot tell (a change of structure,
+        a truncated journal, an epoch this matrix never had)."""
+        if epoch == self._epoch:
+            return np.empty(0, np.int64)
+        if epoch > self._epoch or not self._delta_log:
+            return None
+        if epoch < self._delta_log[0][0] - 1:
+            return None  # the journal no longer reaches the baseline
+        parts = []
+        for e, k in self._delta_log:
+            if e <= epoch:
+                continue
+            if k is None:
+                return None
+            parts.append(k)
+        if not parts:
+            return None  # the epoch lies inside a restarted journal
+        return np.unique(np.concatenate(parts))
+
+    def own_bins(self) -> None:
+        """Copy-on-write: while a cache holds this matrix's bins
+        (``_bins_shared``), replace them by clones, so the next in-place
+        write reaches this matrix alone.  Every in-place writer calls it
+        first."""
+        if self._bins_shared:
+            for b in self.bins:
+                b.data = b.data.clone()
+            self._bins_shared = False
+
+    def map_bin_data(self, fn) -> None:
+        """Apply ``fn`` to every non-empty bin's device data (its result
+        becomes the bin; ``fn`` may write in place) and journal every
+        stored key (ref `dbcsr_tpu/core/matrix.py:772-800`)."""
+        self.own_bins()
+        for b in self.bins:
+            if b.count:
+                b.data = fn(b.data)
+        self._dense_canvas = None
+        self._note_mutation(self.keys)
+
+    def zero_data(self) -> None:
+        """Set every stored value to zero; the pattern is kept."""
+        self.map_bin_data(lambda d: d.zero_())
 
     # --------------------------------------------------------------- access
     def _find_entry(self, row: int, col: int) -> int:
@@ -546,11 +644,15 @@ class BlockSparseMatrix:
                 continue
             d = b.data
             acc = torch.float32 if d.dtype == torch.bfloat16 else d.dtype
+            real = real_dtype_of(d.dtype)
             # a bounded chunk of blocks at a time: the squares' temporary
-            # is never the size of a large bin (each norm is the same)
+            # is never the size of a large bin (each norm is the same);
+            # a complex block sums |x|^2 in its real dtype
             per = max(1, _MOVE_CHUNK_BYTES // max(1, d[0].numel() * d.element_size()))
-            norms = torch.cat([torch.sqrt((x * x).sum(dim=(1, 2), dtype=acc)).to(d.dtype)
-                               for x in d.split(per)])
+            norms = torch.cat([
+                torch.sqrt((x * x.conj()).real.sum(dim=(1, 2)) if x.is_complex()
+                           else (x * x).sum(dim=(1, 2), dtype=acc)).to(real)
+                for x in d.split(per)])
             mask = self.ent_bin == b_id
             out[mask] = to_host(norms).astype(np.float64)[self.ent_slot[mask]]
         out.setflags(write=False)
@@ -592,10 +694,14 @@ class BlockSparseMatrix:
         self._norms_memo = None
         self._work.clear()
         self._work_batches.clear()
+        self._bins_shared = False
+        self._note_mutation(None)  # emptied: nothing reusable remains
         self.valid = False
 
     def copy(self, name: Optional[str] = None) -> "BlockSparseMatrix":
-        """Deep copy: bins are cloned, since the engine updates C in place."""
+        """Deep copy: bins are cloned, since the engine updates C in place.
+        The copy starts its own mutation journal (ref
+        `dbcsr_tpu/core/matrix.py:747-770`: delta state is never shared)."""
         m = BlockSparseMatrix(name or self.name, self.row_blk_sizes,
                               self.col_blk_sizes, self.dtype, self.dist,
                               self.matrix_type, device=self.device)

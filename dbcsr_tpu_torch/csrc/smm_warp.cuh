@@ -31,6 +31,15 @@
 // (DMMA sums a k-step of 4 in an order fixed by the hardware), so repeats
 // are bit for bit equal.  Blocks are persistent: each loops over groups
 // of runs, so a warp whose run ends early takes the next one.
+//
+// K1's demoted forms (acc/precision.py) take the f32 lane layout with
+// `DemTile` in place of `Tile`: the staged operands stay at the request
+// dtype and are rounded to the compute dtype (f32 or bf16) as they are
+// read from shared memory.  Uncompensated, each entry's k-sum runs in
+// f32 and is then added to the run's sum in the wide type (f64 for f64
+// data); compensated, each operand splits into hi + lo in the compute
+// dtype and hi*hi + (hi*lo + lo*hi) accumulates in the wide type
+// (dbcsr_tpu/acc/smm.py:_batch_dot, :78-135).
 
 #pragma once
 
@@ -276,6 +285,93 @@ template <int MAXT> struct Tile<float, MAXT> {
   }
 };
 
+// Demoted compute: CT 0 = f32, 1 = bf16; the compute value is held in
+// f32, which represents both exactly (bf16 rounds through f32, as
+// torch's conversion does).
+template <int CT>
+__device__ __forceinline__ float to_compute(double x) {
+  const float f = static_cast<float>(x);
+  return CT == 0 ? f : __bfloat162float(__float2bfloat16(f));
+}
+template <int CT>
+__device__ __forceinline__ float to_compute(float x) {
+  return CT == 0 ? x : __bfloat162float(__float2bfloat16(x));
+}
+
+// hi = compute(x), lo = compute(x - hi), both held in the wide type W
+template <int CT, typename W>
+__device__ __forceinline__ void split_hi_lo(W x, W& hi, W& lo) {
+  hi = static_cast<W>(to_compute<CT>(x));
+  lo = static_cast<W>(to_compute<CT>(x - hi));
+}
+
+// The demoted forms' register tile: the lane layout of Tile<float>, the
+// run's sum in the staged (wide) type S.
+template <typename S, int MAXT, int CT, bool COMP> struct DemTile {
+  S v[MAXT][2 * MAXT];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+      for (int j = 0; j < 2 * MAXT; ++j) v[i][j] = S(0);
+  }
+
+  __device__ __forceinline__ void mma(const S* as, const S* bs, const WarpGeom& g, int n,
+                                      int k, int lane) {
+    const int tn = 2 * g.nt;
+    const S* ap = as + (lane >> 2) * k;
+    const S* bp = bs + (lane & 3) * tn;
+    if (!COMP) {
+      float p[MAXT][2 * MAXT];
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * MAXT; ++j) p[i][j] = 0.0f;
+      for (int kk = 0; kk < k; ++kk) {
+        float af[MAXT], bf[2 * MAXT];
+#pragma unroll
+        for (int i = 0; i < MAXT; ++i) af[i] = i < g.mt ? to_compute<CT>(ap[8 * i * k + kk]) : 0.0f;
+#pragma unroll
+        for (int j = 0; j < 2 * MAXT; ++j) bf[j] = j < tn ? to_compute<CT>(bp[kk * n + j]) : 0.0f;
+#pragma unroll
+        for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+          for (int j = 0; j < 2 * MAXT; ++j)
+            if (i < g.mt && j < tn) p[i][j] = fmaf(af[i], bf[j], p[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * MAXT; ++j) v[i][j] += static_cast<S>(p[i][j]);
+    } else {
+      for (int kk = 0; kk < k; ++kk) {
+        S ah[MAXT], al[MAXT], bh[2 * MAXT], bl[2 * MAXT];
+#pragma unroll
+        for (int i = 0; i < MAXT; ++i) split_hi_lo<CT>(i < g.mt ? ap[8 * i * k + kk] : S(0), ah[i], al[i]);
+#pragma unroll
+        for (int j = 0; j < 2 * MAXT; ++j) split_hi_lo<CT>(j < tn ? bp[kk * n + j] : S(0), bh[j], bl[j]);
+#pragma unroll
+        for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+          for (int j = 0; j < 2 * MAXT; ++j)
+            if (i < g.mt && j < tn) v[i][j] += ah[i] * bh[j] + (ah[i] * bl[j] + al[i] * bh[j]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(S* cs, const WarpGeom& g, int m, int n, int lane) const {
+    const int tn = 2 * g.nt, r0 = lane >> 2, c0 = (lane & 3) * tn;
+#pragma unroll
+    for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+      for (int j = 0; j < 2 * MAXT; ++j) {
+        const int r = r0 + 8 * i, c = c0 + j;
+        if (i < g.mt && j < tn && r < m && c < n) cs[r * g.sb + c] = v[i][j];
+      }
+  }
+};
+
 // ------------------------------------------------------------ the runs
 
 // Which run warp w of a block of nw warps takes as its i-th (-1: none,
@@ -313,7 +409,8 @@ struct RunInfo {
 // or two ahead (its run index, its run_ptr/run_c, its first 32 entry
 // indices, its C block into registers), so that no load waits at the
 // start of a run.
-template <typename T, int MAXT, typename RunOf>
+template <typename T, int MAXT, typename RunOf,
+          typename TileT = Tile<typename AccOf<T>::type, MAXT>>
 __device__ __forceinline__ void warp_kernel(
     const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
     const int* __restrict__ a_idx, const int* __restrict__ b_idx,
@@ -393,7 +490,7 @@ __device__ __forceinline__ void warp_kernel(
     const RunInfo nx2 = info_of(r2);
     const int r3 = run_at(nrun + 3);
 
-    Tile<S, MAXT> acc;
+    TileT acc;
     acc.zero();
     const int nsteps = (cur.len + r - 1) / r;
     for (int s = 0; s < nsteps; ++s, ++sc) {

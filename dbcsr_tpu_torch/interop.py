@@ -3,12 +3,13 @@ of numpy arrays, so that another implementation (the JAX package, in
 the tests) and this one can compute on identical operands.
 
 The state holds ``row_blk_sizes``, ``col_blk_sizes``, ``matrix_type``,
-``dtype`` (the reference enum: 1 f32, 3 f64, 9 bf16), ``keys``,
+``dtype`` (the reference enum: 1 f32, 3 f64, 5 c4, 7 c8, 9 bf16), ``keys``,
 ``ent_bin``, ``ent_slot`` and ``bins``, a list of ``(bm, bn, data)`` with
 ``data`` the bin's first ``count`` blocks (a producer with padded bins
 slices them off).  bf16 data may come as float32 or as a numpy bfloat16
-extension array; both convert exactly.  A symmetric kind ("S", "A"; a
-real "H" becomes "S") carries its stored upper triangle only.
+extension array; both convert exactly; complex data comes as
+complex64/complex128.  A symmetric kind ("S", "A", "H"; a real "H"
+becomes "S") carries its stored upper triangle only.
 
 A tensor's state holds ``blk_sizes`` (one array per dimension),
 ``row_dims`` and ``col_dims`` (the nd->2d mapping), ``dtype`` (the enum),
@@ -37,7 +38,7 @@ def matrix_from_numpy_state(state: dict, device: Optional[DeviceLike] = None,
     bins = []
     for bm, bn, data in state["bins"]:
         data = np.asarray(data)
-        if data.dtype.kind != "f" or data.dtype.itemsize < 4:
+        if data.dtype.kind not in "fc" or data.dtype.itemsize < 4:
             data = data.astype(np.float32)  # numpy bfloat16 extension type
         if data.shape[1:] != (int(bm), int(bn)):
             raise ValueError(f"bin data of shape {data.shape} is not ({bm},{bn}) blocks")
@@ -113,7 +114,7 @@ def tensor_from_numpy_state(state: dict, device: Optional[DeviceLike] = None,
         if arr.shape[1:] != tuple(int(x) for x in s):
             raise ValueError(f"block of shape {arr.shape[1:]} where the blocking "
                              f"gives {tuple(int(x) for x in s)}")
-        if arr.dtype.kind != "f" or arr.dtype.itemsize < 4:
+        if arr.dtype.kind not in "fc" or arr.dtype.itemsize < 4:
             arr = arr.astype(np.float32)  # numpy bfloat16 extension type
         mat = arr.transpose((0,) + tuple(1 + d for d in perm)).reshape(
             len(sel), int(np.prod([s[d] for d in t.row_dims], dtype=np.int64)),

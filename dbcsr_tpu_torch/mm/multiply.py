@@ -51,6 +51,17 @@ while C still holds the bins it held (`_note_dense_fallback` counts it).
 A beta = 0 stack product defers its launches' ABFT probes to one flush
 at its end; a mismatch there zeroes C's bins and redoes the product with
 immediate checks (`_run_stacks`).
+
+Precision and reuse (ref `dbcsr_tpu/mm/multiply.py:290-375`): the plan
+key carries `acc.precision.plan_token`, so a promotion or a chain
+scope's transition never reuses a demoted plan.  An eligible product
+(stack format, beta = 0, unfiltered, unlimited, non-symmetric C, plan
+cacheable) first asks `mm.incremental.maybe_reuse`, which may splice C
+from the cached result of the same product; after a full run,
+`note_executed` records it.  A canvas format drops the entries of its
+operands (`note_format_executed`).  Complex kinds multiply on every
+format; "C" conjugates the transposed operand, and complex alpha and
+beta need a complex C.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ import torch
 
 from dbcsr_tpu_torch import native
 from dbcsr_tpu_torch.acc import abft, params
+from dbcsr_tpu_torch.acc import precision as _precision
 from dbcsr_tpu_torch.acc import smm as _smm
 from dbcsr_tpu_torch.acc.smm import StackPlan, execute_stack, prepare_stack
 from dbcsr_tpu_torch.core import digests, mempool
@@ -78,6 +90,7 @@ from dbcsr_tpu_torch.core.matrix import (
     to_index,
 )
 from dbcsr_tpu_torch.mm import format_planner
+from dbcsr_tpu_torch.mm import incremental as _incremental
 from dbcsr_tpu_torch.obs import events, flight
 from dbcsr_tpu_torch.ops.operations import compress, crop_matrix, window_mask
 from dbcsr_tpu_torch.ops.transformations import desymmetrize, new_transposed
@@ -100,7 +113,7 @@ _totals: dict = {}
 
 def reset_totals() -> None:
     _totals.update(multiplies=0, host_phase_s={}, longest_run=0, device_s={}, timed={},
-                   events=[], plan_cache={"hit": 0, "miss": 0, "uncacheable": 0},
+                   events=[], plan_cache={"hit": 0, "miss": 0, "uncacheable": 0}, reused=0,
                    formats={}, index_engine={"expand": {"native": 0, "numpy": 0},
                                              "sort": {"native": 0, "numpy": 0}})
 
@@ -122,7 +135,8 @@ def _fold_events(wait: bool) -> None:
 
 def read_totals() -> dict:
     """The totals since `reset_totals`: ``multiplies``, ``host_phase_s``
-    (summed per phase), ``plan_cache`` outcome counts, ``formats`` (the
+    (summed per phase), ``plan_cache`` outcome counts, ``reused`` (the
+    products `mm.incremental` served from its cache), ``formats`` (the
     planner's decisions as "format:reason" counts), ``index_engine`` (how
     many expansions and sorts ran "native" or "numpy"), ``longest_run``,
     ``device_s`` (CUDA-event seconds of each format's device work, summed
@@ -131,7 +145,8 @@ def read_totals() -> dict:
     _fold_events(wait=True)
     return {"multiplies": _totals["multiplies"],
             "host_phase_s": dict(_totals["host_phase_s"]),
-            "plan_cache": dict(_totals["plan_cache"]), "formats": dict(_totals["formats"]),
+            "plan_cache": dict(_totals["plan_cache"]), "reused": _totals["reused"],
+            "formats": dict(_totals["formats"]),
             "index_engine": {k: dict(v) for k, v in _totals["index_engine"].items()},
             "longest_run": _totals["longest_run"],
             "device_s": dict(_totals["device_s"]),
@@ -146,27 +161,31 @@ def clear_plan_cache() -> None:
 
 
 def _real_scalar(x, dtype):
-    """Coerce alpha/beta for a real-dtype product; a nonzero imaginary
-    part raises a clear TypeError."""
+    """Coerce alpha/beta for a product into C of ``dtype``: a complex for
+    a complex C; for a real C a nonzero imaginary part raises a clear
+    TypeError."""
     arr = np.asarray(x)
+    if dtype.is_complex:
+        return complex(arr)
     if np.iscomplexobj(arr):
         if complex(arr).imag != 0.0:
             raise TypeError(
                 f"complex alpha/beta with a real matrix C (dtype {dtype}); "
-                f"use real scalars")
+                f"use a complex matrix or real scalars")
         return complex(arr).real
     return float(x)
 
 
 def _effective(matrix: BlockSparseMatrix, trans: str) -> BlockSparseMatrix:
-    """Resolve op(X): desymmetrize, then transpose (ref transpose
-    wrappers at `dbcsr_mm.F:521-582`); for the real dtypes ported, "C"
-    is a plain transpose."""
+    """Resolve op(X): desymmetrize, then transpose, conjugated for "C" on
+    a complex kind (ref transpose wrappers at `dbcsr_mm.F:521-582`)."""
     trans = trans.upper()
     if trans not in ("N", "T", "C"):
         raise ValueError(f"bad trans flag {trans!r}")
     m = desymmetrize(matrix) if matrix.matrix_type != NO_SYMMETRY else matrix
-    return m if trans == "N" else new_transposed(m)
+    if trans == "N":
+        return m
+    return new_transposed(m, conjugate=trans == "C" and m.dtype.is_complex)
 
 
 def multiply(
@@ -310,6 +329,9 @@ def _canvas_multiply(a, b, c, alpha, beta, plan, phase):
     phase[plan.fmt] = time.perf_counter() - t1
     c._mm_plan_cache = None
     c._mm_spans = []
+    # the canvas restructured C: cached results of these operands can
+    # never be spliced into it again
+    _incremental.note_format_executed(a, b)
     return flops
 
 
@@ -353,8 +375,9 @@ def _stop_events(events):
 
 def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
                     beta_window, phase) -> int:
-    """The stack format: index, assemble, plan (or the cached plan) and
-    launch, then the filter's compress."""
+    """The stack format: index, the incremental reuse where eligible,
+    assemble, plan (or the cached plan) and launch, then the filter's
+    compress."""
     t0 = time.perf_counter()
     i, j, a_ent, b_ent = _candidates(a, b, filter_eps, sym_c=c.matrix_type != NO_SYMMETRY,
                                      limits=limits)
@@ -367,31 +390,61 @@ def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
         new_keys = old_keys
     else:
         new_keys = np.union1d(old_keys, np.unique(cand_keys))
+    key = _plan_key(a, b, c, old_fp, retain_sparsity, filter_eps, limits, cand_keys, a_ent,
+                    b_ent)
     t1 = time.perf_counter()
     phase["index"] = t1 - t0
+    inc_eligible = (key is not None and filter_eps is None and beta == 0
+                    and beta_window is None and not retain_sparsity
+                    and all(x is None for x in limits) and mempool.enabled()
+                    and c.matrix_type == NO_SYMMETRY)
+    c._mm_device_events, c._mm_spans = None, []
+    if inc_eligible:
+        flops = _incremental.maybe_reuse(key, a, b, c, alpha, new_keys, cand_keys, a_ent, b_ent)
+        if flops is not None:
+            c._note_mutation(c.keys)  # the spliced values are installed
+            phase["incremental"] = time.perf_counter() - t1
+            c._mm_plan_cache = None
+            _totals["reused"] += 1
+            return flops
+        t_inc = time.perf_counter()
+        phase["incremental"] = t_inc - t1  # what deciding on a full run cost
+        t1 = t_inc
     _rebuild_c(c, new_keys, beta, beta_window)
     t2 = time.perf_counter()
     phase["assemble"] = t2 - t1
-    key = _plan_key(a, b, c, old_fp, retain_sparsity, filter_eps, limits, cand_keys, a_ent,
-                    b_ent)
-    spans = _cached_spans(key)
-    c._mm_plan_cache = "uncacheable" if key is None else "hit" if spans is not None else "miss"
-    if spans is None:
-        spans = _build_spans(c, a, b, cand_keys, a_ent, b_ent)
-        if key is not None:
-            _plan_cache_insert(key, spans)
+    spans, c._mm_plan_cache = _spans_for(key, c, a, b, cand_keys, a_ent, b_ent)
     t3 = time.perf_counter()
     phase["plan"] = t3 - t2
     flops = _run_stacks(c, a, b, spans, alpha, c_zero=beta == 0 and beta_window is None)
     phase["launch"] = time.perf_counter() - t3
-    c._mm_spans = [(sp.m, sp.n, sp.k, sp.entries, sp.driver, sp.plan.max_run)
-                   for sp in spans]
+    # the kernels wrote C's bins in place: stamp the completed values
+    c._note_mutation(c.keys)
+    if inc_eligible:
+        demoted = {sp.plan.precision for sp in spans if sp.plan.precision is not None}
+        _incremental.note_executed(key, a, b, c, alpha, demoted,
+                                   phase["assemble"] + phase["plan"] + phase["launch"])
     if filter_eps is not None and not retain_sparsity:
         norms = c.block_norms()
         compress(c, norms ** 2 >= float(filter_eps) ** 2)
     _totals["plan_cache"][c._mm_plan_cache] += 1
-    _totals["longest_run"] = max([_totals["longest_run"]] + [sp.plan.max_run for sp in spans])
     return flops
+
+
+def _spans_for(key, c, a, b, cand_keys, a_ent, b_ent):
+    """The product's spans from the plan cache under ``key``, or built
+    and inserted (C already assembled), with the outcome ("hit", "miss",
+    "uncacheable"); records them in ``c._mm_spans`` and the longest run
+    in the totals."""
+    spans = _cached_spans(key)
+    outcome = "uncacheable" if key is None else "hit" if spans is not None else "miss"
+    if spans is None:
+        spans = _build_spans(c, a, b, cand_keys, a_ent, b_ent)
+        if key is not None:
+            _plan_cache_insert(key, spans)
+    c._mm_spans = [(sp.m, sp.n, sp.k, sp.entries, sp.driver, sp.plan.max_run) for sp in spans]
+    _totals["longest_run"] = max([_totals["longest_run"]] + [sp.plan.max_run for sp in spans])
+    return spans, outcome
 
 
 def _plan_key(a, b, c, c_fp, retain_sparsity, filter_eps, limits, cand_keys, a_ent, b_ent):
@@ -407,7 +460,10 @@ def _plan_key(a, b, c, c_fp, retain_sparsity, filter_eps, limits, cand_keys, a_e
            name_of(a.dtype), name_of(b.dtype), name_of(c.dtype), str(c.device),
            c.matrix_type, bool(retain_sparsity), tuple(limits),
            (cfg.mm_driver, cfg.validate_kernels, cfg.mm_format),
-           params.params_path(), params.generation())
+           params.params_path(), params.generation(),
+           # an adaptive promotion or a chain scope's transition must not
+           # be served a demoted plan
+           _precision.plan_token())
     if filter_eps is not None:
         key += ("filtered", float(filter_eps), digests.index_digest(cand_keys, a_ent, b_ent))
     return key
@@ -714,8 +770,12 @@ def _run_stacks(c, a, b, spans, alpha, c_zero: bool = False) -> int:
             abft.flush()
             break
         except abft.AbftMismatchError as exc:
-            _smm.note_deferred_sdc(exc)
-            recovered_from = exc.mismatch_drivers
+            # a demoted launch's breach is a promote, not corruption: no
+            # breaker feed, no recovery; the redo's immediate checks
+            # re-execute each still-demoted plan natively
+            if not isinstance(exc, abft.PrecisionExceededError):
+                _smm.note_deferred_sdc(exc)
+                recovered_from = exc.mismatch_drivers
             for bin_ in c.bins:
                 bin_.data.zero_()
     for drv in recovered_from:
@@ -801,11 +861,11 @@ def _check_matmul_precision(dtype: torch.dtype, device: torch.device) -> None:
     """The JAX package multiplies its canvases at ``Precision.HIGHEST``:
     a float32 canvas GEMM on the card must not run as TF32 (the global
     switches are the caller's, so this raises rather than changes them)."""
-    if device.type == "cuda" and dtype == torch.float32 and (
+    if device.type == "cuda" and dtype in (torch.float32, torch.complex64) and (
             torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError(
-            "dense/composite float32 products need full float32 GEMMs: set "
+            "dense/composite float32 and complex64 products need full float32 GEMMs: set "
             "torch.backends.cuda.matmul.allow_tf32 = False and "
             "torch.set_float32_matmul_precision('highest')")
 

@@ -9,8 +9,9 @@ The coupled iteration (CP2K's Löwdin orthogonalization on DBCSR)
 with Z_k -> sqrt(s) S^-1/2: three filtered multiplies per step, whose
 patterns repeat across steps.  Counterpart of
 `dbcsr_tpu/models/invsqrt.py:35-228`, with the integrity guard
-(`models/integrity.py`) and without the adaptive-precision scope and the
-reuse events (not ported yet: `ROADMAP.md`).
+(`models/integrity.py`), the adaptive-precision chain scope
+(`acc.precision.chain_scope`, on the residual) and one ``model_reuse``
+event per step (`mm.incremental.reuse_delta`).
 """
 
 from __future__ import annotations
@@ -20,10 +21,13 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from dbcsr_tpu_torch.acc import precision as _precision
 from dbcsr_tpu_torch.core import mempool
 from dbcsr_tpu_torch.core.kinds import host_dtype
 from dbcsr_tpu_torch.core.matrix import NO_SYMMETRY, BlockSparseMatrix
+from dbcsr_tpu_torch.mm import incremental as _incremental
 from dbcsr_tpu_torch.mm.multiply import multiply
+from dbcsr_tpu_torch.obs import events as _events
 from dbcsr_tpu_torch.models import integrity as _integrity
 from dbcsr_tpu_torch.ops.operations import (
     add_on_diag,
@@ -81,12 +85,14 @@ def invsqrt_iteration(s: BlockSparseMatrix, max_iter: int = 30, tol: float = 1e-
     z = _identity_like(s)
     guard = _integrity.guard_enabled()
     prev_res = None
-    with mempool.chain() as ch:
+    with mempool.chain() as ch, _precision.chain_scope(
+            "invsqrt", dtype=s.dtype, scale=float(max(s.nfullrows, 1)) ** 0.5) as psc:
         ch.adopt(y)
         ch.adopt(z)
         ny = frobenius_norm(y) if guard else None
         nz = frobenius_norm(z) if guard else None
         for it in range(max_iter):
+            reuse0 = _incremental.stats_snapshot()
             # R = I - Z Y doubles as the step's T = I + R/2
             r = _like("R", s)
             multiply("N", "N", -1.0, z, y, 0.0, r, filter_eps=filter_eps)
@@ -122,6 +128,7 @@ def invsqrt_iteration(s: BlockSparseMatrix, max_iter: int = 30, tol: float = 1e-
                 res = seen["res"]
             if history is not None:
                 history.append(res)
+            psc.observe(res)
             if res < tol:
                 ch.detach(z)
                 return z, sf, it
@@ -162,6 +169,8 @@ def invsqrt_iteration(s: BlockSparseMatrix, max_iter: int = 30, tol: float = 1e-
                                                        it, "invariant")
                     ny2, nz2 = seen["ny"], seen["nz"]
                 ny, nz = ny2, nz2
+            _events.publish("model_reuse", dict(model="invsqrt", step=it,
+                                                **_incremental.reuse_delta(reuse0)))
             ch.retire(t)
             ch.retire(y)
             ch.retire(z)

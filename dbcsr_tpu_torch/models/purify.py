@@ -3,9 +3,10 @@
 P_{n+1} = 3 P_n^2 - 2 P_n^3, the canonical linear-scaling-DFT workload
 DBCSR serves (CP2K's `dm_ls_scf`): two filtered block-sparse multiplies
 per step.  Counterpart of `dbcsr_tpu/models/purify.py:27-169,238-255`,
-with the integrity guard (`models/integrity.py`) and without the
-adaptive-precision scope and the reuse events (not ported yet:
-`ROADMAP.md`); the JAX package's default leaves both inert.
+with the integrity guard (`models/integrity.py`), the adaptive-precision
+chain scope (`acc.precision.chain_scope`, on the trace change; inert
+unless ``precision="adaptive"`` and ABFT are on) and one ``model_reuse``
+event per step (`mm.incremental.reuse_delta`).
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dbcsr_tpu_torch.acc import precision as _precision
 from dbcsr_tpu_torch.core import mempool
 from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
 from dbcsr_tpu_torch.device import DeviceLike
+from dbcsr_tpu_torch.mm import incremental as _incremental
 from dbcsr_tpu_torch.mm.multiply import multiply
+from dbcsr_tpu_torch.obs import events as _events
 from dbcsr_tpu_torch.models import integrity as _integrity
 from dbcsr_tpu_torch.ops.operations import add, add_on_diag, frobenius_norm, scale, trace
 from dbcsr_tpu_torch.ops.test_methods import make_random_matrix
@@ -81,10 +85,12 @@ def mcweeny_purify(p: BlockSparseMatrix, steps: int = 5,
     step rolls back to the checkpoint and is recomputed."""
     guard = _integrity.guard_enabled()
     history = []
-    with mempool.chain() as ch:
+    with mempool.chain() as ch, _precision.chain_scope(
+            "purify", dtype=p.dtype, scale=float(max(p.nfullrows, 1))) as psc:
         cur = p
         cur_norm = frobenius_norm(cur) if guard else None
         for step_i in range(steps):
+            reuse0 = _incremental.stats_snapshot()
             snap = ch.snapshot(cur) if guard else None
             new = mcweeny_step(cur, filter_eps=filter_eps)
             tr_new = None
@@ -114,6 +120,9 @@ def mcweeny_purify(p: BlockSparseMatrix, steps: int = 5,
             cur = new
             # the guard already paid trace(new)
             history.append(trace(cur) if tr_new is None else tr_new)
+            psc.observe(abs(history[-1] - history[-2]) if len(history) > 1 else float("inf"))
+            _events.publish("model_reuse", dict(model="purify", step=step_i,
+                                                **_incremental.reuse_delta(reuse0)))
             if tol is not None and len(history) > 1 and abs(history[-1] - history[-2]) < tol:
                 break
         ch.detach(cur)

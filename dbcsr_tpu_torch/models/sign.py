@@ -3,9 +3,9 @@
 X_{k+1} = X_k (3 I - X_k^2) / 2 converges to sign(A) once A is
 Gershgorin-scaled; each step is two filtered multiplies and a diagonal
 shift.  Counterpart of `dbcsr_tpu/models/sign.py:33-142`, with the
-integrity guard (`models/integrity.py`) and without the
-adaptive-precision scope and the reuse events (not ported yet:
-`ROADMAP.md`).
+integrity guard (`models/integrity.py`), the adaptive-precision chain
+scope (`acc.precision.chain_scope`, on ||X_k - X_{k-1}||_F) and one
+``model_reuse`` event per step (`mm.incremental.reuse_delta`).
 """
 
 from __future__ import annotations
@@ -13,9 +13,12 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+from dbcsr_tpu_torch.acc import precision as _precision
 from dbcsr_tpu_torch.core import mempool
 from dbcsr_tpu_torch.core.matrix import NO_SYMMETRY, BlockSparseMatrix
+from dbcsr_tpu_torch.mm import incremental as _incremental
 from dbcsr_tpu_torch.mm.multiply import multiply
+from dbcsr_tpu_torch.obs import events as _events
 from dbcsr_tpu_torch.models import integrity as _integrity
 from dbcsr_tpu_torch.ops.operations import (
     add_on_diag,
@@ -62,9 +65,11 @@ def sign_iteration(a: BlockSparseMatrix, steps: int = 20,
     x0 = x = scale(copy(a, name="X"), 1.0 / g if g > 0 else 1.0)
     guard = _integrity.guard_enabled()
     history = []
-    with mempool.chain() as ch:
+    with mempool.chain() as ch, _precision.chain_scope(
+            "sign", dtype=a.dtype, scale=float(max(a.nfullrows, 1)) ** 0.5) as psc:
         x_norm = frobenius_norm(x) if guard else None
         for step_i in range(steps):
+            reuse0 = _incremental.stats_snapshot()
             snap = ch.snapshot(x) if guard else None
             x_new = sign_step(x, filter_eps=filter_eps)
             diff = added(x_new, x, 1.0, -1.0, name="diff")
@@ -97,6 +102,9 @@ def sign_iteration(a: BlockSparseMatrix, steps: int = 20,
                     metric, nn = seen["metric"], seen["nn"]
                 x_norm = nn
             history.append(metric)
+            psc.observe(metric)
+            _events.publish("model_reuse", dict(model="sign", step=step_i,
+                                                **_incremental.reuse_delta(reuse0)))
             ch.retire(diff)
             if x is not x0:
                 ch.retire(x)

@@ -210,8 +210,9 @@ def group_sort_stacks(group, ngroups: int, c_slot, a_ent):
     return order, bounds
 
 
-# the reference's datatype codes the host driver takes (r4, r8)
-_HOST_DTYPE_CODE = {torch.float32: 1, torch.float64: 3}
+# the reference's datatype codes the host driver takes (r4, r8, c4, c8)
+_HOST_DTYPE_CODE = {torch.float32: 1, torch.float64: 3, torch.complex64: 5,
+                    torch.complex128: 7}
 
 
 def host_smm_supports(dtype: torch.dtype) -> bool:
@@ -224,14 +225,15 @@ def host_smm(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     """``C[ci[s]] += alpha * A[ai[s]] @ B[bi[s]]`` over a stack sorted by
     ``ci``, in place on ``c``, by the native host driver (ref
     `dbcsr_mm_hostdrv.F:90`).  The block arrays must be contiguous CPU
-    tensors of one dtype (float32 or float64); returns ``c``."""
+    tensors of one dtype (float32, float64, complex64 or complex128;
+    ``alpha`` may be complex for a complex one); returns ``c``."""
     for name, t in (("A", a), ("B", b), ("C", c)):
         if t.device.type != "cpu":
             raise ValueError(f"host_smm serves CPU tensors only; {name} is on {t.device}")
         if not t.is_contiguous() or t.dim() != 3:
             raise ValueError(f"host_smm needs contiguous 3-D block arrays; {name} is not")
     if not (a.dtype == b.dtype == c.dtype) or not host_smm_supports(c.dtype):
-        raise TypeError(f"host_smm takes float32/float64 blocks of one dtype, got "
+        raise TypeError(f"host_smm takes float32/float64/complex blocks of one dtype, got "
                         f"{a.dtype}/{b.dtype}/{c.dtype}")
     m, k = a.shape[1:]
     n = b.shape[2]
@@ -253,7 +255,7 @@ def host_smm(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     rc = get_lib().dbcsr_host_smm(
         _HOST_DTYPE_CODE[c.dtype], c.data_ptr(), a.data_ptr(), b.data_ptr(),
         _ptr(ai, ctypes.c_int32), _ptr(bi, ctypes.c_int32), _ptr(ci, ctypes.c_int32),
-        s, m, n, k, float(alpha), 0.0)
+        s, m, n, k, complex(alpha).real, complex(alpha).imag)
     if rc != 0:
         raise RuntimeError(f"dbcsr_host_smm refused dtype {c.dtype} (rc {rc})")
     torch.autograd.graph.increment_version(c)  # written through its raw pointer

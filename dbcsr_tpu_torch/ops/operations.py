@@ -8,8 +8,12 @@ diagonal access, and the element crop the multiply's limits use.  Index logic ru
 touched in bulk, one batched torch call per shape bin, never block by
 block.  `scale`, `set_value`, `set_diag` and `add_on_diag` update bins
 in place where the JAX package rebinds a fresh array, which is safe
-because no two matrices share a bin tensor (`copy` clones); `add` writes
-fresh bins, since its operands may be one matrix.  Reductions
+because no two matrices share a bin tensor (`copy` clones) and a bin a
+cache holds is copied first (`BlockSparseMatrix.own_bins`); `add`
+writes fresh bins, since its operands may be one matrix.  Every value
+funnel journals the keys it changed (`_note_mutation`), as the JAX
+package's do.  Complex kinds: scalars, `trace` and `dot` are complex,
+norms real.  Reductions
 that feed an iterate (the Gershgorin row sums) fetch their per-block
 partials and sum them on the host in the JAX package's order, so no
 atomic float addition makes a run irreproducible.
@@ -24,6 +28,7 @@ import torch
 
 from dbcsr_tpu_torch.core.kinds import host_dtype
 from dbcsr_tpu_torch.core.matrix import (
+    HERMITIAN,
     NO_SYMMETRY,
     BlockSparseMatrix,
     _Bin,
@@ -45,10 +50,12 @@ def _same_blocking(a: BlockSparseMatrix, b: BlockSparseMatrix) -> None:
         raise ValueError("matrices have different blockings")
 
 
-def _scalar(x, dtype: torch.dtype) -> float:
+def _scalar(x, dtype: torch.dtype):
     """``x`` rounded to the matrix dtype's host type, as the JAX package
-    casts its scalars to the matrix dtype before the elementwise op."""
-    return float(np.asarray(x).astype(host_dtype(dtype)))
+    casts its scalars to the matrix dtype before the elementwise op: a
+    float, or a complex for a complex kind."""
+    v = np.asarray(x).astype(host_dtype(dtype))
+    return complex(v) if v.dtype.kind == "c" else float(v)
 
 
 # --------------------------------------------------------------- structure
@@ -132,8 +139,10 @@ def scale(matrix: BlockSparseMatrix, factor) -> BlockSparseMatrix:
     """In-place A <- factor*A (ref `dbcsr_scale`)."""
     _require_valid(matrix)
     f = _scalar(factor, matrix.dtype)
+    matrix.own_bins()
     for b in matrix.bins:
         b.data.mul_(f)
+    matrix._note_mutation(matrix.keys)
     return matrix
 
 
@@ -205,6 +214,9 @@ def add(matrix_a: BlockSparseMatrix, matrix_b: BlockSparseMatrix,
     if _add_aligned(matrix_a, matrix_b):
         for ba, bb in zip(matrix_a.bins, matrix_b.bins):
             ba.data = _axpby(ba.data, bb.data, alpha, beta)
+        matrix_a._bins_shared = False  # fresh tensors: its own again
+        matrix_a._dense_canvas = None
+        matrix_a._note_mutation(matrix_a.keys)
         return matrix_a
     _add_union(matrix_a, matrix_a, matrix_b, alpha, beta)
     return matrix_a
@@ -244,8 +256,10 @@ def set_value(matrix: BlockSparseMatrix, alpha) -> BlockSparseMatrix:
     `dbcsr_operations.F:2840`; the pattern is unchanged)."""
     _require_valid(matrix)
     a = _scalar(alpha, matrix.dtype)
+    matrix.own_bins()
     for b in matrix.bins:
         b.data.fill_(a)
+    matrix._note_mutation(matrix.keys)
     return matrix
 
 
@@ -263,8 +277,14 @@ def _diag_entries(matrix: BlockSparseMatrix, b_id: int, rows, cols):
     return sel, matrix.ent_slot[sel], rows[sel]
 
 
-def trace(matrix: BlockSparseMatrix) -> float:
-    """tr(A) (ref `dbcsr_trace`): one gather and diagonal sum per bin."""
+def _host_scalar(t: torch.Tensor):
+    """A device scalar on the host: a complex for a complex tensor."""
+    return complex(t) if t.is_complex() else float(t)
+
+
+def trace(matrix: BlockSparseMatrix):
+    """tr(A) (ref `dbcsr_trace`): one gather and diagonal sum per bin; a
+    complex for a complex kind."""
     _require_valid(matrix)
     rows, cols = matrix.entry_coords()
     total = 0.0
@@ -274,15 +294,16 @@ def trace(matrix: BlockSparseMatrix) -> float:
             continue
         d = min(b.shape)
         blocks = b.data[to_index(slots, matrix.device)][:, :d, :d]
-        total += float(torch.diagonal(blocks, dim1=1, dim2=2).sum())
+        total += _host_scalar(torch.diagonal(blocks, dim1=1, dim2=2).sum())
     return total
 
 
-def dot(matrix_a: BlockSparseMatrix, matrix_b: BlockSparseMatrix) -> float:
-    """tr(A^T B) = sum_ij A_ij B_ij (ref `dbcsr_dot`).  A symmetric
+def dot(matrix_a: BlockSparseMatrix, matrix_b: BlockSparseMatrix):
+    """tr(A^T B) = sum_ij A_ij B_ij (ref `dbcsr_dot`), a complex for a
+    complex kind (no conjugation, as in the JAX package).  A symmetric
     pair's stored off-diagonal blocks count twice (S.S and A.A both
-    reproduce +A_ij*B_ij in the lower triangle); mixed kinds are
-    desymmetrized first."""
+    reproduce +A_ij*B_ij in the lower triangle; H.H reproduces its
+    conjugate); mixed kinds are desymmetrized first."""
     _require_valid(matrix_a, matrix_b)
     _same_blocking(matrix_a, matrix_b)
     if matrix_a.matrix_type != matrix_b.matrix_type:
@@ -304,10 +325,15 @@ def dot(matrix_a: BlockSparseMatrix, matrix_b: BlockSparseMatrix) -> float:
         b_blk = bb.data[to_index(matrix_b.ent_slot[pos_b[ent]], dev)]
         part = (a_blk * b_blk).sum(dim=(1, 2))
         if matrix_a.matrix_type == NO_SYMMETRY:
-            total += float(part.sum())
+            total += _host_scalar(part.sum())
         else:
-            p = to_host(part).astype(np.float64)
-            total += float(p.sum()) + float(p[offdiag[ent]].sum())
+            p = to_host(part).astype(np.complex128)
+            low = p[offdiag[ent]]
+            if matrix_a.matrix_type == HERMITIAN:
+                low = low.conj()  # the implicit lower term conj(A_ij) conj(B_ij)
+            total += complex(p.sum()) + complex(low.sum())
+    if not matrix_a.dtype.is_complex:
+        total = float(np.real(total))
     return total
 
 
@@ -388,6 +414,7 @@ def set_diag(matrix: BlockSparseMatrix, values) -> BlockSparseMatrix:
     n = min(matrix.nfullrows, matrix.nfullcols)
     row_off = matrix.row_blk_offsets
     rows, cols = matrix.entry_coords()
+    matrix.own_bins()
     for b_id, b in enumerate(matrix.bins):
         sel, slots, rws = _diag_entries(matrix, b_id, rows, cols)
         if not len(sel):
@@ -400,6 +427,7 @@ def set_diag(matrix: BlockSparseMatrix, values) -> BlockSparseMatrix:
         ok = idx < n
         vals[ok] = v[idx[ok]]
         diag[slots_t] = torch.from_numpy(vals).to(device=matrix.device, dtype=matrix.dtype)
+    matrix._note_mutation(matrix.keys[rows == cols])
     return matrix
 
 
@@ -443,6 +471,7 @@ def add_on_diag(matrix: BlockSparseMatrix, alpha) -> BlockSparseMatrix:
     reserve_blocks(matrix, idx, idx)
     a = _scalar(alpha, matrix.dtype)
     rows, cols = matrix.entry_coords()
+    matrix.own_bins()
     for b_id, b in enumerate(matrix.bins):
         sel, slots, _ = _diag_entries(matrix, b_id, rows, cols)
         if not len(sel):
@@ -450,4 +479,5 @@ def add_on_diag(matrix: BlockSparseMatrix, alpha) -> BlockSparseMatrix:
         diag = torch.diagonal(b.data, dim1=1, dim2=2)  # (count, d) view
         slots_t = to_index(slots, matrix.device)
         diag[slots_t] = diag[slots_t] + a
+    matrix._note_mutation(matrix.keys[rows == cols])
     return matrix

@@ -5,9 +5,10 @@ Counterpart of `dbcsr_tpu/ops/test_methods.py` (ref
 numpy Generator in exactly the JAX package's order -- first the
 ``(nbr, nbc)`` occupancy draw (its upper triangle for a symmetric
 kind), then one ``standard_normal(shape)`` per present block in
-``np.nonzero`` order, a diagonal block averaged with its fold -- so the
-same seed gives the same matrix in both packages and the `.perf`
-checksum references hold.
+``np.nonzero`` order (a complex kind draws a second one for the
+imaginary part right after it), a diagonal block averaged with its fold
+-- so the same seed gives the same matrix in both packages and the
+`.perf` checksum references hold.
 """
 
 from __future__ import annotations
@@ -46,7 +47,10 @@ def make_random_matrix(
         present = np.triu(present)
     rows, cols = np.nonzero(present)
     for r, c in zip(rows, cols):
-        blk = rng.standard_normal(m.block_shape(r, c))
+        shape = m.block_shape(r, c)
+        blk = rng.standard_normal(shape)
+        if m.dtype.is_complex:
+            blk = blk + 1j * rng.standard_normal(shape)
         if m.matrix_type != NO_SYMMETRY and r == c:
             blk = (blk + _fold_block(blk, m.matrix_type)) / 2  # consistent diagonal
         m.put_block(r, c, blk.astype(hdt))
@@ -90,8 +94,9 @@ def checksum(matrix: BlockSparseMatrix, pos: bool = False) -> float:
     the sum of squares of the elements from the per-block norms (a
     symmetric kind's off-diagonal blocks counted twice), or with ``pos`` the position-dependent variant (`pd_blk_cs`,
     `dbcsr_dist_util.F:551`): sum of a[r,c] * log(grow * gcol) over
-    1-based global element coordinates, one float64 device reduction
-    per bin over the stored blocks."""
+    1-based global element coordinates (the real part of a complex
+    element), one float64 device reduction per bin over the stored
+    blocks."""
     if not pos:
         norms = matrix.block_norms().astype(np.float64)
         if matrix.matrix_type != NO_SYMMETRY:
@@ -124,6 +129,9 @@ def checksum(matrix: BlockSparseMatrix, pos: bool = False) -> float:
         part = torch.zeros((), dtype=torch.float64, device=dev)
         for s0 in range(0, b.count, per):
             w = torch.log(torch.abs((ro_t[s0: s0 + per] + ri) * (co_t[s0: s0 + per] + ci)))
-            part += (b.data[s0: min(s0 + per, b.count)].to(torch.float64) * w).sum()
+            blocks = b.data[s0: min(s0 + per, b.count)]
+            if blocks.is_complex():
+                blocks = blocks.real
+            part += (blocks.to(torch.float64) * w).sum()
         total += float(part)
     return total

@@ -17,6 +17,7 @@ import torch
 
 from dbcsr_tpu_torch.core.matrix import (
     ANTISYMMETRIC,
+    HERMITIAN,
     NO_SYMMETRY,
     BlockSparseMatrix,
     _Bin,
@@ -25,10 +26,11 @@ from dbcsr_tpu_torch.core.matrix import (
 )
 
 
-def new_transposed(matrix: BlockSparseMatrix,
+def new_transposed(matrix: BlockSparseMatrix, conjugate: bool = False,
                    name: Optional[str] = None) -> BlockSparseMatrix:
-    """Out-of-place transpose (ref `dbcsr_new_transposed`); a symmetric
-    kind is desymmetrized first, as in the JAX package."""
+    """Out-of-place transpose (ref `dbcsr_new_transposed`), conjugated
+    with ``conjugate`` (the "C" operand of a complex multiply); a
+    symmetric kind is desymmetrized first, as in the JAX package."""
     if not matrix.valid:
         raise RuntimeError("finalize() before transposing")
     m = desymmetrize(matrix) if matrix.matrix_type != NO_SYMMETRY else matrix
@@ -51,7 +53,10 @@ def new_transposed(matrix: BlockSparseMatrix,
         # slot p of the new bin holds old slot perm[p], transposed
         perm = np.empty(count, np.int64)
         perm[nsl[mask]] = old_slot[mask]
-        data = src[torch.from_numpy(perm).to(src.device)].transpose(1, 2).contiguous()
+        data = src[torch.from_numpy(perm).to(src.device)].transpose(1, 2)
+        if conjugate and data.is_complex():
+            data = data.conj()
+        data = data.contiguous().resolve_conj()
         bins.append(_Bin(shape, data, count))
     t.set_structure_from_device(t_keys, bins, binning=(nb, nsl, shapes))
     return t
@@ -65,7 +70,7 @@ def desymmetrize(matrix: BlockSparseMatrix, name: Optional[str] = None) -> Block
     from the host; here each output bin is filled on the device by one
     gather of the stored blocks of its shape and one gather plus batched
     transpose (negated for an antisymmetric matrix) of the mirrored
-    ones, which gives the same values."""
+    ones (conjugated for a hermitian kind), which gives the same values."""
     if not matrix.valid:
         raise RuntimeError("finalize() before desymmetrizing")
     if matrix.matrix_type == NO_SYMMETRY:
@@ -102,6 +107,8 @@ def desymmetrize(matrix: BlockSparseMatrix, name: Optional[str] = None) -> Block
                 blocks = blocks.transpose(1, 2)
                 if sign < 0:
                     blocks = -blocks
+                if m.matrix_type == HERMITIAN:
+                    blocks = blocks.conj().resolve_conj()
             data[to_index(nsl[sel], m.device)] = blocks
         bins.append(_Bin(shape, data, int(counts[b])))
     out.set_structure_from_device(keys, bins, binning=(nb, nsl, shapes))

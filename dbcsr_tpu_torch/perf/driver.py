@@ -4,8 +4,14 @@ Counterpart of `dbcsr_tpu/perf/driver.py` (ref
 `tests/dbcsr_performance_driver.F` + `dbcsr_performance_multiply.F`):
 parse a `.perf` input, draw A, B and C from one numpy Generator in the
 JAX package's order (seed 12341313), run ``nrep`` multiplies on a copy
-of C each, and check the checksums against the input's references.
-Timing fences with `torch.cuda.synchronize()` on the card.
+of C each, and check the checksums against the input's references
+(complex kinds included: the checksum sums |c|^2, the positional one
+the real parts).  Timing fences with `torch.cuda.synchronize()` on the
+card.  The repeats run with the incremental multiply off
+(`mm/incremental.py`), as in the JAX package
+(`dbcsr_tpu/perf/driver.py:278-292`): a repeat of an unchanged beta = 0
+product would otherwise be served from the result cache, and the
+repeats must time the engine.
 
 Usage:  python -m dbcsr_tpu_torch.perf.driver tests/inputs/test_H2O.perf [cpu]
 """
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from dbcsr_tpu_torch.acc import crosspack_kernel, stack_kernel
+from dbcsr_tpu_torch.core.config import get_config, set_config
 from dbcsr_tpu_torch.core.kinds import dtype_of
 from dbcsr_tpu_torch.device import DeviceLike, resolve_device
 from dbcsr_tpu_torch.mm.multiply import multiply
@@ -169,20 +176,25 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
 
     times, phases, device_s, flops_list, cache, algorithms = [], [], [], [], [], []
     counts0 = _launch_counts()
-    for _ in range(cfg.nrep):
-        c_run = c.copy()
-        _sync(dev)
-        t0 = time.perf_counter()
-        flops = multiply(cfg.transa, cfg.transb, cfg.alpha, a, b, cfg.beta, c_run,
-                         retain_sparsity=cfg.retain_sparsity, element_limits=element_limits)
-        _sync(dev)
-        times.append(time.perf_counter() - t0)
-        flops_list.append(flops)
-        phases.append(dict(c_run._mm_phase_s))
-        cache.append(c_run._mm_plan_cache)
-        algorithms.append(c_run._mm_algorithm)
-        ev = c_run._mm_device_events
-        device_s.append(ev[0].elapsed_time(ev[1]) / 1e3 if ev else None)
+    prev_inc = get_config().incremental
+    set_config(incremental="off")
+    try:
+        for _ in range(cfg.nrep):
+            c_run = c.copy()
+            _sync(dev)
+            t0 = time.perf_counter()
+            flops = multiply(cfg.transa, cfg.transb, cfg.alpha, a, b, cfg.beta, c_run,
+                             retain_sparsity=cfg.retain_sparsity, element_limits=element_limits)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+            flops_list.append(flops)
+            phases.append(dict(c_run._mm_phase_s))
+            cache.append(c_run._mm_plan_cache)
+            algorithms.append(c_run._mm_algorithm)
+            ev = c_run._mm_device_events
+            device_s.append(ev[0].elapsed_time(ev[1]) / 1e3 if ev else None)
+    finally:
+        set_config(incremental=prev_inc)
     launches = {name: n - counts0[name] for name, n in _launch_counts().items()}
     gflops = [f / t / 1e9 for f, t in zip(flops_list, times)]
     cs = matrix_checksum(c_run)

@@ -231,7 +231,7 @@ def maybe_inject(site: str, **labels) -> None:
 
 def corrupt(site: str, value, **labels):
     """Apply a firing ``nan``/``flip`` spec to ``value`` (a contiguous
-    floating tensor) in place and return it: ``nan`` sets one element to
+    floating or complex tensor) in place and return it: ``nan`` sets one element to
     NaN, ``flip`` adds ``2**10 + seed % 997`` to one, the element at flat
     index ``seed % numel`` in both cases."""
     if not _specs:
@@ -240,7 +240,7 @@ def corrupt(site: str, value, **labels):
     if spec is None:
         return value
     _note(site, spec, labels)
-    if value.numel() == 0 or not value.is_floating_point():
+    if value.numel() == 0 or not (value.is_floating_point() or value.is_complex()):
         return value
     flat = value.view(-1)
     idx = spec.seed % flat.numel()

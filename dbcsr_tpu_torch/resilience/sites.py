@@ -1,11 +1,11 @@
 """Registry of the fault-injection sites the port has.
 
 A copy of `dbcsr_tpu/resilience/sites.py`, limited to the sites that
-exist in the port: the stack launch, the stack planning and the canvas
-(dense and composite) formats.  The JAX package's superstack, format
-planner, mesh, TAS tick, incremental, probe, attribution, serving,
-fleet and tuner sites come back with their modules (`ROADMAP.md`,
-Queue 1).  Every literal site the port passes to `faults.maybe_inject`
+exist in the port: the stack launch, the stack planning, the canvas
+(dense and composite) formats and the incremental splice.  The JAX
+package's superstack, format planner, mesh, TAS tick, probe,
+attribution, serving, fleet and tuner sites come back with their
+modules (`ROADMAP.md`, Queue 1).  Every literal site the port passes to `faults.maybe_inject`
 or `faults.corrupt` is registered here (`tests/test_torch_resilience.py`
 checks the sources).
 
@@ -28,6 +28,13 @@ SITES = {
         "boundary": "the canvas paths in `mm.multiply` (whole-panel "
                     "dense AND the batched composite panels share this "
                     "site: one failover, one corruption hook)",
+        "corruptible": True, "chaos": True, "dynamic": False,
+    },
+    "incremental": {
+        "boundary": "`mm.incremental._execute_splice` (the delta-aware "
+                    "partial recompute + splice; raise/oom abort it, "
+                    "nan/flip corrupt the assembled C for the full-product "
+                    "probe to catch)",
         "corruptible": True, "chaos": True, "dynamic": False,
     },
 }

@@ -64,7 +64,8 @@ print(len(mods), "modules:", " ".join(mods))
 # crosspack kernel's planning, wrapper and tuned table included, and the
 # model loops with the operations, digests and residency chain they use,
 # the native index engine and the storage-format planner, and the
-# integrity plane (faults, breakers, ABFT, events, chain guard)
+# integrity plane (faults, breakers, ABFT, events, chain guard), the
+# precision planner and the incremental multiply
 _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.crosspack",
              "dbcsr_tpu_torch.acc.crosspack_kernel", "dbcsr_tpu_torch.acc.params",
              "dbcsr_tpu_torch.acc.smm", "dbcsr_tpu_torch.acc.stack_kernel",
@@ -81,7 +82,9 @@ _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.cro
              "dbcsr_tpu_torch.resilience", "dbcsr_tpu_torch.resilience.faults",
              "dbcsr_tpu_torch.resilience.breaker", "dbcsr_tpu_torch.resilience.sites",
              "dbcsr_tpu_torch.obs.metrics", "dbcsr_tpu_torch.obs.events",
-             "dbcsr_tpu_torch.obs.flight", "dbcsr_tpu_torch.models.integrity"}
+             "dbcsr_tpu_torch.obs.flight", "dbcsr_tpu_torch.models.integrity",
+             "dbcsr_tpu_torch.acc.precision", "dbcsr_tpu_torch.mm.incremental",
+             "dbcsr_tpu_torch.core.kinds"}
 
 
 def _env(**extra):
@@ -95,7 +98,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          env=_env(), capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, _, names = out.stdout.partition("modules:")
-    assert int(count) >= 44
+    assert int(count) >= 46
     assert _REQUIRED <= set(names.split())
 
 

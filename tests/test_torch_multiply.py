@@ -227,11 +227,12 @@ def test_numpy_state_round_trip():
 
 
 def test_unported_features_raise():
-    # symmetric kinds (tests/test_torch_symmetric.py) and limits
-    # (tests/test_torch_limits.py) are ported: a limited multiply and a
-    # limited run_perf run; complex kinds and complex scalars raise
-    with pytest.raises(NotImplementedError):
-        BlockSparseMatrix("Z", MIXED, MIXED, dtype=7, device="cpu")
+    # symmetric kinds (tests/test_torch_symmetric.py), limits
+    # (tests/test_torch_limits.py) and complex kinds
+    # (tests/test_torch_complex.py) are ported: a complex matrix builds, a
+    # limited multiply and a limited run_perf run; a complex scalar with
+    # a real C raises
+    assert BlockSparseMatrix("Z", MIXED, MIXED, dtype=7, device="cpu").dtype == torch.complex128
     pm = port_tm.make_random_matrix("R", MIXED, MIXED, occupation=0.5,
                                     rng=np.random.default_rng(1), device="cpu")
     c = pm.copy()
