@@ -160,6 +160,27 @@ non-zero:
    star never cached (its C is over the 512 MB budget); the three DFT
    loops under the default "auto" against "off" in turns, bit for bit.
 
+21. superstack (after perf_gates_crosspack): `mixed_blocks.perf`
+   (5000^2, blocks cycling 5, 13, 23, the last 21, occupancy 0.05) at f64
+   (``mm_driver="auto"``) and f32 (``"pallas"``: "auto" would take K3,
+   whose spans do not fuse), ``superstack`` "auto" and "per_span" in
+   turns, 3 pairs of 2 repeats: the checksum gate against the JAX
+   package's (`MIXED_BLOCKS_REFERENCE`), fused bit for bit per span, one
+   fused dispatch per multi-span C bin and one per span otherwise, no
+   plain call; each fused bin's kernel against its plain version and
+   its bound; one ``execute_superstack:raise`` decomposing bit for bit,
+   counted once.  It prints s per multiply, stack device ms and launches
+   of both modes;
+22. obs (after native_index): the north star (2 repeats) and the sign
+   loop under the span tracer and the events sink with
+   ``DBCSR_TPU_TORCH_SYNC_TIMING=1``: ``multiply`` spans with their
+   phase children and attributes, ``stack`` instants, a loadable Chrome
+   trace with one complete event per span, the events JSONL, the
+   per-driver roofline rows on the H100 peaks (each fraction <= 1.05),
+   Prometheus text that parses, a sealed profile epoch; the sign loop
+   under `torch.profiler` (the device's busy and idle share of the
+   traced window); the north star with the tracer on and off in turns.
+
 The phases before `incremental` run with ``incremental="off"``, as the
 perf driver's repeats do: they time the engine.  Every phase but
 resilience, integrity and incremental injects nothing and must end with
@@ -168,7 +189,10 @@ three clear their faults and reset the breakers whatever happens.
 
 The line before the last is the kernels' JSON summary (K1's entry lists
 its complex and demoted ``forms``, each with its launches on its
-phase's main path, time, error and bound); the last line is
+phase's main path, time, error and bound; K1's fused launch
+``smm_superstack`` has its own entry, its launches by phase beside it;
+"auto" fuses every C bin of several K1 spans, so the phases that
+require K1 count its per-span and fused launches together); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints
 no result.
 """
@@ -226,7 +250,8 @@ from dbcsr_tpu_torch.ops.operations import (
 )
 from dbcsr_tpu_torch.ops.test_methods import make_random_matrix
 from dbcsr_tpu_torch.obs import costmodel as port_costmodel
-from dbcsr_tpu_torch.obs import events, metrics
+from dbcsr_tpu_torch.obs import events, metrics, profiler
+from dbcsr_tpu_torch.obs import tracer as obs_tracer
 from dbcsr_tpu_torch.obs.costmodel import (
     crosspack_entries,
     demoted_abft_tolerance,
@@ -260,6 +285,10 @@ KERNELS = {
                       "dbcsr_tpu/acc/pallas_smm.py:456"),
     "smm_crosspack_resident": ("dbcsr_tpu_torch/csrc/smm_crosspack.cu",
                                "dbcsr_tpu/acc/pallas_smm.py:535"),
+    # K1's fused launch over every span of one C bin: the chain of K1
+    # launches in one jit (`process_launches` inside `_fused_fn`)
+    "smm_superstack": ("dbcsr_tpu_torch/csrc/smm_stack.cu",
+                       "dbcsr_tpu/acc/pallas_smm.py:765"),
 }
 LIBRARY_NOTE = "no single PyTorch call computes this function"
 
@@ -287,16 +316,34 @@ def _time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+# K1's fused launches on each phase's main path: `_reset_counts` moves
+# the wrapper's count into the phase in force (`_clean` and `main` set
+# it); a phase that launches the fused kernel to compare or time it
+# resets the wrapper's count directly, so those launches count nowhere
+_PHASE_NOW = ["build"]
+_SUPERSTACK_BY_PATH: dict = {}
+
+
 def _reset_counts() -> None:
+    n = stack_kernel.superstack_launches
+    if n:
+        _SUPERSTACK_BY_PATH[_PHASE_NOW[0]] = _SUPERSTACK_BY_PATH.get(_PHASE_NOW[0], 0) + n
     stack_kernel.reset_counts()
     crosspack_kernel.reset_counts()
 
 
 def _counts() -> dict:
     return {"smm_stack": stack_kernel.launches,
+            "smm_superstack": stack_kernel.superstack_launches,
             "smm_crosspack": crosspack_kernel.launches_cross,
             "smm_crosspack_resident": crosspack_kernel.launches_resident,
             "plain": stack_kernel.plain_calls + crosspack_kernel.plain_calls}
+
+
+def _k1(counts: dict) -> int:
+    """K1's launches, per span and fused: under ``superstack="auto"`` a C
+    bin with several spans takes the fused launch instead of K1's."""
+    return counts["smm_stack"] + counts["smm_superstack"]
 
 
 def _calls(plan, resident=None):
@@ -485,7 +532,8 @@ def phase_perf_gates(driver: str) -> None:
             if driver == "pallas_cross" and all(
                     choose_pack(m, n, k)[0] == 1 for m, n, k, *_ in res["spans"]):
                 wanted = "smm_stack"  # every span has P = 1
-            _require(counts[wanted] > 0, f"{name} under {driver}: {wanted} never launched")
+            _require((_k1(counts) if wanted == "smm_stack" else counts[wanted]) > 0,
+                     f"{name} under {driver}: {wanted} never launched")
             _require(counts["plain"] == 0,
                      f"{name} under {driver}: the plain versions ran {counts['plain']} times")
             rows.append({"input": name, "nrep": nrep, "checksum": res["checksum"],
@@ -497,6 +545,375 @@ def phase_perf_gates(driver: str) -> None:
         set_config(mm_driver="auto", mm_format="auto")
     _emit({"phase": "perf_gates" if driver == "auto" else "perf_gates_crosspack",
            "mm_driver": driver, "mm_format": "stack", "passed": len(rows), "inputs": rows})
+
+
+# `mixed_blocks.perf` (no reference of its own): checksum(C_out) and the
+# positional checksum of the JAX package on the CPU, and the gate's
+# threshold, by data type (`tools/perf_reference.py`; the f32 product
+# sums in another order than the JAX package's, so its gate is 1e-5)
+MIXED_BLOCKS_REFERENCE = {3: (319347450.2883681, 22136.340151119803, 1e-9),
+                          1: (319347450.1070105, 22136.35605660081, 1e-5)}
+SUPERSTACK_PAIRS = 3
+
+
+def _mixed_cfg(data_type: int, nrep: int):
+    cfg = parse_perf_file(os.path.join(INPUTS, "mixed_blocks.perf"))
+    cfg.data_type, cfg.nrep = data_type, nrep
+    ref, ref_pos, threshold = MIXED_BLOCKS_REFERENCE[data_type]
+    cfg.check, cfg.check_refs, cfg.check_threshold = True, (ref, ref_pos), threshold
+    return cfg
+
+
+def _bins_of(spans) -> dict:
+    """Spans per C bin, a C bin being the (m, n) of its blocks."""
+    bins: dict = {}
+    for sp in spans:
+        bins[tuple(sp[:2])] = bins.get(tuple(sp[:2]), 0) + 1
+    return bins
+
+
+def _dispatches() -> dict:
+    out = {"fused": 0.0, "per_span": 0.0}
+    for lab, v in metrics.counter_items("dbcsr_tpu_dispatches_total"):
+        out[lab["mode"]] = v
+    return out
+
+
+def _fused_bins_vs_plain(a, b, c, reps: int = 5) -> dict:
+    """Every fused bin of the product ``c = a * b`` (beta 0), re-planned:
+    the fused kernel against `smm_superstack_plain` on a zero bin (within
+    `kernel_validation_tolerance` at the bin's largest k and summed
+    longest runs), timed by CUDA events (kernel mean of ``reps``, plain
+    mean of 2) beside the least time the card could take (each span's
+    referenced A and B blocks and index arrays read once, the bin's C
+    blocks read and written once, or the true flops at the FP64/FP32
+    peak), and once under `torch.profiler` (``device_ms``: the kernels'
+    own time, without the host work between launches).  These launches
+    are no part of the main path: the wrapper's count is reset after
+    them."""
+    i, j, a_ent, b_ent = _candidates(a, b, None)
+    spans = _build_spans(c, a, b, i * c.nblkcols + j, a_ent, b_ent)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+           "max_rel_err": 0.0, "bins": 0, "min_bytes": 0, "flops": 0}
+    rows, by_bytes, launches = [], 0, []
+    for cbin in sorted({sp.cbin for sp in spans}):
+        group = [sp for sp in spans if sp.cbin == cbin]
+        if len(group) < 2:
+            continue
+        cd = c.bins[cbin].data
+        splan = port_smm.prepare_superstack([sp.plan for sp in group],
+                                            [(sp.m, sp.n, sp.k) for sp in group], cd)
+        _require(splan is not None and splan.family == "pallas",
+                 f"superstack: the ({group[0].m}, {group[0].n}) bin cannot fuse")
+        args = [(a.bins[sp.abin].data, b.bins[sp.bbin].data, sp.plan.a_idx, sp.plan.b_idx,
+                 sp.plan.run_ptr, sp.plan.run_c) for sp in group]
+        got = stack_kernel.smm_superstack(torch.zeros_like(cd), args, splan.table, 1.0)
+        want = stack_kernel.smm_superstack_plain(torch.zeros_like(cd), args, 1.0)
+        kmax = max(sp.k for sp in group)
+        depth = sum(sp.plan.max_run for sp in group)
+        tol = kernel_validation_tolerance(name_of(cd.dtype), kmax, depth)
+        rel = _rel_err(got, want)
+        _require(np.isfinite(rel) and rel <= tol,
+                 f"superstack: the fused kernel on ({group[0].m}, {group[0].n}) against its "
+                 f"plain version: rel {rel:.3e} > {tol:.1e}")
+        scratch = torch.zeros_like(cd)
+        ms = _time_ms(lambda: stack_kernel.smm_superstack(scratch, args, splan.table, 1.0), reps)
+        plain_ms = _time_ms(lambda: stack_kernel.smm_superstack_plain(scratch, args, 1.0), 2)
+        dname = name_of(cd.dtype)
+        nruns = int(splan.table[4].numel())
+        nbytes = sum(stack_min_bytes(dname, sp.m, sp.n, sp.k, sp.entries,
+                                     len(torch.unique(sp.plan.a_idx)),
+                                     len(torch.unique(sp.plan.b_idx)), 0) for sp in group)
+        nbytes += cd.element_size() * 2 * nruns * group[0].m * group[0].n \
+            + 4 * (3 * int(splan.table[0].numel()) + nruns + 1)
+        flops = sum(2 * sp.m * sp.n * sp.k * sp.entries for sp in group)
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_PEAK_FLOPS[dname]
+        rows.append({"mn": [group[0].m, group[0].n], "k": [sp.k for sp in group],
+                     "entries": sum(sp.entries for sp in group), "runs": nruns,
+                     "path": stack_kernel.kernel_path(group[0].m, group[0].n, kmax, cd.dtype),
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "rel_err": rel, "tolerance": tol})
+        by_bytes += t_bytes >= t_ops
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["bound_ms"] += max(t_bytes, t_ops) * 1e3
+        tot["max_abs_err"] = max(tot["max_abs_err"],
+                                 float((_wide(got) - _wide(want)).abs().max()))
+        tot["max_rel_err"] = max(tot["max_rel_err"], rel)
+        tot["bins"] += 1
+        tot["min_bytes"] += nbytes
+        tot["flops"] += flops
+        launches.append((scratch, args, splan.table))
+        del got, want
+    # the kernels' own device time, apart from the host work between
+    # launches that the events above include: one launch of each bin
+    # under torch.profiler
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for scratch, args, table in launches:
+            stack_kernel.smm_superstack(scratch, args, table, 1.0)
+        torch.cuda.synchronize()
+    tot["device_ms"] = sum(getattr(e, "self_device_time_total", 0.0)
+                           for e in prof.key_averages() if "superstack" in e.key) / 1e3
+    del launches
+    stack_kernel.reset_counts()  # comparison launches: no part of the main path
+    tot["bound_by"] = "bytes" if 2 * by_bytes >= len(rows) else "operations"
+    tot["rows"] = rows
+    return tot
+
+
+def phase_superstack() -> dict:
+    """`mixed_blocks.perf` (5000^2, blocks cycling 5, 13, 23, the last 21,
+    occupancy 0.05) at f64 and f32 through `run_perf`, ``superstack``
+    "auto" and "per_span" in turns (`SUPERSTACK_PAIRS` pairs, 2 repeats a
+    run): the checksum gate, fused bit for bit per span, one fused
+    dispatch per multi-span C bin and one per span otherwise, no plain
+    call; the fused kernel against its plain version; one injected
+    ``execute_superstack:raise`` decomposing bit for bit, counted once."""
+    out = {"phase": "superstack", "input": "mixed_blocks.perf", "pairs": SUPERSTACK_PAIRS,
+           "dtypes": {}}
+    row = None
+    # f32 forces K1 ("auto" would take K3, whose spans keep the per-span
+    # path, as `pallas_cross` spans do in the JAX package)
+    for data_type, driver in ((3, "auto"), (1, "pallas")):
+        dname = name_of(dtype_of(data_type))
+        modes = {"auto": [], "per_span": []}
+        last = {}
+        for turn in range(SUPERSTACK_PAIRS):
+            for mode in (("auto", "per_span") if turn % 2 == 0 else ("per_span", "auto")):
+                set_config(superstack=mode, mm_driver=driver)
+                metrics.reset()
+                _reset_counts()
+                try:
+                    res = run_perf(_mixed_cfg(data_type, 2), verbose=False)  # the gate
+                finally:
+                    set_config(superstack="auto", mm_driver="auto")
+                counts = _counts()
+                disp = _dispatches()
+                bins = _bins_of(res["spans"])
+                multi = sum(n > 1 for n in bins.values())
+                want = ({"fused": 2.0 * multi, "per_span": 2.0 * (len(bins) - multi)}
+                        if mode == "auto" else {"fused": 0.0, "per_span": 2.0 * len(res["spans"])})
+                _require(disp == want, f"superstack {dname} {mode}: dispatches {disp}, want {want}")
+                _require(counts["plain"] == 0, f"superstack {dname} {mode}: launches {counts}")
+                _require((counts["smm_superstack"] > 0) == (mode == "auto") and _k1(counts) > 0,
+                         f"superstack {dname} {mode}: launches {counts}")
+                modes[mode].append({
+                    "times_s": res["times_s"], "device_s": res["device_s"],
+                    "host_phase_s": res["host_phase_s"], "launches": counts,
+                    "dispatches_per_multiply": {k: v / 2 for k, v in disp.items()},
+                    "checksum": res["checksum"], "checksum_pos": res["checksum_pos"]})
+                last[mode] = res
+        ca, cp = last["auto"]["matrices"]["c_out"], last["per_span"]["matrices"]["c_out"]
+        _require(_same_bits(ca, cp), f"superstack {dname}: fused differs from per-span")
+        bins = _bins_of(last["auto"]["spans"])
+        info = {"mm_driver": driver, "c_bins": len(bins), "spans": len(last["auto"]["spans"]),
+                "multi_span_bins": sum(n > 1 for n in bins.values()),
+                "products": sum(sp[3] for sp in last["auto"]["spans"]),
+                "flops": last["auto"]["flops"], "reference": MIXED_BLOCKS_REFERENCE[data_type],
+                "runs": modes}
+        for mode in modes:
+            info[f"s_per_multiply_{mode}"] = [t for r in modes[mode] for t in r["times_s"]]
+            info[f"stack_device_ms_{mode}"] = [d * 1e3 for r in modes[mode]
+                                               for d in r["device_s"] if d is not None]
+        a, b = last["auto"]["matrices"]["a"], last["auto"]["matrices"]["b"]
+        _reset_counts()  # the last run's launches belong to the main path
+        set_config(mm_driver=driver)
+        try:
+            timing = _fused_bins_vs_plain(a, b, ca)
+        finally:
+            set_config(mm_driver="auto")
+        info["fused_kernel"] = timing
+        # one injected fault in a fused launch: decomposed per span from
+        # the pristine (zero) bin, bit for bit, counted once
+        def fresh_c():
+            return BlockSparseMatrix("C", ca.row_blk_sizes, ca.col_blk_sizes, ca.dtype,
+                                     device=ca.device)
+        set_config(mm_driver=driver)
+        try:
+            clean = fresh_c()
+            mm.multiply("N", "N", 1.0, a, b, 0.0, clean)
+            metrics.reset()
+            events.clear()
+            breaker.reset_board()
+            c = fresh_c()
+            with faults.inject_faults("execute_superstack:raise,times=1") as sp:
+                mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+            _require(sp[0].fired == 1, f"superstack {dname}: the fault fired {sp[0].fired} times")
+            got = _expect_counts(f"superstack {dname} fault", {("fused", "runtime"): 1.0},
+                                 {("fused", "per_span"): 1.0})
+            _require(_same_bits(c, clean), f"superstack {dname}: the decomposed product differs")
+            info["fault"] = {**got, "decompose_events":
+                             len(events.records(kind="superstack_decompose"))}
+        finally:
+            set_config(mm_driver="auto")
+            faults.clear()
+            breaker.reset_board()
+            metrics.reset()
+            stack_kernel.reset_counts()  # the fault run is no main-path run
+        out["dtypes"][dname] = info
+        if data_type == 3:
+            row = {"name": "smm_superstack", "route": "cuda",
+                   "source": KERNELS["smm_superstack"][0],
+                   "replaces": KERNELS["smm_superstack"][1],
+                   "launches": modes["auto"][0]["launches"]["smm_superstack"],
+                   "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
+                   "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+                   "bound_by": timing["bound_by"], "library_ms": None}
+        else:
+            row["forms"] = [{"form": dname, **{k: timing[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+                "launches": modes["auto"][0]["launches"]["smm_superstack"]}]
+        del last, ca, cp, a, b, c
+    _emit(out)
+    return row
+
+
+def _northstar_multiply(a, b) -> float:
+    """C = A B into a new C (the north star's beta 0), synchronized;
+    returns the wall seconds."""
+    c = BlockSparseMatrix("C", a.row_blk_sizes, b.col_blk_sizes, a.dtype, device=a.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _busy_share(trace_path: str) -> dict:
+    """The device's busy and idle shares of a `torch.profiler` Chrome
+    trace: the union of the CUDA kernel intervals over the traced window
+    (first to last event of any kind)."""
+    with open(trace_path) as f:
+        evs = [e for e in json.load(f)["traceEvents"] if "ts" in e and e.get("ph") == "X"]
+    kernels = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                     for e in evs if e.get("cat") == "kernel")
+    _require(kernels, "obs: torch.profiler recorded no CUDA kernel")
+    t0 = min(float(e["ts"]) for e in evs)
+    t1 = max(float(e["ts"]) + float(e.get("dur", 0)) for e in evs)
+    busy, end = 0.0, t0
+    for s0, s1 in kernels:
+        s0 = max(s0, end)
+        if s1 > s0:
+            busy += s1 - s0
+            end = s1
+    window = t1 - t0
+    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3, "kernels": len(kernels),
+            "busy_share": busy / window, "idle_share": 1.0 - busy / window}
+
+
+_PROM_LINE = r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_]+="[^"]*"(,[a-zA-Z_]+="[^"]*")*\})? \S+$'
+
+
+def phase_obs(a, b) -> dict:
+    """The obs core on the card: the north star (2 repeats) and the
+    models' sign loop under the span tracer and the events sink, with
+    ``DBCSR_TPU_TORCH_SYNC_TIMING=1`` (device seconds in the statistics):
+    ``multiply`` spans with their phase children and m, n, k, ``stack``
+    instants with mnk and driver, a Chrome trace with one complete event
+    per span, the events JSONL; the roofline rows on the H100 peaks
+    (every fraction <= 1.05), the Prometheus text, a sealed profile
+    epoch; the sign loop once under `torch.profiler` (the device's busy
+    and idle share); the north star with the tracer on and off in turns."""
+    import re
+
+    out = {"phase": "obs"}
+    p0 = make_test_density(MODEL_BLOCKS, MODEL_BLOCK, occ=0.2, seed=MODEL_SEED)
+    _, loops = _model_loops(p0, SIGN_STEPS, SIGN_EPS)
+    sign = loops["sign"]
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["DBCSR_TPU_TORCH_SYNC_TIMING"] = "1"
+        try:
+            metrics.reset()
+            profiler.reset()
+            tr = obs_tracer.enable(os.path.join(tmp, "trace.jsonl"))
+            events.enable_sink(os.path.join(tmp, "events.jsonl"))
+            try:
+                out["northstar_s"] = [_northstar_multiply(a, b) for _ in range(2)]
+                t0 = time.perf_counter()
+                sign()
+                torch.cuda.synchronize()
+                out["sign_s"] = time.perf_counter() - t0
+            finally:
+                obs_tracer.disable()
+                events.disable_sink()  # settles the shard's name
+            ev_path = events.sink_path()
+            snap = metrics.snapshot()
+            prom = metrics.prometheus_text()
+        finally:
+            del os.environ["DBCSR_TPU_TORCH_SYNC_TIMING"]
+        with open(tr.path) as f:
+            recs = [json.loads(line) for line in f]
+        spans = [r for r in recs if r["ev"] == "span"]
+        tops = [r for r in spans if r["name"] == "multiply" and r["depth"] == 0]
+        multiplies = snap["totals"]["multiplies"]
+        _require(len(tops) == multiplies and multiplies >= 2,
+                 f"obs: {len(tops)} multiply spans for {multiplies} multiplies")
+        _require(all({"m", "n", "k", "algorithm"} <= set(t.get("attrs", {})) for t in tops),
+                 "obs: a multiply span lacks its m, n, k or algorithm")
+        children = {r["name"] for r in spans if r["depth"] == 1}
+        _require({"multiply_index", "multiply_c_assemble", "multiply_stacks"} <= children,
+                 f"obs: the multiply spans' children are {sorted(children)}")
+        stacks = [r for r in recs if r["ev"] == "instant" and r["name"] == "stack"]
+        _require(stacks and all({"mnk", "entries", "driver"} <= set(s["args"]) for s in stacks),
+                 "obs: no stack instant with mnk, entries and driver")
+        with open(tr.chrome_path) as f:
+            chrome = json.load(f)["traceEvents"]
+        n_x = sum(e["ph"] == "X" for e in chrome)
+        _require(n_x == len(spans), f"obs: {n_x} complete events for {len(spans)} spans")
+        with open(ev_path) as f:
+            ev_lines = [json.loads(line) for line in f]
+        kinds: dict = {}
+        for e in ev_lines:
+            kinds[e["event"]] = kinds.get(e["event"], 0) + 1
+        _require(kinds.get("multiply_end") == multiplies,
+                 f"obs: the events sink holds {kinds}")
+        out["trace"] = {"spans": len(spans), "multiply_spans": len(tops),
+                        "children": sorted(children), "stack_instants": len(stacks),
+                        "chrome_events": len(chrome), "jsonl_bytes": os.path.getsize(tr.path),
+                        "events_lines": len(ev_lines), "events_by_kind": kinds}
+    roof = snap["roofline"]
+    _require(roof, "obs: no roofline rows")
+    for driver, row in roof.items():
+        _require("h100" in row["device_kind"].lower() and row["peak_gbs"] == 3350.0,
+                 f"obs: the {driver} roofline is not on the H100 row: {row}")
+        _require(row["sync"] and 0.0 < row["roofline_fraction"] <= 1.05,
+                 f"obs: the {driver} roofline fraction is {row['roofline_fraction']:.3f}")
+    out["roofline"] = roof
+    out["jit"] = snap["jit"]
+    pattern = re.compile(_PROM_LINE)
+    bad = [ln for ln in prom.splitlines() if not ln.startswith("#") and not pattern.match(ln)]
+    _require(not bad, f"obs: Prometheus lines that do not parse: {bad[:3]}")
+    out["prometheus_lines"] = len(prom.splitlines())
+    sealed = profiler.seal()
+    _require(sealed is not None and profiler.epochs(),
+             "obs: no profile epoch sealed")
+    out["profile_epoch"] = {"n": sealed["n"], "generation": sealed["generation"],
+                            "cells": len(sealed["cells"])}
+    # the sign loop once under torch.profiler: the device's busy share
+    sign()  # warm: the profiled run meets no first use
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            sign()
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "sign_trace.json")
+        prof.export_chrome_trace(path)
+        out["sign_device"] = _busy_share(path)
+    # the tracer's cost on the north star, in turns
+    turns = {"off": [], "on": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, mode in enumerate(("off", "on", "on", "off")):
+            if mode == "on":
+                obs_tracer.enable(os.path.join(tmp, f"t{k}.jsonl"))
+            try:
+                turns[mode] += [_northstar_multiply(a, b) for _ in range(2)]
+            finally:
+                obs_tracer.disable()
+    out["northstar_tracer_s"] = turns
+    _emit(out)
+    return out
 
 
 def _northstar_cfg(nrep: int, data_type: int = 3):
@@ -552,7 +969,7 @@ def phase_northstar() -> dict:
     _reset_counts()
     res = run_perf(_northstar_cfg(3), verbose=False)
     counts = _counts()
-    _require(counts["smm_stack"] > 0, "north star: the stack kernel never launched")
+    _require(_k1(counts) > 0, "north star: the stack kernel never launched")
     _require(counts["plain"] == 0, f"north star: the plain versions ran {counts['plain']} times")
     _require(res["plan_cache"][1:] == ["hit", "hit"],
              f"north star: repeats 2-3 did not hit the plan cache: {res['plan_cache']}")
@@ -938,7 +1355,7 @@ def phase_limits() -> int:
                            "c_blocks": int(c.nblks)}
             got[driver] = c
         la, lt = row["auto"]["launches"], row["torch"]["launches"]
-        _require(la["smm_stack"] > 0 and la["plain"] == 0, f"limits {case}: auto launched {la}")
+        _require(_k1(la) > 0 and la["plain"] == 0, f"limits {case}: auto launched {la}")
         _require(lt["plain"] > 0 and lt["smm_stack"] == 0, f"limits {case}: torch launched {lt}")
         k1 += la["smm_stack"]
         _require(np.array_equal(got["auto"].keys, got["torch"].keys),
@@ -1218,7 +1635,7 @@ def phase_models() -> dict:
                  f"models {name} under auto: launches {la}")
         dense = sum(n for d, n in info_a["formats"].items() if d.startswith("dense:"))
         if name == "sign":
-            _require(la["smm_stack"] > 0, f"models sign under auto: K1 never launched: {la}")
+            _require(_k1(la) > 0, f"models sign under auto: K1 never launched: {la}")
         else:
             _require(dense > 0, f"models {name} under auto: no dense multiply: "
                                 f"{info_a['formats']}")
@@ -1262,7 +1679,7 @@ def phase_models() -> dict:
                      f"models {name} ({variant}, in turns) vs torch: history {d_h:.3e}, "
                      f"iterate {d_x:.3e} > {bound:.1e}")
             if variant in ("stack", "native", "numpy"):
-                _require(info["launches"]["smm_stack"] > 0,
+                _require(_k1(info["launches"]) > 0,
                          f"models {name} ({variant}, in turns): K1 never launched")
             return {"history_rel_bound": d_h, "iterate_rel": d_x}
 
@@ -1420,7 +1837,7 @@ def phase_tensor() -> dict:
     run = _contract_run("auto", t, m, c)
     ngroups = run["multiplies"]
     la = run["launches"]
-    _require(la["smm_stack"] > 0 and la["plain"] == 0 and la["smm_crosspack"] == 0,
+    _require(_k1(la) > 0 and la["plain"] == 0 and la["smm_crosspack"] == 0,
              f"tensor: launches {la}")
     _require(c.nblks == pat["c_blocks"], f"tensor: C holds {c.nblks} blocks, the pattern "
                                          f"{pat['c_blocks']}")
@@ -1586,7 +2003,10 @@ def _clean(phase: str, fn, *args):
     and rollbacks."""
     _require(not faults.active(), f"{phase}: a fault spec is configured")
     metrics.reset()
+    _reset_counts()
+    _PHASE_NOW[0] = phase
     out = fn(*args)
+    _reset_counts()
     took = {k: v for k, v in _integrity_counts().items() if v}
     _require(not took, f"{phase} injects nothing but took the integrity plane: {took}")
     return out
@@ -1680,7 +2100,7 @@ def phase_resilience() -> dict:
             mm.clear_plan_cache()
             c = _product(a, b, c0)
             took = _launched_since(before)
-            _require(sp[0].calls == calls and took["smm_stack"] == 0
+            _require(sp[0].calls == calls and _k1(took) == 0
                      and took["smm_crosspack"] > 0 and took["plain"] == 0,
                      f"resilience breaker: the quarantined product launched {took}")
         mm.clear_plan_cache()
@@ -2362,7 +2782,8 @@ def _incremental_leg(name: str, a, b, kernel: str) -> dict:
     for _ in range(3):
         mm.multiply("N", "N", 1.0, a, b, 0.0, c)
     counts = _counts()
-    _require(counts[kernel] > 0 and counts["plain"] == 0, f"incremental {name}: {counts}")
+    _require((_k1(counts) if kernel == "smm_stack" else counts[kernel]) > 0
+             and counts["plain"] == 0, f"incremental {name}: {counts}")
     launches = counts[kernel]
     _require(port_inc.cache_snapshot()["entries"] == 1, f"incremental {name}: nothing cached")
     row0 = int(a.keys[0] // a.nblkcols)
@@ -2560,8 +2981,10 @@ def main() -> int:
     _clean("crosspack_vs_plain", phase_crosspack_vs_plain)
     _clean("perf_gates", phase_perf_gates, "auto")
     _clean("perf_gates_crosspack", phase_perf_gates, "pallas_cross")
+    k1s = _clean("superstack", phase_superstack)
     ns = _clean("northstar", phase_northstar)
     _clean("native_index", phase_native_index, ns["a"], ns["b"], ns["c"])
+    _clean("obs", phase_obs, ns["a"], ns["b"])
     k1 = _kernel_row("smm_stack", ns.pop("launches"), _clean(
         "northstar_stacks", _stacks_phase, "northstar_stacks", ns.pop("a"), ns.pop("b"),
         ns.pop("c")))
@@ -2588,11 +3011,14 @@ def main() -> int:
     k1["forms"] = cx["forms"] + pr["forms"]
     for phase, fn in (("resilience", phase_resilience), ("integrity", phase_integrity),
                       ("incremental", phase_incremental)):
+        _PHASE_NOW[0] = phase
         launched = fn()
+        _reset_counts()
         k1["launches_by_path"][phase] = launched["smm_stack"]
         k3["launches_by_path"][phase] = launched["smm_crosspack"]
     k4["launches_by_path"] = {"resident_f32": k4["launches"]}
-    print(json.dumps({"kernels": [k1, k3, k4]}), flush=True)
+    k1s["launches_by_path"] = dict(_SUPERSTACK_BY_PATH)
+    print(json.dumps({"kernels": [k1, k3, k4, k1s]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -40,9 +40,10 @@ probe a whole product (the incremental multiply's splice,
 native and raises `PrecisionExceededError`, which `acc.smm` answers with
 a native re-execution, never as corruption; a pass records the residual
 for the cell.  Complex stacks are probed alike (complex probe sums, real
-errors).  Not ported yet (`ROADMAP.md`): `check_superstack` and
-`tree_probe`/`shift_conserved`; they come with the superstack and
-parallel modules.
+errors).  `check_superstack` probes a fused C-bin launch
+(`acc.smm.execute_superstack`) with one delta probe for the whole bin.
+Not ported yet (`ROADMAP.md`): `tree_probe`/`shift_conserved`; they
+come with the parallel modules.
 
 Every probe, mismatch and recovery is counted:
 ``dbcsr_tpu_abft_{checks,mismatches,recoveries}_total{driver}``, with
@@ -159,25 +160,33 @@ def stack_probe(base, out, a_data, b_data, plan, alpha, c_zero: bool = False) ->
     dev = out.device
     u = probe_vector(m, out.dtype, salt=1, device=dev)
     v = probe_vector(n, out.dtype, device=dev)
-    ai, bi = plan.a_idx.long(), plan.b_idx.long()
-    ci = torch.repeat_interleave(plan.run_c.long(), (plan.run_ptr[1:] - plan.run_ptr[:-1]).long(),
-                                 output_size=plan.entries)  # no host sync for the size
-    a_acc, b_acc = a_data.to(acc), b_data.to(acc)
-    ua = torch.einsum("amk,m->ak", a_acc, u)
-    bv = b_acc @ v
-    s = (ua[ai] * bv[bi]).sum(dim=1)
-    p = alpha * torch.zeros(nseg, dtype=acc, device=dev).index_add_(0, ci, s)
+    p, ai, bi, ci = _span_probe(a_data, b_data, plan, u, v, alpha, nseg)
     r, out_max = _uv(out, u, v, None if c_zero else base, acc, peak=not c_zero)
     err = (r - p).abs().max() if nseg else torch.zeros((), dtype=acc, device=dev)
     if c_zero:
-        ua_abs = a_acc.abs().sum(dim=1)  # |u| = 1: uᵀ|A| sums the rows
-        bv_abs = b_acc.abs().sum(dim=2)
+        ua_abs = a_data.to(acc).abs().sum(dim=1)  # |u| = 1: uᵀ|A| sums the rows
+        bv_abs = b_data.to(acc).abs().sum(dim=2)
         s_abs = (ua_abs[ai] * bv_abs[bi]).sum(dim=1)
         scale = abs(alpha) * torch.zeros(nseg, dtype=s_abs.dtype,
                                          device=dev).index_add_(0, ci, s_abs).max()
     else:
         scale = torch.maximum(p.abs().max(), out_max) if nseg else out_max
     return torch.stack([err, scale])
+
+
+def _span_probe(a_data, b_data, plan, u, v, alpha, nseg: int):
+    """The right side of one stack's probe, ``alpha * Σ_s (uᵀA)[ai_s] ·
+    (B v)[bi_s]`` per C block, with the stack's index arrays (ai, bi,
+    ci) as long tensors."""
+    acc = u.dtype
+    ai, bi = plan.a_idx.long(), plan.b_idx.long()
+    ci = torch.repeat_interleave(plan.run_c.long(), (plan.run_ptr[1:] - plan.run_ptr[:-1]).long(),
+                                 output_size=plan.entries)  # no host sync for the size
+    ua = torch.einsum("amk,m->ak", a_data.to(acc), u)
+    bv = b_data.to(acc) @ v
+    s = (ua[ai] * bv[bi]).sum(dim=1)
+    p = alpha * torch.zeros(nseg, dtype=acc, device=u.device).index_add_(0, ci, s)
+    return p, ai, bi, ci
 
 
 def _record_check(driver: str) -> None:
@@ -319,6 +328,40 @@ def check_stack(base, out, a_data, b_data, plan, alpha, c_zero: bool = False,
     meta = dict(dtype=name_of(out.dtype), k=k, depth=max(plan.max_run, 1) * max(m, n),
                 driver=plan.label, shape=(m, n, k), site="stack", prec=prec,
                 cells=[(m, n, k, name_of(out.dtype))] if prec is not None else None)
+    if defer:
+        _pending_list().append((es, meta, shape_key))
+        return
+    err, scale = es.tolist()
+    _check_scalars(err, scale, **meta)
+
+
+def check_superstack(base, out, a_datas, b_datas, splan, alpha, c_zero: bool = False,
+                     defer: bool = False, shape_key=None) -> None:
+    """Probe one fused C-bin launch with one delta probe: the left side
+    ``u · (C_new - C_old) · v`` per C block, the right side the sum of
+    every span's (ref `dbcsr_tpu/acc/abft.py:447`).  Under ``c_zero``
+    the pristine bin is zero and ``base`` is not read.  The scale is the
+    larger of max |right side| and max |C_new|; the accumulation depth
+    sums the spans' longest runs."""
+    if base is None and not c_zero:
+        return
+    nseg, m, n = out.shape
+    acc = _acc_dtype(out.dtype)
+    dev = out.device
+    u = probe_vector(m, out.dtype, salt=1, device=dev)
+    v = probe_vector(n, out.dtype, device=dev)
+    r, out_max = _uv(out, u, v, None if c_zero else base, acc, peak=True)
+    p = torch.zeros(nseg, dtype=acc, device=dev)
+    k_max = depth = 1
+    for plan, a_d, b_d in zip(splan.plans, a_datas, b_datas):
+        p = p + _span_probe(a_d, b_d, plan, u, v, alpha, nseg)[0]
+        k_max = max(k_max, a_d.shape[2])
+        depth += max(plan.max_run, 1)
+    _record_check("fused")
+    err = (r - p).abs().max() if nseg else torch.zeros((), dtype=out_max.dtype, device=dev)
+    es = torch.stack([err, torch.maximum(p.abs().max(), out_max) if nseg else out_max])
+    meta = dict(dtype=name_of(out.dtype), k=k_max, depth=depth * max(m, n), driver="fused",
+                shape=(m, n, len(splan.plans)), site="superstack", prec=None, cells=None)
     if defer:
         _pending_list().append((es, meta, shape_key))
         return

@@ -78,6 +78,12 @@ and probed against its demotion ceiling; a breach
 natively, heals the cached plan and re-executes from the pristine C,
 with no breaker or failover (`_promote_execute`).
 
+**Superstack** (`execute_superstack`, ref
+`dbcsr_tpu/acc/smm.py:1558-1992`): the spans of one C bin run as one
+fused launch of K1 (`stack_kernel.smm_superstack`), bit for bit the
+per-span launches, under the same guard with its own ``fused`` breaker;
+a failed fused launch decomposes into `execute_stack` per span.
+
 **Complex** stacks run on K1's complex forms (its tiled path) on the
 card, on the plain version or the host driver on the CPU, never on
 crosspack: ``mm_driver="pallas_cross"`` or a crosspack variant on a
@@ -152,7 +158,7 @@ class StackPlan:
     the demoted compute spec the plan runs with (None: native)."""
 
     __slots__ = ("driver", "a_idx", "b_idx", "run_ptr", "run_c", "entries",
-                 "nruns", "max_run", "pack", "pack_runs", "pack_longest",
+                 "nruns", "max_run", "n_a", "n_b", "pack", "pack_runs", "pack_longest",
                  "resident", "window", "val_idx", "host_idx", "precision")
 
     def __init__(self):
@@ -161,6 +167,7 @@ class StackPlan:
         self.entries = 0
         self.nruns = 0
         self.max_run = 0
+        self.n_a = self.n_b = 0  # distinct A and B blocks the stack reads
         self.pack = None          # crosspack: (P, R)
         self.pack_runs = None     # crosspack: int32 (npacks * P,), -1 = empty
         self.pack_longest = None  # crosspack: host, longest run of each pack
@@ -387,6 +394,8 @@ def _prepare_stack_impl(c_data, a_data, b_data, a_idx, b_idx, c_idx,
     plan.entries = s
     plan.nruns = len(run_c)
     plan.max_run = int(np.diff(run_ptr).max())
+    plan.n_a = int(np.count_nonzero(np.bincount(a_idx)))
+    plan.n_b = int(np.count_nonzero(np.bincount(b_idx)))
     if plan.driver in ("kernel", "crosspack") and cfg.validate_kernels:
         p = min(s, _VALIDATE_MAX_ENTRIES)
         plan.val_idx = (a_idx[:p], b_idx[:p], c_idx[:p])
@@ -609,6 +618,7 @@ def execute_stack(c_data, a_data, b_data, plan: Optional[StackPlan], alpha=1.0,
     caller's `abft.flush`."""
     if plan is None:
         return c_data
+    record_dispatch("per_span")
     board = breaker.get_board()
     shape_key = _stack_shape_key(c_data, a_data, b_data)
     if not board.allow(plan.label, shape_key):
@@ -681,14 +691,17 @@ def _execute_plan(c_data, a_data, b_data, plan: StackPlan, alpha=1.0):
 
 
 def _ensure_validated(c_data, a_data, b_data, plan: StackPlan) -> None:
-    if plan.val_idx is None or not get_config().validate_kernels:
-        return
+    """Validate the plan's kernel at its shape on first use, and report
+    the launch to the first-use mirror (`obs.metrics.record_jit`)."""
     key = (a_data.shape[1], b_data.shape[2], a_data.shape[2],
            name_of(c_data.dtype), c_data.device.type)
     if plan.driver == "crosspack":
         key += ("crosspack_vmem" if plan.resident else "crosspack", plan.pack)
     elif plan.precision is not None:
         key += ("precision", plan.precision)
+    metrics.record_jit(plan.kernel, key)
+    if plan.val_idx is None or not get_config().validate_kernels:
+        return
     if key in _validated_kernels:
         return
     _validate_kernel(c_data, a_data, b_data, plan, *plan.val_idx)
@@ -767,3 +780,216 @@ def process_stack(c_data, a_data, b_data, a_idx, b_idx, c_idx, alpha=1.0,
     plan = prepare_stack(c_data, a_data, b_data, a_idx, b_idx, c_idx,
                          variant=variant, pack=pack)
     return execute_stack(c_data, a_data, b_data, plan, alpha)
+
+
+# ------------------------------------------------------------------ fused
+# Superstack execution (ref `dbcsr_tpu/acc/smm.py:1558-1992`): the spans
+# of one C bin (one per (A bin, B bin) pair) run as ONE launch, where the
+# per-span path pays one launch and one read-modify-write of the bin's C
+# blocks per span -- the counterpart of the reference's stack batching
+# (`dbcsr_mm_accdrv.F:279-326`).
+
+_DISPATCHES_NAME = "dbcsr_tpu_dispatches_total"
+_DISPATCHES_HELP = ("engine dispatches by mode: one per executed span in per_span mode, "
+                    "one per fused C-bin launch in fused mode")
+_FUSED_SPANS_NAME = "dbcsr_tpu_fused_spans"
+_FUSED_SPANS_HELP = "spans carried by each fused launch"
+_FUSED_SPANS_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+# the breaker and metrics name of a fused launch: its failures never
+# condemn the per-span drivers (which span failed is unknown), they send
+# the bin back to the per-span path, where each span's chain applies
+FUSED_DRIVER = "fused"
+
+
+def record_dispatch(mode: str, fused_spans: Optional[int] = None) -> None:
+    """Count one dispatch of the engine ("per_span" or "fused") and, for
+    a fused launch, the spans it carried."""
+    metrics.counter(_DISPATCHES_NAME, _DISPATCHES_HELP).inc(mode=mode)
+    if fused_spans is not None:
+        metrics.histogram(_FUSED_SPANS_NAME, _FUSED_SPANS_HELP,
+                          buckets=_FUSED_SPANS_BUCKETS).observe(fused_spans)
+
+
+class SuperstackPlan:
+    """The fused launch of one C bin: its family ("pallas": K1's fused
+    kernel on the card, its plain version on the CPU; "torch": the plain
+    spans of CPU tensors, the counterpart of the JAX package's XLA
+    family; "host": the native driver's spans on the bin's C in one
+    pass), the spans' `StackPlan`s in order, and for "pallas" on the
+    card the merged run table (`stack_kernel.superstack_table`).  A
+    failover heals span plans in place to another driver; the cache
+    (`mm.multiply._CachedSpans.superstack_for`) rebuilds the fused plan
+    when the spans' drivers change."""
+
+    __slots__ = ("family", "plans", "table", "nruns")
+
+    def __init__(self, family: str, plans: list, table=None):
+        self.family = family
+        self.plans = plans
+        self.table = table
+        # the distinct C blocks the bin's spans write
+        self.nruns = (int(table[4].numel()) if table is not None else
+                      len(np.unique(np.concatenate([p.run_c.cpu().numpy() for p in plans]))))
+
+    def nbytes(self) -> int:
+        """Bytes the merged run table pins (the span plans count apart)."""
+        return sum(t.numel() * t.element_size() for t in self.table or ())
+
+
+def prepare_superstack(plans, shapes, c_data) -> Optional[SuperstackPlan]:
+    """The fused plan of one C bin's spans (``plans`` in accumulation
+    order, ``shapes`` their (m, n, k), ``c_data`` the bin), or None when
+    they cannot fuse: a family holds every span ("pallas": base-kernel
+    plans; "torch": plain-version plans of CPU tensors; "host"), native
+    real forms only -- a complex or demoted span, a crosspack span or a
+    mixed bin keeps the per-span path -- and on the card at most
+    `stack_kernel.SUPERSTACK_MAX_SPANS` spans, all on the same path of
+    K1 (warp or tiled)."""
+    if len(plans) < 2 or any(p is None for p in plans):
+        return None
+    if c_data.dtype.is_complex or any(p.precision is not None for p in plans):
+        return None
+    drivers = {p.driver for p in plans}
+    if drivers == {"host"}:
+        return SuperstackPlan("host", list(plans))
+    if drivers == {"torch"}:
+        return SuperstackPlan("torch", list(plans)) if c_data.device.type == "cpu" else None
+    if drivers != {"kernel"}:
+        return None
+    if not _on_card(c_data):
+        return SuperstackPlan("pallas", list(plans))
+    if len(plans) > stack_kernel.SUPERSTACK_MAX_SPANS or len(
+            {stack_kernel.kernel_path(m, n, k, c_data.dtype) for m, n, k in shapes}) > 1:
+        return None
+    table = stack_kernel.superstack_table([p.run_ptr.cpu().numpy() for p in plans],
+                                          [p.run_c.cpu().numpy() for p in plans],
+                                          c_data.device)
+    return SuperstackPlan("pallas", list(plans), table)
+
+
+def _superstack_key(c_data, nspans: int) -> tuple:
+    """The breaker and metrics key of a fused launch: the bin's block
+    shape, its span count and dtype."""
+    return (c_data.shape[1], c_data.shape[2], nspans, name_of(c_data.dtype))
+
+
+def _decompose_superstack(c_data, a_datas, b_datas, plans, alpha, c_zero: bool, why: str = ""):
+    """Run a fused bin's spans through `execute_stack` instead, each with
+    its own guard and failover chain (on the card the chain's kernels,
+    never the plain version); ``c_zero`` holds for the first span only."""
+    events.publish("superstack_decompose", {"why": why[:200], "spans": len(plans)},
+                   flight=("superstack_decompose", {"why": why[:200], "spans": len(plans)}))
+    for i, (plan, a_d, b_d) in enumerate(zip(plans, a_datas, b_datas)):
+        execute_stack(c_data, a_d, b_d, plan, alpha, c_zero=c_zero and i == 0)
+    return c_data
+
+
+def _dispatch_superstack(c_data, a_datas, b_datas, splan: SuperstackPlan, alpha) -> None:
+    """One fused launch, in place on ``c_data`` (the guard lives in
+    `execute_superstack`)."""
+    if splan.family == "host":
+        for plan, a_d, b_d in zip(splan.plans, a_datas, b_datas):
+            native.host_smm(c_data, a_d, b_d, *plan.host_idx, alpha)
+        return
+    spans = [(a_d, b_d, p.a_idx, p.b_idx, p.run_ptr, p.run_c)
+             for p, a_d, b_d in zip(splan.plans, a_datas, b_datas)]
+    if splan.family == "torch" or splan.table is None:
+        stack_kernel.smm_superstack_plain(c_data, spans, alpha,
+                                          chunk=get_config().mm_stack_size)
+        return
+    metrics.record_jit("smm_superstack",
+                       (c_data.shape[1], c_data.shape[2], tuple(a.shape[2] for a in a_datas),
+                        name_of(c_data.dtype), c_data.device.type))
+    stack_kernel.smm_superstack(c_data, spans, splan.table, alpha)
+
+
+def execute_superstack(c_data, a_datas, b_datas, splan: SuperstackPlan, alpha=1.0,
+                       c_zero: bool = False, abft_defer: bool = False):
+    """Run every span of one C bin as one fused launch, in place on
+    ``c_data``, guarded as `dbcsr_tpu/acc/smm.py:execute_superstack` is:
+
+    * a span whose own breaker is not closed sends the bin per span
+      first (a read-only probe, before `allow` of the fused breaker, so
+      the fused half-open trial is never taken and left open);
+    * an open ``fused`` breaker sends the bin per span;
+    * on the card every span's K1 shape is validated on first use before
+      the launch (a `KernelValidationError` is counted against the
+      span's driver and raised, as `execute_stack` raises it);
+    * the ``execute_superstack`` fault site, the finite check and the
+      ABFT probe (`abft.check_superstack`, one for the whole bin) run as
+      for a stack; a failure is counted against the ``fused`` breaker and
+      the bin decomposes from its pristine C (the clone taken first, or
+      zeros for a ``c_zero`` bin) into per-span launches
+      (`_decompose_superstack`);
+    * a demoted probe's breach re-runs the bin per span from the
+      pristine C, with no breaker feed.
+
+    Returns ``(c_data, fused)``: ``fused`` is False when the bin ran per
+    span."""
+    plans = splan.plans
+    board = breaker.get_board()
+    faults_on = faults.active()
+    abft_on = abft.enabled()
+    finite_on = _output_checks_enabled()
+    bin_key = _superstack_key(c_data, len(plans))
+    if board._breakers:
+        for plan, a_d, b_d in zip(plans, a_datas, b_datas):
+            if board.state(plan.label, _stack_shape_key(c_data, a_d, b_d)) != breaker.CLOSED:
+                return _decompose_superstack(c_data, a_datas, b_datas, plans, alpha, c_zero,
+                                             why=f"span-breaker:{plan.label}"), False
+    if splan.family == "pallas":
+        for plan, a_d, b_d in zip(plans, a_datas, b_datas):
+            try:
+                _ensure_validated(c_data, a_d, b_d, plan)
+            except KernelValidationError as exc:
+                _record_failure(plan.label, _stack_shape_key(c_data, a_d, b_d), exc)
+                raise  # the oracle ran on its own C: c_data is untouched
+    if board._breakers and not board.allow(FUSED_DRIVER, bin_key):
+        return _decompose_superstack(c_data, a_datas, b_datas, plans, alpha, c_zero,
+                                     why="breaker-open"), False
+    base = None
+    try:
+        # inside the try: a failed clone (out of memory on a large bin)
+        # resolves the fused trial as a failure
+        if (finite_on or abft_on) and not c_zero:
+            base = c_data.clone()
+        # counted before the launch: a launch that fails still made its
+        # round-trip, and the decompose's per-span dispatches count on top
+        record_dispatch("fused", fused_spans=len(plans))
+        if faults_on:
+            faults.maybe_inject("execute_superstack")
+        _dispatch_superstack(c_data, a_datas, b_datas, splan, alpha)
+        if faults_on:
+            faults.corrupt("execute_superstack", c_data)
+        if finite_on and _output_corrupted(c_data):
+            raise CorruptedOutputError("fused superstack launch produced non-finite output blocks")
+        if abft_on:
+            abft.check_superstack(base, c_data, a_datas, b_datas, splan, alpha, c_zero=c_zero,
+                                  defer=abft_defer and c_zero, shape_key=bin_key)
+    except BuildError:
+        raise
+    except abft.PrecisionExceededError:
+        # a promote, not corruption: per span from the pristine C, where
+        # each span's own probe and promote apply
+        if base is None and not c_zero:
+            raise
+        _restore(c_data, base, c_zero)
+        return _decompose_superstack(c_data, a_datas, b_datas, plans, alpha, c_zero,
+                                     why="precision-promote"), False
+    except Exception as exc:  # noqa: BLE001 -- classified, recorded, decomposed
+        kind = _classify_failure(exc)
+        board.record_failure(FUSED_DRIVER, bin_key, kind=kind)
+        _record_driver_failure(FUSED_DRIVER, kind, exc, bin_key)
+        # without a check nothing condemns a launch after it wrote: a
+        # failure without a clone left C as it was
+        if base is not None or c_zero:
+            _restore(c_data, base, c_zero)
+        _record_fallback(FUSED_DRIVER, "per_span", bin_key)
+        _decompose_superstack(c_data, a_datas, b_datas, plans, alpha, c_zero,
+                              why=f"{type(exc).__name__}: {exc}")
+        if kind == "sdc":
+            abft.record_recovery(FUSED_DRIVER)
+        return c_data, False
+    board.record_success(FUSED_DRIVER, bin_key)
+    return c_data, True

@@ -22,6 +22,16 @@ complex alpha), and the demoted compute forms of a ``precision`` spec
 ("bfloat16", False) and ("bfloat16", True) for float64 data, the bf16
 pair for float32 data, on both paths.  The plain version computes each
 form as `_batch_dot` does.
+
+`smm_superstack` is the same kernel's fused launch over every span of
+one C bin (``csrc/smm_stack.cu``, `smm_superstack_launch`; the JAX
+package's fused chain of K1 launches, `dbcsr_tpu/acc/smm.py:_fused_fn`):
+`superstack_table` merges the spans' runs into one run per C block, a
+list of segments in span order, and the launch walks them so that the
+result is bit for bit the spans' launches one after the other.  Its
+plain version `smm_superstack_plain` is exactly that sequence of
+`smm_stack_plain` calls.  Native real forms only (float64, float32,
+bfloat16).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 
+import numpy as np
 import torch
 
 from dbcsr_tpu_torch.acc import build
@@ -41,6 +52,8 @@ SOURCE = "smm_stack.cu"
 launches = 0
 plain_calls = 0
 launches_by_form: dict = {}
+# launches of the fused kernel (`smm_superstack`), counted apart from K1's
+superstack_launches = 0
 
 _DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
                torch.complex64: 3, torch.complex128: 4}
@@ -55,9 +68,10 @@ _lib = None
 
 
 def reset_counts() -> None:
-    global launches, plain_calls
+    global launches, plain_calls, superstack_launches
     launches = 0
     plain_calls = 0
+    superstack_launches = 0
     launches_by_form.clear()
 
 
@@ -85,6 +99,16 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.smm_stack_path.restype = ctypes.c_int
         lib.smm_stack_error_string.argtypes = [ctypes.c_int]
         lib.smm_stack_error_string.restype = ctypes.c_char_p
+        ptrs = ctypes.POINTER(ctypes.c_longlong)
+        lib.smm_superstack_launch.argtypes = [
+            ctypes.c_int, ctypes.c_int, ptrs, ptrs, ptrs, ptrs, ctypes.POINTER(ctypes.c_int),
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_double, ctypes.c_void_p,
+        ]
+        lib.smm_superstack_launch.restype = ctypes.c_int
+        lib.smm_superstack_max_spans.argtypes = []
+        lib.smm_superstack_max_spans.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -251,4 +275,89 @@ def smm_stack_plain(c, a, b, a_idx, b_idx, run_ptr, run_c, alpha=1.0,
             sums.index_add_(0, run_id[s0: s0 + chunk], prod)
     rc = run_c.long()
     c[rc] = (c[rc].to(acc) + alpha * sums).to(c.dtype)
+    return c
+
+
+# ------------------------------------------------------------ superstack
+# spans one fused launch takes (MAX_SPANS of csrc/smm_stack.cu)
+SUPERSTACK_MAX_SPANS = 32
+_SUPERSTACK_DTYPES = (torch.float64, torch.float32, torch.bfloat16)
+
+
+def superstack_table(run_ptrs, run_cs, device) -> tuple:
+    """The merged run table of one C bin from its spans' runs (host int
+    arrays, span order): one run per C block, each a list of segments in
+    span order, segment j the entries ``seg_beg[j]..seg_end[j]`` of span
+    ``seg_span[j]``'s stack.  Returns the int32 device arrays
+    (seg_span, seg_beg, seg_end, run_ptr, run_c)."""
+    seg_c = np.concatenate([np.asarray(rc, np.int64) for rc in run_cs])
+    seg_span = np.concatenate([np.full(len(rc), s, np.int64) for s, rc in enumerate(run_cs)])
+    seg_beg = np.concatenate([np.asarray(rp[:-1], np.int64) for rp in run_ptrs])
+    seg_end = np.concatenate([np.asarray(rp[1:], np.int64) for rp in run_ptrs])
+    order = np.lexsort((seg_span, seg_c))  # by C block, then span order
+    run_c, counts = np.unique(seg_c[order], return_counts=True)
+    run_ptr = np.concatenate([[0], np.cumsum(counts)])
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
+    return (up(seg_span[order]), up(seg_beg[order]), up(seg_end[order]), up(run_ptr),
+            up(run_c))
+
+
+def smm_superstack(c, spans, table, alpha=1.0):
+    """Apply every span of one C bin to ``c`` in place, in span order, and
+    return it: the fused CUDA launch on a CUDA tensor, `smm_superstack_plain`
+    on a CPU tensor.  ``spans`` holds each span's (A bin, B bin, a_idx,
+    b_idx, run_ptr, run_c) (the stack arrays of its plan), ``table`` the
+    bin's `superstack_table` on ``c``'s device."""
+    global superstack_launches
+    if c.dtype not in _SUPERSTACK_DTYPES:
+        raise TypeError(f"the fused stack kernel takes float64/float32/bfloat16, got {c.dtype}")
+    if not 1 <= len(spans) <= SUPERSTACK_MAX_SPANS:
+        raise ValueError(f"a fused launch takes 1 to {SUPERSTACK_MAX_SPANS} spans, "
+                         f"got {len(spans)}")
+    for sp in spans:
+        _check(c, *sp)
+    for name, t in zip(("seg_span", "seg_beg", "seg_end", "run_ptr", "run_c"), table):
+        if t.dtype != torch.int32 or t.dim() != 1 or t.device != c.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor on {c.device}")
+    alpha = float(alpha)
+    if c.device.type == "cpu":
+        return smm_superstack_plain(c, spans, alpha)
+    if c.device.type != "cuda":
+        raise ValueError(f"no stack kernel for device {c.device}")
+    nruns = table[4].numel()
+    if nruns == 0:
+        return c
+    lib = _kernel_lib()
+    m, n = c.shape[1:]
+
+    def host(vals, ctype):
+        return (ctype * len(vals))(*vals)
+    span_a = host([sp[0].data_ptr() for sp in spans], ctypes.c_longlong)
+    span_b = host([sp[1].data_ptr() for sp in spans], ctypes.c_longlong)
+    span_ai = host([sp[2].data_ptr() for sp in spans], ctypes.c_longlong)
+    span_bi = host([sp[3].data_ptr() for sp in spans], ctypes.c_longlong)
+    span_k = host([sp[0].shape[2] for sp in spans], ctypes.c_int)
+    stream = torch.cuda.current_stream(c.device).cuda_stream
+    with torch.cuda.device(c.device):
+        err = lib.smm_superstack_launch(
+            _DTYPE_CODE[c.dtype], len(spans), span_a, span_b, span_ai, span_bi, span_k,
+            c.data_ptr(), *(t.data_ptr() for t in table), nruns, m, n, alpha, stream)
+    if err != 0:
+        msg = lib.smm_stack_error_string(err).decode()
+        raise RuntimeError(f"smm_superstack launch failed (m={m}, n={n}, "
+                           f"k={[sp[0].shape[2] for sp in spans]}, {c.dtype}, "
+                           f"nruns={nruns}): CUDA error {err}: {msg}")
+    mark_written(c)
+    superstack_launches += 1
+    return c
+
+
+def smm_superstack_plain(c, spans, alpha=1.0, chunk: int = 30000):
+    """Plain PyTorch version of the fused launch: `smm_stack_plain` of
+    each span, in span order, in place on ``c``."""
+    for a, b, a_idx, b_idx, run_ptr, run_c in spans:
+        smm_stack_plain(c, a, b, a_idx, b_idx, run_ptr, run_c, alpha, chunk=chunk)
     return c

@@ -1,6 +1,7 @@
 """Global configuration: the subset of `dbcsr_tpu/core/config.py` the
-multiply, the TAS split and the integrity plane read (ref `dbcsr_cfg`,
-`src/core/dbcsr_config.F`).
+multiply, the TAS split, the integrity plane and the statistics read
+(ref `dbcsr_cfg`, `src/core/dbcsr_config.F`).  Every field is set in
+code (`set_config`); none is read from the environment.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ ABFT_MODES = ("off", "verify", "recover")
 MM_FORMATS = ("auto", "stack", "dense", "composite")
 PRECISION_MODES = ("native", "adaptive", "f32", "bf16")
 INCREMENTAL_MODES = ("auto", "off", "full")
+SUPERSTACK_MODES = ("auto", "fused", "per_span")
 
 
 @dataclasses.dataclass
@@ -66,6 +68,14 @@ class Config:
     # "f32"/"bf16" (force the demoted compute dtype with two-product
     # compensation, no certificate: test and comparison legs)
     precision: str = "native"
+    # fused superstack launches (acc/smm.py:execute_superstack): every C
+    # bin whose spans can fuse runs them as one launch ("auto" resolves
+    # to "fused"); "per_span" launches each span on its own (the
+    # comparison leg).  Single-span bins run per span either way.
+    superstack: str = "auto"
+    # keep the multiply statistics (core/stats.py: per-(m,n,k) and
+    # per-driver flops, bytes and seconds, the memory meters)
+    keep_stats: bool = True
     # the delta-aware incremental multiply (mm/incremental.py): "auto"
     # (a repeated beta = 0 product whose operands changed in a known set
     # of blocks recomputes only the C blocks those reach and splices the
@@ -95,6 +105,9 @@ class Config:
         if self.precision not in PRECISION_MODES:
             raise ValueError(f"precision must be 'native'/'adaptive'/'f32'/'bf16', "
                              f"got {self.precision!r}")
+        if self.superstack not in SUPERSTACK_MODES:
+            raise ValueError(f"superstack must be 'auto'/'fused'/'per_span', "
+                             f"got {self.superstack!r}")
         if self.incremental not in INCREMENTAL_MODES:
             raise ValueError(f"incremental must be 'auto'/'off'/'full', "
                              f"got {self.incremental!r}")

@@ -9,10 +9,9 @@ over with `set_hooks`, as `dbcsr_base_hooks.F:88-110` allows.
 `timed` also opens a `torch.profiler.record_function` range named
 ``dbcsr_tpu_torch:<name>``, so a `torch.profiler` trace shows the
 engine's regions beside the card's kernels (the JAX package opens a
-`jax.profiler.TraceAnnotation`).  The JAX package also feeds every
-region to its span tracer (`obs/tracer.py`); the port has no tracer
-yet, and its `report` has no rank-aggregated table (no multi-process
-world yet).
+`jax.profiler.TraceAnnotation`), and every region is a span of the
+tracer (`obs/tracer.py`) when one is active, under the same name.  The
+`report` has no rank-aggregated table (no multi-process world yet).
 """
 
 from __future__ import annotations
@@ -22,6 +21,9 @@ import dataclasses
 import time
 
 import torch
+
+# stdlib-only; one attribute check per region while no tracer is active
+from dbcsr_tpu_torch.obs import tracer as _trace
 
 
 @dataclasses.dataclass
@@ -51,6 +53,8 @@ def timeset(name: str) -> None:
         _hooks[0](name)
         return
     _stack.append([name, time.perf_counter(), 0.0])
+    if _trace._tracer is not None:
+        _trace._tracer.begin(name)
 
 
 def timestop(name: str) -> None:
@@ -61,6 +65,8 @@ def timestop(name: str) -> None:
     if ent[0] != name:
         raise RuntimeError(f"timer mismatch: stopped {name}, open {ent[0]}")
     dt = time.perf_counter() - ent[1]
+    if _trace._tracer is not None:
+        _trace._tracer.end(name, dur_s=dt)
     st = _stats.setdefault(name, _RoutineStat())
     st.calls += 1
     st.total += dt
@@ -75,7 +81,7 @@ def timestop(name: str) -> None:
 
 @contextlib.contextmanager
 def timed(name: str):
-    """Host timer plus a profiler range around the block."""
+    """Host timer, tracer span and profiler range around the block."""
     timeset(name)
     try:
         with torch.profiler.record_function(f"dbcsr_tpu_torch:{name}"):
@@ -87,6 +93,8 @@ def timed(name: str):
 def reset() -> None:
     _stats.clear()
     _stack.clear()
+    if _trace._tracer is not None:
+        _trace._tracer._span_stack.clear()  # in step with the timer stack
 
 
 def report(out=print, top: int = 30) -> None:

@@ -45,6 +45,10 @@
 // is double for f64 and float for f32 and bf16 (bf16 converted on load);
 // f32 never runs through TF32.
 //
+// A second entry point, smm_superstack_launch, is the fused launch of
+// one C bin: every span of the bin (each with its own k) in one launch,
+// bit for bit the per-span launches (the superstack section below).
+//
 // Two more groups of forms, behind the same entry point (the JAX package
 // runs both in XLA, dbcsr_tpu/acc/smm.py:78-135, never in Pallas):
 // * complex c4/c8 (smm_stack_complex_kernel), the tiled path only (the
@@ -439,6 +443,238 @@ cudaError_t launch_complex(const void* a, const void* b, void* c, const void* a_
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------ superstack
+// The fused launch of one C bin (acc/smm.py:execute_superstack): every
+// span of the bin (one (A bin, B bin) pair each, sharing the bin's m and
+// n, each with its own k) in ONE launch, where the per-span path launches
+// the kernels above once per span.  Replaces the JAX package's fused
+// chain of K1 launches inside one jit, dbcsr_tpu/acc/smm.py:_fused_fn
+// (pallas_smm.process_launches, dbcsr_tpu/acc/pallas_smm.py:765).
+//
+// The host (stack_kernel.superstack_table) merges the spans' runs into
+// one run per C block, each a list of segments in span order; segment j
+// is the entries seg_beg[j]..seg_end[j] of span seg_span[j]'s own stack
+// arrays.  A warp (warp path) or a thread block per 32x32 tile (tiled
+// path) owns a C block and walks its segments in span order: each
+// segment's products are summed exactly as the per-span launch sums its
+// run (the same register tile, entry order and k order), and after each
+// segment C = C + alpha * sum is stored as the per-span launch stores it
+// at the end of its run.  So the fused result is bit for bit the
+// per-span result, and a C block touched by one span costs what it costs
+// per span.  The operands are staged synchronously, one entry at a time:
+// a simple kernel that is right, not a tuned one (its bound is the
+// per-span kernels' bytes less the C round-trips it saves).
+constexpr int MAX_SPANS = 32;  // spans of one fused launch
+
+struct SpanTable {
+  const void* a[MAX_SPANS];      // the span's A bin (Na, m, k)
+  const void* b[MAX_SPANS];      // its B bin (Nb, k, n)
+  const int* a_idx[MAX_SPANS];   // its stack's operand indices
+  const int* b_idx[MAX_SPANS];
+  int k[MAX_SPANS];
+};
+
+// one warp's shared memory: one entry slot at the bins' largest k, then
+// the C block's sum
+__host__ __device__ inline int fused_per_warp(int m, int n, int kmax, int size) {
+  const int q = 16 / size;
+  const smm::WarpGeom g = smm::warp_geom(m, n, kmax, 1, size);
+  return smm::round_up(g.slot, q) + smm::round_up(8 * g.mt * g.sb, q);
+}
+
+template <typename T, int MAXT, typename TileT>
+__global__ void __launch_bounds__(W * 32, 1)
+smm_superstack_warp_kernel(SpanTable spans, T* __restrict__ c,
+                           const int* __restrict__ seg_span,
+                           const int* __restrict__ seg_beg,
+                           const int* __restrict__ seg_end,
+                           const int* __restrict__ run_ptr,
+                           const int* __restrict__ run_c, int nruns, int m,
+                           int n, int kmax, typename AccOf<T>::type alpha) {
+  using S = typename AccOf<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* const sm = reinterpret_cast<S*>(smem_raw);
+  const int per_warp = fused_per_warp(m, n, kmax, sizeof(S));
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  S* const slot = sm + warp * per_warp;
+  S* const cs = slot + smm::round_up(smm::warp_geom(m, n, kmax, 1, sizeof(S)).slot,
+                                     16 / (int)sizeof(S));
+  const smm::FlatIter itn = smm::flat_iter(n, lane);
+  const int mn = m * n;
+  for (int i = 0;; ++i) {
+    const int run = (blockIdx.x + i * gridDim.x) * nw + warp;
+    if (run >= nruns) break;
+    T* const cblk = c + (int64_t)__ldg(run_c + run) * mn;
+    const int s0 = __ldg(run_ptr + run), s1 = __ldg(run_ptr + run + 1);
+    for (int sg = s0; sg < s1; ++sg) {
+      const int sp = __ldg(seg_span + sg);
+      const int k = spans.k[sp];
+      const T* const a = static_cast<const T*>(spans.a[sp]);
+      const T* const b = static_cast<const T*>(spans.b[sp]);
+      const int* const ai = spans.a_idx[sp];
+      const int* const bi = spans.b_idx[sp];
+      const smm::WarpGeom g = smm::warp_geom(m, n, k, 1, sizeof(S));
+      const int mk = m * k, kn = k * n;
+      TileT acc;
+      acc.zero();
+      const int e1 = __ldg(seg_end + sg);
+      for (int e = __ldg(seg_beg + sg); e < e1; ++e) {
+        const int oa = smm::stage_flat(slot, a + (int64_t)__ldg(ai + e) * mk, mk, lane);
+        const int ob = smm::stage_flat(slot + g.a_area, b + (int64_t)__ldg(bi + e) * kn,
+                                       kn, lane);
+        smm::cp_async_commit();
+        smm::cp_async_wait<0>();
+        __syncwarp();
+        acc.mma(slot + oa, slot + g.a_area + ob, g, n, k, lane);
+        __syncwarp();  // the slot is free for the next entry
+      }
+      // C = C + alpha * sum, as the per-span launch ends its run
+      acc.store(cs, g, m, n, lane);
+      __syncwarp();
+      int rr = itn.r0, cc = itn.c0;
+      for (int w = lane; w < mn; w += 32) {
+        T* const p = cblk + w;
+        const S cv = load_acc(p);
+        store_acc(p, cv + alpha * cs[rr * g.sb + cc]);
+        cc += itn.rem;
+        rr += itn.q;
+        if (cc >= n) {
+          cc -= n;
+          ++rr;
+        }
+      }
+      __syncwarp();  // cs is free for the next segment
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+smm_superstack_tiled_kernel(SpanTable spans, T* __restrict__ c,
+                            const int* __restrict__ seg_span,
+                            const int* __restrict__ seg_beg,
+                            const int* __restrict__ seg_end,
+                            const int* __restrict__ run_ptr,
+                            const int* __restrict__ run_c, int m, int n,
+                            typename AccOf<T>::type alpha) {
+  using Acc = typename AccOf<T>::type;
+  __shared__ Acc as[TM][TK + 1];
+  __shared__ Acc bs[TK][TN + 1];
+
+  const int run = blockIdx.x;
+  const int row0 = blockIdx.y * TM;
+  const int col0 = blockIdx.z * TN;
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * NTX + tx;
+  T* const cblk = c + (int64_t)run_c[run] * m * n;
+  for (int sg = run_ptr[run]; sg < run_ptr[run + 1]; ++sg) {
+    const int sp = seg_span[sg];
+    const int k = spans.k[sp];
+    const T* const a = static_cast<const T*>(spans.a[sp]);
+    const T* const b = static_cast<const T*>(spans.b[sp]);
+    const int* const ai = spans.a_idx[sp];
+    const int* const bi = spans.b_idx[sp];
+    const int64_t mk = (int64_t)m * k;
+    const int64_t kn = (int64_t)k * n;
+    Acc acc[2][2] = {{Acc(0), Acc(0)}, {Acc(0), Acc(0)}};
+    for (int e = seg_beg[sg]; e < seg_end[sg]; ++e) {
+      const T* ablk = a + (int64_t)ai[e] * mk;
+      const T* bblk = b + (int64_t)bi[e] * kn;
+      for (int k0 = 0; k0 < k; k0 += TK) {
+        for (int i = tid; i < TM * TK; i += NTHREADS) {
+          const int r = i / TK, kk = i % TK;
+          const int gr = row0 + r, gk = k0 + kk;
+          as[r][kk] = (gr < m && gk < k) ? load_acc(ablk + (int64_t)gr * k + gk) : Acc(0);
+        }
+        for (int i = tid; i < TK * TN; i += NTHREADS) {
+          const int kk = i / TN, cc = i % TN;
+          const int gk = k0 + kk, gc = col0 + cc;
+          bs[kk][cc] = (gk < k && gc < n) ? load_acc(bblk + (int64_t)gk * n + gc) : Acc(0);
+        }
+        __syncthreads();
+        const int kend = min(TK, k - k0);
+        for (int kk = 0; kk < kend; ++kk) {
+          const Acc a0 = as[ty][kk];
+          const Acc a1 = as[ty + NTY][kk];
+          const Acc b0 = bs[kk][tx];
+          const Acc b1 = bs[kk][tx + NTX];
+          acc[0][0] += a0 * b0;
+          acc[0][1] += a0 * b1;
+          acc[1][0] += a1 * b0;
+          acc[1][1] += a1 * b1;
+        }
+        __syncthreads();
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = row0 + ty + i * NTY;
+        const int cc = col0 + tx + j * NTX;
+        if (r < m && cc < n) {
+          T* p = cblk + (int64_t)r * n + cc;
+          store_acc(p, load_acc(p) + alpha * acc[i][j]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int MAXT>
+cudaError_t launch_superstack_warp(const SpanTable& spans, void* c, const void* seg_span,
+                                   const void* seg_beg, const void* seg_end,
+                                   const void* run_ptr, const void* run_c, int nruns,
+                                   int m, int n, int kmax, double alpha,
+                                   cudaStream_t stream) {
+  using Acc = typename AccOf<T>::type;
+  using TileT = smm::Tile<Acc, MAXT>;
+  const size_t smem = (size_t)W * fused_per_warp(m, n, kmax, sizeof(Acc)) * sizeof(Acc);
+  int grid = 0;
+  const cudaError_t err = smm::persistent_grid(smm_superstack_warp_kernel<T, MAXT, TileT>,
+                                               W * 32, smem, (nruns + W - 1) / W, &grid);
+  if (err != cudaSuccess) return err;
+  smm_superstack_warp_kernel<T, MAXT, TileT><<<grid, W * 32, smem, stream>>>(
+      spans, static_cast<T*>(c), static_cast<const int*>(seg_span),
+      static_cast<const int*>(seg_beg), static_cast<const int*>(seg_end),
+      static_cast<const int*>(run_ptr), static_cast<const int*>(run_c), nruns, m, n,
+      kmax, static_cast<Acc>(alpha));
+  return cudaGetLastError();
+}
+
+// Every span takes the per-span launch's path: the warp path when all
+// of the bin's shapes are warp shapes, the tiled path when none is; a bin
+// that mixes the two is refused (the host keeps it on the per-span path).
+template <typename T>
+cudaError_t launch_superstack(const SpanTable& spans, int kmin, int kmax, void* c,
+                              const void* seg_span, const void* seg_beg,
+                              const void* seg_end, const void* run_ptr,
+                              const void* run_c, int nruns, int m, int n, double alpha,
+                              cudaStream_t stream) {
+  using Acc = typename AccOf<T>::type;
+  if (smm::warp_dims(m, n, kmax) && smm::warp_dims(m, n, kmin)) {
+#define SUPER_ARGS spans, c, seg_span, seg_beg, seg_end, run_ptr, run_c, nruns, m, n, kmax, alpha, stream
+    switch (smm::warp_class(m, n)) {
+      case 2: return launch_superstack_warp<T, 2>(SUPER_ARGS);
+      case 3: return launch_superstack_warp<T, 3>(SUPER_ARGS);
+      default: return launch_superstack_warp<T, 4>(SUPER_ARGS);
+    }
+#undef SUPER_ARGS
+  }
+  if (smm::warp_dims(m, n, kmin) || smm::warp_dims(m, n, kmax))
+    return cudaErrorInvalidValue;
+  const dim3 grid(nruns, (m + TM - 1) / TM, (n + TN - 1) / TN);
+  const dim3 block(NTX, NTY);
+  smm_superstack_tiled_kernel<T><<<grid, block, 0, stream>>>(
+      spans, static_cast<T*>(c), static_cast<const int*>(seg_span),
+      static_cast<const int*>(seg_beg), static_cast<const int*>(seg_end),
+      static_cast<const int*>(run_ptr), static_cast<const int*>(run_c), m, n,
+      static_cast<Acc>(alpha));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -495,6 +731,46 @@ int smm_stack_launch(int dtype, int compute, const void* a, const void* b,
 int smm_stack_path(int dtype, int m, int n, int k) {
   return dtype < 3 && smm::warp_dims(m, n, k) ? 1 : 0;
 }
+
+// The fused launch of one C bin: nspans (<= smm_superstack_max_spans())
+// spans, given by host arrays of their A and B bins' and index arrays'
+// device pointers and their k; the merged run table (seg_span, seg_beg,
+// seg_end: nseg segments; run_ptr, run_c: nruns runs) on the device.
+// dtype 0 = float64, 1 = float32, 2 = bfloat16 (native compute only).
+// Returns the launch's cudaError_t; cudaErrorInvalidValue for a bin
+// whose spans mix the warp and tiled paths or exceed the span table.
+int smm_superstack_launch(int dtype, int nspans, const long long* span_a,
+                          const long long* span_b, const long long* span_aidx,
+                          const long long* span_bidx, const int* span_k, void* c,
+                          const void* seg_span, const void* seg_beg,
+                          const void* seg_end, const void* run_ptr, const void* run_c,
+                          int nruns, int m, int n, double alpha, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (nruns <= 0) return 0;
+  if (nspans < 1 || nspans > MAX_SPANS) return bad;
+  SpanTable spans = {};
+  int kmin = span_k[0], kmax = span_k[0];
+  for (int s = 0; s < nspans; ++s) {
+    spans.a[s] = reinterpret_cast<const void*>(span_a[s]);
+    spans.b[s] = reinterpret_cast<const void*>(span_b[s]);
+    spans.a_idx[s] = reinterpret_cast<const int*>(span_aidx[s]);
+    spans.b_idx[s] = reinterpret_cast<const int*>(span_bidx[s]);
+    spans.k[s] = span_k[s];
+    kmin = span_k[s] < kmin ? span_k[s] : kmin;
+    kmax = span_k[s] > kmax ? span_k[s] : kmax;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SUPER_ARGS spans, kmin, kmax, c, seg_span, seg_beg, seg_end, run_ptr, run_c, nruns, m, n, alpha, s
+  switch (dtype) {
+    case 0: return launch_superstack<double>(SUPER_ARGS);
+    case 1: return launch_superstack<float>(SUPER_ARGS);
+    case 2: return launch_superstack<__nv_bfloat16>(SUPER_ARGS);
+    default: return bad;
+  }
+#undef SUPER_ARGS
+}
+
+int smm_superstack_max_spans() { return MAX_SPANS; }
 
 const char* smm_stack_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -368,9 +368,11 @@ def _execute_splice(ent: _Entry, a, b, c, alpha, cand_keys, a_ent, b_ent, recomp
                 if len(sel):
                     bin_.data.index_fill_(0, to_index(c.ent_slot[sel], c.device), 0)
             sub_key = plan_key + ("incremental", digests.index_digest(affected))
-            spans, _ = _mm._spans_for(sub_key, c, a, b, cand_keys[recompute], a_ent[recompute],
-                                      b_ent[recompute])
-            flops = _mm._run_stacks(c, a, b, spans, alpha)
+            entry, _ = _mm._spans_for(sub_key, c, a, b, cand_keys[recompute],
+                                      a_ent[recompute], b_ent[recompute])
+            spans = entry.spans
+            flops = _mm._run_stacks(c, a, b, spans, alpha, cached=entry)
+            _mm._refresh_cached_bytes(sub_key, entry)
             precisions.update(sp.plan.precision for sp in spans if sp.plan.precision is not None)
         if faults.active():
             c.map_bin_data(lambda d: faults.corrupt("incremental", d))

@@ -41,6 +41,17 @@ hold int32 device indices only, never a bin, and first-use validation
 stays keyed by kernel shape in `acc/smm.py`.  LRU of 16 entries and 256
 MiB of index bytes.
 
+Superstack (ref `dbcsr_tpu/mm/multiply.py:1721-1789,1891-1985`): under
+the config's ``superstack`` "auto" (the default) or "fused", the
+adjacent spans of one C bin run as one fused launch
+(`acc.smm.execute_superstack`); the bin's fused plan lives in the
+plan-cache entry and is built again when a heal changes the spans'
+drivers.  Every launch feeds `core.stats` (and the tracer's ``stack``
+instants); the phases are `core.timings.timed` regions (``multiply``
+around ``multiply_index``, ``multiply_c_assemble``, ``multiply_stacks``,
+``multiply_filter`` or ``multiply_dense``), so the span tracer and
+`torch.profiler` see them under the same names.
+
 Integrity (ref `dbcsr_tpu/mm/multiply.py:246-270,512-535,1891-2025`):
 each multiply opens an event-bus product and a flight record
 (`obs.events.product_scope`).  The dense and composite formats have the
@@ -77,10 +88,11 @@ from dbcsr_tpu_torch import native
 from dbcsr_tpu_torch.acc import abft, params
 from dbcsr_tpu_torch.acc import precision as _precision
 from dbcsr_tpu_torch.acc import smm as _smm
-from dbcsr_tpu_torch.acc.smm import StackPlan, execute_stack, prepare_stack
-from dbcsr_tpu_torch.core import digests, mempool
+from dbcsr_tpu_torch.acc.smm import StackPlan, execute_stack, execute_superstack, prepare_stack
+from dbcsr_tpu_torch.core import digests, mempool, stats
 from dbcsr_tpu_torch.core.config import get_config
 from dbcsr_tpu_torch.core.kinds import name_of
+from dbcsr_tpu_torch.core.timings import timed
 from dbcsr_tpu_torch.core.matrix import (
     NO_SYMMETRY,
     BlockSparseMatrix,
@@ -91,7 +103,7 @@ from dbcsr_tpu_torch.core.matrix import (
 )
 from dbcsr_tpu_torch.mm import format_planner
 from dbcsr_tpu_torch.mm import incremental as _incremental
-from dbcsr_tpu_torch.obs import events, flight
+from dbcsr_tpu_torch.obs import costmodel, events, flight, tracer
 from dbcsr_tpu_torch.ops.operations import compress, crop_matrix, window_mask
 from dbcsr_tpu_torch.ops.transformations import desymmetrize, new_transposed
 from dbcsr_tpu_torch.resilience import faults
@@ -255,14 +267,17 @@ def multiply(
             int(coff[first_col]) if first_col is not None else 0,
             int(coff[last_col + 1]) - 1 if last_col is not None else c.nfullcols - 1,
         )
-    with events.product_scope("multiply", c.name, m=c.nfullrows, n=c.nfullcols,
-                              k=a.nfullcols, filter_eps=filter_eps,
-                              retain_sparsity=retain_sparsity):
+    mnk = (c.nfullrows, c.nfullcols, a.nfullcols)
+    with timed("multiply"), events.product_scope(
+            "multiply", c.name, m=mnk[0], n=mnk[1], k=mnk[2], mnk=mnk,
+            filter_eps=filter_eps, retain_sparsity=retain_sparsity) as product_id:
+        tracer.annotate(name=c.name, m=mnk[0], n=mnk[1], k=mnk[2], product_id=product_id)
         flops = _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
                                beta_window)
         flight.note("flops", flops)
         flight.note("algorithm", c._mm_algorithm)
         flight.note("phases_ms", {k: round(v * 1e3, 3) for k, v in c._mm_phase_s.items()})
+        tracer.annotate(algorithm=c._mm_algorithm)
     return flops
 
 
@@ -281,6 +296,7 @@ def _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
     plan = format_planner.choose(a, b, c, filter_eps=filter_eps,
                                  retain_sparsity=retain_sparsity,
                                  no_limits=all(x is None for x in limits))
+    format_planner.note_decision(plan)
     phase = {"format": time.perf_counter() - t0}
     flops = None
     if plan.fmt != "stack":
@@ -290,6 +306,8 @@ def _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
         flops = _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
                                 beta_window, phase)
     c._mm_phase_s = phase
+    stats.record_multiply(2 * c.nfullrows * c.nfullcols * a.nfullcols)
+    stats.sample_memory()
     _totals["multiplies"] += 1
     decision = f"{plan.fmt}:{plan.reason}"
     _totals["formats"][decision] = _totals["formats"].get(decision, 0) + 1
@@ -315,10 +333,11 @@ def _canvas_multiply(a, b, c, alpha, beta, plan, phase):
     t1 = time.perf_counter()
     ev = _start_events(c.device)
     try:
-        if plan.fmt == "composite":
-            flops = _composite_multiply(a, b, c, alpha, beta, plan.panels)
-        else:
-            flops = _dense_multiply(a, b, c, alpha, beta)
+        with timed("multiply_dense"):
+            if plan.fmt == "composite":
+                flops = _composite_multiply(a, b, c, alpha, beta, plan.panels)
+            else:
+                flops = _dense_multiply(a, b, c, alpha, beta)
     except Exception as exc:  # noqa: BLE001 -- classified and counted, or raised
         if len(c.bins) != len(held) or any(bn.data is not d or bn.data._version != v
                                            for bn, (d, v) in zip(c.bins, held)):
@@ -326,7 +345,15 @@ def _canvas_multiply(a, b, c, alpha, beta, plan, phase):
         _note_dense_fallback(exc, driver=plan.fmt)
         return None
     c._mm_device_events = _stop_events(ev)
-    phase[plan.fmt] = time.perf_counter() - t1
+    sync = stats.sync_timing_enabled()
+    if sync and c.device.type == "cuda":
+        torch.cuda.synchronize(c.device)
+    phase[plan.fmt] = seconds = time.perf_counter() - t1
+    format_planner.note_outcome(plan, seconds, flops)
+    stats.record_driver(plan.fmt, flops, seconds=seconds, dtype=name_of(c.dtype), sync=sync,
+                        nbytes=costmodel.dense_cost(c.nfullrows, c.nfullcols, a.nfullcols,
+                                                    itemsize=c.bins[0].data.element_size()
+                                                    if c.bins else 8)["bytes"])
     c._mm_plan_cache = None
     c._mm_spans = []
     # the canvas restructured C: cached results of these operands can
@@ -379,19 +406,20 @@ def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
     assemble, plan (or the cached plan) and launch, then the filter's
     compress."""
     t0 = time.perf_counter()
-    i, j, a_ent, b_ent = _candidates(a, b, filter_eps, sym_c=c.matrix_type != NO_SYMMETRY,
-                                     limits=limits)
-    old_keys = c.keys
-    old_fp = c.pattern_fingerprint()
-    cand_keys = i * c.nblkcols + j
-    if retain_sparsity:
-        ok = mask_in_sorted(cand_keys, old_keys)
-        cand_keys, a_ent, b_ent = cand_keys[ok], a_ent[ok], b_ent[ok]
-        new_keys = old_keys
-    else:
-        new_keys = np.union1d(old_keys, np.unique(cand_keys))
-    key = _plan_key(a, b, c, old_fp, retain_sparsity, filter_eps, limits, cand_keys, a_ent,
-                    b_ent)
+    with timed("multiply_index"):
+        i, j, a_ent, b_ent = _candidates(a, b, filter_eps,
+                                         sym_c=c.matrix_type != NO_SYMMETRY, limits=limits)
+        old_keys = c.keys
+        old_fp = c.pattern_fingerprint()
+        cand_keys = i * c.nblkcols + j
+        if retain_sparsity:
+            ok = mask_in_sorted(cand_keys, old_keys)
+            cand_keys, a_ent, b_ent = cand_keys[ok], a_ent[ok], b_ent[ok]
+            new_keys = old_keys
+        else:
+            new_keys = np.union1d(old_keys, np.unique(cand_keys))
+        key = _plan_key(a, b, c, old_fp, retain_sparsity, filter_eps, limits, cand_keys,
+                        a_ent, b_ent)
     t1 = time.perf_counter()
     phase["index"] = t1 - t0
     inc_eligible = (key is not None and filter_eps is None and beta == 0
@@ -410,14 +438,19 @@ def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
         t_inc = time.perf_counter()
         phase["incremental"] = t_inc - t1  # what deciding on a full run cost
         t1 = t_inc
-    _rebuild_c(c, new_keys, beta, beta_window)
+    with timed("multiply_c_assemble"):
+        _rebuild_c(c, new_keys, beta, beta_window)
     t2 = time.perf_counter()
     phase["assemble"] = t2 - t1
-    spans, c._mm_plan_cache = _spans_for(key, c, a, b, cand_keys, a_ent, b_ent)
-    t3 = time.perf_counter()
-    phase["plan"] = t3 - t2
-    flops = _run_stacks(c, a, b, spans, alpha, c_zero=beta == 0 and beta_window is None)
-    phase["launch"] = time.perf_counter() - t3
+    with timed("multiply_stacks"):
+        entry, c._mm_plan_cache = _spans_for(key, c, a, b, cand_keys, a_ent, b_ent)
+        spans = entry.spans
+        t3 = time.perf_counter()
+        phase["plan"] = t3 - t2
+        flops = _run_stacks(c, a, b, spans, alpha, c_zero=beta == 0 and beta_window is None,
+                            cached=entry)
+        _refresh_cached_bytes(key, entry)
+        phase["launch"] = time.perf_counter() - t3
     # the kernels wrote C's bins in place: stamp the completed values
     c._note_mutation(c.keys)
     if inc_eligible:
@@ -425,26 +458,28 @@ def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
         _incremental.note_executed(key, a, b, c, alpha, demoted,
                                    phase["assemble"] + phase["plan"] + phase["launch"])
     if filter_eps is not None and not retain_sparsity:
-        norms = c.block_norms()
-        compress(c, norms ** 2 >= float(filter_eps) ** 2)
+        with timed("multiply_filter"):
+            norms = c.block_norms()
+            compress(c, norms ** 2 >= float(filter_eps) ** 2)
     _totals["plan_cache"][c._mm_plan_cache] += 1
     return flops
 
 
 def _spans_for(key, c, a, b, cand_keys, a_ent, b_ent):
-    """The product's spans from the plan cache under ``key``, or built
-    and inserted (C already assembled), with the outcome ("hit", "miss",
-    "uncacheable"); records them in ``c._mm_spans`` and the longest run
-    in the totals."""
-    spans = _cached_spans(key)
-    outcome = "uncacheable" if key is None else "hit" if spans is not None else "miss"
-    if spans is None:
-        spans = _build_spans(c, a, b, cand_keys, a_ent, b_ent)
+    """The product's plan-cache entry under ``key``, or one built (and
+    inserted when ``key`` is not None; C already assembled), with the
+    outcome ("hit", "miss", "uncacheable"); records the spans in
+    ``c._mm_spans`` and the longest run in the totals."""
+    entry = _cached_spans(key)
+    outcome = "uncacheable" if key is None else "hit" if entry is not None else "miss"
+    if entry is None:
+        entry = _CachedSpans(_build_spans(c, a, b, cand_keys, a_ent, b_ent))
         if key is not None:
-            _plan_cache_insert(key, spans)
+            _plan_cache_insert(key, entry)
+    spans = entry.spans
     c._mm_spans = [(sp.m, sp.n, sp.k, sp.entries, sp.driver, sp.plan.max_run) for sp in spans]
     _totals["longest_run"] = max([_totals["longest_run"]] + [sp.plan.max_run for sp in spans])
-    return spans, outcome
+    return entry, outcome
 
 
 def _plan_key(a, b, c, c_fp, retain_sparsity, filter_eps, limits, cand_keys, a_ent, b_ent):
@@ -469,33 +504,71 @@ def _plan_key(a, b, c, c_fp, retain_sparsity, filter_eps, limits, cand_keys, a_e
     return key
 
 
-class _CachedSpans(NamedTuple):
-    spans: list
-    nbytes: int
+class _CachedSpans:
+    """One plan-cache entry: the product's spans, the fused plans of its C
+    bins, built at first use (`superstack_for`; None marks a bin that
+    cannot fuse), and the bytes its plans pin (`refresh_nbytes`)."""
+
+    __slots__ = ("spans", "super_plans", "nbytes")
+
+    def __init__(self, spans):
+        self.spans = spans
+        self.super_plans: dict = {}
+        self.nbytes = 0
+        self.refresh_nbytes()
+
+    def refresh_nbytes(self) -> int:
+        """Recount the bytes of the live plans (a failover heals plans in
+        place); returns the change."""
+        new = sum(sp.plan.nbytes() for sp in self.spans) + sum(
+            splan.nbytes() for _, splan in self.super_plans.values() if splan is not None)
+        delta, self.nbytes = new - self.nbytes, new
+        return delta
+
+    def superstack_for(self, cbin: int, plans, prepare):
+        """The fused plan of C bin ``cbin`` (``prepare(plans)`` at first
+        use), built again whenever the spans' drivers changed since: a
+        failover heals plans in place, which can make a fused plan stale
+        or an unfusable bin fusable (ref
+        `dbcsr_tpu/mm/multiply.py:1721-1758`)."""
+        drivers = tuple(p.driver for p in plans)
+        hit = self.super_plans.get(cbin)
+        if hit is not None and hit[0] == drivers:
+            return hit[1]
+        splan = prepare(plans)
+        self.super_plans[cbin] = (drivers, splan)
+        return splan
 
 
-def _cached_spans(key):
-    """The cached spans of ``key`` (refreshed as most recent), or None."""
+def _cached_spans(key) -> Optional[_CachedSpans]:
+    """The cache entry of ``key`` (refreshed as most recent), or None."""
     if key is None or key not in _plan_cache:
         return None
     _plan_cache.move_to_end(key)
-    return _plan_cache[key].spans
+    return _plan_cache[key]
 
 
-def _plan_cache_insert(key, spans) -> None:
+def _plan_cache_insert(key, entry: _CachedSpans) -> None:
     """Insert with LRU eviction by entry count and by the index bytes
     the cached plans pin (ref `dbcsr_tpu/mm/multiply.py:1760-1777`)."""
     global _plan_cache_bytes
     old = _plan_cache.pop(key, None)
     if old is not None:
         _plan_cache_bytes -= old.nbytes
-    entry = _CachedSpans(spans, sum(sp.plan.nbytes() for sp in spans))
     _plan_cache[key] = entry
     _plan_cache_bytes += entry.nbytes
     while len(_plan_cache) > _PLAN_CACHE_MAX or (
             len(_plan_cache) > 1 and _plan_cache_bytes > _PLAN_CACHE_MAX_BYTES):
         _, evicted = _plan_cache.popitem(last=False)
         _plan_cache_bytes -= evicted.nbytes
+
+
+def _refresh_cached_bytes(key, entry: _CachedSpans) -> None:
+    """Keep the cache's byte count honest after a run that healed plans
+    or built fused plans in place."""
+    global _plan_cache_bytes
+    if key is not None and _plan_cache.get(key) is entry:
+        _plan_cache_bytes += entry.refresh_nbytes()
 
 
 def mask_in_sorted(cand_keys: np.ndarray, sorted_keys: np.ndarray) -> np.ndarray:
@@ -732,25 +805,99 @@ def _build_spans(c, a, b, cand_keys, a_ent, b_ent):
     return spans
 
 
-def _run_stacks(c, a, b, spans, alpha, c_zero: bool = False) -> int:
-    """Execute the prepared spans in order, in place on C's bins; returns
-    the true flops.  ``c_zero``: every C bin is zero (beta = 0, no
-    window), so each bin's first span needs no pristine copy, and under
-    ABFT the product defers those spans' probes to one `abft.flush`; a
-    mismatch there zeroes every bin and redoes the product with immediate
-    checks, where the stack failover localizes and heals it (ref
-    `dbcsr_tpu/mm/multiply.py:1891,1988-2025`)."""
+def _superstack_mode() -> str:
+    """The resolved execution mode of a product's spans: the config's
+    ``superstack``, "auto" meaning "fused" (a bin whose spans can fuse
+    runs as one launch; single-span and unfusable bins run per span
+    either way).  The config validates the field, so a typo raises
+    instead of running fused."""
+    mode = get_config().superstack
+    return "fused" if mode == "auto" else mode
 
-    def exec_spans(defer: bool) -> int:
+
+def _run_stacks(c, a, b, spans, alpha, c_zero: bool = False,
+                cached: Optional[_CachedSpans] = None) -> int:
+    """Execute the prepared spans in order, in place on C's bins; returns
+    the true flops.  Adjacent spans of one C bin run as one fused launch
+    (`acc.smm.execute_superstack`) unless the mode is "per_span" or the
+    bin has a single span; ``cached`` keeps the fused plans (a throwaway
+    entry when None).  Every launch is recorded in `core.stats` by
+    (m, n, k) and driver, with the least bytes it must move (a fused
+    bin's C blocks charged once, to its first span, unless it
+    decomposed) and its host seconds, split over a fused launch's spans
+    by flops.
+    ``c_zero``: every C bin is zero (beta = 0, no window), so each bin's
+    first launch needs no pristine copy, and under ABFT the product
+    defers those launches' probes to one `abft.flush`; a mismatch there
+    zeroes every bin and redoes the product with immediate checks, where
+    the stack failover localizes and heals it (ref
+    `dbcsr_tpu/mm/multiply.py:1891-2025`)."""
+    cached = cached if cached is not None else _CachedSpans(spans)
+    mode = _superstack_mode()
+    # the CPU computes as it is called: only the card needs the fence
+    sync = stats.sync_timing_enabled()
+    fence = sync and c.device.type == "cuda"
+    dt_name = name_of(c.dtype)
+
+    def record(group, seconds: float, fused_runs: Optional[int] = None) -> int:
+        """Charge a launch to its spans' (m, n, k) and drivers: the
+        seconds split by flops, the least bytes each span must move
+        (`costmodel.stack_min_bytes`); a fused launch's C blocks, read
+        and written once, go to its first span (``fused_runs`` of them)."""
+        flops = [2 * sp.m * sp.n * sp.k * sp.entries for sp in group]
+        total = float(sum(flops)) or 1.0
+        for i, sp in enumerate(group):
+            runs = sp.plan.nruns if fused_runs is None else fused_runs if i == 0 else 0
+            stats.record_stack(
+                sp.m, sp.n, sp.k, sp.entries, driver=sp.plan.label,
+                seconds=seconds * flops[i] / total,
+                nbytes=costmodel.stack_min_bytes(dt_name, sp.m, sp.n, sp.k, sp.entries,
+                                                 sp.plan.n_a, sp.plan.n_b, runs),
+                # the roofline takes the dtype the launch computes in
+                dtype=sp.plan.precision[0] if sp.plan.precision else dt_name, sync=sync)
+        return sum(flops)
+
+    def exec_spans(defer: bool):
         zero_bins = set(range(len(c.bins))) if c_zero else set()
-        flops = 0
-        for sp in spans:
-            execute_stack(c.bins[sp.cbin].data, a.bins[sp.abin].data,
-                          b.bins[sp.bbin].data, sp.plan, alpha,
-                          c_zero=sp.cbin in zero_bins, abft_defer=defer)
-            zero_bins.discard(sp.cbin)
-            flops += 2 * sp.m * sp.n * sp.k * sp.entries
-        return flops
+        flops = fused_bins = 0
+        i = 0
+        while i < len(spans):
+            # the spans of one C bin are adjacent (grouped by C bin first)
+            j = i
+            while j < len(spans) and spans[j].cbin == spans[i].cbin:
+                j += 1
+            group = spans[i:j]
+            cbin = group[0].cbin
+            c_data = c.bins[cbin].data
+            splan = None
+            if mode != "per_span" and len(group) > 1:
+                splan = cached.superstack_for(
+                    cbin, [sp.plan for sp in group],
+                    lambda plans: _smm.prepare_superstack(
+                        plans, [(sp.m, sp.n, sp.k) for sp in group], c_data))
+            if splan is not None:
+                t0 = time.perf_counter()
+                _, was_fused = execute_superstack(
+                    c_data, [a.bins[sp.abin].data for sp in group],
+                    [b.bins[sp.bbin].data for sp in group], splan, alpha,
+                    c_zero=cbin in zero_bins, abft_defer=defer)
+                if fence:
+                    torch.cuda.synchronize(c.device)
+                fused_bins += was_fused
+                flops += record(group, time.perf_counter() - t0,
+                                splan.nruns if was_fused else None)
+            else:
+                for sp in group:
+                    t0 = time.perf_counter()
+                    execute_stack(c_data, a.bins[sp.abin].data, b.bins[sp.bbin].data,
+                                  sp.plan, alpha, c_zero=cbin in zero_bins, abft_defer=defer)
+                    if fence:
+                        torch.cuda.synchronize(c.device)
+                    zero_bins.discard(cbin)
+                    flops += record([sp], time.perf_counter() - t0)
+            zero_bins.discard(cbin)
+            i = j
+        return flops, fused_bins
 
     ev = _start_events(c.device) if spans else None
     recovered_from = []
@@ -759,7 +906,7 @@ def _run_stacks(c, a, b, spans, alpha, c_zero: bool = False) -> int:
         if defer:
             abft.discard_pending()
         try:
-            flops = exec_spans(defer)
+            flops, fused_bins = exec_spans(defer)
         except BaseException:
             if defer:  # an aborted product's probes are charged to no later one
                 abft.discard_pending()
@@ -780,6 +927,8 @@ def _run_stacks(c, a, b, spans, alpha, c_zero: bool = False) -> int:
                 bin_.data.zero_()
     for drv in recovered_from:
         abft.record_recovery(drv)
+    if fused_bins:
+        flight.note("fused_bins", fused_bins)
     c._mm_device_events = _stop_events(ev)
     return flops
 

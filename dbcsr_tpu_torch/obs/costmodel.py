@@ -1,9 +1,40 @@
-"""Cost model and tolerances: the subset of `dbcsr_tpu/obs/costmodel.py`
-the stack path uses (its own copy: the port imports nothing of the JAX
-package).
+"""Analytic flop and byte model, roofline peaks, and tolerances: the
+port's copy of `dbcsr_tpu/obs/costmodel.py` (it imports nothing of the
+JAX package).
+
+* **Model**: `stack_flops`/`stack_bytes` of one parameter stack (every
+  entry gathers its A and B block, each C block is read and written
+  once), `superstack_bytes` of one fused C-bin launch (the bin's C
+  round-trip charged once), `dense_cost` of one canvas GEMM, and
+  `format_costs`, the storage-format planner's cost curves.
+  `core.stats` aggregates them per driver, and `obs.metrics.snapshot()`
+  turns them into achieved rates and roofline fractions.
+* **Peaks** per device kind (`peaks_for`, `peak_gflops`, `roofline`):
+  the H100 row holds the data-sheet figures (below); the TPU and CPU
+  rows are the JAX package's engineering estimates, kept so that both
+  packages give the same answer for the same kind.  The overrides are
+  ``DBCSR_TPU_TORCH_ROOFLINE`` (a JSON dict merged over the table) and
+  the scalars ``DBCSR_TPU_TORCH_PEAK_GFLOPS`` / ``DBCSR_TPU_TORCH_PEAK_GBS``.
+* **Tolerances** of the kernel checks, the ABFT probe and the demoted
+  forms.
+
+The JAX package's XLA cost capture has no counterpart (the port
+compiles no XLA program), and its Cannon, mesh and gather tick models
+wait for the port's ``parallel/``.  Stdlib-only at import: `core.stats`
+imports it on the multiply's path; torch is reached in `device_kind`.
 """
 
 from __future__ import annotations
+
+import json
+import os
+
+
+# ---------------------------------------------------------------- model
+def stack_flops(m: int, n: int, k: int, entries: int) -> int:
+    """True flops of one parameter stack: 2*m*n*k per entry (the
+    reference's true flops, `dbcsr_mm.F:664-667`)."""
+    return 2 * m * n * k * entries
 
 # machine epsilon of the accumulation dtype (bf16 accumulates in f32;
 # a complex dtype in its real part's precision)
@@ -33,6 +64,80 @@ def stack_bytes(m: int, n: int, k: int, entries: int, *,
     if nseg is None:
         nseg = entries
     return itemsize * (entries * (m * k + k * n) + 2 * nseg * m * n)
+
+
+def superstack_bytes(span_shapes, *, nseg: int, itemsize: int = 8) -> int:
+    """Modeled traffic of one fused C-bin launch: every span gathers its
+    own A and B blocks, but the bin's C is read and written once for the
+    whole launch.  ``span_shapes`` holds (m, n, k, entries) per span,
+    sharing one (m, n); equals the spans' `stack_bytes` where only the
+    first passes ``nseg`` and the rest pass 0 (the convention
+    `mm.multiply._run_stacks` records)."""
+    gather = 0
+    m = n = 0
+    for m, n, k, entries in span_shapes:
+        gather += entries * (m * k + k * n)
+    return itemsize * (gather + 2 * nseg * m * n)
+
+
+def dense_cost(m: int, n: int, k: int, *, itemsize: int = 8) -> dict:
+    """Flops and bytes of one dense (m,k)x(k,n) canvas product: A and B
+    read once, C written (and read, for the beta merge) once."""
+    flops = 2 * m * n * k
+    nbytes = itemsize * (m * k + k * n + 2 * m * n)
+    return {"flops": flops, "bytes": nbytes,
+            "intensity": flops / nbytes if nbytes else 0.0}
+
+
+def intensity(flops: float, nbytes: float) -> float:
+    """Arithmetic intensity in flops per byte."""
+    return float(flops) / float(nbytes) if nbytes else 0.0
+
+
+# the modeled efficiency of each format against its own roofline (the
+# JAX package's prior: per-entry gathers keep the stack engine far below
+# it, one large GEMM runs near it), and the dispatch cost of a launch
+_FORMAT_EFF = {"stack": 0.10, "dense": 0.70, "composite": 0.55}
+_DISPATCH_S = 5e-5
+
+
+def format_costs(*, nbr: int, nbc: int, nbk: int, bm: int, bn: int, bk: int,
+                 entries: int, nseg: int | None = None, dispatches: int = 1,
+                 panels=None, dtype: str = "float64", itemsize: int = 8,
+                 kind: str | None = None) -> dict:
+    """Modeled seconds and GFLOP/s of one product under each storage
+    format: the stack engine on its ``entries`` block products, the
+    padded dense GEMM of the whole canvas, and (``panels`` the
+    (groups, panel_rows, panel_kblocks) of a composite packing; None:
+    composite infeasible) the composite panels.  Each leg is
+    ``max(flops / peak, bytes / bandwidth) / efficiency + dispatches``
+    on the `peaks_for` row of ``kind`` (the overrides apply)."""
+    kind = kind or device_kind()
+    peak = peak_gflops(kind, dtype) * 1e9
+    bw = peaks_for(kind)["gbs"] * 1e9
+
+    def leg(fmt: str, flops: float, nbytes: float, n_disp: int) -> dict:
+        t_min = max(flops / peak if peak else 0.0, nbytes / bw if bw else 0.0)
+        secs = t_min / _FORMAT_EFF[fmt] + n_disp * _DISPATCH_S
+        return {"flops": int(flops), "bytes": int(nbytes), "seconds": secs,
+                "gflops": flops / secs / 1e9 if secs > 0 else 0.0}
+
+    entries = max(int(entries), 1)
+    dense = dense_cost(nbr * bm, nbc * bn, nbk * bk, itemsize=itemsize)
+    out = {
+        "stack": leg("stack", 2.0 * bm * bn * bk * entries,
+                     stack_bytes(bm, bn, bk, entries, nseg=nseg, itemsize=itemsize),
+                     max(int(dispatches), 1)),
+        "dense": leg("dense", dense["flops"], dense["bytes"], 1),
+        "composite": None,
+    }
+    if panels is not None:
+        groups, mp, kp = (int(panels[0]), int(panels[1]), int(panels[2]))
+        n_el = nbc * bn
+        c_flops = 2.0 * groups * (mp * bm) * n_el * (kp * bk)
+        c_bytes = itemsize * groups * (mp * bm * kp * bk + kp * bk * n_el + 2 * mp * bm * n_el)
+        out["composite"] = leg("composite", c_flops, c_bytes, 1)
+    return out
 
 
 def kernel_validation_tolerance(dtype: str, k: int, depth: int) -> float:
@@ -98,6 +203,7 @@ def demoted_abft_tolerance(dtype: str, compute: str, compensated: bool,
     return max(tol, abft_tolerance(dtype, k, depth))
 
 
+# ------------------------------------------------------- roofline table
 # NVIDIA H100 SXM data sheet, dense rates at the full 700 W power limit:
 # HBM3 bandwidth, and the peak for each operand type (f64: FP64 tensor
 # cores; f32: CUDA cores; bf16: tensor cores); a complex type runs on
@@ -144,3 +250,125 @@ def crosspack_entries(plan) -> int:
     (the counterpart of the JAX package's `crosspack_launch_entries`,
     whose slots are the packed steps with their padding)."""
     return int(plan.pack[0] * plan.pack_longest.sum())
+
+
+# Peaks per device kind, matched by lowercase substring of the device's
+# name ("NVIDIA H100 80GB HBM3" -> "h100"): "gflops" per dtype, "gbs" the
+# device memory's bandwidth, "ici_gbs" the interconnect's.  The H100 row
+# is the data sheet's (above; NVLink 450 GB/s each way); the TPU and CPU
+# rows are the JAX package's estimates, kept so that both packages give
+# the same answer for the same kind.
+_PEAKS: dict = {
+    "h100": {"gflops": {d: H100_PEAK_FLOPS[d] / 1e9
+                        for d in ("bfloat16", "float32", "float64")},
+             "gbs": H100_BYTES_PER_S / 1e9, "ici_gbs": 450.0},
+    "tpu v6": {"gflops": {"bfloat16": 918000.0, "float32": 229000.0, "float64": 7000.0},
+               "gbs": 1640.0, "ici_gbs": 448.0},
+    "tpu v5p": {"gflops": {"bfloat16": 459000.0, "float32": 115000.0, "float64": 5000.0},
+                "gbs": 2765.0, "ici_gbs": 600.0},
+    "tpu v5 lite": {"gflops": {"bfloat16": 197000.0, "float32": 49000.0, "float64": 3000.0},
+                    "gbs": 819.0, "ici_gbs": 200.0},
+    "tpu v4": {"gflops": {"bfloat16": 275000.0, "float32": 69000.0, "float64": 4000.0},
+               "gbs": 1228.0, "ici_gbs": 300.0},
+    "cpu": {"gflops": {"bfloat16": 100.0, "float32": 100.0, "float64": 50.0},
+            "gbs": 20.0, "ici_gbs": 20.0},
+}
+_DEFAULT_PEAK = {"gflops": {"float64": 100.0, "float32": 200.0, "bfloat16": 200.0},
+                 "gbs": 100.0, "ici_gbs": 100.0}
+
+_env_table = None  # DBCSR_TPU_TORCH_ROOFLINE, parsed once
+_kind = None  # the default device's name, read once
+
+
+def _env_overrides() -> dict:
+    global _env_table
+    if _env_table is None:
+        raw = os.environ.get("DBCSR_TPU_TORCH_ROOFLINE", "")
+        try:
+            _env_table = json.loads(raw) if raw else {}
+        except ValueError:
+            _env_table = {}
+    return _env_table
+
+
+def device_kind() -> str:
+    """The default device's kind: `torch.cuda.get_device_name(0)` where
+    CUDA is available, else "cpu"."""
+    global _kind
+    if _kind is None:
+        import torch
+
+        _kind = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu"
+    return _kind
+
+
+def peaks_for(kind: str | None = None) -> dict:
+    """The peak row of a device kind: the longest matching key of the
+    table with the overrides folded in; an unknown kind gets the
+    conservative default row."""
+    kind = (kind or device_kind()).lower()
+    table = dict(_PEAKS)
+    for key, row in _env_overrides().items():
+        base = dict(table.get(key.lower(), _DEFAULT_PEAK))
+        gf = dict(base.get("gflops", {}))
+        gf.update(row.get("gflops", {}))
+        base.update(row)
+        base["gflops"] = gf
+        table[key.lower()] = base
+    best = None
+    for key, row in table.items():
+        if key in kind and (best is None or len(key) > len(best[0])):
+            best = (key, row)
+    entry = dict(best[1]) if best else dict(_DEFAULT_PEAK)
+    env_gf = os.environ.get("DBCSR_TPU_TORCH_PEAK_GFLOPS")
+    if env_gf:
+        entry["gflops"] = {d: float(env_gf) for d in
+                           set(entry["gflops"]) | {"float64", "float32"}}
+    env_bw = os.environ.get("DBCSR_TPU_TORCH_PEAK_GBS")
+    if env_bw:
+        entry["gbs"] = float(env_bw)
+    return entry
+
+
+def peak_gflops(kind: str | None = None, dtype: str = "float64") -> float:
+    """Peak compute of a dtype on a device kind.  A complex dtype takes
+    its real part's peak over 4 (a complex multiply-add is 4 real ones,
+    and the engine counts 2*m*n*k flops whatever the dtype)."""
+    gf = peaks_for(kind)["gflops"]
+    dtype = str(dtype)
+    if dtype in gf:
+        return float(gf[dtype])
+    if dtype == "complex64":
+        return float(gf.get("float32", _DEFAULT_PEAK["gflops"]["float32"])) / 4
+    if dtype == "complex128":
+        return float(gf.get("float64", _DEFAULT_PEAK["gflops"]["float64"])) / 4
+    if dtype == "float16":
+        return float(gf.get("bfloat16", gf.get("float32", 100.0)))
+    return float(gf.get("float32", _DEFAULT_PEAK["gflops"]["float32"]))
+
+
+def roofline(flops: float, nbytes: float, seconds: float,
+             kind: str | None = None, dtype: str = "float64") -> dict:
+    """Roofline attribution of one measured region: achieved GFLOP/s,
+    arithmetic intensity, the attainable rate at that intensity
+    (``min(peak compute, intensity * bandwidth)``) and the achieved
+    fraction of it."""
+    kind = kind or device_kind()
+    entry = peaks_for(kind)
+    peak = peak_gflops(kind, dtype)
+    inten = intensity(flops, nbytes)
+    attainable = min(peak, inten * entry["gbs"]) if nbytes else peak
+    achieved = flops / seconds / 1e9 if seconds > 0 else 0.0
+    return {
+        "device_kind": kind,
+        "dtype": str(dtype),
+        "achieved_gflops": achieved,
+        "arithmetic_intensity": inten,
+        "peak_gflops": peak,
+        "peak_gbs": entry["gbs"],
+        "attainable_gflops": attainable,
+        "roofline_fraction": achieved / attainable if attainable else 0.0,
+        "bytes_moved": int(nbytes),
+        "flops": int(flops),
+        "seconds": seconds,
+    }

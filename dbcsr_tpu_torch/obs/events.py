@@ -5,13 +5,18 @@ calls.  `mm.multiply` opens a ``product_id`` per multiply
 (`product_scope`: `begin_product`, a flight record, then `end_product`;
 nested multiplies form a per-thread stack), and every event published
 while it is open carries it.  `publish` appends the event to a bounded
-ring (`records`), forwards it to the flight recorder when asked
-(``flight=``) and calls the subscribers.
+ring (`records`), writes it to the JSONL sink when one is open, forwards
+it to the span tracer as an instant and to the flight recorder when
+asked (``flight=``), and calls the subscribers.
 
-Not ported yet (`ROADMAP.md`, obs): the JSONL sink, the process shard
-naming, `rebind`, the tracer instants and the health and telemetry
-feeds of `end_product`.  The ring holds ``RING_SIZE`` events; there is
-no environment switch (`set_enabled` turns the ring off).
+The sink: ``DBCSR_TPU_TORCH_EVENTS=<base path>`` at import, or
+`enable_sink(base)`, streams every record to the process's shard
+``<base>.p{index}<ext>`` (`obs.shard`; a provisional name until the
+index is known, settled by `rebind` or at close).
+``DBCSR_TPU_TORCH_EVENTS=0`` (or ``off``) turns the bus off; then
+`publish` only forwards to the tracer and the flight recorder.  The ring
+holds ``RING_SIZE`` events.  Not ported yet (`ROADMAP.md`, obs): the
+health and telemetry feeds of `end_product`.
 
 Stdlib-only.
 """
@@ -25,12 +30,18 @@ import threading
 import time
 import uuid
 
+import atexit
+import json
+
 from dbcsr_tpu_torch.obs import flight as _flight
+from dbcsr_tpu_torch.obs import shard as _shard
+from dbcsr_tpu_torch.obs import tracer as _trace
 
 RING_SIZE = 4096
 
 _lock = threading.Lock()
-_enabled = True
+_env = os.environ.get("DBCSR_TPU_TORCH_EVENTS", "")
+_enabled = _env not in ("0", "off")
 _ring: collections.deque = collections.deque(maxlen=RING_SIZE)
 _seq = 0
 _subscribers: list = []
@@ -40,6 +51,13 @@ _subscribers: list = []
 _product_tls = threading.local()
 _product_seq = 0
 _TOKEN = f"{os.getpid():x}-{uuid.uuid4().hex[:6]}"
+
+# the JSONL sink: its open stream (None: no sink), its base path and
+# shard path, and whether the shard has its final name
+_sink = None
+_sink_base: str | None = None
+_sink_path: str | None = None
+_sink_pid_final = False
 
 
 def _pstack() -> list:
@@ -133,18 +151,22 @@ def product_scope(op: str, name: str, **flight_fields):
     end_product(rec=_flight.commit())
 
 
-def publish(kind: str, args: dict | None = None, *, flight=False) -> dict | None:
+def publish(kind: str, args: dict | None = None, *, instant: bool = True,
+            flight=False) -> dict | None:
     """Publish one event: stamp the open ``product_id`` unless the
-    payload has one, forward a flight-recorder event when ``flight`` is
-    True (the kind and payload) or a ``(name, fields)`` pair, and append
-    ``{"seq", "t", "event": kind, **args}`` to the ring.  Returns the
-    ring record (None when the bus is off)."""
+    payload has one, forward a tracer instant of the same name
+    (``instant``) and a flight-recorder event when ``flight`` is True
+    (the kind and payload) or a ``(name, fields)`` pair, and append
+    ``{"seq", "t", "event": kind, **args}`` to the ring and the sink.
+    Returns the ring record (None when the bus is off)."""
     global _seq
     args = args or {}
     if args.get("product_id") is None:
         pid = current_product()
         if pid is not None:
             args = dict(args, product_id=pid)
+    if instant:
+        _trace.instant(kind, args or None)
     if flight:
         if flight is True:
             fname, ffields = kind, {k: v for k, v in args.items() if k != "product_id"}
@@ -160,6 +182,11 @@ def publish(kind: str, args: dict | None = None, *, flight=False) -> dict | None
         rec = {"seq": _seq, "t": time.time(), **args, "event": kind}
         rec.setdefault("product_id", None)
         _ring.append(rec)
+        if _sink is not None:
+            try:
+                _sink.write(json.dumps(rec, default=str) + "\n")
+            except OSError:
+                pass  # a full disk must not fail the multiply
     for fn in list(_subscribers):
         try:
             fn(rec)
@@ -188,3 +215,73 @@ def clear() -> None:
     must not orphan its id)."""
     with _lock:
         _ring.clear()
+
+
+# ---------------------------------------------------------------- the sink
+def sink_active() -> bool:
+    return _sink is not None
+
+
+def sink_path() -> str | None:
+    """The open sink's shard file, or None."""
+    return _sink_path
+
+
+def enable_sink(base_path: str | None = None) -> str:
+    """Open the JSONL sink at ``base_path`` (default
+    ``$DBCSR_TPU_TORCH_EVENTS``), sharded per process; turns the bus on
+    and returns the shard's path."""
+    global _sink, _sink_base, _sink_path, _sink_pid_final
+    base_path = base_path or os.environ.get("DBCSR_TPU_TORCH_EVENTS")
+    if not base_path or base_path in ("0", "off"):
+        raise ValueError("no events sink path: pass one or set DBCSR_TPU_TORCH_EVENTS")
+    disable_sink()
+    set_enabled(True)
+    pid = _shard.process_index()
+    with _lock:
+        _sink_base = base_path
+        _sink_pid_final = pid is not None
+        _sink_path = _shard.shard_path(base_path,
+                                       pid if pid is not None else _shard.provisional_tag())
+        _sink = open(_sink_path, "a")
+    return _sink_path
+
+
+def disable_sink() -> None:
+    """Close the sink, settling a provisional shard on index 0."""
+    global _sink
+    rebind(force=True)
+    with _lock:
+        if _sink is not None:
+            _sink.close()
+            _sink = None
+
+
+def rebind(process_index: int | None = None, force: bool = False) -> None:
+    """Settle a provisional sink shard onto its ``p{index}`` name (the
+    rank of a joined `torch.distributed` group, or ``process_index``;
+    ``force`` settles on 0)."""
+    global _sink, _sink_path, _sink_pid_final
+    with _lock:
+        if _sink is None or _sink_pid_final:
+            return
+        if process_index is None:
+            process_index = _shard.process_index()
+        if process_index is None:
+            if not force:
+                return
+            process_index = 0
+        _sink_pid_final = True
+        _sink_path, _sink = _shard.settle(_sink_base, _sink_path, _sink, int(process_index))
+
+
+@atexit.register
+def _atexit_close() -> None:  # pragma: no cover - process teardown
+    try:
+        disable_sink()
+    except OSError:
+        pass
+
+
+if _enabled and _env:
+    enable_sink(_env)

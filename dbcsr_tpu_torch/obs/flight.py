@@ -5,19 +5,24 @@ record (`begin`, through `obs.events.product_scope`), the engine and the
 integrity plane fill it (`note`, `note_driver`, `note_event`: injected
 faults, driver failures, failovers, breaker transitions, ABFT mismatches
 and recoveries, chain rollbacks), and `commit` stamps its duration and
-appends it to a ring of the last ``RING_SIZE`` products.  Records nest
-(a TAS split runs multiplies inside a contraction).
+the memory high-water (`core.stats.memory_high_water`), appends it to a
+ring of the last ``RING_SIZE`` products and folds it into the profile
+epochs (`obs.profiler.observe`).  Records nest (a TAS split runs
+multiplies inside a contraction).  `dump` prints the ring and writes it
+as JSON.
 
 The port's record carries the multiply's host seconds per phase
 (``phases_ms``, from ``c._mm_phase_s``) instead of the JAX package's
-timer deltas, and no memory high-water; there is no ``dump``.
+timer deltas.
 
-Stdlib-only.
+Stdlib-only at import.
 """
 
 from __future__ import annotations
 
 import collections
+import json
+import sys
 import time
 
 RING_SIZE = 32
@@ -78,7 +83,12 @@ def commit(error: str | None = None) -> dict | None:
     rec["dur_ms"] = round((time.perf_counter() - rec.pop("_t0")) * 1e3, 3)
     if error is not None:
         rec["error"] = error
+    from dbcsr_tpu_torch.core import stats
+    from dbcsr_tpu_torch.obs import profiler
+
+    rec["memory"] = stats.memory_high_water()
     _ring.append(rec)
+    profiler.observe(rec)
     return rec
 
 
@@ -90,3 +100,33 @@ def records() -> list:
 def clear() -> None:
     _ring.clear()
     _current.clear()
+
+
+def to_json() -> str:
+    return json.dumps(records(), default=str)
+
+
+def dump(path: str | None = None, out=None) -> None:
+    """Print the ring, newest last (to stderr unless ``out`` is given),
+    one line per multiply; ``path`` also receives the full JSON."""
+    if out is None:
+        def out(line):
+            print(line, file=sys.stderr)
+    recs = records()
+    out(f" FLIGHT RECORDER -- last {len(recs)} multiplies (capacity {_ring.maxlen})")
+    for r in recs:
+        mnk = r.get("mnk") or (r.get("m", "?"), r.get("n", "?"), r.get("k", "?"))
+        drv = ",".join(f"{d}x{v['stacks']}({v['why']})"
+                       for d, v in sorted(r.get("drivers", {}).items())) or r.get("algorithm", "-")
+        phases = " ".join(f"{k}={v:.1f}" for k, v in (r.get("phases_ms") or {}).items())
+        err = f"  ERROR={r['error']}" if r.get("error") else ""
+        if r.get("events"):
+            kinds = ",".join(sorted({e["event"] for e in r["events"]}))
+            err += f"  events={len(r['events'])}({kinds})"
+        out(f"  #{r['seq']} {r.get('name', '?')} {mnk[0]}x{mnk[1]}x{mnk[2]} "
+            f"alg={r.get('algorithm', '?')} drivers=[{drv}] eps={r.get('filter_eps')} "
+            f"{r.get('dur_ms', 0):.1f} ms [{phases}]{err}")
+    if path:
+        with open(path, "w") as f:
+            f.write(to_json())
+        out(f"  (full JSON written to {path})")

@@ -214,7 +214,8 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
         # stack format
         "plan_cache": cache,
         # kernel launches over all repeats by kernel (first-use
-        # validations included), calls of the plain versions, and the
+        # validations included; "smm_superstack" the fused C-bin
+        # launches of K1), calls of the plain versions, and the
         # last repeat's spans as (m, n, k, entries, kernel, longest run)
         "launches": launches,
         "spans": c_run._mm_spans,
@@ -256,6 +257,7 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
 
 def _launch_counts() -> dict:
     return {"smm_stack": stack_kernel.launches,
+            "smm_superstack": stack_kernel.superstack_launches,
             "smm_crosspack": crosspack_kernel.launches_cross,
             "smm_crosspack_resident": crosspack_kernel.launches_resident,
             "plain": stack_kernel.plain_calls + crosspack_kernel.plain_calls}

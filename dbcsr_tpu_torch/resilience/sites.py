@@ -1,9 +1,9 @@
 """Registry of the fault-injection sites the port has.
 
 A copy of `dbcsr_tpu/resilience/sites.py`, limited to the sites that
-exist in the port: the stack launch, the stack planning, the canvas
-(dense and composite) formats and the incremental splice.  The JAX
-package's superstack, format planner, mesh, TAS tick, probe,
+exist in the port: the stack launch, the fused C-bin launch, the stack
+planning, the canvas (dense and composite) formats, the storage-format
+planner and the incremental splice.  The JAX package's mesh, TAS tick, probe,
 attribution, serving, fleet and tuner sites come back with their
 modules (`ROADMAP.md`, Queue 1).  Every literal site the port passes to `faults.maybe_inject`
 or `faults.corrupt` is registered here (`tests/test_torch_resilience.py`
@@ -20,6 +20,12 @@ SITES = {
         "boundary": "`acc.smm.execute_stack` per driver launch",
         "corruptible": True, "chaos": True, "dynamic": False,
     },
+    "execute_superstack": {
+        "boundary": "`acc.smm.execute_superstack` per fused C-bin launch",
+        # corruption honoured at the fused boundary, kept out of the
+        # randomized chaos draw as in the JAX package
+        "corruptible": True, "chaos": False, "dynamic": False,
+    },
     "prepare_stack": {
         "boundary": "`acc.smm.prepare_stack` (host-side planning)",
         "corruptible": False, "chaos": True, "dynamic": False,
@@ -29,6 +35,13 @@ SITES = {
                     "dense AND the batched composite panels share this "
                     "site: one failover, one corruption hook)",
         "corruptible": True, "chaos": True, "dynamic": False,
+    },
+    "format_plan": {
+        "boundary": "the storage-format planner's decision "
+                    "(`mm.format_planner.choose`): a fault degrades the "
+                    "plan to the stack format for that product only, never "
+                    "cached (label `name`)",
+        "corruptible": False, "chaos": True, "dynamic": False,
     },
     "incremental": {
         "boundary": "`mm.incremental._execute_splice` (the delta-aware "

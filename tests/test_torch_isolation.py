@@ -65,7 +65,8 @@ print(len(mods), "modules:", " ".join(mods))
 # model loops with the operations, digests and residency chain they use,
 # the native index engine and the storage-format planner, and the
 # integrity plane (faults, breakers, ABFT, events, chain guard), the
-# precision planner and the incremental multiply
+# precision planner and the incremental multiply, and the statistics,
+# tracer, profile epochs, library lifecycle and knob registry
 _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.crosspack",
              "dbcsr_tpu_torch.acc.crosspack_kernel", "dbcsr_tpu_torch.acc.params",
              "dbcsr_tpu_torch.acc.smm", "dbcsr_tpu_torch.acc.stack_kernel",
@@ -84,7 +85,10 @@ _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.cro
              "dbcsr_tpu_torch.obs.metrics", "dbcsr_tpu_torch.obs.events",
              "dbcsr_tpu_torch.obs.flight", "dbcsr_tpu_torch.models.integrity",
              "dbcsr_tpu_torch.acc.precision", "dbcsr_tpu_torch.mm.incremental",
-             "dbcsr_tpu_torch.core.kinds"}
+             "dbcsr_tpu_torch.core.kinds", "dbcsr_tpu_torch.core.stats",
+             "dbcsr_tpu_torch.core.lib", "dbcsr_tpu_torch.core.knobs",
+             "dbcsr_tpu_torch.obs.shard", "dbcsr_tpu_torch.obs.tracer",
+             "dbcsr_tpu_torch.obs.profiler"}
 
 
 def _env(**extra):
@@ -98,7 +102,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          env=_env(), capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, _, names = out.stdout.partition("modules:")
-    assert int(count) >= 46
+    assert int(count) >= 52
     assert _REQUIRED <= set(names.split())
 
 
