@@ -181,6 +181,37 @@ non-zero:
    under `torch.profiler` (the device's busy and idle share of the
    traced window); the north star with the tracer on and off in turns.
 
+23. acc_bench (after incremental, from the committed tuned table):
+   `acc.bench.bench_smm` at 23^3 in f64, f32 and bf16, at 30000 entries
+   and at the north star's span size (`acc.tune.NORTHSTAR_SPAN`), and
+   `bench_trans` at 23^2 f64: ms, GFLOP/s, both byte conventions, the
+   share of the least time (`stack_bound_s`), the kernel that ran, each
+   validated against a float64 host oracle (errors must be 0);
+24. tune: `acc.tune.tune_smm` on (23,23,23) f64 and f32 and (5,13,23)
+   f64 into a temporary table: every candidate a hand-written kernel,
+   checked against its plain version, none failing; each candidate's
+   GFLOP/s and error, and the winner;
+25. tuned: the north star (f64 and f32, its operands kept from the
+   northstar phase), `mixed_blocks` f64, `test_H2O` f32 and the sign
+   loop at 2208^2, from the committed table and from none in turns
+   (`TUNED_PAIRS` pairs): s per multiply (median of the repeats after
+   the first) or per loop, launches per kernel, fused and per-span
+   dispatches, checksums against the untuned run (1e-9, 1e-6 at f32;
+   the sign loop's iterate 10 * filter_eps); every span of a table run
+   must have an exact row, and every kernel the table names must launch
+   (a bench at one of its rows where no workload reaches it);
+26. api (no table: f64 takes K1, f32 K3): `run_tests` with ``TEST_MM``
+   at f64 and f32 and with ``TEST_BINARY_IO`` on the card; the north
+   star's A through `binary_write`/`binary_read` and through
+   `csr_from_matrix`/`matrix_from_csr` (the native COO fill), both bit
+   for bit; `hadamard_product` and `function_of_elements` against
+   their values on the CPU.
+
+Phases 1-22 run with an empty tuned-table directory, so on the untuned
+rules, as before the committed table existed; every phase line names
+the table it ran from (``"table"``: "none", "committed" or
+"temporary").
+
 The phases before `incremental` run with ``incremental="off"``, as the
 perf driver's repeats do: they time the engine.  Every phase but
 resilience, integrity and incremental injects nothing and must end with
@@ -215,12 +246,15 @@ from dbcsr_tpu_torch import native
 from dbcsr_tpu_torch.acc import abft, build, crosspack_kernel, params, stack_kernel
 from dbcsr_tpu_torch.acc import precision as port_precision
 from dbcsr_tpu_torch.acc import smm as port_smm
+from dbcsr_tpu_torch.acc.bench import bench_smm, bench_trans
 from dbcsr_tpu_torch.acc.crosspack import choose_pack, resident_limit_bytes
 from dbcsr_tpu_torch.acc.smm import prepare_stack
+from dbcsr_tpu_torch.acc.tune import NORTHSTAR_SPAN, tune_smm
 from dbcsr_tpu_torch.core import mempool, timings
 from dbcsr_tpu_torch.core.config import set_config
 from dbcsr_tpu_torch.core.kinds import dtype_of, name_of
-from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
+from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix, _Bin
+from dbcsr_tpu_torch.interop import matrix_from_numpy_state, matrix_to_numpy_state
 from dbcsr_tpu_torch.device import resolve_device
 from dbcsr_tpu_torch.mm import incremental as port_inc
 from dbcsr_tpu_torch.mm import multiply as mm
@@ -248,7 +282,11 @@ from dbcsr_tpu_torch.ops.operations import (
     scale,
     trace,
 )
-from dbcsr_tpu_torch.ops.test_methods import make_random_matrix
+from dbcsr_tpu_torch.ops.csr import csr_from_matrix, matrix_from_csr
+from dbcsr_tpu_torch.ops.io import binary_read, binary_write
+from dbcsr_tpu_torch.ops.operations import FUNC_TANH, function_of_elements, hadamard_product
+from dbcsr_tpu_torch.ops.test_methods import checksum, make_random_matrix
+from dbcsr_tpu_torch.ops.tests import TEST_BINARY_IO, TEST_MM, run_tests
 from dbcsr_tpu_torch.obs import costmodel as port_costmodel
 from dbcsr_tpu_torch.obs import events, metrics, profiler
 from dbcsr_tpu_torch.obs import tracer as obs_tracer
@@ -298,8 +336,29 @@ def _require(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+# the committed parameter tables (`dbcsr_tpu_torch/acc/params/`)
+TABLE_DIR = os.path.join(ROOT, "dbcsr_tpu_torch", "acc", "params")
+
+
+def _table_label() -> str:
+    """Which tuned table dispatch reads: "none" (no table for this card
+    in the directory in force), "committed" or "temporary"."""
+    path = params.params_path()
+    if not os.path.exists(path):
+        return "none"
+    return "committed" if os.path.dirname(path) == TABLE_DIR else "temporary"
+
+
+def _use_table(directory: str) -> None:
+    """Point dispatch at the tuned table of ``directory`` (plans cached
+    under another table miss: the plan key holds the table's path and
+    generation)."""
+    os.environ["DBCSR_TPU_TORCH_PARAMS_DIR"] = directory
+    params.invalidate()
+
+
 def _emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    print(json.dumps({**obj, "table": obj.get("table", _table_label())}), flush=True)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -2965,11 +3024,361 @@ def phase_incremental() -> dict:
     return {"smm_stack": k1, "smm_crosspack": k3}
 
 
+# ------------------------------------------------- the acc layer and the API
+ACC_BENCH_NREP = 5
+ACC_BENCH_DTYPES = (3, 1, 9)  # f64, f32, bf16
+TUNE_SHAPES = ((23, 23, 23, 3), (23, 23, 23, 1), (5, 13, 23, 3))
+TUNED_PAIRS = 3
+TUNED_NREP = 3
+
+
+def _add_counts(total: dict, counts: dict) -> dict:
+    for key, n in counts.items():
+        total[key] = total.get(key, 0) + n
+    return total
+
+
+def phase_acc_bench() -> dict:
+    """`bench_smm` at 23^3 in f64, f32 and bf16 at 30000 entries and at
+    the north star's span size, and `bench_trans` at 23^2 f64: times,
+    rates, both byte conventions and the share of the least time, from
+    the table in force (the committed one)."""
+    _reset_counts()
+    rows = []
+    for dt in ACC_BENCH_DTYPES:
+        for size in (30000, NORTHSTAR_SPAN):
+            r = bench_smm(nrep=ACC_BENCH_NREP, stack_size=size, m=23, n=23, k=23,
+                          dtype_enum=dt, out=lambda *_: None)
+            _require(r["errors"] == 0, f"acc_bench {r['dtype']} {size}: max rel err "
+                                       f"{r['max_rel_err']:.3e}")
+            bound_s, by = stack_bound_s(r["dtype"], 23, 23, 23, r["entries"], r["n_a"],
+                                        r["n_b"], r["nruns"])
+            rows.append({k: r[k] for k in ("kernel", "dtype", "stack_size", "device_kind", "ms",
+                                           "gflops", "gbs", "bytes", "min_bytes", "min_gbs",
+                                           "max_rel_err", "errors", "timed", "driver",
+                                           "variant", "launched", "pack", "nruns")}
+                        | {"bound_ms": bound_s * 1e3, "bound_by": by,
+                           "share_of_bound": bound_s * 1e3 / r["ms"]})
+    tr = bench_trans(nrep=ACC_BENCH_NREP, stack_size=30000, m=23, n=23, dtype_enum=3,
+                     out=lambda *_: None)
+    _require(tr["errors"] == 0, "acc_bench: the block transpose disagrees")
+    tr["bound_ms"] = tr["bytes"] / H100_BYTES_PER_S * 1e3
+    tr["share_of_bound"] = tr["bound_ms"] / tr["ms"]
+    counts = _counts()
+    _require(counts["plain"] == 0, f"acc_bench: the plain versions ran: {counts}")
+    _emit({"phase": "acc_bench", "nrep": ACC_BENCH_NREP, "smm": rows, "trans": tr,
+           "launches": counts})
+    return counts
+
+
+def phase_tune() -> dict:
+    """`tune_smm` on `TUNE_SHAPES` into a temporary table: every
+    candidate a hand-written kernel, each checked against its plain
+    version, none failing."""
+    prev = os.environ.get("DBCSR_TPU_TORCH_PARAMS_DIR")
+    shapes = []
+    _reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        _use_table(tmp)
+        try:
+            for m, n, k, dt in TUNE_SHAPES:
+                cands, lines = [], []
+                t0 = time.perf_counter()
+                entry = tune_smm(m, n, k, dt, 30000, 3, out=lines.append,
+                                 candidates_out=cands)
+                _require(entry["errors"] == 0,
+                         f"tune {m}x{n}x{k} {entry['dtype']}: {entry['failures']}")
+                _require(cands and all(c["driver"] == "pallas" for c in cands),
+                         f"tune {m}x{n}x{k}: a candidate on the card is no kernel: {cands}")
+                shapes.append({"shape": [m, n, k], "dtype": entry["dtype"],
+                               "stack_size": 30000, "seconds": time.perf_counter() - t0,
+                               "winner": {key: entry.get(key) for key in
+                                          ("kernel", "driver", "variant", "grouping",
+                                           "pack_p", "precision", "gflops", "env")},
+                               "candidates": [{key: c.get(key) for key in
+                                               ("candidate", "kernel", "gflops", "max_rel_err",
+                                                "tol")} for c in cands],
+                               "refused": entry["refused"]})
+            with open(params.params_path()) as f:
+                written = json.load(f)
+            _require(len(written) == len(TUNE_SHAPES),
+                     f"tune: {len(written)} rows written for {len(TUNE_SHAPES)} shapes")
+        finally:
+            if prev is None:
+                os.environ.pop("DBCSR_TPU_TORCH_PARAMS_DIR", None)
+            else:
+                os.environ["DBCSR_TPU_TORCH_PARAMS_DIR"] = prev
+            params.invalidate()
+    counts = _counts()
+    _emit({"phase": "tune", "table": "temporary", "shapes": shapes, "launches": counts})
+    return counts
+
+
+def _converted(m, dtype):
+    """``m`` with its values rounded to ``dtype`` (the perf driver draws
+    float64 values and rounds them to the input's dtype, so this is the
+    operand `run_perf` draws at that dtype)."""
+    out = BlockSparseMatrix(m.name, m.row_blk_sizes, m.col_blk_sizes, dtype, m.dist,
+                            m.matrix_type, device=m.device)
+    out.set_structure_from_device(m.keys.copy(), [_Bin(b.shape, b.data.to(dtype), b.count)
+                                                  for b in m.bins],
+                                  binning=(m.ent_bin.copy(), m.ent_slot.copy(),
+                                           [b.shape for b in m.bins]))
+    return out
+
+
+def _span_rows(spans, dtype) -> list:
+    """Each span with the kernel of the table's exact row for it (None:
+    no row, so a donor or the untuned rules steer it) and that row's
+    stack size."""
+    out = []
+    for m, n, k, entries, kernel, _ in spans:
+        row = params.lookup(m, n, k, dtype, entries)
+        out.append({"shape": [m, n, k], "entries": entries, "kernel": kernel,
+                    "row_kernel": row.get("kernel") if row else None,
+                    "row_stack_size": row.get("stack_size") if row else None})
+    return out
+
+
+def _tuned_run(name: str, a, b, dtype_name: str) -> dict:
+    """``TUNED_NREP`` products C = A B (beta 0) under the table in force:
+    s per multiply (median of the repeats after the first, which
+    validates new kernel shapes and misses the plan cache), launches per
+    kernel, dispatches by mode, the spans and C's checksum."""
+    disp0 = _dispatches()
+    _reset_counts()
+    times = []
+    for _ in range(TUNED_NREP):
+        c = BlockSparseMatrix("C", a.row_blk_sizes, b.col_blk_sizes, a.dtype, device=a.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = _counts()
+    disp = {k: v - disp0[k] for k, v in _dispatches().items()}
+    _require(counts["plain"] == 0, f"tuned {name}: the plain versions ran: {counts}")
+    return {"s_per_multiply": float(np.median(times[1:])), "times_s": times,
+            "host_phase_s": dict(c._mm_phase_s), "launches": counts, "dispatches": disp,
+            "spans": _span_rows(c._mm_spans, dtype_name), "checksum": checksum(c),
+            "plan_cache": c._mm_plan_cache}
+
+
+def phase_tuned(ns_a, ns_b) -> dict:
+    """The workloads from the committed table and from none, in turns
+    (`TUNED_PAIRS` pairs, alternating which runs first): the north star
+    at f64 and f32, `mixed_blocks` at f64, `test_H2O` at f32 and the
+    sign loop at 2208^2.  Each run against the
+    untuned one (checksums 1e-9, 1e-6 at f32; the sign loop's iterate
+    10 * filter_eps); every span of the table's runs has an exact row;
+    every kernel the table names launches in this phase (a row's own
+    bench where no workload reaches it)."""
+    committed = os.path.join(TABLE_DIR, os.path.basename(params.params_path()))
+    _require(os.path.exists(committed), f"tuned: no committed table {committed}")
+    with open(committed) as f:
+        table_rows = json.load(f)
+    none_dir = os.environ["DBCSR_TPU_TORCH_PARAMS_DIR"]
+    # the operands: the north star's at f64 and f32, mixed_blocks' and
+    # test_H2O's as `run_perf` draws them (the checksum gate runs there)
+    mixed = run_perf(_mixed_cfg(3, 1), verbose=False)
+    h2o_cfg = parse_perf_file(os.path.join(INPUTS, "test_H2O.perf"))
+    h2o_cfg.data_type, h2o_cfg.nrep, h2o_cfg.check = 1, 1, False
+    h2o = run_perf(h2o_cfg, verbose=False)
+    products = {"northstar_f64": (ns_a, ns_b, "float64", 1e-9),
+                "northstar_f32": (_converted(ns_a, torch.float32),
+                                  _converted(ns_b, torch.float32), "float32", 1e-6),
+                "mixed_blocks_f64": (*_operands(mixed, _mixed_cfg(3, 1))[:2], "float64", 1e-9),
+                "test_H2O_f32": (*_operands(h2o, h2o_cfg)[:2], "float32", 1e-6)}
+    del mixed, h2o
+    p0 = make_test_density(MODEL_BLOCKS, MODEL_BLOCK, occ=0.2, seed=MODEL_SEED)
+    _, loops = _model_loops(p0, SIGN_STEPS, SIGN_EPS)
+    runs = {name: {"table": [], "none": []} for name in [*products, "sign"]}
+    table_launches: dict = {}
+    try:
+        for pair in range(TUNED_PAIRS):
+            for which in (("table", "none") if pair % 2 == 0 else ("none", "table")):
+                _use_table(TABLE_DIR if which == "table" else none_dir)
+                for name, (a, b, dtn, _) in products.items():
+                    run = _tuned_run(name, a, b, dtn)
+                    runs[name][which].append(run)
+                    if which == "table":
+                        _add_counts(table_launches, run["launches"])
+                disp0 = _dispatches()
+                (x, hist), info = _drive("auto", loops["sign"])
+                runs["sign"][which].append({
+                    "s_per_loop": info["wall_s"], "host_phase_s": info["host_phase_s"],
+                    "launches": info["launches"],
+                    "dispatches": {k: v - disp0[k] for k, v in _dispatches().items()},
+                    "history": hist, "x": x})
+                if which == "table":
+                    _add_counts(table_launches, info["launches"])
+    finally:
+        _use_table(none_dir)
+    out = {}
+    for name, (_, _, dtn, tol) in products.items():
+        ref = runs[name]["none"][0]["checksum"]
+        for which in ("table", "none"):
+            for run in runs[name][which]:
+                run["checksum_rel"] = abs(run["checksum"] - ref) / max(abs(ref), 1.0)
+                _require(run["checksum_rel"] <= tol,
+                         f"tuned {name} ({which}): checksum {run['checksum']!r} against "
+                         f"{ref!r} (rel {run['checksum_rel']:.3e} > {tol:.0e})")
+        for run in runs[name]["table"]:
+            missing = [sp for sp in run["spans"] if sp["row_kernel"] is None]
+            _require(not missing, f"tuned {name}: spans without a row: {missing}")
+        for which in ("table", "none"):  # the spans of the first run of each
+            for run in runs[name][which][1:]:
+                del run["spans"]
+        out[name] = {"tol": tol, **{which: runs[name][which] for which in ("table", "none")},
+                     "median_s": {which: float(np.median([r["s_per_multiply"]
+                                                          for r in runs[name][which]]))
+                                  for which in ("table", "none")}}
+    x_ref = runs["sign"]["none"][0]["x"]
+    for which in ("table", "none"):
+        for run in runs["sign"][which]:
+            run["iterate_rel"] = _iterate_diff(run.pop("x"), x_ref)
+            _require(run["iterate_rel"] <= 10 * SIGN_EPS,
+                     f"tuned sign ({which}): iterate {run['iterate_rel']:.3e} from the "
+                     f"untuned loop's")
+    out["sign"] = {**runs["sign"], "median_s": {
+        which: float(np.median([r["s_per_loop"] for r in runs["sign"][which]]))
+        for which in ("table", "none")}}
+    # every kernel the table names launches: from the workloads, or from a
+    # bench at one of its rows (K4: at a row that selects it, whose
+    # synthetic operands the persisting-L2 window admits)
+    named = sorted({r["kernel"] for r in table_rows})
+    benched = {}
+    _use_table(TABLE_DIR)
+    try:
+        for kernel in named:
+            workload_launches = (_k1(table_launches) if kernel == "smm_stack"
+                                 else table_launches.get(kernel, 0))
+            if workload_launches and kernel != "smm_crosspack_resident":
+                continue
+            row = next(r for r in table_rows if r["kernel"] == kernel)
+            _reset_counts()
+            r = bench_smm(nrep=1, stack_size=row["stack_size"], m=row["m"], n=row["n"],
+                          k=row["k"], dtype_enum=dtype_of(row["dtype"]), out=lambda *_: None)
+            counts = _counts()
+            _require(r["errors"] == 0 and r["launched"] == kernel and counts[kernel] > 0,
+                     f"tuned: the row {row} did not launch {kernel}: {r['launched']}, "
+                     f"{counts}")
+            _add_counts(table_launches, counts)
+            benched[kernel] = {"row": {k: row[k] for k in ("m", "n", "k", "dtype",
+                                                           "stack_size")},
+                               "ms": r["ms"], "launches": counts[kernel]}
+    finally:
+        _use_table(none_dir)
+    winners: dict = {}
+    for r in table_rows:
+        winners[r["kernel"]] = winners.get(r["kernel"], 0) + 1
+    _emit({"phase": "tuned", "table": "committed and none, in turns", "pairs": TUNED_PAIRS,
+           "nrep": TUNED_NREP, "table_rows": len(table_rows), "winners": winners,
+           "northstar_span": NORTHSTAR_SPAN, "benched_rows": benched,
+           "table_launches": table_launches, **out})
+    ns_span = [sp["entries"] for sp in out["northstar_f64"]["table"][0]["spans"]
+               if sp["shape"] == [23, 23, 23]]
+    _require(ns_span == [NORTHSTAR_SPAN],
+             f"tuned: the north star's 23^3 span has {ns_span} entries, the table's "
+             f"row {NORTHSTAR_SPAN}")
+    return table_launches
+
+
+def _same_matrix(x, y) -> bool:
+    """Index and bins bit for bit alike."""
+    return (np.array_equal(x.keys, y.keys) and np.array_equal(x.ent_bin, y.ent_bin)
+            and np.array_equal(x.ent_slot, y.ent_slot) and len(x.bins) == len(y.bins)
+            and all(bx.shape == by.shape and torch.equal(bx.data, by.data)
+                    for bx, by in zip(x.bins, y.bins)))
+
+
+def _on_cpu(m):
+    return matrix_from_numpy_state(matrix_to_numpy_state(m), "cpu", name=m.name)
+
+
+def _bins_rel(x, y) -> float:
+    """max |x - y| over max |y|, bin by bin (same index)."""
+    _require(np.array_equal(x.keys, y.keys), "the patterns differ")
+    diff = max((float((bx.data.cpu().double() - by.data.cpu().double()).abs().max())
+                for bx, by in zip(x.bins, y.bins)), default=0.0)
+    scale = max((float(by.data.abs().max()) for by in y.bins), default=0.0)
+    return diff / max(scale, 1.0)
+
+
+def phase_api(a, b) -> dict:
+    """The public surface on the card (with no table, so f64 takes K1
+    and f32 K3): `run_tests` with ``TEST_MM`` at f64 and f32 and with
+    ``TEST_BINARY_IO``; the north star's A through `binary_write` and
+    `binary_read` bit for bit, and through `csr_from_matrix` and
+    `matrix_from_csr` (native COO fill) bit for bit; `hadamard_product`
+    of A and B and `function_of_elements` (tanh) of A against their
+    values on the CPU."""
+    _reset_counts()
+    lines = []
+    t0 = time.perf_counter()
+    cs = {dt: run_tests((240, 180, 260), sparsities=(0.4, 0.4, 0.4), alpha=1.5, beta=0.5,
+                        data_type=dt, test_type=TEST_MM, n_loops=2, io=lines.append)
+          for dt in (3, 1)}
+    counts = _counts()
+    _require(_k1(counts) > 0 and counts["smm_crosspack"] > 0 and counts["plain"] == 0,
+             f"api: run_tests(TEST_MM) did not run K1 and K3: {counts}")
+    io_cs = run_tests((300, 300, 300), test_type=TEST_BINARY_IO, n_loops=2, io=lines.append)
+    out = {"phase": "api", "run_tests_s": time.perf_counter() - t0,
+           "test_mm_checksums": {name_of(dtype_of(dt)): v for dt, v in cs.items()},
+           "binary_io_checksums": io_cs, "report": lines, "launches": counts}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "a.dbcsr")
+        t0 = time.perf_counter()
+        binary_write(a, path)
+        out["binary_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = binary_read(path, device=a.device)
+        out["binary_read_s"] = time.perf_counter() - t0
+        out["file_bytes"] = os.path.getsize(path)
+    _require(back.device == a.device and _same_matrix(back, a),
+             "api: binary_read did not give A back bit for bit")
+    del back
+    mm.reset_totals()
+    t0 = time.perf_counter()
+    indptr, indices, data = csr_from_matrix(a)
+    out["csr_from_matrix_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = matrix_from_csr("A", indptr, indices, data, a.row_blk_sizes, a.col_blk_sizes,
+                           device=a.device)
+    out["matrix_from_csr_s"] = time.perf_counter() - t0
+    out["csr_nze"] = int(len(data))
+    fills = mm.read_totals()["index_engine"]["coo_fill"]
+    _require(fills == {"native": 1, "numpy": 0}, f"api: the COO fill ran {fills}")
+    _require(_same_matrix(back, a), "api: the CSR round trip changed A")
+    del back, indptr, indices, data
+    a_cpu, b_cpu = _on_cpu(a), _on_cpu(b)
+    had = _bins_rel(_on_cpu(hadamard_product(a, b)), hadamard_product(a_cpu, b_cpu))
+    x = a.copy()
+    function_of_elements(x, FUNC_TANH, a0=0.1, a1=0.5)
+    x_cpu = a_cpu.copy()
+    function_of_elements(x_cpu, FUNC_TANH, a0=0.1, a1=0.5)
+    tanh = _bins_rel(_on_cpu(x), x_cpu)
+    _require(had == 0.0, f"api: hadamard_product on the card differs from the CPU by {had}")
+    _require(tanh <= 1e-14, f"api: tanh on the card differs from the CPU by {tanh:.3e}")
+    out.update(hadamard_rel=had, function_of_elements_rel=tanh)
+    _emit(out)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; "
               "this script runs only on a machine with an NVIDIA GPU", file=sys.stderr)
         return 2
+    # the phases of the earlier slices run on the untuned rules, as they
+    # did before the committed table: an empty table directory ("table":
+    # "none" on their lines); the new phases name their table
+    with tempfile.TemporaryDirectory() as none_dir:
+        _use_table(none_dir)
+        return _run_phases(none_dir)
+
+
+def _run_phases(none_dir: str) -> int:
     # the engine's phases time the engine: the incremental multiply is
     # off but in its own phase, as in the perf driver's repeats
     set_config(mm_driver="auto", validate_kernels=True, incremental="off")
@@ -2983,6 +3392,7 @@ def main() -> int:
     _clean("perf_gates_crosspack", phase_perf_gates, "pallas_cross")
     k1s = _clean("superstack", phase_superstack)
     ns = _clean("northstar", phase_northstar)
+    ns_a, ns_b = ns["a"], ns["b"]
     _clean("native_index", phase_native_index, ns["a"], ns["b"], ns["c"])
     _clean("obs", phase_obs, ns["a"], ns["b"])
     k1 = _kernel_row("smm_stack", ns.pop("launches"), _clean(
@@ -3017,6 +3427,20 @@ def main() -> int:
         k1["launches_by_path"][phase] = launched["smm_stack"]
         k3["launches_by_path"][phase] = launched["smm_crosspack"]
     k4["launches_by_path"] = {"resident_f32": k4["launches"]}
+    # the acc layer alone from the committed table, the tuner into a
+    # temporary one, the workloads from the committed table and from none
+    # in turns, and the public surface with no table
+    set_config(incremental="off", abft="off")
+    _use_table(TABLE_DIR)
+    by_phase = {"acc_bench": _clean("acc_bench", phase_acc_bench)}
+    _use_table(none_dir)
+    by_phase["tune"] = _clean("tune", phase_tune)
+    by_phase["tuned"] = _clean("tuned", phase_tuned, ns_a, ns_b)
+    by_phase["api"] = _clean("api", phase_api, ns_a, ns_b)
+    del ns_a, ns_b
+    for row in (k1, k3, k4):
+        for phase, counts in by_phase.items():
+            row["launches_by_path"][phase] = counts.get(row["name"], 0)
     k1s["launches_by_path"] = dict(_SUPERSTACK_BY_PATH)
     print(json.dumps({"kernels": [k1, k3, k4, k1s]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -782,6 +782,14 @@ def process_stack(c_data, a_data, b_data, a_idx, b_idx, c_idx, alpha=1.0,
     return execute_stack(c_data, a_data, b_data, plan, alpha)
 
 
+def transpose_blocks(data: torch.Tensor) -> torch.Tensor:
+    """Batched block transpose, (N, m, n) -> (N, n, m), as a new
+    contiguous tensor (ref `libsmm_acc_transpose`; the JAX package's
+    `transpose_blocks`, `dbcsr_tpu/acc/smm.py:2086`, is `jnp.swapaxes`
+    in XLA, not a Pallas kernel)."""
+    return data.transpose(1, 2).contiguous()
+
+
 # ------------------------------------------------------------------ fused
 # Superstack execution (ref `dbcsr_tpu/acc/smm.py:1558-1992`): the spans
 # of one C bin (one per (A bin, B bin) pair) run as ONE launch, where the

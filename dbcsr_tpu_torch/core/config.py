@@ -131,3 +131,15 @@ def set_config(**kwargs) -> None:
     candidate.validate()
     for k, v in kwargs.items():
         setattr(_cfg, k, v)
+
+
+def print_config(out=print) -> None:
+    """Ref `dbcsr_print_config`: one line per field."""
+    for f in dataclasses.fields(Config):
+        out(f"  dbcsr_tpu_torch.{f.name:<28} {getattr(_cfg, f.name)}")
+
+
+def get_default_config() -> Config:
+    """A fresh Config with the defaults (ref `dbcsr_get_default_config`,
+    `dbcsr_api.F:175`)."""
+    return Config()

@@ -1,12 +1,16 @@
 """Block distributions (ref `dbcsr_distribution_type`,
 `src/core/dbcsr_types.F:143-182`).  Counterpart of
 `dbcsr_tpu/core/dist.py`, cut to the single-card engine: one 1x1 grid
-on which every block is local.
+on which every block is local.  The 1-D binning helpers and the offset
+converters are copies of the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import heapq
+from typing import Optional
 
 import numpy as np
 
@@ -40,6 +44,23 @@ class Distribution:
     def nblkcols(self) -> int:
         return len(self.col_dist)
 
+    def get_info(self) -> dict:
+        """Distribution summary (ref `dbcsr_distribution_get`,
+        `dbcsr_api.F:226`)."""
+        return {"nblkrows": self.nblkrows, "nblkcols": self.nblkcols,
+                "nprows": self.grid.nprows, "npcols": self.grid.npcols,
+                "row_dist": self.row_dist.copy(), "col_dist": self.col_dist.copy()}
+
+    def checksum(self) -> int:
+        """Content hash of the maps, the JAX package's (ref
+        `dbcsr_dist_util.F:57`): the lengths and grid first, so a 2x3 and
+        a 3x2 blocking with the same concatenated maps differ."""
+        h = hashlib.sha1(np.int64([self.nblkrows, self.nblkcols, self.grid.nprows,
+                                   self.grid.npcols]).tobytes())
+        h.update(self.row_dist.tobytes())
+        h.update(self.col_dist.tobytes())
+        return int.from_bytes(h.digest()[:8], "little")
+
     def transposed(self) -> "Distribution":
         """Ref `dbcsr_transpose_distribution`."""
         grid = ProcessGrid(self.grid.npcols, self.grid.nprows)
@@ -54,3 +75,51 @@ class Distribution:
     def trivial(nblkrows: int, nblkcols: int) -> "Distribution":
         return Distribution(np.zeros(nblkrows, np.int32),
                             np.zeros(nblkcols, np.int32), ProcessGrid())
+
+
+def random_dist(nblks: int, nbins: int, seed: int = 0) -> np.ndarray:
+    """Ref `dbcsr_random_dist` (tests/dbcsr_performance_multiply.F)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, nbins, size=nblks).astype(np.int32)
+
+
+def cyclic_dist(nblks: int, nbins: int) -> np.ndarray:
+    return (np.arange(nblks) % nbins).astype(np.int32)
+
+
+def dist_bin(nelements: int, nbins: int, element_sizes: Optional[np.ndarray] = None,
+             rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Load-aware 1-D binning (ref `dbcsr_dist_bin`,
+    `dbcsr_dist_operations.F:705-745`): with sizes, each element in order
+    goes to the currently least-loaded bin (a min-heap, ties to the lower
+    bin); without, uniform random."""
+    if element_sizes is None:
+        rng = rng or np.random.default_rng()
+        return rng.integers(0, nbins, nelements).astype(np.int32)
+    element_sizes = np.asarray(element_sizes)
+    if len(element_sizes) != nelements:
+        raise ValueError("element_sizes length != nelements")
+    heap = [(0, b) for b in range(nbins)]
+    heapq.heapify(heap)
+    out = np.empty(nelements, np.int32)
+    for i in range(nelements):
+        load, b = heapq.heappop(heap)
+        out[i] = b
+        heapq.heappush(heap, (load + int(element_sizes[i]), b))
+    return out
+
+
+def convert_sizes_to_offsets(sizes) -> np.ndarray:
+    """Block sizes -> start offsets, length n + 1 with the total last
+    (ref `convert_sizes_to_offsets`, `src/dist/dbcsr_dist_util.F:140`)."""
+    sizes = np.ascontiguousarray(sizes, np.int64)
+    out = np.empty(len(sizes) + 1, np.int64)
+    out[0] = 0
+    np.cumsum(sizes, out=out[1:])
+    return out
+
+
+def convert_offsets_to_sizes(offsets) -> np.ndarray:
+    """Start offsets (length n + 1) -> block sizes
+    (ref `convert_offsets_to_sizes`, `src/dist/dbcsr_dist_util.F:180`)."""
+    return np.diff(np.ascontiguousarray(offsets, np.int64))

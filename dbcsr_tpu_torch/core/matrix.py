@@ -217,6 +217,11 @@ class BlockSparseMatrix:
         """Ref `dbcsr_setname`."""
         self.name = str(name)
 
+    @property
+    def valid_index(self) -> bool:
+        """Finalized and consistent (ref `dbcsr_valid_index`)."""
+        return self.valid
+
     def get_info(self) -> dict:
         """Structure summary (ref `dbcsr_get_info`, `dbcsr_api.F`); a
         bin's capacity is its count, so ``data_size`` is the stored
@@ -618,6 +623,13 @@ class BlockSparseMatrix:
         for e in range(self.nblks):
             yield int(rows[e]), int(cols[e]), host_bins[self.ent_bin[e]][self.ent_slot[e]]
 
+    def iterator(self) -> "BlockIterator":
+        """The reference's explicit iterator (`dbcsr_iterator_start` /
+        `_blocks_left` / `_next_block` / `_stop`,
+        `src/block/dbcsr_iterator_operations.F:44-91`); `iterate_blocks`
+        is the Pythonic form."""
+        return BlockIterator(self)
+
     def block_norms(self) -> np.ndarray:
         """Frobenius norm per finalized entry, key-ordered, computed on
         the device in the matrix dtype as the JAX package does (bf16
@@ -720,6 +732,47 @@ class BlockSparseMatrix:
         return (f"BlockSparseMatrix({self.name!r}, {self.nblkrows}x{self.nblkcols} "
                 f"blocks, {self.nblks} stored, dtype={self.dtype}, "
                 f"type={self.matrix_type}, device={self.device})")
+
+
+class BlockIterator:
+    """Explicit start/next/stop block iterator with the reference's API
+    shape (`dbcsr_iterator_operations.F`): ``blocks_left()``,
+    ``next_block() -> (row, col, block)`` and ``stop()``.  Fetches each
+    bin from the device once, at start, as `iterate_blocks` does."""
+
+    def __init__(self, matrix: BlockSparseMatrix):
+        if not matrix.valid:
+            raise RuntimeError("finalize() before iterating")
+        self._it = matrix.iterate_blocks()
+        self._next = None
+        self._advance()
+
+    def _advance(self) -> None:
+        self._next = next(self._it, None)
+
+    def blocks_left(self) -> bool:
+        return self._next is not None
+
+    def next_block(self):
+        # IndexError, not StopIteration: a StopIteration escaping into a
+        # caller's generator frame becomes RuntimeError (PEP 479)
+        if self._next is None:
+            raise IndexError("no blocks left")
+        out = self._next
+        self._advance()
+        return out
+
+    def stop(self) -> None:
+        self._it = iter(())
+        self._next = None
+
+
+def create(name: str, row_blk_sizes, col_blk_sizes, dtype=torch.float64,
+           dist: Optional[Distribution] = None, matrix_type: str = NO_SYMMETRY,
+           device: Optional[DeviceLike] = None) -> BlockSparseMatrix:
+    """Ref `dbcsr_create` (`src/work/dbcsr_work_operations.F:106`)."""
+    return BlockSparseMatrix(name, row_blk_sizes, col_blk_sizes, dtype, dist, matrix_type,
+                             device=device)
 
 
 def _bin_entries(row_blk_sizes, col_blk_sizes, rows, cols):

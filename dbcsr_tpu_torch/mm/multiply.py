@@ -127,7 +127,8 @@ def reset_totals() -> None:
     _totals.update(multiplies=0, host_phase_s={}, longest_run=0, device_s={}, timed={},
                    events=[], plan_cache={"hit": 0, "miss": 0, "uncacheable": 0}, reused=0,
                    formats={}, index_engine={"expand": {"native": 0, "numpy": 0},
-                                             "sort": {"native": 0, "numpy": 0}})
+                                             "sort": {"native": 0, "numpy": 0},
+                                             "coo_fill": {"native": 0, "numpy": 0}})
 
 
 reset_totals()
@@ -150,7 +151,8 @@ def read_totals() -> dict:
     (summed per phase), ``plan_cache`` outcome counts, ``reused`` (the
     products `mm.incremental` served from its cache), ``formats`` (the
     planner's decisions as "format:reason" counts), ``index_engine`` (how
-    many expansions and sorts ran "native" or "numpy"), ``longest_run``,
+    many expansions, sorts and `ops.csr.matrix_from_csr` COO fills ran
+    "native" or "numpy"), ``longest_run``,
     ``device_s`` (CUDA-event seconds of each format's device work, summed
     over the multiplies) and ``stack_device_s``, its stack share (None
     without events).  Synchronizes."""

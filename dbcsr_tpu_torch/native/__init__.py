@@ -4,8 +4,9 @@ OpenMP, bound with ctypes.
 Counterpart of `dbcsr_tpu/native/__init__.py`, with its two multiply
 entry points, `symbolic_product` (every (i, k, j) triple of op(A)·op(B)
 with the norm filter, the symmetric-C skip and the block limits) and
-`group_sort_stacks` (the stack order by (group, C slot, A entry)), and
-`host_smm`, the native stack driver (``host_smm.cpp``) that
+`group_sort_stacks` (the stack order by (group, C slot, A entry)), its
+CSR conversion's `coo_fill_blocks` (element values into block buffers,
+`ops/csr.py:matrix_from_csr`), and `host_smm`, the native stack driver (``host_smm.cpp``) that
 ``mm_driver="host"`` and the failover chain run on CPU tensors.
 
 ``index_engine.cpp`` and ``host_smm.cpp`` are compiled together at
@@ -19,9 +20,9 @@ library.
 
 There is no quiet fallback: a failed build or load raises
 `acc.build.BuildError`, which the failover chain never takes up.  The
-multiply's NumPy path runs only when the caller asks for it with
-``DBCSR_TPU_TORCH_NATIVE=0`` (`enabled`), and `mm.multiply.read_totals`
-counts which engine ran.
+multiply's and the CSR conversion's NumPy paths run only when the
+caller asks for them with ``DBCSR_TPU_TORCH_NATIVE=0`` (`enabled`), and
+`mm.multiply.read_totals` counts which engine ran.
 """
 
 from __future__ import annotations
@@ -143,6 +144,11 @@ def get_lib() -> ctypes.CDLL:
                 _I32P, _I32P, _I32P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_double, ctypes.c_double,
             ]
+            lib.dbcsr_coo_fill_blocks.restype = None
+            lib.dbcsr_coo_fill_blocks.argtypes = [
+                ctypes.c_int64, _I64P, _I64P, _I64P, ctypes.c_void_p, ctypes.c_int64,
+                _I64P, _I64P, ctypes.c_void_p,
+            ]
             lib.dbcsr_native_version.restype = ctypes.c_int32
             lib.dbcsr_native_version.argtypes = []
             _lib = lib
@@ -208,6 +214,39 @@ def group_sort_stacks(group, ngroups: int, c_slot, a_ent):
                                 _ptr(c_slot, ctypes.c_int32), _ptr(a_ent, ctypes.c_int64),
                                 _ptr(order, ctypes.c_int64), _ptr(bounds, ctypes.c_int64))
     return order, bounds
+
+
+def coo_fill_blocks(blk_of_entry, local_row, local_col, values: np.ndarray,
+                    blk_buf_offset, blk_ncols, out_flat: np.ndarray) -> None:
+    """``out_flat[blk_buf_offset[b] + r * blk_ncols[b] + c] = v`` for every
+    element (block b, local row r, local column c, value v), in order:
+    a duplicate element's last value wins.  ``values`` and ``out_flat``
+    are host arrays of one dtype; the indices are checked against
+    ``out_flat`` before the native loop writes through its pointer."""
+    lib = get_lib()
+    values = np.ascontiguousarray(values)
+    if not out_flat.flags.c_contiguous or out_flat.dtype != values.dtype:
+        raise ValueError("out_flat must be a contiguous array of the values' dtype")
+    blk = np.ascontiguousarray(blk_of_entry, np.int64)
+    lr = np.ascontiguousarray(local_row, np.int64)
+    lc = np.ascontiguousarray(local_col, np.int64)
+    off = np.ascontiguousarray(blk_buf_offset, np.int64)
+    ncols = np.ascontiguousarray(blk_ncols, np.int64)
+    nnz = len(values)
+    if not (len(blk) == len(lr) == len(lc) == nnz) or len(off) != len(ncols):
+        raise ValueError("COO arrays differ in length")
+    if nnz:
+        if blk.min() < 0 or blk.max() >= len(off):
+            raise IndexError("block index out of range")
+        pos = off[blk] + lr * ncols[blk] + lc
+        if lr.min() < 0 or lc.min() < 0 or np.any(lc >= ncols[blk]) \
+                or pos.min() < 0 or pos.max() >= out_flat.size:
+            raise IndexError("element position out of the block buffers")
+    lib.dbcsr_coo_fill_blocks(nnz, _ptr(blk, ctypes.c_int64), _ptr(lr, ctypes.c_int64),
+                              _ptr(lc, ctypes.c_int64), values.ctypes.data_as(ctypes.c_void_p),
+                              values.dtype.itemsize, _ptr(off, ctypes.c_int64),
+                              _ptr(ncols, ctypes.c_int64),
+                              out_flat.ctypes.data_as(ctypes.c_void_p))
 
 
 # the reference's datatype codes the host driver takes (r4, r8, c4, c8)

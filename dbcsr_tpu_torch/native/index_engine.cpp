@@ -1,8 +1,9 @@
-// Host index engine of the multiply: the symbolic product and the stack
-// sort, as C++ with OpenMP, called from Python through ctypes.
+// Host index engine of the multiply and the CSR conversion: the symbolic
+// product, the stack sort and the COO fill, as C++ with OpenMP, called
+// from Python through ctypes.
 //
-// Counterpart of dbcsr_tpu/native/index_engine.cpp (its two multiply entry
-// points and its version; the COO fill waits for ops/csr.py).  The
+// Counterpart of dbcsr_tpu/native/index_engine.cpp (its three entry
+// points and its version).  The
 // reference does the same work in Fortran on the host: the CSR inner loops
 // of dbcsr_mm_csr.F:178-357 and the stack binning of
 // dbcsr_mm_accdrv.F:364-423.
@@ -263,6 +264,28 @@ void dbcsr_group_sort_stacks(
   for (int64_t g = 0; g < ngroups; ++g) {
     if (bounds[g + 1] - bounds[g] < big)
       sort_group(order + bounds[g], bounds[g + 1] - bounds[g], c_slot, a_ent, 1);
+  }
+}
+
+// Scatter element-COO values into contiguous per-block buffers: block b
+// starts at blk_buf_offset[b] (in elements) of out and has blk_ncols[b]
+// columns.  Used by ops/csr.py:matrix_from_csr, whose NumPy path is one
+// fancy-indexed assignment.
+void dbcsr_coo_fill_blocks(
+    int64_t nnz,
+    const int64_t* blk_of_entry,
+    const int64_t* local_row, const int64_t* local_col,
+    const char* values,            // nnz values of dtype_size bytes each
+    int64_t dtype_size,            // 4, 8 or 16 bytes
+    const int64_t* blk_buf_offset,
+    const int64_t* blk_ncols,
+    char* out) {
+  // serial on purpose: duplicate (row, col) entries of a non-canonical
+  // CSR input resolve deterministically, last one wins, as in NumPy
+  for (int64_t e = 0; e < nnz; ++e) {
+    const int64_t b = blk_of_entry[e];
+    const int64_t pos = blk_buf_offset[b] + local_row[e] * blk_ncols[b] + local_col[e];
+    std::memcpy(out + pos * dtype_size, values + e * dtype_size, dtype_size);
   }
 }
 

@@ -1,10 +1,14 @@
-"""Matrix operations: what the multiply and the model iterations call.
+"""Matrix operations.
 
 Counterpart of `dbcsr_tpu/ops/operations.py` (ref
-`src/ops/dbcsr_operations.F`): compress and filter, scale, add (pattern
-union, same-pattern fast path) and its out-of-place `added`, copy,
-set/clear, trace, dot, the Frobenius, max-abs and Gershgorin norms,
-diagonal access, and the element crop the multiply's limits use.  Index logic runs on the host with NumPy; block data is
+`src/ops/dbcsr_operations.F`): compress and filter, scale and
+`scale_by_vector`, the named element functions (`FUNC_*`,
+`function_of_elements`), add (pattern union, same-pattern fast path)
+and its out-of-place `added`, copy and `copy_into_existing`,
+set/clear, the block reserves, `get_block_diag`, `hadamard_product`,
+trace, dot, the Frobenius, max-abs and Gershgorin norms,
+`column_norms`, diagonal access, `triu`, the element crop the
+multiply's limits use, and `verify_matrix`.  Index logic runs on the host with NumPy; block data is
 touched in bulk, one batched torch call per shape bin, never block by
 block.  `scale`, `set_value`, `set_diag` and `add_on_diag` update bins
 in place where the JAX package rebinds a fresh array, which is safe
@@ -59,12 +63,10 @@ def _scalar(x, dtype: torch.dtype):
 
 
 # --------------------------------------------------------------- structure
-def compress(matrix: BlockSparseMatrix, keep: np.ndarray) -> BlockSparseMatrix:
-    """Drop the entries where ``keep`` is False, rebuilding the bins by
-    one device gather each (sorted slots keep key order within a bin)."""
-    _require_valid(matrix)
-    if keep.all():
-        return matrix
+def _subset_bins(matrix: BlockSparseMatrix, keep: np.ndarray):
+    """(keys, freshly gathered bins) of the ``keep``-masked entries, one
+    device gather per bin (sorted slots keep key order within a bin);
+    shared by `compress` and `get_block_diag`."""
     ent_bin = matrix.ent_bin[keep]
     ent_slot = matrix.ent_slot[keep]
     bins = []
@@ -72,8 +74,29 @@ def compress(matrix: BlockSparseMatrix, keep: np.ndarray) -> BlockSparseMatrix:
         slots = np.sort(ent_slot[ent_bin == b_id]).astype(np.int64)
         if len(slots):
             bins.append(_Bin(b.shape, b.data[to_index(slots, b.data.device)], len(slots)))
-    matrix.set_structure_from_device(matrix.keys[keep], bins)
+    return matrix.keys[keep], bins
+
+
+def compress(matrix: BlockSparseMatrix, keep: np.ndarray) -> BlockSparseMatrix:
+    """Drop the entries where ``keep`` is False, rebuilding the bins."""
+    _require_valid(matrix)
+    if keep.all():
+        return matrix
+    matrix.set_structure_from_device(*_subset_bins(matrix, keep))
     return matrix
+
+
+def get_block_diag(matrix: BlockSparseMatrix, name: Optional[str] = None) -> BlockSparseMatrix:
+    """A new matrix of the diagonal blocks of ``matrix`` only (ref
+    `dbcsr_get_block_diag`, `dbcsr_operations.F:1158`): one gather of
+    the diagonal entries per bin, no copy of the rest."""
+    _require_valid(matrix)
+    out = BlockSparseMatrix(name or f"diag of {matrix.name}", matrix.row_blk_sizes,
+                            matrix.col_blk_sizes, matrix.dtype, matrix.dist,
+                            matrix.matrix_type, device=matrix.device)
+    rows, cols = matrix.entry_coords()
+    out.set_structure_from_device(*_subset_bins(matrix, rows == cols))
+    return out
 
 
 def window_mask(bm: int, bn: int, r_lo: torch.Tensor, r_hi: torch.Tensor,
@@ -143,6 +166,127 @@ def scale(matrix: BlockSparseMatrix, factor) -> BlockSparseMatrix:
     for b in matrix.bins:
         b.data.mul_(f)
     matrix._note_mutation(matrix.keys)
+    return matrix
+
+
+def scale_by_vector(matrix: BlockSparseMatrix, vector, side: str = "right") -> BlockSparseMatrix:
+    """A <- A*diag(v) ("right") or diag(v)*A ("left") (ref
+    `dbcsr_scale_by_vector`): each bin's segments of ``v``, rounded to
+    the matrix dtype, multiply it in place."""
+    _require_valid(matrix)
+    if matrix.matrix_type != NO_SYMMETRY:
+        # A*diag(v) of a symmetric matrix is not symmetric: triangular
+        # storage cannot hold the result
+        raise ValueError("scale_by_vector requires a non-symmetric matrix; "
+                         "desymmetrize() first")
+    v = np.asarray(vector)
+    rows, cols = matrix.entry_coords()
+    if side == "right":
+        if len(v) != matrix.nfullcols:
+            raise ValueError("vector length != full cols")
+        offsets, which, axis = matrix.col_blk_offsets, cols, 2
+    elif side == "left":
+        if len(v) != matrix.nfullrows:
+            raise ValueError("vector length != full rows")
+        offsets, which, axis = matrix.row_blk_offsets, rows, 1
+    else:
+        raise ValueError(side)
+    hdt = host_dtype(matrix.dtype)
+    matrix.own_bins()
+    for b_id, b in enumerate(matrix.bins):
+        sel = np.nonzero(matrix.ent_bin == b_id)[0]
+        if not len(sel):
+            continue
+        seg_len = b.shape[axis - 1]
+        segs = np.zeros((b.count, seg_len), hdt)
+        segs[matrix.ent_slot[sel]] = v[offsets[which[sel]][:, None] + np.arange(seg_len)]
+        segs_t = torch.from_numpy(segs).to(matrix.device, matrix.dtype)
+        b.data.mul_(segs_t[:, None, :] if side == "right" else segs_t[:, :, None])
+    matrix._note_mutation(matrix.keys)  # every stored value scaled
+    return matrix
+
+
+# named element functions (ref dbcsr_func_* constants,
+# `dbcsr_operations.F:72-75`, semantics at :821-960)
+FUNC_INVERSE = "inverse"                  # 1/(a1*x+a0); aborts on inf
+FUNC_INVERSE_SPECIAL = "inverse_special"  # 1/(x+sign(a0,x)); safe for a0>0
+FUNC_TANH = "tanh"                        # tanh(a1*x+a0)
+FUNC_DTANH = "dtanh"                      # d tanh(a1*x+a0)/dx
+FUNC_DDTANH = "ddtanh"                    # d2 tanh(a1*x+a0)/dx2
+FUNC_ARTANH = "artanh"                    # artanh(a1*x+a0); |y|<1 required
+FUNC_SIN = "sin"                          # sin(a1*x+a0)
+FUNC_COS = "cos"                          # cos(a1*x+a0)
+FUNC_DSIN = "dsin"                        # a1*cos(a1*x+a0)
+FUNC_DDSIN = "ddsin"                      # -a1^2*sin(a1*x+a0)
+FUNC_ASIN = "asin"                        # asin(a1*x+a0); |y|<=1 required
+FUNC_SPREAD_FROM_ZERO = "spread_from_zero"  # |x|<|a0| -> sign(a0,x)
+FUNC_TRUNCATE = "truncate"                  # |x|>|a0| -> sign(a0,x)
+
+
+def _signed(a0: float, x: torch.Tensor) -> torch.Tensor:
+    """Fortran's sign(a0, x): |a0| with the sign of x."""
+    return torch.copysign(torch.tensor(a0, dtype=x.dtype, device=x.device), x)
+
+
+_NAMED_FUNCS = {
+    FUNC_INVERSE: lambda x, a0, a1: 1.0 / (a1 * x + a0),
+    FUNC_INVERSE_SPECIAL: lambda x, a0, a1: 1.0 / (x + _signed(a0, x)),
+    FUNC_TANH: lambda x, a0, a1: torch.tanh(a1 * x + a0),
+    FUNC_DTANH: lambda x, a0, a1: a1 * (1.0 - torch.tanh(a1 * x + a0) ** 2),
+    FUNC_DDTANH: lambda x, a0, a1: 2.0 * a1 ** 2 * (torch.tanh(a1 * x + a0) ** 3
+                                                    - torch.tanh(a1 * x + a0)),
+    FUNC_ARTANH: lambda x, a0, a1: torch.atanh(a1 * x + a0),
+    FUNC_SIN: lambda x, a0, a1: torch.sin(a1 * x + a0),
+    FUNC_COS: lambda x, a0, a1: torch.cos(a1 * x + a0),
+    FUNC_DSIN: lambda x, a0, a1: a1 * torch.cos(a1 * x + a0),
+    FUNC_DDSIN: lambda x, a0, a1: -(a1 ** 2) * torch.sin(a1 * x + a0),
+    FUNC_ASIN: lambda x, a0, a1: torch.asin(a1 * x + a0),
+    FUNC_SPREAD_FROM_ZERO: lambda x, a0, a1: torch.where(x.abs() < abs(a0), _signed(a0, x), x),
+    FUNC_TRUNCATE: lambda x, a0, a1: torch.where(x.abs() > abs(a0), _signed(a0, x), x),
+}
+
+# domain guards the reference enforces with DBCSR_ABORT after MAXVAL
+# (`dbcsr_operations.F:926,941,956`): (on y = a1*x+a0 "pre" or on the
+# result "post", the test, the message)
+_FUNC_DOMAIN = {
+    FUNC_INVERSE: ("post", lambda y: ~torch.isfinite(y), "division by zero"),
+    FUNC_ARTANH: ("pre", lambda y: y.abs() >= 1.0, "ARTANH undefined for |x|>=1"),
+    FUNC_ASIN: ("pre", lambda y: y.abs() > 1.0, "ASIN undefined for |x|>1"),
+}
+
+
+def function_of_elements(matrix: BlockSparseMatrix, fn, *args, a0: float = 0.0,
+                         a1: float = 1.0, a2: float = 0.0) -> BlockSparseMatrix:
+    """Apply an elementwise function to the stored blocks only (ref
+    `dbcsr_function_of_elements`, `dbcsr_operations.F:821`).  ``fn`` is
+    a ``FUNC_*`` name, with the reference's (a0, a1, a2) parameters
+    positional or by keyword and its domain aborts (`FloatingPointError`,
+    raised before any block changes), or any callable taking a bin's
+    tensor (extra positional args pass through to it).  A bin holds no
+    rows beyond its count, so ``fn(0) != 0`` touches no padding."""
+    _require_valid(matrix)
+    if callable(fn):
+        matrix.map_bin_data(lambda d: fn(d, *args).to(d.dtype))
+        return matrix
+    if args:
+        if len(args) > 3:
+            raise TypeError("at most (a0, a1, a2) positional parameters")
+        a0, a1, a2 = (list(args) + [a0, a1, a2][len(args):])[:3]
+    if fn not in _NAMED_FUNCS:
+        raise ValueError(f"unknown function of matrix elements: {fn!r}")
+    if matrix.dtype.is_complex:
+        # ref: "Operation is implemented only for dp real values"
+        raise TypeError("named element functions require a real matrix")
+    f = _NAMED_FUNCS[fn]
+    guard = _FUNC_DOMAIN.get(fn)
+    if guard is not None:
+        when, pred, msg = guard
+        for b in matrix.bins:
+            if b.count:
+                probe = (a1 * b.data + a0) if when == "pre" else f(b.data, a0, a1)
+                if bool(pred(probe).any()):
+                    raise FloatingPointError(msg)
+    matrix.map_bin_data(lambda d: f(d, a0, a1).to(d.dtype))
     return matrix
 
 
@@ -261,6 +405,45 @@ def set_value(matrix: BlockSparseMatrix, alpha) -> BlockSparseMatrix:
         b.data.fill_(a)
     matrix._note_mutation(matrix.keys)
     return matrix
+
+
+def copy_into_existing(matrix_b: BlockSparseMatrix,
+                       matrix_a: BlockSparseMatrix) -> BlockSparseMatrix:
+    """Copy A's data into B, keeping B's pattern (ref
+    `dbcsr_copy_into_existing`, `dbcsr_operations.F:1352`): blocks in
+    both are copied, B's blocks absent in A are zeroed, A's blocks
+    absent in B are skipped.  One gather of A and one scatter into B per
+    bin, in place on B's bins."""
+    _require_valid(matrix_a, matrix_b)
+    _same_blocking(matrix_a, matrix_b)
+    if matrix_a.matrix_type != matrix_b.matrix_type:
+        # the reference's symmetric special case folds a general matrix
+        # onto a symmetric pattern; here the stricter side is
+        # desymmetrized first, as in the JAX package
+        raise ValueError("copy_into_existing requires matching matrix types; "
+                         "desymmetrize first")
+    if matrix_a.dtype != matrix_b.dtype:
+        raise ValueError("matrices have different data types")
+    pos = np.searchsorted(matrix_a.keys, matrix_b.keys)
+    pos_c = np.minimum(pos, max(len(matrix_a.keys) - 1, 0))
+    in_a = (np.zeros(len(matrix_b.keys), bool) if len(matrix_a.keys) == 0
+            else matrix_a.keys[pos_c] == matrix_b.keys)
+    # gather every bin's blocks of A before B is written: A may be B
+    gathered = []
+    for b_id, b in enumerate(matrix_b.bins):
+        ent = np.nonzero((matrix_b.ent_bin == b_id) & in_a)[0]
+        blocks = None
+        if len(ent):
+            src = matrix_a.bins[matrix_a.ent_bin[pos_c[ent[0]]]].data
+            blocks = src[to_index(matrix_a.ent_slot[pos_c[ent]], src.device)]
+        gathered.append((ent, blocks))
+    matrix_b.own_bins()
+    for b, (ent, blocks) in zip(matrix_b.bins, gathered):
+        b.data.zero_()
+        if blocks is not None:
+            b.data[to_index(matrix_b.ent_slot[ent], b.data.device)] = blocks
+    matrix_b._note_mutation(matrix_b.keys)  # every stored value rewritten
+    return matrix_b
 
 
 def clear(matrix: BlockSparseMatrix) -> BlockSparseMatrix:
@@ -382,6 +565,29 @@ def gershgorin_norm(matrix: BlockSparseMatrix) -> float:
     return float(row_sums.max(initial=0.0))
 
 
+def column_norms(matrix: BlockSparseMatrix) -> np.ndarray:
+    """The 2-norm of every full column (ref `dbcsr_norm_col`): each bin's
+    per-block column sums of |a|^2 from one device reduction in the
+    matrix dtype, added into the columns on the host in entry order, as
+    the JAX package adds them."""
+    from dbcsr_tpu_torch.ops.transformations import desymmetrize
+
+    m = desymmetrize(matrix) if matrix.matrix_type != NO_SYMMETRY else matrix
+    _require_valid(m)
+    col_sq = np.zeros(m.nfullcols, np.float64)
+    _, cols = m.entry_coords()
+    col_off = m.col_blk_offsets
+    for b_id, b in enumerate(m.bins):
+        sel = np.nonzero(m.ent_bin == b_id)[0]
+        if not len(sel):
+            continue
+        blocks = b.data[to_index(m.ent_slot[sel], m.device)]
+        partial = to_host((blocks.abs() ** 2).sum(dim=1)).astype(np.float64)  # (S, bn)
+        idx = col_off[cols[sel]][:, None] + np.arange(b.shape[1])[None, :]
+        np.add.at(col_sq, idx.ravel(), partial.ravel())
+    return np.sqrt(col_sq)
+
+
 # ----------------------------------------------------------------- diagonal
 def get_diag(matrix: BlockSparseMatrix) -> np.ndarray:
     """Diagonal elements (ref `dbcsr_get_diag`): one batched gather per
@@ -459,6 +665,61 @@ def reserve_blocks(matrix: BlockSparseMatrix, rows, cols) -> BlockSparseMatrix:
     return matrix.finalize()
 
 
+def reserve_diag_blocks(matrix: BlockSparseMatrix) -> BlockSparseMatrix:
+    """Reserve every diagonal block (ref `dbcsr_reserve_diag_blocks`,
+    `dbcsr_block_access.F:451`)."""
+    idx = np.arange(min(matrix.nblkrows, matrix.nblkcols), dtype=np.int64)
+    return reserve_blocks(matrix, idx, idx)
+
+
+def reserve_all_blocks(matrix: BlockSparseMatrix) -> BlockSparseMatrix:
+    """Reserve every block, the full pattern (ref
+    `dbcsr_reserve_all_blocks`, `dbcsr_block_access.F:391`); a symmetric
+    kind's canonical triangle only."""
+    rows, cols = np.divmod(np.arange(matrix.nblkrows * matrix.nblkcols, dtype=np.int64),
+                           matrix.nblkcols)
+    if matrix.matrix_type != NO_SYMMETRY:
+        keep = rows <= cols
+        rows, cols = rows[keep], cols[keep]
+    return reserve_blocks(matrix, rows, cols)
+
+
+def hadamard_product(matrix_a: BlockSparseMatrix, matrix_b: BlockSparseMatrix,
+                     name: str = "hadamard") -> BlockSparseMatrix:
+    """C = A .* B on the intersection of the patterns (ref
+    `dbcsr_hadamard_product`, `dbcsr_operations.F:971`): one product of
+    two gathers per bin.  Symmetric operands are desymmetrized first
+    (an elementwise product changes the symmetry class), so the result
+    is a plain matrix."""
+    _require_valid(matrix_a, matrix_b)
+    _same_blocking(matrix_a, matrix_b)
+    if matrix_a.matrix_type != NO_SYMMETRY or matrix_b.matrix_type != NO_SYMMETRY:
+        from dbcsr_tpu_torch.ops.transformations import desymmetrize
+
+        return hadamard_product(desymmetrize(matrix_a), desymmetrize(matrix_b), name)
+    common = np.intersect1d(matrix_a.keys, matrix_b.keys)
+    out = BlockSparseMatrix(name, matrix_a.row_blk_sizes, matrix_a.col_blk_sizes,
+                            matrix_a.dtype, matrix_a.dist, NO_SYMMETRY, device=matrix_a.device)
+    pos_a = np.searchsorted(matrix_a.keys, common)
+    pos_b = np.searchsorted(matrix_b.keys, common)
+    rows = (common // matrix_a.nblkcols).astype(np.int64)
+    cols = (common % matrix_a.nblkcols).astype(np.int64)
+    nb, nsl, shapes = _bin_entries(matrix_a.row_blk_sizes, matrix_a.col_blk_sizes, rows, cols)
+    dev = matrix_a.device
+    bins = []
+    for b_id, shape in enumerate(shapes):
+        ent = np.nonzero(nb == b_id)[0]
+        xa = matrix_a.bins[matrix_a.ent_bin[pos_a[ent[0]]]].data
+        xb = matrix_b.bins[matrix_b.ent_bin[pos_b[ent[0]]]].data
+        prod = xa[to_index(matrix_a.ent_slot[pos_a[ent]], dev)] * \
+            xb[to_index(matrix_b.ent_slot[pos_b[ent]], dev)]
+        data = torch.empty((len(ent),) + shape, dtype=matrix_a.dtype, device=dev)
+        data[to_index(nsl[ent], dev)] = prod
+        bins.append(_Bin(shape, data, len(ent)))
+    out.set_structure_from_device(common, bins, binning=(nb, nsl, shapes))
+    return out
+
+
 def add_on_diag(matrix: BlockSparseMatrix, alpha) -> BlockSparseMatrix:
     """A <- A + alpha*I, creating missing diagonal blocks (ref
     `dbcsr_add_on_diag`): one scatter-add of alpha onto the diagonals
@@ -481,3 +742,75 @@ def add_on_diag(matrix: BlockSparseMatrix, alpha) -> BlockSparseMatrix:
         diag[slots_t] = diag[slots_t] + a
     matrix._note_mutation(matrix.keys[rows == cols])
     return matrix
+
+
+def _swap_state(matrix: BlockSparseMatrix, replacement: BlockSparseMatrix) -> None:
+    """Give ``matrix`` the state of ``replacement`` in place, keeping its
+    own mutation epoch and journaling a change of structure (the epoch
+    must stay monotone for the incremental multiply)."""
+    epoch = matrix._epoch
+    matrix.__dict__.update(replacement.__dict__)
+    matrix._epoch = epoch
+    matrix._note_mutation(None)
+
+
+def triu(matrix: BlockSparseMatrix) -> BlockSparseMatrix:
+    """In-place block upper triangle (ref `dbcsr_triu`,
+    `dbcsr_operations.F:1849-1885`): blocks below the block diagonal are
+    dropped and the strictly lower elements of diagonal blocks zeroed.
+    A symmetric kind becomes the plain matrix first."""
+    _require_valid(matrix)
+    if matrix.matrix_type != NO_SYMMETRY:
+        from dbcsr_tpu_torch.ops.transformations import desymmetrize
+
+        _swap_state(matrix, desymmetrize(matrix, name=matrix.name))
+    rows, cols = matrix.entry_coords()
+    compress(matrix, rows <= cols)
+    rows, cols = matrix.entry_coords()
+    diag = np.nonzero(rows == cols)[0]
+    matrix.own_bins()
+    for b_id, b in enumerate(matrix.bins):
+        sel = diag[matrix.ent_bin[diag] == b_id]
+        if len(sel):
+            slots = to_index(matrix.ent_slot[sel], matrix.device)
+            b.data[slots] = torch.triu(b.data[slots])
+    matrix._note_mutation(matrix.keys[diag])
+    return matrix
+
+
+def verify_matrix(matrix: BlockSparseMatrix, check_data: bool = True) -> bool:
+    """Structural invariant check (ref `dbcsr_verify_matrix`,
+    `dbcsr_dist_util.F:578-732`); raises ValueError on a violation (a
+    raise, not an assert, so the check survives ``python -O``)."""
+
+    def _check(cond, msg):
+        if not cond:
+            raise ValueError(f"verify_matrix({matrix.name}): {msg}")
+
+    _require_valid(matrix)
+    keys = matrix.keys
+    _check(np.all(np.diff(keys) > 0), "index keys not strictly sorted")
+    nb = matrix.nblkrows * matrix.nblkcols
+    _check(len(keys) == 0 or (keys[0] >= 0 and keys[-1] < nb), "key out of range")
+    rows, cols = matrix.entry_coords()
+    counts = np.bincount(rows, minlength=matrix.nblkrows)
+    _check(np.array_equal(np.diff(matrix.row_ptr), counts), "row_ptr inconsistent")
+    _check(len(matrix.ent_bin) == len(keys) and len(matrix.ent_slot) == len(keys),
+           "entry->bin maps length mismatch")
+    for b_id, b in enumerate(matrix.bins):
+        sel = matrix.ent_bin == b_id
+        slots = matrix.ent_slot[sel]
+        _check(len(np.unique(slots)) == len(slots), f"bin {b_id} slot collision")
+        _check(b.count == int(sel.sum()), f"bin {b_id} count mismatch")
+        _check(b.data.shape[0] >= b.count, f"bin {b_id} capacity < count")
+        _check(slots.size == 0 or slots.max() < b.count, f"bin {b_id} slot >= count")
+        bm, bn = b.shape
+        _check(np.all(matrix.row_blk_sizes[rows[sel]] == bm), f"bin {b_id} row size")
+        _check(np.all(matrix.col_blk_sizes[cols[sel]] == bn), f"bin {b_id} col size")
+    if matrix.matrix_type != NO_SYMMETRY:
+        _check(np.all(rows <= cols), "symmetric matrix stores lower-triangle block")
+    if check_data:
+        for b in matrix.bins:
+            if b.count:
+                _check(bool(torch.isfinite(b.data).all()), "non-finite block data")
+    return True

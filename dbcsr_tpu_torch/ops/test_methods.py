@@ -23,6 +23,18 @@ from dbcsr_tpu_torch.core.kinds import dtype_of, host_dtype
 from dbcsr_tpu_torch.core.matrix import NO_SYMMETRY, BlockSparseMatrix, _fold_block
 from dbcsr_tpu_torch.device import DeviceLike
 
+# the stream `make_random_matrix` draws from when no rng is passed,
+# re-seedable as the reference's global random-matrix seed is
+_RANDMAT_SEED = 0
+_randmat_rng = np.random.default_rng(_RANDMAT_SEED)
+
+
+def reset_randmat_seed(seed: int = _RANDMAT_SEED) -> None:
+    """Reset the default random-matrix stream (ref
+    `dbcsr_reset_randmat_seed`, `dbcsr_api.F:177`) so runs reproduce."""
+    global _randmat_rng
+    _randmat_rng = np.random.default_rng(seed)
+
 
 def make_random_matrix(
     name: str,
@@ -36,9 +48,9 @@ def make_random_matrix(
     device: Optional[DeviceLike] = None,
 ) -> BlockSparseMatrix:
     """Random block-sparse matrix with ~``occupation`` block fill
-    (ref `dbcsr_make_random_matrix`, `dbcsr_test_methods.F:70`)."""
-    if rng is None:
-        raise ValueError("pass a numpy Generator (rng=np.random.default_rng(seed))")
+    (ref `dbcsr_make_random_matrix`, `dbcsr_test_methods.F:70`), drawn
+    from ``rng``, or from the default stream (`reset_randmat_seed`)."""
+    rng = rng or _randmat_rng
     m = BlockSparseMatrix(name, row_blk_sizes, col_blk_sizes, dtype, dist,
                           matrix_type, device=device)
     hdt = host_dtype(dtype_of(dtype))
@@ -87,6 +99,23 @@ def from_dense(name: str, dense: np.ndarray, row_blk_sizes, col_blk_sizes,
             if keep_zero_blocks or np.any(blk != 0):
                 m.put_block(r, c, blk)
     return m.finalize()
+
+
+def impose_sparsity(dense: np.ndarray, matrix: BlockSparseMatrix) -> np.ndarray:
+    """Zero the dense entries outside the matrix's block pattern (ref
+    `dbcsr_impose_sparsity`, `dbcsr_test_multiply.F:633`); a symmetric
+    kind's stored blocks cover their transposes too."""
+    mask = np.zeros_like(dense, dtype=bool)
+    row_off = matrix.row_blk_offsets
+    col_off = matrix.col_blk_offsets
+    rows, cols = matrix.entry_coords()
+    for r, c in zip(rows, cols):
+        mask[row_off[r]: row_off[r + 1], col_off[c]: col_off[c + 1]] = True
+        if matrix.matrix_type != NO_SYMMETRY and r != c:
+            mask[col_off[c]: col_off[c + 1], row_off[r]: row_off[r + 1]] = True
+    out = dense.copy()
+    out[~mask] = 0
+    return out
 
 
 def checksum(matrix: BlockSparseMatrix, pos: bool = False) -> float:

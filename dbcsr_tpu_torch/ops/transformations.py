@@ -1,9 +1,10 @@
-"""Structure transformations: the out-of-place transpose and
-desymmetrization.
+"""Structure transformations: the out-of-place transpose,
+desymmetrization, the block-index submatrix and the one-device
+redistribution.
 
 Counterpart of `dbcsr_tpu/ops/transformations.py` (ref
-`dbcsr_new_transposed`, `src/ops/dbcsr_transformations.F:113`, and
-`dbcsr_desymmetrize_deep`, :307).  The index permutation happens on the
+`dbcsr_new_transposed`, `src/ops/dbcsr_transformations.F:113`,
+`dbcsr_desymmetrize_deep`, :307, and `dbcsr_redistribute`, :1951).  The index permutation happens on the
 host; block data moves in one gather (plus a batched transpose where a
 block changes side) per shape bin on the device.
 """
@@ -15,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dbcsr_tpu_torch.core.dist import Distribution
 from dbcsr_tpu_torch.core.matrix import (
     ANTISYMMETRIC,
     HERMITIAN,
@@ -112,4 +114,53 @@ def desymmetrize(matrix: BlockSparseMatrix, name: Optional[str] = None) -> Block
             data[to_index(nsl[sel], m.device)] = blocks
         bins.append(_Bin(shape, data, int(counts[b])))
     out.set_structure_from_device(keys, bins, binning=(nb, nsl, shapes))
+    return out
+
+
+def submatrix(matrix: BlockSparseMatrix, row_lo: int, row_hi: int, col_lo: int, col_hi: int,
+              name: Optional[str] = None) -> BlockSparseMatrix:
+    """The block-index submatrix [row_lo, row_hi) x [col_lo, col_hi) with
+    renumbered block indices (a `dbcsr_crop_matrix` flavour; also the
+    building block of the TAS grid split).  A symmetric kind is
+    desymmetrized first.  The blocks are gathered into new bins, one
+    gather per shape."""
+    if matrix.matrix_type != NO_SYMMETRY:
+        matrix = desymmetrize(matrix)
+    if not matrix.valid:
+        raise RuntimeError("finalize() first")
+    rows, cols = matrix.entry_coords()
+    keep = (rows >= row_lo) & (rows < row_hi) & (cols >= col_lo) & (cols < col_hi)
+    out = BlockSparseMatrix(name or f"{matrix.name}[{row_lo}:{row_hi},{col_lo}:{col_hi}]",
+                            matrix.row_blk_sizes[row_lo:row_hi],
+                            matrix.col_blk_sizes[col_lo:col_hi], matrix.dtype, None,
+                            NO_SYMMETRY, device=matrix.device)
+    sub_rows = rows[keep] - row_lo
+    sub_cols = cols[keep] - col_lo
+    new_keys = sub_rows * out.nblkcols + sub_cols
+    order = np.argsort(new_keys, kind="stable")
+    new_keys = new_keys[order]
+    ent = np.nonzero(keep)[0][order]
+    nb, nsl, shapes = _bin_entries(out.row_blk_sizes, out.col_blk_sizes,
+                                   sub_rows[order], sub_cols[order])
+    bins = []
+    for b, shape in enumerate(shapes):
+        sel = np.nonzero(nb == b)[0]
+        perm = np.empty(len(sel), np.int64)
+        perm[nsl[sel]] = matrix.ent_slot[ent[sel]]
+        src = matrix.bins[matrix.ent_bin[ent[sel[0]]]].data
+        bins.append(_Bin(shape, src[to_index(perm, src.device)], len(sel)))
+    out.set_structure_from_device(new_keys, bins, binning=(nb, nsl, shapes))
+    return out
+
+
+def redistribute(matrix: BlockSparseMatrix, dist: Distribution,
+                 name: Optional[str] = None) -> BlockSparseMatrix:
+    """A copy of ``matrix`` under the distribution ``dist`` (ref
+    `dbcsr_redistribute`, `dbcsr_transformations.F:1951`).  On one
+    device every block stays where it is: the copy carries ``dist`` for
+    the distributed engine, which the port does not have yet."""
+    if dist.nblkrows != matrix.nblkrows or dist.nblkcols != matrix.nblkcols:
+        raise ValueError("distribution blocking mismatch")
+    out = matrix.copy(name)
+    out.dist = dist
     return out

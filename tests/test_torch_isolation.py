@@ -88,7 +88,9 @@ _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.cro
              "dbcsr_tpu_torch.core.kinds", "dbcsr_tpu_torch.core.stats",
              "dbcsr_tpu_torch.core.lib", "dbcsr_tpu_torch.core.knobs",
              "dbcsr_tpu_torch.obs.shard", "dbcsr_tpu_torch.obs.tracer",
-             "dbcsr_tpu_torch.obs.profiler"}
+             "dbcsr_tpu_torch.obs.profiler", "dbcsr_tpu_torch.acc.bench",
+             "dbcsr_tpu_torch.acc.tune", "dbcsr_tpu_torch.ops.csr", "dbcsr_tpu_torch.ops.io",
+             "dbcsr_tpu_torch.ops.tests"}
 
 
 def _env(**extra):
@@ -102,8 +104,32 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          env=_env(), capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, _, names = out.stdout.partition("modules:")
-    assert int(count) >= 52
+    assert int(count) >= 57
     assert _REQUIRED <= set(names.split())
+
+
+_LIGHT_IMPORT_SCRIPT = r"""
+import os, sys
+import torch
+import dbcsr_tpu_torch as dt
+from dbcsr_tpu_torch import native
+from dbcsr_tpu_torch.acc import build
+assert len(dt.__all__) > 80
+assert not torch.cuda.is_initialized(), "importing the package initialized CUDA"
+assert native._lib is None and native.build_seconds is None, "the index engine was built"
+assert not build._loaded and not build.build_seconds, "a CUDA library was built or loaded"
+assert "triton" not in sys.modules
+print("light")
+"""
+
+
+def test_package_import_builds_nothing_and_touches_no_card():
+    """`import dbcsr_tpu_torch` (the whole public surface) starts no CUDA
+    context and builds neither the kernels nor the index engine."""
+    out = subprocess.run([sys.executable, "-c", _LIGHT_IMPORT_SCRIPT], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "light"
 
 
 @pytest.fixture
