@@ -206,11 +206,36 @@ non-zero:
    `csr_from_matrix`/`matrix_from_csr` (the native COO fill), both bit
    for bit; `hadamard_product` and `function_of_elements` against
    their values on the CPU.
+27. mesh (after api): the north star (f64, full width) on one-process
+   grids of 1x2x2, 2x2x2 (two 2.5D layers) and 1x2x4 (the all-gather
+   engine) with every image on the card (`parallel.sparse_multiply_distributed`
+   through `run_perf(grid=...)`), from no table and from the committed
+   table in turns, then f32 on 1x2x2: each leg `MESH_NREP` repeats in
+   the double-buffered order, one in the serial order (bit for bit),
+   one under `torch.profiler` (the stack kernels' device ms beside the
+   summed bound of the tick stacks, the card's idle share); checksums
+   within 1e-9 (f32 1e-6) of the single-device multiply; s per
+   multiply (first and later repeats), host s per phase, stacks per
+   multiply and launches per tick by kernel (every tick stack on K1 or
+   K3, no plain call), padded against true flops; then the `.perf`
+   gates of phase 4 on a 2x2x2 and a 1x2x3 grid (`mesh_gates`; the
+   north star's input has no gate, so its checksums are held against
+   the single-device multiply);
+28. mesh_world: four ranks on the one card over gloo (spawned, a
+   `file://` rendezvous), one image each of a 2x2 grid, panels staged
+   through the host: the north star (2 repeats) and
+   `test_square_sparse_rma.perf` through `run_perf_multiproc`; every
+   rank's C bit for bit the others' and the one-process 2x2 grid's;
+   each rank's host-staged bytes and seconds (shifts and C's gather),
+   s per multiply, the world rate;
+29. mesh_models: one sparse McWeeny step at 2208^2 on 1x2x2 against the
+   single-device step, and the RI contraction's grid branch at 32
+   molecules on 1x2x2 against the single-device contraction (1e-10).
 
-Phases 1-22 run with an empty tuned-table directory, so on the untuned
-rules, as before the committed table existed; every phase line names
-the table it ran from (``"table"``: "none", "committed" or
-"temporary").
+Phases 1-22 and 28-29 (and 27's gates and f32 leg) run with an empty
+tuned-table directory, so on the untuned rules, as before the committed
+table existed; every phase line names the table it ran from
+(``"table"``: "none", "committed" or "temporary").
 
 The phases before `incremental` run with ``incremental="off"``, as the
 perf driver's repeats do: they time the engine.  Every phase but
@@ -234,6 +259,7 @@ import gc
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -250,7 +276,7 @@ from dbcsr_tpu_torch.acc.bench import bench_smm, bench_trans
 from dbcsr_tpu_torch.acc.crosspack import choose_pack, resident_limit_bytes
 from dbcsr_tpu_torch.acc.smm import prepare_stack
 from dbcsr_tpu_torch.acc.tune import NORTHSTAR_SPAN, tune_smm
-from dbcsr_tpu_torch.core import mempool, timings
+from dbcsr_tpu_torch.core import digests, mempool, timings
 from dbcsr_tpu_torch.core.config import set_config
 from dbcsr_tpu_torch.core.kinds import dtype_of, name_of
 from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix, _Bin
@@ -270,6 +296,8 @@ from dbcsr_tpu_torch.models import (
     invsqrt_iteration,
     make_test_density,
     mcweeny_purify,
+    mcweeny_step,
+    mcweeny_step_sparse_distributed,
     sign_iteration,
 )
 from dbcsr_tpu_torch.ops.operations import (
@@ -301,7 +329,14 @@ from dbcsr_tpu_torch.obs.costmodel import (
     stack_bytes,
     stack_min_bytes,
 )
-from dbcsr_tpu_torch.perf.driver import expand_block_sizes, parse_perf_file, run_perf
+from dbcsr_tpu_torch.parallel import sparse_dist
+from dbcsr_tpu_torch.parallel.mesh import Grid
+from dbcsr_tpu_torch.perf.driver import (
+    expand_block_sizes,
+    parse_perf_file,
+    run_perf,
+    run_perf_multiproc,
+)
 from dbcsr_tpu_torch.resilience import breaker, faults
 from dbcsr_tpu_torch.tensor import (
     batched_contraction,
@@ -1042,7 +1077,8 @@ def phase_northstar() -> dict:
     out.update(_against_torch_driver(res, _northstar_cfg(1), 1e-10, 1e-10))
     _emit(out)
     return {"launches": counts["smm_stack"], "a": res["matrices"]["a"],
-            "b": res["matrices"]["b"], "c": res["matrices"]["c_out"]}
+            "b": res["matrices"]["b"], "c": res["matrices"]["c_out"],
+            "checksum": res["checksum"], "checksum_pos": res["checksum_pos"]}
 
 
 def _stacks_phase(phase: str, a, b, c, kernels=(None,), reps=5, path="warp") -> dict:
@@ -3365,6 +3401,262 @@ def phase_api(a, b) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ the grid
+# the grids of the mesh phase, each a single process with every image on
+# the card; the north star on each, from no table and from the committed
+# table in turns
+MESH_GRIDS = ((1, 2, 2), (2, 2, 2), (1, 2, 4))
+MESH_NREP = 3
+WORLD_RANKS = 4
+WORLD_TIMEOUT_S = 420
+
+
+def _card_grid(shape) -> Grid:
+    """A one-process grid of ``shape`` with every image on the card."""
+    kl, pr, pc = shape
+    return Grid(shape, [(0, resolve_device())] * (kl * pr * pc))
+
+
+def _profiled_kernels(fn) -> dict:
+    """One call of ``fn`` under `torch.profiler`: the device ms of the
+    stack kernels (every kernel named smm_*), by name and in all, and
+    the card's busy and idle shares of the traced window."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            evs = json.load(f)["traceEvents"]
+        share = _busy_share(path)
+    by_name: dict = {}
+    for e in evs:
+        name = re.search(r"smm_\w+", e.get("name", "")) if e.get("cat") == "kernel" else None
+        if e.get("ph") == "X" and name:
+            by_name[name.group(0)] = by_name.get(name.group(0), 0.0) + float(e["dur"]) / 1e3
+    _require(by_name, "mesh: the profiler saw no stack kernel")
+    return {"stack_device_ms": sum(by_name.values()), "stack_ms_by_kernel": by_name, **share}
+
+
+def _mesh_bound_ms(mesh_info: dict, dtype: str, block: int) -> tuple:
+    """The least time of one multiply's tick stacks (`stack_bound_s` of
+    each stack, summed) and what bounds most of it."""
+    total, by = 0.0, {"bytes": 0.0, "operations": 0.0}
+    for entries, n_a, n_b, nruns in mesh_info["stack_sizes"].values():
+        t, what = stack_bound_s(dtype, block, block, block, entries, n_a, n_b, nruns)
+        total += t
+        by[what] += t
+    return total * 1e3, max(by, key=by.get)
+
+
+def _mesh_leg(shape, table_dir: str, data_type: int, single: dict) -> dict:
+    """The north star on a one-process grid: ``MESH_NREP`` repeats in the
+    mode "auto" picks (double_buffer), one in serial order (the same
+    bits), one under the profiler; checksums against the `.perf` gate
+    (`run_perf` raises) and the single-device multiply."""
+    _use_table(table_dir)
+    sparse_dist.clear_mesh_plans()
+    grid = _card_grid(shape)
+    dtype = "float64" if data_type == 3 else "float32"
+    _reset_counts()
+    res = run_perf(_northstar_cfg(MESH_NREP, data_type), verbose=False, grid=grid)
+    counts = _counts()
+    info = res["mesh"]
+    _require(counts["plain"] == 0, f"mesh {grid.label()}: the plain versions ran")
+    kernels = sorted(set(info["kernels"].values()))
+    _require(all(counts[k] > 0 for k in kernels),
+             f"mesh {grid.label()}: a planned kernel never launched: {counts}")
+    # one launch per tick stack and repeat, plus each kernel's first-use
+    # validation where this leg is the first to launch it at 23^3
+    validations = sum(counts[k] for k in kernels) - MESH_NREP * len(info["stacks"])
+    _require(0 <= validations <= len(kernels),
+             f"mesh {grid.label()}: {counts} for {len(info['stacks'])} stacks a multiply")
+    _require(res["plan_cache"][1:] == ["hit"] * (MESH_NREP - 1),
+             f"mesh {grid.label()}: repeats did not hit the plan cache: {res['plan_cache']}")
+    _require(info["mode"] == "double_buffer" or grid.pr == 1,
+             f"mesh {grid.label()}: ran {info['mode']}")
+    set_config(cannon_overlap="serial")
+    try:
+        ser = run_perf(_northstar_cfg(1, data_type), verbose=False, grid=grid)
+    finally:
+        set_config(cannon_overlap="auto")
+    same = _same_bits(res["matrices"]["c_out"], ser["matrices"]["c_out"])
+    _require(same, f"mesh {grid.label()}: serial and double_buffer differ")
+    rel = {k: abs(res[k] - single[k]) / abs(single[k]) for k in ("checksum", "checksum_pos")}
+    tol = 1e-9 if data_type == 3 else 1e-6
+    _require(max(rel.values()) <= tol, f"mesh {grid.label()}: checksums {rel} > {tol}")
+    prof = _profiled_kernels(lambda: run_perf(_northstar_cfg(1, data_type), verbose=False,
+                                              grid=grid))
+    bound_ms, bound_by = _mesh_bound_ms(info, dtype, 23)
+    nstacks = len(info["stacks"])
+    out = {"grid": grid.label(), "table": _table_label(), "dtype": dtype,
+           "engine": info["engine"], "mode": info["mode"], "nticks": info["nticks"],
+           "times_s": res["times_s"], "first_s": res["times_s"][0],
+           "later_s": res["times_s"][1:], "host_phase_s": res["host_phase_s"],
+           "serial_times_s": ser["times_s"], "serial_bit_identical": same,
+           "stacks_per_multiply": nstacks, "launches": counts, "validations": validations,
+           "launches_per_stack": {k: (counts[k] - (validations if len(kernels) == 1 else 0))
+                                  / (MESH_NREP * nstacks) for k in kernels},
+           "stack_entries": sum(info["stacks"].values()),
+           "padded_flops": info["padded_flops"], "true_flops": info["true_flops"],
+           "caps": info["caps"], "checksum": res["checksum"],
+           "checksum_pos": res["checksum_pos"], "rel_vs_single_device": rel,
+           "stack_bound_ms": bound_ms, "bound_by": bound_by, **prof,
+           "digest": digests.matrix_value_digest(res["matrices"]["c_out"]).hex()}
+    return out
+
+
+def _mesh_gates() -> tuple:
+    """The `.perf` gates (`PERF_GATES`, one repeat each, no table) on a
+    2x2x2 and a 1x2x3 grid on the card: `run_perf` raises on a
+    checksum outside the input's threshold; a stack product must launch
+    a kernel and no plain version (a full operand pair takes the dense
+    Cannon, `torch.matmul`).  Returns the rows and the launches."""
+    rows, total = [], dict.fromkeys(_counts(), 0)
+    for shape in ((2, 2, 2), (1, 2, 3)):
+        grid = _card_grid(shape)
+        for name, _ in PERF_GATES:
+            cfg = parse_perf_file(os.path.join(INPUTS, f"{name}.perf"))
+            cfg.nrep = 1
+            _reset_counts()
+            res = run_perf(cfg, verbose=False, grid=grid)  # raises on a gate mismatch
+            counts = _counts()
+            launched = _k1(counts) + counts["smm_crosspack"] + counts["smm_crosspack_resident"]
+            _require(counts["plain"] == 0 and (launched > 0 or res["algorithm"] == "dense"),
+                     f"mesh gates {grid.label()} {name}: launches {counts}")
+            total = {k: total[k] + counts[k] for k in total}
+            rows.append({"grid": grid.label(), "input": name, "checksum": res["checksum"],
+                         "refs": list(cfg.check_refs), "threshold": cfg.check_threshold,
+                         "algorithm": res["algorithm"],
+                         "engine": (res["mesh"] or {}).get("engine"),
+                         "launches": {k: v for k, v in counts.items() if v},
+                         "times_s": res["times_s"]})
+    sparse_dist.clear_mesh_plans()
+    return rows, total
+
+
+def phase_mesh(none_dir: str, single_f64: dict) -> dict:
+    """The north star, f64 at full width, on one-process grids of 1x2x2,
+    2x2x2 (2.5D: two layers) and 1x2x4 (the all-gather engine) with every
+    image on the card, from no table and from the committed table in
+    turns; then f32 on 1x2x2 (K3) against a single-device f32 repeat.
+    Returns K1's and K3's launches and the 1x2x2 legs (the world's
+    reference bits)."""
+    legs, k1, k3 = [], 0, 0
+    order = ((none_dir, TABLE_DIR), (TABLE_DIR, none_dir), (none_dir, TABLE_DIR))
+    ref = {}
+    for shape, tables in zip(MESH_GRIDS, order):
+        for table in tables:
+            leg = _mesh_leg(shape, table, 3, single_f64)
+            k1 += leg["launches"]["smm_stack"]
+            k3 += leg["launches"]["smm_crosspack"]
+            if shape == (1, 2, 2):
+                ref[leg["table"]] = leg
+            _emit({"phase": "mesh", **leg})
+            legs.append(leg)
+    _use_table(none_dir)
+    gates, launched = _mesh_gates()
+    _emit({"phase": "mesh_gates", "passed": len(gates), "inputs": gates})
+    k1 += launched["smm_stack"]
+    k3 += launched["smm_crosspack"]
+    single32 = run_perf(_northstar_cfg(1, 1), verbose=False)
+    leg = _mesh_leg((1, 2, 2), none_dir, 1, single32)
+    _require(leg["launches"]["smm_crosspack"] > 0, "mesh f32: K3 never launched")
+    k3 += leg["launches"]["smm_crosspack"]
+    _emit({"phase": "mesh", **leg})
+    sparse_dist.clear_mesh_plans()
+    return {"smm_stack": k1, "smm_crosspack": k3, "ref_1x2x2": ref}
+
+
+def _world_summary(agg: dict, wall: float) -> dict:
+    ranks = agg["per_rank"]
+    return {"ranks": len(ranks), "wall_s": wall, "grid": ranks[0]["grid"],
+            "checksums": [r["checksum"] for r in ranks],
+            "checksums_equal": len({r["checksum"] for r in ranks}) == 1,
+            "digests_equal": len({r["digest"] for r in ranks}) == 1,
+            "times_s": [r["times_s"] for r in ranks],
+            "staged": [r["staged"] for r in ranks],
+            "gflops_world": agg["gflops_world"], "gflops_mean_ranks": agg["gflops_mean_ranks"],
+            "launches": {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}}
+
+
+def phase_mesh_world(ref_1x2x2: dict) -> dict:
+    """Four ranks on the one card over gloo, one image each (a 2x2 grid),
+    panels host-staged between them: the north star (f64, 2 repeats),
+    then `test_square_sparse_rma.perf`, both through
+    `run_perf_multiproc`.  Every rank's C must be bit for bit the others'
+    and the one-process 2x2 grid's under the same table."""
+    out = {"phase": "mesh_world"}
+    t0 = time.perf_counter()
+    agg = run_perf_multiproc(_northstar_cfg(2), WORLD_RANKS, timeout=WORLD_TIMEOUT_S,
+                             verbose=False)
+    ns = _world_summary(agg, time.perf_counter() - t0)
+    want = ref_1x2x2[_table_label()]
+    _require(ns["digests_equal"] and ns["checksums_equal"], f"mesh_world: ranks differ {ns}")
+    _require(agg["per_rank"][0]["digest"] == want["digest"],
+             "mesh_world: the world's C is not bit for bit the one-process 2x2 grid's")
+    _require(ns["launches"]["plain"] == 0 and ns["launches"]["smm_stack"] > 0,
+             f"mesh_world: launches {ns['launches']}")
+    out["northstar"] = {**ns, "bit_identical_to_one_process": True}
+    path = os.path.join(INPUTS, "test_square_sparse_rma.perf")
+    cfg = parse_perf_file(path)
+    one = run_perf(cfg, verbose=False, grid=_card_grid((1, 2, 2)))
+    t0 = time.perf_counter()
+    agg = run_perf_multiproc(path, WORLD_RANKS, timeout=WORLD_TIMEOUT_S, verbose=False)
+    rma = _world_summary(agg, time.perf_counter() - t0)
+    _require(rma["digests_equal"] and agg["per_rank"][0]["digest"]
+             == digests.matrix_value_digest(one["matrices"]["c_out"]).hex(),
+             "mesh_world: rma ranks differ from the one-process grid")
+    out["rma"] = {**rma, "one_process_checksum": one["checksum"],
+                  "bit_identical_to_one_process": True}
+    _emit(out)
+    return {k: ns["launches"][k] + rma["launches"][k] for k in ns["launches"]}
+
+
+def phase_mesh_models() -> dict:
+    """The models' grid branches on 1x2x2: one sparse McWeeny step at
+    2208^2 against the single-device step (1e-10), and the RI
+    contraction's mesh branch at 32 molecules against the single-device
+    contraction (1e-10)."""
+    grid = _card_grid((1, 2, 2))
+    out = {"phase": "mesh_models"}
+    p = make_test_density(MODEL_BLOCKS, MODEL_BLOCK, seed=MODEL_SEED)
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = mcweeny_step_sparse_distributed(p, grid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    want = mcweeny_step(p.copy())
+    _require(np.array_equal(got.keys, want.keys), "mesh_models: purify patterns differ")
+    gd, wd = _to_dense_device(got), _to_dense_device(want)
+    rel = float((gd - wd).abs().max()) / float(wd.abs().max())
+    _require(rel <= 1e-10 and counts["plain"] == 0 and _k1(counts) > 0,
+             f"mesh_models: purify step rel {rel:.3e}, launches {counts}")
+    out["purify_step"] = {"grid": grid.label(), "rel_vs_single_device": rel, "wall_s": wall,
+                          "launches": counts}
+    launched = dict(counts)
+    n = TENSOR_LEGS["remap"]
+    t, m, _, empty_c = _ri_operands(n)
+    c_grid, c_one = empty_c("Cg"), empty_c("C1")
+    _reset_counts()
+    t0 = time.perf_counter()
+    contract(1.0, t, m, 0.0, c_grid, **RI_KW, mesh=grid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    contract(1.0, t, m, 0.0, c_one, **RI_KW)
+    cmp = _blocks_rel(c_grid, c_one)
+    _require(cmp["rel_elementwise"] <= 1e-10 and counts["plain"] == 0 and _k1(counts) > 0,
+             f"mesh_models: RI contraction rel {cmp['rel_elementwise']:.3e}, {counts}")
+    out["ri_contraction"] = {"grid": grid.label(), "molecules": n, "wall_s": wall,
+                             "launches": counts, **cmp}
+    _emit(out)
+    return {k: launched[k] + counts[k] for k in counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; "
@@ -3438,6 +3730,14 @@ def _run_phases(none_dir: str) -> int:
     by_phase["tuned"] = _clean("tuned", phase_tuned, ns_a, ns_b)
     by_phase["api"] = _clean("api", phase_api, ns_a, ns_b)
     del ns_a, ns_b
+    # the distributed engine: one-process grids on the card (tables in
+    # turns), the four-rank world over gloo, the models' grid branches
+    mesh = _clean("mesh", phase_mesh, none_dir,
+                  {"checksum": ns["checksum"], "checksum_pos": ns["checksum_pos"]})
+    _use_table(none_dir)
+    by_phase["mesh"] = {k: mesh[k] for k in ("smm_stack", "smm_crosspack")}
+    by_phase["mesh_world"] = _clean("mesh_world", phase_mesh_world, mesh["ref_1x2x2"])
+    by_phase["mesh_models"] = _clean("mesh_models", phase_mesh_models)
     for row in (k1, k3, k4):
         for phase, counts in by_phase.items():
             row["launches_by_path"][phase] = counts.get(row["name"], 0)

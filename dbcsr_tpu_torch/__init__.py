@@ -9,9 +9,9 @@ use), and the dense and composite formats, picked per product by
 tested against; this package imports nothing of it.
 
 The package root exports the JAX package's public surface (the
-`dbcsr_api.F` analog list) with the same meaning, except
-``replicate_all``, which waits for the distributed engine.  Importing
-it builds nothing and touches no card: the kernels and the index
+`dbcsr_api.F` analog list) with the same meaning; ``replicate_all`` is
+`parallel.replicate`, the distributed engine's replication onto a
+process grid.  Importing it builds nothing and touches no card: the kernels and the index
 engine build at their first use.
 
 Entry points place their tensors on the default device, "cuda" unless
@@ -121,6 +121,8 @@ from dbcsr_tpu_torch.ops.test_methods import (
     to_dense,
 )
 from dbcsr_tpu_torch.ops.tests import TEST_BINARY_IO, TEST_MM, run_tests
+# ref dbcsr_replicate_all (`dbcsr_transformations.F:108`)
+from dbcsr_tpu_torch.parallel.dist_matrix import replicate as replicate_all
 
 __version__ = "0.1.0"
 
@@ -198,6 +200,7 @@ __all__ = [
     "print_config",
     "print_matrix",
     "print_statistics",
+    "replicate_all",
     "redistribute",
     "reserve_all_blocks",
     "reserve_blocks",

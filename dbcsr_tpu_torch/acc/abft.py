@@ -42,8 +42,9 @@ a native re-execution, never as corruption; a pass records the residual
 for the cell.  Complex stacks are probed alike (complex probe sums, real
 errors).  `check_superstack` probes a fused C-bin launch
 (`acc.smm.execute_superstack`) with one delta probe for the whole bin.
-Not ported yet (`ROADMAP.md`): `tree_probe`/`shift_conserved`; they
-come with the parallel modules.
+`tree_probe` and `shift_conserved` probe the grid engines' panel
+shifts (`parallel/overlap.run_ticks`): a shift permutes panels without
+changing them, so the panels' absolute sum is conserved across it.
 
 Every probe, mismatch and recovery is counted:
 ``dbcsr_tpu_abft_{checks,mismatches,recoveries}_total{driver}``, with
@@ -478,3 +479,27 @@ def verify_product(a, b, c, alpha, beta, r_old: Optional[torch.Tensor], *,
                         shape=f"{c.nfullrows}x{c.nfullcols}x{k}")
         raise AbftMismatchError(f"ABFT probe mismatch on product {request_id or '?'}: "
                                 f"relative error {rel:.3e} > {tol:.3e}")
+
+
+# ------------------------------------------- distributed tick probes
+def tree_probe(tensors) -> float:
+    """Permutation-invariant probe of a list of tensors: the sum of their
+    absolute values in the accumulation dtype.  A shift permutes panels
+    without changing them, so the probe is conserved across every shift
+    of the tick pipelines, up to resummation rounding (`shift_conserved`)."""
+    total = 0.0
+    for t in tensors:
+        if t is None or not (t.is_floating_point() or t.is_complex()):
+            continue
+        total += float(t.to(_acc_dtype(t.dtype)).abs().sum())
+    return total
+
+
+def shift_conserved(before: float, after: float, dtype, nelem: int) -> bool:
+    """True when a shift's probe survived within the resummation rounding
+    of ``nelem`` accumulated terms."""
+    tol = _costmodel.abft_tolerance(name_of(dtype), 1, nelem)
+    scale = max(abs(before), abs(after), 1e-30)
+    if not np.isfinite(after):
+        return False
+    return abs(after - before) <= tol * scale

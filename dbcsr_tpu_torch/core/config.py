@@ -1,5 +1,6 @@
 """Global configuration: the subset of `dbcsr_tpu/core/config.py` the
-multiply, the TAS split, the integrity plane and the statistics read
+multiply, the TAS split, the grid engines, the integrity plane and the
+statistics read
 (ref `dbcsr_cfg`, `src/core/dbcsr_config.F`).  Every field is set in
 code (`set_config`); none is read from the environment.
 """
@@ -83,6 +84,13 @@ class Config:
     # (no tracking, no cache), "full" (keep the cache but always
     # recompute: the comparison leg that pays the bookkeeping)
     incremental: str = "auto"
+    # the grid engines' tick pipeline (parallel/overlap.py): "auto"
+    # double-buffers whenever the grid shifts panels, "double_buffer"
+    # forces it, "serial" runs each tick's products, then its shift
+    cannon_overlap: str = "auto"
+    # 2.5D k layers of an automatically shaped grid (ref NUM_LAYERS_3D,
+    # dbcsr_config.F:152): 0 lets `parallel.mesh.grid_shape` choose
+    num_layers_3d: int = 0
 
     def validate(self) -> None:
         if self.mm_driver not in MM_DRIVERS:
@@ -111,6 +119,11 @@ class Config:
         if self.incremental not in INCREMENTAL_MODES:
             raise ValueError(f"incremental must be 'auto'/'off'/'full', "
                              f"got {self.incremental!r}")
+        if self.cannon_overlap not in ("auto", "double_buffer", "serial"):
+            raise ValueError(f"cannon_overlap must be 'auto'/'double_buffer'/'serial', "
+                             f"got {self.cannon_overlap!r}")
+        if self.num_layers_3d < 0:
+            raise ValueError("num_layers_3d must be >= 0")
 
 
 _cfg = Config()

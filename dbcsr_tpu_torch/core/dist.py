@@ -1,8 +1,9 @@
 """Block distributions (ref `dbcsr_distribution_type`,
 `src/core/dbcsr_types.F:143-182`).  Counterpart of
-`dbcsr_tpu/core/dist.py`, cut to the single-card engine: one 1x1 grid
-on which every block is local.  The 1-D binning helpers and the offset
-converters are copies of the JAX package's.
+`dbcsr_tpu/core/dist.py`: the single-device engine uses a 1x1 grid on
+which every block is local; a grid engine's product carries its
+`parallel.mesh.Grid` in ``ProcessGrid.mesh``.  The 1-D binning helpers
+and the offset converters are copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -17,10 +18,16 @@ import numpy as np
 
 @dataclasses.dataclass(frozen=True)
 class ProcessGrid:
-    """2D grid of workers; the single-card engine uses 1x1."""
+    """2D grid of workers; the single-card engine uses 1x1.  ``mesh`` is
+    the `parallel.mesh.Grid` a grid engine computed on, if any."""
 
     nprows: int = 1
     npcols: int = 1
+    mesh: Optional[object] = dataclasses.field(default=None, compare=False)
+
+    @property
+    def nprocs(self) -> int:
+        return self.nprows * self.npcols
 
 
 class Distribution:
@@ -61,9 +68,18 @@ class Distribution:
         h.update(self.col_dist.tobytes())
         return int.from_bytes(h.digest()[:8], "little")
 
+    def fingerprint(self) -> int:
+        """Memoized `checksum()` (the maps are not written once the
+        distribution is attached to a matrix); keys the grid engines'
+        plan cache."""
+        fp = getattr(self, "_fp", None)
+        if fp is None:
+            fp = self._fp = self.checksum()
+        return fp
+
     def transposed(self) -> "Distribution":
         """Ref `dbcsr_transpose_distribution`."""
-        grid = ProcessGrid(self.grid.npcols, self.grid.nprows)
+        grid = ProcessGrid(self.grid.npcols, self.grid.nprows, self.grid.mesh)
         return Distribution(self.col_dist, self.row_dist, grid)
 
     def stored_coordinates(self, row: int, col: int):

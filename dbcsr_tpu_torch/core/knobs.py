@@ -30,6 +30,11 @@ KNOBS = {
         "owner": "resilience/faults.py",
         "doc": "fault-injection specs (the JAX package's DSL), read on first use.",
     },
+    "DBCSR_TPU_TORCH_MULTIHOST_TIMEOUT_S": {
+        "owner": "parallel/multihost.py",
+        "doc": "seconds `init_multihost` waits for the world's rendezvous "
+               "before it degrades to serial (default 300).",
+    },
     "DBCSR_TPU_TORCH_NATIVE": {
         "owner": "native/__init__.py",
         "doc": "=0 runs the multiply's index build and sort on the NumPy "

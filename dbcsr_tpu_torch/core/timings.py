@@ -10,8 +10,9 @@ over with `set_hooks`, as `dbcsr_base_hooks.F:88-110` allows.
 ``dbcsr_tpu_torch:<name>``, so a `torch.profiler` trace shows the
 engine's regions beside the card's kernels (the JAX package opens a
 `jax.profiler.TraceAnnotation`), and every region is a span of the
-tracer (`obs/tracer.py`) when one is active, under the same name.  The
-`report` has no rank-aggregated table (no multi-process world yet).
+tracer (`obs/tracer.py`) when one is active, under the same name.  In
+a multi-process world (`parallel/multihost.py`) `report(aggregate=True)`
+prints the rank-aggregated table on the coordinator.
 """
 
 from __future__ import annotations
@@ -97,8 +98,29 @@ def reset() -> None:
         _trace._tracer._span_stack.clear()  # in step with the timer stack
 
 
-def report(out=print, top: int = 30) -> None:
-    """Per-routine table, self-time ordered (ref timings_report.F:51)."""
+def report(out=print, top: int = 30, aggregate: bool = False) -> None:
+    """Per-routine table, self-time ordered (ref timings_report.F:51).
+
+    ``aggregate=True`` in a multi-process world prints the
+    rank-aggregated table -- average and max self/total time per routine
+    across the ranks -- on the coordinator only; every rank must call it
+    (ref the MPI-aggregated report, `dbcsr_timings_report.F:51-301`)."""
+    from dbcsr_tpu_torch.parallel import multihost
+
+    if aggregate and multihost.process_count() > 1:
+        rows = _aggregate_ranks()
+        if rows is None or not multihost.is_coordinator():
+            return
+        out(" " + "-" * 88)
+        out(" -" + f"T I M I N G  ({multihost.process_count()} ranks)".center(86) + "-")
+        out(" " + "-" * 88)
+        out(f" {'SUBROUTINE':<30} {'CALLS':>8} {'SELF avg':>10} "
+            f"{'SELF max':>10} {'TOT avg':>10} {'TOT max':>10}")
+        for name, calls, s_avg, s_max, t_avg, t_max in rows[:top]:
+            out(f" {name:<30} {calls:>8} {s_avg:>10.3f} {s_max:>10.3f} "
+                f"{t_avg:>10.3f} {t_max:>10.3f}")
+        out(" " + "-" * 88)
+        return
     if not _stats:
         return
     out(" " + "-" * 70)
@@ -109,6 +131,31 @@ def report(out=print, top: int = 30) -> None:
     for name, st in rows:
         out(f" {name:<36} {st.calls:>8} {st.self_time:>11.3f} {st.total:>11.3f}")
     out(" " + "-" * 70)
+
+
+def _aggregate_ranks():
+    """Every rank's (name, calls, self, total) rows gathered over the
+    world and reduced to per-routine (name, calls, avg self, max self,
+    avg total, max total), sorted by average self time; a rank without a
+    routine counts 0 in its averages.  None when no rank has timings."""
+    from dbcsr_tpu_torch.parallel import multihost
+
+    local = [(name, st.calls, st.self_time, st.total) for name, st in _stats.items()]
+    tables = multihost.all_gather_objects(local)
+    table: dict = {}
+    for rows in tables:
+        for name, calls, s, t in rows:
+            e = table.setdefault(name, [0, [], []])
+            e[0] = max(e[0], int(calls))
+            e[1].append(float(s))
+            e[2].append(float(t))
+    if not table:
+        return None
+    nproc = len(tables)
+    rows = [(name, calls, sum(selfs) / nproc, max(selfs), sum(tots) / nproc, max(tots))
+            for name, (calls, selfs, tots) in table.items()]
+    rows.sort(key=lambda r: -r[2])
+    return rows
 
 
 def export_callgraph(path: str) -> None:

@@ -2,11 +2,12 @@
 
 P_{n+1} = 3 P_n^2 - 2 P_n^3, the canonical linear-scaling-DFT workload
 DBCSR serves (CP2K's `dm_ls_scf`): two filtered block-sparse multiplies
-per step.  Counterpart of `dbcsr_tpu/models/purify.py:27-169,238-255`,
-with the integrity guard (`models/integrity.py`), the adaptive-precision
-chain scope (`acc.precision.chain_scope`, on the trace change; inert
-unless ``precision="adaptive"`` and ABFT are on) and one ``model_reuse``
-event per step (`mm.incremental.reuse_delta`).
+per step.  Counterpart of `dbcsr_tpu/models/purify.py` (the
+distributed steps, :172-235, run on `parallel/`), with the integrity
+guard (`models/integrity.py`), the adaptive-precision chain scope
+(`acc.precision.chain_scope`, on the trace change; inert unless
+``precision="adaptive"`` and ABFT are on) and one ``model_reuse`` event
+per step (`mm.incremental.reuse_delta`).
 """
 
 from __future__ import annotations
@@ -127,6 +128,45 @@ def mcweeny_purify(p: BlockSparseMatrix, steps: int = 5,
                 break
         ch.detach(cur)
     return cur, history
+
+
+def mcweeny_step_distributed(p_a, p_b):
+    """One purification step on the grid with dense panels: P in both
+    Cannon roles (`parallel.distribute(p, grid, "A")` and "B", the
+    analog of the reference's left/right image distributions,
+    `dbcsr_mm_dist_operations.F:58`); returns P' = 3 P² - 2 P³ in the C
+    role, evaluated as C2 = P@P, then 3*C2 - 2*(P@C2)."""
+    from dbcsr_tpu_torch.parallel.dist_matrix import DistMatrix, multiply_distributed
+
+    p2 = multiply_distributed(1.0, p_a, p_b)  # role C
+    # P² in the B role for the second product (the canvas is the same;
+    # the role says how the Cannon cuts it into panels)
+    p2_b = DistMatrix(data=p2.data, row_blk_sizes=p2.row_blk_sizes,
+                      col_blk_sizes=p2.col_blk_sizes, bm=p2.bm, bn=p2.bn,
+                      nbr_pad=p2.nbr_pad, nbc_pad=p2.nbc_pad, mesh=p2.mesh, role="B",
+                      name="P2", dtype=p2.dtype)
+    p3 = multiply_distributed(1.0, p_a, p2_b)  # P³ = P @ P²
+    return DistMatrix(data=3.0 * p2.data - 2.0 * p3.data, row_blk_sizes=p2.row_blk_sizes,
+                      col_blk_sizes=p2.col_blk_sizes, bm=p2.bm, bn=p2.bn,
+                      nbr_pad=p2.nbr_pad, nbc_pad=p2.nbc_pad, mesh=p2.mesh, role="C",
+                      name="P'", dtype=p2.dtype)
+
+
+def mcweeny_step_sparse_distributed(p: BlockSparseMatrix, mesh,
+                                    filter_eps: Optional[float] = None) -> BlockSparseMatrix:
+    """One purification step through the block-sparse grid Cannon
+    (`parallel/sparse_dist.py`): P' = 3 P² - 2 P³, with the products'
+    blocks filtered at ``filter_eps``."""
+    from dbcsr_tpu_torch.ops.operations import filter_matrix
+    from dbcsr_tpu_torch.parallel.sparse_dist import sparse_multiply_distributed
+
+    p2 = sparse_multiply_distributed(1.0, p, p, 0.0, None, mesh, name="P2")
+    if filter_eps is not None:
+        filter_matrix(p2, filter_eps)
+    p3 = sparse_multiply_distributed(1.0, p2, p, 0.0, None, mesh, name="P3")
+    if filter_eps is not None:
+        filter_matrix(p3, filter_eps)
+    return add(p2, p3, 3.0, -2.0)
 
 
 def make_test_density(n_blocks: int, block_size: int, occ: float = 0.2, seed: int = 0,

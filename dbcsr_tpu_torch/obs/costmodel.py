@@ -19,9 +19,11 @@ JAX package).
   forms.
 
 The JAX package's XLA cost capture has no counterpart (the port
-compiles no XLA program), and its Cannon, mesh and gather tick models
-wait for the port's ``parallel/``.  Stdlib-only at import: `core.stats`
-imports it on the multiply's path; torch is reached in `device_kind`.
+compiles no XLA program).  The Cannon, mesh and gather tick models
+(`cannon_tick_model`, `mesh_tick_model`, `gather_chunk_model`) give the
+grid engines' modeled comm/compute balance per tick.  Stdlib-only at
+import: `core.stats` imports it on the multiply's path; torch is reached
+in `device_kind`.
 """
 
 from __future__ import annotations
@@ -372,3 +374,54 @@ def roofline(flops: float, nbytes: float, seconds: float,
         "flops": int(flops),
         "seconds": seconds,
     }
+
+
+# ------------------------------------------------------ grid tick models
+def _tick_balance(flops: float, comm_bytes: float, dtype: str, kind: str | None) -> dict:
+    """Comm/compute balance of one metronome tick against the peaks:
+    ``overlap_ratio`` = modeled comm time / compute time; below 1.0 the
+    shift hides behind the local products (the comm-thread overlap the
+    reference gets from USE_COMM_THREAD)."""
+    kind = kind or device_kind()
+    peak = peak_gflops(kind, dtype) * 1e9
+    ici = peaks_for(kind)["ici_gbs"] * 1e9
+    t_comp = flops / peak if peak else 0.0
+    t_comm = comm_bytes / ici if ici else 0.0
+    return {"tick_flops": int(flops), "tick_comm_bytes": int(comm_bytes),
+            "t_compute_s": t_comp, "t_comm_s": t_comm,
+            "overlap_ratio": (t_comm / t_comp) if t_comp > 0 else 0.0}
+
+
+def cannon_tick_model(m: int, n: int, k: int, kl: int, s: int, itemsize: int, dtype: str,
+                      kind: str | None = None) -> dict:
+    """Per-image, per-tick balance of the dense Cannon: each tick
+    contracts a local (m/s, k/(kl*s)) x (k/(kl*s), n/s) panel pair while
+    both operand panels shift."""
+    m_loc, n_loc, k_loc = m / s, n / s, k / (kl * s)
+    flops = 2.0 * m_loc * n_loc * k_loc
+    comm_bytes = (m_loc * k_loc + k_loc * n_loc) * itemsize
+    return _tick_balance(flops, comm_bytes, dtype, kind)
+
+
+def mesh_tick_model(cap_a: int, cap_b: int, bm: int, bk: int, bn: int, entries: int,
+                    nticks: int, ndev: int, itemsize: int, dtype: str,
+                    kind: str | None = None) -> dict:
+    """Per-image, per-tick balance of the block-sparse Cannon: each tick
+    shifts a full padded A panel (``cap_a`` blocks of (bm, bk)) and B
+    panel (``cap_b`` of (bk, bn)) while contracting this tick's share of
+    the product's ``entries`` (split evenly over images x ticks)."""
+    flops = 2.0 * bm * bn * bk * entries / max(ndev * nticks, 1)
+    comm_bytes = (cap_a * bm * bk + cap_b * bk * bn) * itemsize
+    return _tick_balance(flops, comm_bytes, dtype, kind)
+
+
+def gather_chunk_model(cap_a: int, cap_b: int, bm: int, bk: int, bn: int, entries: int,
+                       nticks: int, ndev: int, itemsize: int, dtype: str,
+                       kind: str | None = None) -> dict:
+    """Per-image, per-chunk balance of the chunked all-gather pipeline on
+    rectangular grids: each of the ``nticks`` steps moves one padded A
+    shard and one B shard while the tick contracts its shard-arrival
+    share of the ``entries`` (`mesh_tick_model`'s balance on the gather
+    schedule, one gauge family for both routes)."""
+    return mesh_tick_model(cap_a, cap_b, bm, bk, bn, entries, nticks, ndev, itemsize, dtype,
+                           kind)

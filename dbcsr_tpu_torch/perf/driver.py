@@ -1,4 +1,4 @@
-"""Performance driver: the `dbcsr_perf` analog on one device.
+"""Performance driver: the `dbcsr_perf` analog.
 
 Counterpart of `dbcsr_tpu/perf/driver.py` (ref
 `tests/dbcsr_performance_driver.F` + `dbcsr_performance_multiply.F`):
@@ -12,6 +12,16 @@ card.  The repeats run with the incremental multiply off
 (`dbcsr_tpu/perf/driver.py:278-292`): a repeat of an unchanged beta = 0
 product would otherwise be served from the result cache, and the
 repeats must time the engine.
+
+Grid handling (ref `dbcsr_performance_driver.F:47-56` mp_cart_create):
+``npcols > 1`` in the input, a ``grid=`` or ``n_images > 1`` runs the
+product on a process grid (`parallel/`) through
+`sparse_multiply_distributed`: pr = pc = npcols and any excess image
+factor as 2.5D k layers; ``use_rma=T`` (the reference's one-sided 3D
+algorithm, `dbcsr_mm_3d.F:1136`) prefers a layered grid from 8 images.
+`run_perf_multiproc` runs the input on a world of spawned ranks
+(`parallel.multihost.spawn_world`), each rank one or more images of one
+grid, and checks that every rank computed the same checksum.
 
 Usage:  python -m dbcsr_tpu_torch.perf.driver tests/inputs/test_H2O.perf [cpu]
 """
@@ -30,7 +40,7 @@ from dbcsr_tpu_torch.acc import crosspack_kernel, stack_kernel
 from dbcsr_tpu_torch.core.config import get_config, set_config
 from dbcsr_tpu_torch.core.kinds import dtype_of
 from dbcsr_tpu_torch.device import DeviceLike, resolve_device
-from dbcsr_tpu_torch.mm.multiply import multiply
+from dbcsr_tpu_torch.mm.multiply import _effective, multiply
 from dbcsr_tpu_torch.ops.test_methods import checksum as matrix_checksum
 from dbcsr_tpu_torch.ops.test_methods import make_random_matrix
 
@@ -142,14 +152,40 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _mesh_for(cfg: PerfConfig, n_images: int, device):
+    """The process grid honoring npcols/use_rma (see the module
+    docstring), all images on ``device``; None runs the single-device
+    engine."""
+    if n_images <= 1 and cfg.npcols <= 1:
+        return None
+    from dbcsr_tpu_torch.parallel.mesh import Grid, make_grid
+
+    if cfg.npcols > 0:
+        s = cfg.npcols
+        n_images = max(n_images, s * s)
+        if n_images % (s * s):
+            raise ValueError(f"npcols={s} needs an image count divisible by {s * s}, "
+                             f"have {n_images}")
+        kl = n_images // (s * s)
+        if kl == 1 and s == 1:
+            return None  # 1x1 grid: the single-device engine
+        return Grid((kl, s, s), [(0, device)] * (kl * s * s))
+    return make_grid(n_images, layers=2 if cfg.use_rma and n_images >= 8 else None,
+                     device=device)
+
+
 def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
-             device: Optional[DeviceLike] = None) -> dict:
-    """Run the configured multiply ``nrep`` times on one device; returns
-    a result dict and raises `PerfChecksumError` when the input's check
-    fails (ref `perf_multiply`, `dbcsr_performance_multiply.F:452-515`)."""
-    dev = resolve_device(device)
-    if cfg.npcols > 1:
-        raise NotImplementedError("process grids (npcols > 1) are not ported yet")
+             device: Optional[DeviceLike] = None, grid=None,
+             n_images: Optional[int] = None) -> dict:
+    """Run the configured multiply ``nrep`` times; returns a result dict
+    and raises `PerfChecksumError` when the input's check fails (ref
+    `perf_multiply`, `dbcsr_performance_multiply.F:452-515`).  ``grid``
+    (a `parallel.mesh.Grid`), ``n_images`` > 1 or npcols > 1 in the input
+    runs the product on a process grid; ``grid`` overrides the rest
+    (the multi-process driver passes the world's grid)."""
+    dev = resolve_device(device) if grid is None else grid.home()
+    if grid is None:
+        grid = _mesh_for(cfg, n_images or 1, dev)
     dtype = dtype_of(cfg.data_type)
     rng = np.random.default_rng(seed)
     m_sizes = expand_block_sizes(cfg.m, cfg.m_sizes)
@@ -178,20 +214,32 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
     counts0 = _launch_counts()
     prev_inc = get_config().incremental
     set_config(incremental="off")
+    # the grid engine takes plain operands: op(A), op(B) resolved once
+    a_op, b_op = ((_effective(a, cfg.transa), _effective(b, cfg.transb)) if grid is not None
+                  else (a, b))
     try:
         for _ in range(cfg.nrep):
             c_run = c.copy()
             _sync(dev)
             t0 = time.perf_counter()
-            flops = multiply(cfg.transa, cfg.transb, cfg.alpha, a, b, cfg.beta, c_run,
-                             retain_sparsity=cfg.retain_sparsity, element_limits=element_limits)
+            if grid is not None:
+                from dbcsr_tpu_torch.parallel.sparse_dist import sparse_multiply_distributed
+
+                c_run = sparse_multiply_distributed(
+                    cfg.alpha, a_op, b_op, cfg.beta, c_run, grid,
+                    retain_sparsity=cfg.retain_sparsity, element_limits=element_limits)
+                flops = c_run._last_flops
+            else:
+                flops = multiply(cfg.transa, cfg.transb, cfg.alpha, a, b, cfg.beta, c_run,
+                                 retain_sparsity=cfg.retain_sparsity,
+                                 element_limits=element_limits)
             _sync(dev)
             times.append(time.perf_counter() - t0)
             flops_list.append(flops)
-            phases.append(dict(c_run._mm_phase_s))
-            cache.append(c_run._mm_plan_cache)
+            phases.append(dict(getattr(c_run, "_mm_phase_s", {})))
+            cache.append(getattr(c_run, "_mm_plan_cache", None))
             algorithms.append(c_run._mm_algorithm)
-            ev = c_run._mm_device_events
+            ev = getattr(c_run, "_mm_device_events", None)
             device_s.append(ev[0].elapsed_time(ev[1]) / 1e3 if ev else None)
     finally:
         set_config(incremental=prev_inc)
@@ -218,7 +266,7 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
         # launches of K1), calls of the plain versions, and the
         # last repeat's spans as (m, n, k, entries, kernel, longest run)
         "launches": launches,
-        "spans": c_run._mm_spans,
+        "spans": getattr(c_run, "_mm_spans", None),
         "flops": flops_list[-1],
         "gflops_mean": float(np.mean(gflops)),
         "gflops_std": float(np.std(gflops)),
@@ -229,6 +277,10 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
         "checksum_b": chksum_b,
         "checksum_c_in": chksum_c_in,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
+        "grid": dict(grid.shape) if grid is not None else {"pr": 1, "pc": 1},
+        # the grid engine's last repeat: engine, overlap mode, ticks,
+        # padded and true flops (None on the single-device engine)
+        "mesh": getattr(c_run, "_mesh", None),
         # the format the planner chose (mm/format_planner.py): the last
         # repeat's, as the JAX driver reports it, and each repeat's
         "algorithm": algorithms[-1],
@@ -279,6 +331,71 @@ def _verify_checksums(cfg: PerfConfig, cs: float, cs_pos: float, verbose: bool) 
         raise PerfChecksumError("; ".join(errs))
     if verbose:
         print(" checksums OK (within threshold)")
+
+
+def _mp_worker(cfg_path, images_per_proc: int, nrep: int, device) -> dict:
+    """One rank of the multi-process driver (a `parallel.multihost.spawn_world`
+    task): the world's grid over every rank's images, the input run on
+    it, this rank's result (each rank of the reference driver is an MPI
+    process doing this, `dbcsr_performance_driver.F:47-56`)."""
+    from dbcsr_tpu_torch.core.digests import matrix_value_digest
+    from dbcsr_tpu_torch.parallel import multihost
+
+    grid = multihost.make_multihost_grid(images_per_process=images_per_proc, device=device)
+    cfg = cfg_path if isinstance(cfg_path, PerfConfig) else parse_perf_file(cfg_path)
+    if nrep:
+        cfg.nrep = nrep
+    multihost.reset_staged()
+    res = run_perf(cfg, verbose=False, grid=grid)
+    return {"pid": multihost.process_id(), "checksum": res["checksum"],
+            "checksum_pos": res["checksum_pos"], "flops": res["flops"],
+            "gflops_mean": res["gflops_mean"], "time_best_s": min(res["times_s"]),
+            "times_s": res["times_s"], "grid": res["grid"],
+            "digest": matrix_value_digest(res["matrices"]["c_out"]).hex(),
+            "launches": res["launches"], "staged": multihost.staged()}
+
+
+def aggregate_rank_results(results: list) -> dict:
+    """World aggregation of the ranks' results: the cross-rank checksum
+    contract, and the conservative world rate -- the slowest rank's best
+    repeat sets the time, as the straggler sets an MPI world's wall
+    clock (ref per-rank reporting, `dbcsr_performance_multiply.F:452-515`)."""
+    checksums = {r["checksum"] for r in results}
+    if len(checksums) != 1:
+        raise RuntimeError(f"rank checksums differ: {sorted(checksums)}")
+    flops = results[0]["flops"]
+    t_max = max(r["time_best_s"] for r in results)
+    return {
+        "nproc": len(results),
+        "checksum": results[0]["checksum"],
+        "flops": flops,
+        "gflops_world": flops / t_max / 1e9 if t_max > 0 else 0.0,
+        "gflops_mean_ranks": float(np.mean([r["gflops_mean"] for r in results])),
+        "per_rank": results,
+    }
+
+
+def run_perf_multiproc(cfg_path, nproc: int, images_per_proc: int = 1,
+                       nrep: Optional[int] = None, timeout: float = 600,
+                       verbose: bool = True, device: Optional[DeviceLike] = None) -> dict:
+    """Run the input (a `.perf` path or a `PerfConfig`) on a world of
+    ``nproc`` spawned ranks over gloo, each owning ``images_per_proc``
+    images of one grid on ``device`` (the
+    mpiexec-driven reference driver, `dbcsr_performance_driver.F:47-56`).
+    Returns the rank-aggregated result; raises when a rank fails, the
+    world does not finish within ``timeout`` seconds, or the ranks'
+    checksums differ."""
+    from dbcsr_tpu_torch.parallel import multihost
+
+    dev = str(resolve_device(device))
+    results = multihost.spawn_world("dbcsr_tpu_torch.perf.driver:_mp_worker", nproc,
+                                    (cfg_path, images_per_proc, nrep or 0, dev),
+                                    timeout_s=timeout)
+    agg = aggregate_rank_results(results)
+    if verbose:
+        print(f" {nproc}-process world: {agg['gflops_world']:.3f} GFLOP/s "
+              f"(slowest-rank best), checksum {agg['checksum']:.9e} identical on all ranks")
+    return agg
 
 
 def main(argv=None) -> int:

@@ -3,9 +3,10 @@
 A copy of `dbcsr_tpu/resilience/sites.py`, limited to the sites that
 exist in the port: the stack launch, the fused C-bin launch, the stack
 planning, the canvas (dense and composite) formats, the storage-format
-planner and the incremental splice.  The JAX package's mesh, TAS tick, probe,
-attribution, serving, fleet and tuner sites come back with their
-modules (`ROADMAP.md`, Queue 1).  Every literal site the port passes to `faults.maybe_inject`
+planner, the incremental splice, and the grid engines' world join,
+dispatch and tick edges.  The JAX package's probe, attribution,
+serving, fleet and tuner sites come back with their modules
+(`ROADMAP.md`, Queue 1).  Every literal site the port passes to `faults.maybe_inject`
 or `faults.corrupt` is registered here (`tests/test_torch_resilience.py`
 checks the sources).
 
@@ -49,6 +50,33 @@ SITES = {
                     "nan/flip corrupt the assembled C for the full-product "
                     "probe to catch)",
         "corruptible": True, "chaos": True, "dynamic": False,
+    },
+    "multihost_init": {
+        "boundary": "`parallel.multihost.init_multihost` (the world join)",
+        # a multi-process join cannot fire inside a one-process chaos run
+        "corruptible": False, "chaos": False, "dynamic": False,
+    },
+    "collective": {
+        "boundary": "`parallel.sparse_dist` grid dispatch boundary (before "
+                    "any panel moves: the product raises, nothing is written)",
+        "corruptible": False, "chaos": False, "dynamic": False,
+    },
+    "mesh_shift": {
+        "boundary": "the double-buffered Cannon tick/shift boundary "
+                    "(`parallel.overlap.run_ticks`, one per shift; labels "
+                    "`engine`, `tick`)",
+        "corruptible": True, "chaos": True, "dynamic": True,
+    },
+    "gather_chunk": {
+        "boundary": "the chunked all-gather pipeline's per-shard step on "
+                    "rectangular grids (same `run_ticks` edge, breaker "
+                    "`gather_pipe`; labels `engine`, `tick`)",
+        "corruptible": True, "chaos": True, "dynamic": True,
+    },
+    "tas_tick": {
+        "boundary": "the grouped-TAS metronome's tick/shift edge (breaker "
+                    "`cannon_db` keyed engine=\"tas\")",
+        "corruptible": True, "chaos": True, "dynamic": True,
     },
 }
 

@@ -4,8 +4,8 @@ Re-design of `src/tas`: matrices with one dimension much larger than
 the other are processed as a split stack of ordinary block-sparse
 multiplies -- split the long dimension into groups and multiply per
 group (`dbcsr_tas_mm.F:10-17,79`).  On one device the groups bound the
-working set of each multiply; the distributed path waits for the
-port's `parallel/`.
+working set of each multiply; on a process grid (``mesh=``) they run
+as per-group Cannons of the port's `parallel/`.
 """
 
 from dbcsr_tpu_torch.tas.base import TASMatrix

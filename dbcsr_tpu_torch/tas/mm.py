@@ -24,8 +24,13 @@ from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
 from dbcsr_tpu_torch.core.timings import timed
 from dbcsr_tpu_torch.mm.multiply import multiply
 from dbcsr_tpu_torch.ops.operations import scale
+from dbcsr_tpu_torch.parallel.mesh import Grid, optimize_grid
 from dbcsr_tpu_torch.tas.base import TASMatrix
-from dbcsr_tpu_torch.tas.split import choose_nsplit, estimate_split_factor
+from dbcsr_tpu_torch.tas.split import (
+    choose_nsplit,
+    choose_nsplit_traffic,
+    estimate_split_factor,
+)
 
 # ref default_nsplit_accept_ratio (`dbcsr_tas_split.F:57`): a cached
 # batch split survives while within this factor of the current optimum
@@ -54,13 +59,13 @@ def tas_multiply(
     Returns total flops.  ``nsplit=None`` chooses the split from the
     split-factor estimate (ref `dbcsr_tas_mm.F:1427`) times
     ``tas_split_factor``; ``nsplit=1`` is a single multiply.  The split
-    taken is left in ``c._tas_nsplit``.  ``mesh`` raises
-    `NotImplementedError` (no `parallel/` package in the port yet)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "tas_multiply(mesh=...) runs the distributed per-group Cannon "
-            "multiplies of dbcsr_tpu_torch.parallel, which is not ported yet; "
-            "call it without a mesh for the single-device split loop")
+    taken is left in ``c._tas_nsplit``.  With ``mesh`` (a
+    `parallel.mesh.Grid`) the groups run on the grid engines, and on a
+    square grid the split minimizes the modeled panel traffic
+    (`choose_nsplit_traffic`)."""
+    if mesh is not None and not isinstance(mesh, Grid):
+        raise TypeError(f"mesh must be a dbcsr_tpu_torch.parallel Grid, got "
+                        f"{type(mesh).__name__}")
     a = _unwrap(matrix_a)
     b = _unwrap(matrix_b)
     c = _unwrap(matrix_c)
@@ -90,6 +95,17 @@ def tas_multiply(
 
         def _fresh_opt() -> int:
             long_blks = max(c.nblkrows, c.nblkcols, nblk_k)
+            if mesh is not None and mesh.shape["pr"] == mesh.shape["pc"]:
+                # the split that minimizes the modeled panel traffic (the
+                # role of the reference's split-factor/pgrid acceptance,
+                # `dbcsr_tas_mm.F:1427-1464`); rectangular grids cannot
+                # group, so there the geometric estimate stays
+                g = choose_nsplit_traffic(
+                    long_dim, m_full, n_full, k_full, a.nnz, b.nnz, c.nnz,
+                    c.dtype.itemsize,
+                    mesh.shape["kl"], mesh.shape["pr"], ngroups_max, long_blks)
+                if g is not None:
+                    return g
             sf = estimate_split_factor(
                 m_full, n_full, k_full, a.nnz, b.nnz, c.nnz
             ) * get_config().tas_split_factor  # ref TAS_SPLIT_FACTOR knob
@@ -130,6 +146,21 @@ def tas_multiply(
                         batch["resplit_count"] = batch.get("resplit_count", 0) + 1
 
         c._tas_nsplit = int(max(nsplit, 1))
+        if mesh is not None:
+            if batch is not None:
+                # batched pgrid re-optimization (ref `dbcsr_tensor.F:1964-2186`):
+                # re-factor the same images to the batch's split, cached in
+                # the batch state and re-evaluated when the split changes
+                key = (id(mesh), max(nsplit, 1), long_dim)
+                if batch.get("pgrid_key") != key:
+                    batch["pgrid_key"] = key
+                    batch["pgrid_src"] = mesh  # keeps id(mesh) unique
+                    batch["pgrid"] = optimize_grid(mesh, max(nsplit, 1), long_dim)
+                    if batch["pgrid"] is not mesh:
+                        batch["repgrid_count"] = batch.get("repgrid_count", 0) + 1
+                mesh = batch["pgrid"]
+            return _tas_multiply_mesh(transa, transb, alpha, a, b, beta, c, filter_eps,
+                                      max(nsplit, 1), long_dim, mesh)
         if nsplit <= 1:
             return multiply(transa, transb, alpha, a, b, beta, c, filter_eps=filter_eps)
 
@@ -158,3 +189,53 @@ def tas_multiply(
                                       **{limit_lo: g0, limit_hi: g1 - 1})
         return flops
 
+
+
+def _tas_multiply_mesh(transa, transb, alpha, a, b, beta, c, filter_eps, nsplit, long_dim,
+                       mesh) -> int:
+    """The TAS multiply on a grid.  m- or n-long products run
+    `tas_grouped_multiply`: nsplit per-group Cannons over the 'kl' axis
+    with the short matrix replicated into each group (ref
+    `dbcsr_tas_mm.F:79-806`, `dbcsr_tas_split.F:304`); a column-long C
+    runs as C^T with row groups.  k-long products, and every product on
+    a rectangular or one-layer grid, run the layered sparse Cannon
+    (`sparse_multiply_distributed`), the same grid split applied to the
+    contraction dimension (`dbcsr_mm_3d.F:1037`).  The result's
+    structure is adopted into ``c``."""
+    from dbcsr_tpu_torch.core.matrix import NO_SYMMETRY, _Bin
+    from dbcsr_tpu_torch.ops.transformations import new_transposed
+    from dbcsr_tpu_torch.parallel.sparse_dist import (
+        sparse_multiply_distributed,
+        tas_grouped_multiply,
+    )
+
+    def _op(m, trans):
+        t = trans.upper()
+        if t == "N":
+            return m
+        return new_transposed(m, conjugate=t == "C" and m.dtype.is_complex)
+
+    a_op, b_op = _op(a, transa), _op(b, transb)
+    grouped = (nsplit > 1 and mesh.shape["kl"] > 1 and mesh.shape["pr"] == mesh.shape["pc"]
+               and long_dim in ("m", "n"))
+    if grouped and long_dim == "m":
+        acc = tas_grouped_multiply(alpha, a_op, b_op, beta, c, mesh, name=c.name,
+                                   filter_eps=filter_eps, nsplit=nsplit)
+    elif grouped:
+        # column-long C: C^T = op(B)^T op(A)^T is row-long
+        acc_t = tas_grouped_multiply(alpha, new_transposed(b_op), new_transposed(a_op), beta,
+                                     new_transposed(c), mesh, name=c.name + "^T",
+                                     filter_eps=filter_eps, nsplit=nsplit)
+        acc = new_transposed(acc_t)
+        acc._last_flops = acc_t._last_flops
+    else:
+        acc = sparse_multiply_distributed(alpha, a_op, b_op, beta, c, mesh, name=c.name,
+                                          filter_eps=filter_eps)
+    # adopt the product's structure into the caller's C (plain: the grid
+    # engines desymmetrize); acc is a temporary, so its bins move over
+    c.matrix_type = NO_SYMMETRY
+    c.set_structure_from_device(acc.keys, [_Bin(b.shape, b.data.to(c.device), b.count)
+                                           for b in acc.bins],
+                                binning=(acc.ent_bin, acc.ent_slot,
+                                         [b.shape for b in acc.bins]))
+    return int(acc._last_flops)

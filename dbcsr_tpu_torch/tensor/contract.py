@@ -204,6 +204,8 @@ def contract(
     ``bounds_2[i]`` restricts notcontract_a[i], ``bounds_3[i]``
     notcontract_b[i] (ref bounds args, `dbcsr_tensor.F:470-490`; the
     batched-contraction driver chunks index space with these).
+    ``mesh`` (a `parallel.mesh.Grid`) runs the TAS multiply on the grid
+    engines.
     """
     ca, nca = tuple(contract_a), tuple(notcontract_a)
     cb, ncb = tuple(contract_b), tuple(notcontract_b)

@@ -1,8 +1,8 @@
 """The port's CSR conversions (dbcsr_tpu_torch.ops.csr) and binary I/O
 (dbcsr_tpu_torch.ops.io) held against the JAX package on the CPU.
 
-The cases of `tests/test_csr_io.py` but the mesh one (`replicate` waits
-for the port's distributed engine), on operands drawn by the JAX
+The cases of `tests/test_csr_io.py` but the mesh one (it is in
+`tests/test_torch_parallel.py`), on operands drawn by the JAX
 package from one numpy seed and carried across, plus:
 
 * `csr_from_matrix` gives the JAX package's arrays exactly, and

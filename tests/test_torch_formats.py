@@ -33,6 +33,7 @@ from dbcsr_tpu.mm import format_planner as jax_fp
 from dbcsr_tpu.mm import multiply as jax_mm
 from dbcsr_tpu.models import invsqrt as jax_invsqrt
 from dbcsr_tpu.models import purify as jax_purify
+from dbcsr_tpu.obs import health as jax_health
 from dbcsr_tpu.obs import metrics as jax_metrics
 from dbcsr_tpu.ops import operations as jops
 from dbcsr_tpu.ops import test_methods as jax_tm
@@ -68,7 +69,11 @@ def clean_slate(tmp_path, monkeypatch):
     yield
     jax_set_config(**jcfg0)
     set_config(**pcfg0)
-    for reset in (jax_params.invalidate, params.invalidate, jax_fp.reset, fp.reset):
+    # the JAX products of these tests feed its health model (their many
+    # first compiles read as a recompile storm): a later file in the
+    # same process must not inherit a DEGRADED verdict
+    for reset in (jax_params.invalidate, params.invalidate, jax_fp.reset, fp.reset,
+                  jax_metrics.reset, jax_health.reset):
         reset()
 
 

@@ -66,7 +66,8 @@ print(len(mods), "modules:", " ".join(mods))
 # the native index engine and the storage-format planner, and the
 # integrity plane (faults, breakers, ABFT, events, chain guard), the
 # precision planner and the incremental multiply, and the statistics,
-# tracer, profile epochs, library lifecycle and knob registry
+# tracer, profile epochs, library lifecycle and knob registry, and the
+# distributed engine (grid, ticks, engines, world)
 _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.crosspack",
              "dbcsr_tpu_torch.acc.crosspack_kernel", "dbcsr_tpu_torch.acc.params",
              "dbcsr_tpu_torch.acc.smm", "dbcsr_tpu_torch.acc.stack_kernel",
@@ -90,7 +91,11 @@ _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.cro
              "dbcsr_tpu_torch.obs.shard", "dbcsr_tpu_torch.obs.tracer",
              "dbcsr_tpu_torch.obs.profiler", "dbcsr_tpu_torch.acc.bench",
              "dbcsr_tpu_torch.acc.tune", "dbcsr_tpu_torch.ops.csr", "dbcsr_tpu_torch.ops.io",
-             "dbcsr_tpu_torch.ops.tests"}
+             "dbcsr_tpu_torch.ops.tests", "dbcsr_tpu_torch.parallel",
+             "dbcsr_tpu_torch.parallel.mesh", "dbcsr_tpu_torch.parallel.images",
+             "dbcsr_tpu_torch.parallel.overlap", "dbcsr_tpu_torch.parallel.cannon",
+             "dbcsr_tpu_torch.parallel.dist_matrix", "dbcsr_tpu_torch.parallel.sparse_dist",
+             "dbcsr_tpu_torch.parallel.multihost"}
 
 
 def _env(**extra):
@@ -104,7 +109,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          env=_env(), capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, _, names = out.stdout.partition("modules:")
-    assert int(count) >= 57
+    assert int(count) >= 65
     assert _REQUIRED <= set(names.split())
 
 

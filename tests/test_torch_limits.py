@@ -21,6 +21,8 @@ from dbcsr_tpu.core.config import get_config as jax_get_config
 from dbcsr_tpu.core.config import set_config as jax_set_config
 from dbcsr_tpu.core.kinds import enum_of as jax_enum_of
 from dbcsr_tpu.mm.multiply import multiply as jax_multiply
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
 from dbcsr_tpu.ops import operations as jops
 from dbcsr_tpu.ops import test_methods as jax_tm
 from dbcsr_tpu.perf import driver as jax_driver
@@ -30,6 +32,17 @@ from dbcsr_tpu_torch.mm import multiply as mm
 from dbcsr_tpu_torch.ops import operations as pops
 from dbcsr_tpu_torch.ops import test_methods as port_tm
 from dbcsr_tpu_torch.perf.driver import PerfConfig, expand_block_sizes, run_perf
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's health model
+    (first compiles read as a recompile storm, CPU rates as a roofline
+    burn): reset it after each test, so a later file in the same process
+    does not start from a DEGRADED verdict."""
+    yield
+    jax_metrics.reset()
+    jax_health.reset()
 
 
 @pytest.fixture(autouse=True)

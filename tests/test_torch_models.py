@@ -25,6 +25,8 @@ from dbcsr_tpu.mm.multiply import multiply as jax_multiply
 from dbcsr_tpu.models import invsqrt as jax_invsqrt
 from dbcsr_tpu.models import purify as jax_purify
 from dbcsr_tpu.models import sign as jax_sign
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
 from dbcsr_tpu.ops import operations as jops
 from dbcsr_tpu.ops import test_methods as jax_tm
 
@@ -46,6 +48,17 @@ from dbcsr_tpu_torch.ops import operations as pops
 from dbcsr_tpu_torch.ops import test_methods as port_tm
 
 RTOL = 1e-10
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's health model
+    (first compiles read as a recompile storm, CPU rates as a roofline
+    burn): reset it after each test, so a later file in the same process
+    does not start from a DEGRADED verdict."""
+    yield
+    jax_metrics.reset()
+    jax_health.reset()
 
 
 @pytest.fixture(autouse=True)

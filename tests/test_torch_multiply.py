@@ -20,6 +20,8 @@ from dbcsr_tpu.core.config import get_config as jax_get_config
 from dbcsr_tpu.core.config import set_config as jax_set_config
 from dbcsr_tpu.core.kinds import enum_of as jax_enum_of
 from dbcsr_tpu.mm.multiply import multiply as jax_multiply
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
 from dbcsr_tpu.ops import test_methods as jax_tm
 from dbcsr_tpu.perf import driver as jax_driver
 
@@ -38,6 +40,17 @@ from dbcsr_tpu_torch.perf.driver import (
 INPUTS = os.path.join(os.path.dirname(__file__), "inputs")
 UNIFORM = np.full(6, 23)
 MIXED = np.array([5, 13, 23, 5, 13, 23, 13])
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's health model
+    (first compiles read as a recompile storm, CPU rates as a roofline
+    burn): reset it after each test, so a later file in the same process
+    does not start from a DEGRADED verdict."""
+    yield
+    jax_metrics.reset()
+    jax_health.reset()
 
 
 def jax_state(m) -> dict:
@@ -129,8 +142,8 @@ def test_multiply_squares_in_place(jax_stack_config):
                                rtol=1e-12, atol=1e-12)
 
 
-# the runnable subset of tests/test_perf_driver.py's ported .perf inputs
-# (single process grid; test_square_sparse_rma needs the device mesh)
+# the single-device subset of tests/test_perf_driver.py's ported .perf
+# inputs (test_square_sparse_rma runs on a grid, below)
 RUNNABLE = ["test_rect1_dense", "test_rect2_dense", "test_singleblock",
             "test_square_dense", "test_square_sparse"]
 
@@ -149,6 +162,24 @@ def test_run_perf_reproduces_committed_checksums(name, jax_stack_config):
     assert res["algorithm"] == want["algorithm"]
     assert res["algorithms"] == [want["algorithm"]] * cfg.nrep
     assert res["flops"] == want["flops"]
+
+
+@pytest.mark.parametrize("name,images", [("test_square_sparse_rma", 8),
+                                         ("test_square_sparse", 4), ("test_rect1_sparse", 6)])
+def test_run_perf_on_a_grid_reproduces_committed_checksums(name, images, jax_stack_config):
+    """The .perf inputs on a process grid of CPU images (`parallel/`):
+    ``use_rma=T`` takes a layered 2x2x2 grid, as the JAX package's
+    driver does on 8 devices; the gate holds and the flops are the JAX
+    package's on its mesh."""
+    cfg = parse_perf_file(os.path.join(INPUTS, f"{name}.perf"))
+    cfg.nrep = 1
+    res = run_perf(cfg, verbose=False, device="cpu", n_images=images)  # raises on mismatch
+    want = jax_driver.run_perf(jax_driver.parse_perf_file(os.path.join(INPUTS, f"{name}.perf")),
+                               verbose=False, n_devices=images)
+    assert res["grid"] == want["grid"]
+    assert res["flops"] == want["flops"]
+    assert res["mesh"]["engine"] == ("cannon" if res["grid"]["pr"] == res["grid"]["pc"]
+                                     else "gather")
 
 
 def test_run_perf_checksum_mismatch_raises():

@@ -20,6 +20,8 @@ import torch
 from dbcsr_tpu.core.config import get_config as jax_get_config
 from dbcsr_tpu.core.config import set_config as jax_set_config
 from dbcsr_tpu.mm.multiply import multiply as jax_multiply
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
 from dbcsr_tpu.ops import test_methods as jax_tm
 
 from dbcsr_tpu_torch.acc import params, smm
@@ -32,6 +34,17 @@ from dbcsr_tpu_torch.ops import test_methods as port_tm
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZES = np.array([2, 3, 5, 3, 4, 2])
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's health model
+    (first compiles read as a recompile storm, CPU rates as a roofline
+    burn): reset it after each test, so a later file in the same process
+    does not start from a DEGRADED verdict."""
+    yield
+    jax_metrics.reset()
+    jax_health.reset()
 
 
 @pytest.fixture(autouse=True)

@@ -20,6 +20,8 @@ from dbcsr_tpu.core.config import set_config as jax_set_config
 from dbcsr_tpu.core.kinds import enum_of as jax_enum_of
 from dbcsr_tpu.core.matrix import BlockSparseMatrix as JaxMatrix
 from dbcsr_tpu.mm.multiply import multiply as jax_multiply
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
 from dbcsr_tpu.ops import test_methods as jax_tm
 from dbcsr_tpu.ops import transformations as jax_tr
 from dbcsr_tpu.perf import driver as jax_driver
@@ -32,6 +34,17 @@ from dbcsr_tpu_torch.ops import transformations as port_tr
 from dbcsr_tpu_torch.perf.driver import PerfConfig, run_perf
 
 SIZES = np.array([2, 3, 5, 3, 4, 2])
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's health model
+    (first compiles read as a recompile storm, CPU rates as a roofline
+    burn): reset it after each test, so a later file in the same process
+    does not start from a DEGRADED verdict."""
+    yield
+    jax_metrics.reset()
+    jax_health.reset()
 
 
 def jax_state(m) -> dict:

@@ -2,12 +2,13 @@
 on the CPU.
 
 The cases of `tests/test_tas.py` and the TAS cases of
-`tests/test_tensor.py` that need no device mesh, after
+`tests/test_tensor.py`, after
 `dbcsr_tas_unittest.F:48-100`: the same numpy-seeded operands (JAX
 matrices carried across with `dbcsr_tpu_torch.interop`) go through both
 packages' `tas_multiply`, where the port's K1 wrapper runs its plain
 version on the CPU tensors; the JAX package runs its "xla" driver.  The
-mesh cases wait for the port's `parallel/`: here ``mesh=`` must raise.
+mesh cases run the JAX package on its forced 8-device CPU mesh and the
+port on a grid of CPU images.
 
 Tolerances: C's pattern equal to the JAX package's; C relative to max
 |C| within 1e-12 of it (f64) or within `kernel_validation_tolerance`
@@ -21,6 +22,8 @@ import torch
 from dbcsr_tpu.core.config import get_config as jax_get_config
 from dbcsr_tpu.core.config import set_config as jax_set_config
 from dbcsr_tpu.core.kinds import enum_of as jax_enum_of
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
 from dbcsr_tpu.ops import test_methods as jax_tm
 from dbcsr_tpu.tas import batched_mm as jax_batched_mm
 from dbcsr_tpu.tas import tas_multiply as jax_tas_multiply
@@ -44,6 +47,17 @@ from dbcsr_tpu_torch.tas import (
     tas_multiply,
 )
 from dbcsr_tpu_torch.tas import split as port_split
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's health model
+    (first compiles read as a recompile storm, CPU rates as a roofline
+    burn): reset it after each test, so a later file in the same process
+    does not start from a DEGRADED verdict."""
+    yield
+    jax_metrics.reset()
+    jax_health.reset()
 
 
 @pytest.fixture(autouse=True)
@@ -297,16 +311,111 @@ def test_tas_multiply_is_timed():
 
 
 def test_tas_multiply_on_a_mesh_raises():
-    """The distributed split waits for the port's parallel/: no silent
-    single-device run for a mesh."""
+    """A mesh that is not a `parallel` grid raises before anything runs:
+    no silent single-device run for a mesh."""
     ls, ss, rng = _tall(10, 2, seed=8)
     _, pa = _pair("a", ls, ss, 0.5, rng)
     _, pb = _pair("b", ss, ss, 0.8, rng)
     _, pc = _pair("c", ls, ss, 0.0, rng)
     before = pc.nblks
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="Grid"):
         tas_multiply("N", "N", 1.0, pa, pb, 0.0, pc, nsplit=2, mesh=object())
     assert pc.nblks == before
+
+
+# ------------------------------------------------------------- on a grid
+def _grids(n, layers=None):
+    from dbcsr_tpu.parallel import make_grid as jax_make_grid
+
+    from dbcsr_tpu_torch.parallel import make_grid
+
+    return jax_make_grid(n, layers=layers), make_grid(n, devices=["cpu"] * n, layers=layers)
+
+
+def test_tas_multiply_on_mesh_matches_jax():
+    """`tests/test_tas.py:91`: the grouped per-group Cannons with beta."""
+    ls, ss, rng = _tall(30, 4, seed=21)
+    ja, pa = _pair("a", ls, ss, 0.3, rng)
+    jb, pb = _pair("b", ss, ss, 0.6, rng)
+    jc, pc = _pair("c", ls, ss, 0.2, rng)
+    jm, pm = _grids(8)
+    want = 1.5 * jax_tm.to_dense(ja) @ jax_tm.to_dense(jb) + 0.5 * jax_tm.to_dense(jc)
+    jf = jax_tas_multiply("N", "N", 1.5, ja, jb, 0.5, jc, nsplit=3, mesh=jm)
+    pf = tas_multiply("N", "N", 1.5, pa, pb, 0.5, pc, nsplit=3, mesh=pm)
+    assert pf == jf
+    _agree(pc, jc, want)
+
+
+@pytest.mark.parametrize("transa,transb", [("T", "T"), ("T", "N")])
+def test_tas_multiply_on_mesh_column_and_k_long_match_jax(transa, transb):
+    """Column-long C (run as C^T with row groups) and a k-long product
+    (the layered sparse Cannon) on a grid."""
+    ls, ss, rng = _tall(28, 3, seed=22)
+    if transb == "T":
+        ja, pa = _pair("a", ss, ss, 0.7, rng)
+        jb, pb = _pair("b", ls, ss, 0.4, rng)
+        jc, pc = _pair("c", ss, ls, 0.0, rng)
+        want = jax_tm.to_dense(ja).T @ jax_tm.to_dense(jb).T
+    else:
+        ja, pa = _pair("a", ls, ss, 0.4, rng)
+        jb, pb = _pair("b", ls, ss, 0.4, rng)
+        jc, pc = _pair("c", ss, ss, 0.0, rng)
+        want = jax_tm.to_dense(ja).T @ jax_tm.to_dense(jb)
+    jm, pm = _grids(8)
+    jax_tas_multiply(transa, transb, 1.0, ja, jb, 0.0, jc, nsplit=4, mesh=jm)
+    tas_multiply(transa, transb, 1.0, pa, pb, 0.0, pc, nsplit=4, mesh=pm)
+    _agree(pc, jc, want)
+
+
+def test_tas_auto_split_on_rectangular_layered_grid_matches_jax():
+    """`tests/test_tas.py:234`: the automatic split on a 2x1x3 grid routes
+    to the layered all-gather engine."""
+    ls, ss, rng = _tall(24, 4, seed=23)
+    ja, pa = _pair("a", ls, ss, 0.4, rng)
+    jb, pb = _pair("b", ss, ss, 0.6, rng)
+    jc, pc = _pair("c", ls, ss, 0.0, rng)
+    jm, pm = _grids(6, layers=2)
+    jf = jax_tas_multiply("N", "N", 1.0, ja, jb, 0.0, jc, mesh=jm)
+    pf = tas_multiply("N", "N", 1.0, pa, pb, 0.0, pc, mesh=pm)
+    assert pf == jf
+    _agree(pc, jc, jax_tm.to_dense(ja) @ jax_tm.to_dense(jb))
+
+
+def test_tas_mesh_split_is_the_traffic_optimum():
+    """On a square grid the automatic split is the JAX package's
+    `choose_nsplit_traffic` for the same operands."""
+    from dbcsr_tpu.tas.split import choose_nsplit_traffic as jax_choose_traffic
+
+    ls, ss, rng = _tall(40, 3, seed=24)
+    ja, pa = _pair("a", ls, ss, 0.3, rng)
+    jb, pb = _pair("b", ss, ss, 0.8, rng)
+    jc, pc = _pair("c", ls, ss, 0.0, rng)
+    jm, pm = _grids(8)
+    want = jax_choose_traffic("m", pc.nfullrows, pc.nfullcols, pa.nfullcols, pa.nnz, pb.nnz,
+                              pc.nnz, 8, 2, 2, 64, max(pc.nblkrows, pc.nblkcols, pa.nblkcols))
+    jax_tas_multiply("N", "N", 1.0, ja, jb, 0.0, jc, mesh=jm)
+    tas_multiply("N", "N", 1.0, pa, pb, 0.0, pc, mesh=pm)
+    assert pc._tas_nsplit == want
+    _agree(pc, jc)
+
+
+def test_batched_mesh_multiply_refactors_the_grid():
+    """A batched multiply on a grid re-factors the images to the batch's
+    split (`optimize_grid`, the batched pgrid re-optimization) and keeps
+    the product right."""
+    ls, ss, rng = _tall(32, 3, seed=25)
+    _, pa = _pair("a", ls, ss, 0.4, rng)
+    _, pb = _pair("b", ss, ss, 0.7, rng)
+    _, pc = _pair("c", ls, ss, 0.0, rng)
+    _, pm = _grids(8)
+    batched_mm_init(pc)
+    tas_multiply("N", "N", 1.0, pa, pb, 1.0, pc, nsplit=8, mesh=pm)
+    state = pc._tas_batched_state
+    assert dict(state["pgrid"].shape) == {"kl": 8, "pr": 1, "pc": 1}
+    assert state["repgrid_count"] == 1
+    batched_mm_finalize(pc)
+    want = port_tm.to_dense(pa) @ port_tm.to_dense(pb)
+    assert _rel(port_tm.to_dense(pc), want) <= 1e-12
 
 
 def test_tas_create_places_on_the_asked_device():

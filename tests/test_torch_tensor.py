@@ -1,7 +1,7 @@
 """The port's block-sparse tensor layer held against the JAX package on
 the CPU.
 
-The cases of `tests/test_tensor.py` that need no device mesh (after
+The cases of `tests/test_tensor.py` (after
 `dbcsr_tensor_unittest.F:101-300`), the 3-center RI contraction of the
 water system at 8 molecules, the tensor state carried across packages,
 and the matrix, chain and timer pieces the layer calls.  Each tensor is
@@ -9,8 +9,8 @@ drawn by the JAX package from a numpy seed and carried to the port with
 `dbcsr_tpu_torch.interop.tensor_from_numpy_state`; both packages then
 run the same remap, copy, restriction or contraction, the port's K1
 wrapper on its plain version (CPU tensors), the JAX package on its
-"xla" driver.  The mesh cases wait for the port's `parallel/`: here
-``mesh=`` must raise.
+"xla" driver.  The mesh cases run the JAX package on its forced
+8-device CPU mesh and the port on a grid of CPU images.
 
 Tolerances: block index sets equal; remaps and copies bit for bit;
 contractions relative to max |C| within 1e-12 of the JAX package's and
@@ -27,6 +27,8 @@ from dbcsr_tpu.core.config import get_config as jax_get_config
 from dbcsr_tpu.core.config import set_config as jax_set_config
 from dbcsr_tpu.core.kinds import enum_of as jax_enum_of
 from dbcsr_tpu.models import purify as jax_purify
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
 from dbcsr_tpu.ops import test_methods as jax_tm
 from dbcsr_tpu.tensor import batched_contraction as jax_batched_contraction
 from dbcsr_tpu.tensor import contract as jax_contract
@@ -62,6 +64,17 @@ from dbcsr_tpu_torch.tensor import (
     split_blocks,
     tensor_copy,
 )
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's health model
+    (first compiles read as a recompile storm, CPU rates as a roofline
+    burn): reset it after each test, so a later file in the same process
+    does not start from a DEGRADED verdict."""
+    yield
+    jax_metrics.reset()
+    jax_health.reset()
 
 
 @pytest.fixture(autouse=True)
@@ -459,11 +472,85 @@ def test_contract_test_with_bounds_and_filter_reject():
 
 
 def test_contract_on_a_mesh_raises():
+    """A mesh that is not a `parallel` grid raises; nothing runs."""
     _, pa = _rand("a", [[2], [3]], occ=1.0, seed=25)
     _, pb = _rand("b", [[3], [2]], occ=1.0, seed=26)
     _, pc = _empty("c", [[2], [2]])
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="Grid"):
         contract(1.0, pa, pb, 0.0, pc, (1,), (0,), (0,), (1,), mesh=object())
+    assert pc.matrix.nblks == 0
+
+
+def _grids(n, layers=None):
+    from dbcsr_tpu.parallel import make_grid as jax_make_grid
+
+    from dbcsr_tpu_torch.parallel import make_grid
+
+    return jax_make_grid(n, layers=layers), make_grid(n, devices=["cpu"] * n, layers=layers)
+
+
+_RI_KW = dict(contract_a=(2,), notcontract_a=(0, 1), contract_b=(0,), notcontract_b=(1,),
+              map_1=(0, 1), map_2=(2,))
+
+
+@pytest.mark.parametrize("n", [8, 6], ids=["2x2x2", "1x2x3"])
+def test_contract_rank3_mesh_matches_jax(n):
+    """`tests/test_tensor.py:135` and `:451`: a rank-3 contraction routed
+    over a grid (square: the grouped TAS Cannons; rectangular: the
+    all-gather engine) against the JAX package's on its mesh, the
+    einsum oracle and the single-device contraction."""
+    si, sj, sk, sl = [2, 3] * 4, [3, 2] * 3, [4, 2] * 2, [2, 2]
+    ja, pa = _rand("a", [si, sj, sk], occ=0.5, seed=30)
+    jb, pb = _rand("b", [sk, sl], occ=0.8, seed=31)
+    jc, pc = _empty("cm", [si, sj, sl])
+    _, ph = _empty("ch", [si, sj, sl])
+    jm, pm = _grids(n)
+    jf = jax_contract(1.0, ja, jb, 0.0, jc, mesh=jm, **_RI_KW)
+    pf = contract(1.0, pa, pb, 0.0, pc, mesh=pm, **_RI_KW)
+    contract(1.0, pa, pb, 0.0, ph, **_RI_KW)
+    assert pf == jf
+    want = np.einsum("ijk,kl->ijl", ja.to_dense(), jb.to_dense())
+    _same(pc, jc, 1e-12, want)
+    assert _rel(pc.to_dense(), ph.to_dense()) <= 1e-12
+
+
+def test_contract_rank3_rank3_mesh_double_contraction_matches_jax():
+    """`tests/test_tensor.py:162`: A(i,a,b) * B(j,a,b) -> C(i,j) over the
+    grid, with alpha and beta."""
+    si, sj, sa, sb = [2, 2] * 3, [3] * 4, [2, 3] * 2, [2, 2]
+    ja, pa = _rand("a", [si, sa, sb], occ=0.6, seed=32)
+    jb, pb = _rand("b", [sj, sa, sb], occ=0.6, seed=33)
+    jc, pc = _rand("c", [si, sj], occ=0.4, seed=34)
+    before = jc.to_dense().copy()
+    jm, pm = _grids(8)
+    kw = dict(contract_a=(1, 2), notcontract_a=(0,), contract_b=(1, 2),
+              notcontract_b=(0,), map_1=(0,), map_2=(1,))
+    jax_contract(2.0, ja, jb, 0.5, jc, mesh=jm, **kw)
+    contract(2.0, pa, pb, 0.5, pc, mesh=pm, **kw)
+    want = 2.0 * np.einsum("iab,jab->ij", ja.to_dense(), jb.to_dense()) + 0.5 * before
+    _same(pc, jc, 1e-12, want)
+
+
+def test_contract_pipeline_on_a_rect_grid_is_bitwise_across_repeats():
+    """`tests/test_contract_pipeline.py:96`: the same contraction on a
+    1x2x3 grid twice, plans cleared between, gives the same bits, and
+    its grid multiply is on the flight record."""
+    from dbcsr_tpu_torch.obs import flight
+    from dbcsr_tpu_torch.parallel.sparse_dist import clear_mesh_plans
+
+    si, sj, sk, sl = [2, 3] * 3, [3, 2] * 2, [4, 2] * 2, [2, 2]
+    _, pa = _rand("a", [si, sj, sk], occ=0.6, seed=40)
+    _, pb = _rand("b", [sk, sl], occ=0.9, seed=41)
+    _, pm = _grids(6, layers=1)
+    outs = []
+    for _ in range(2):
+        clear_mesh_plans()
+        _, pc = _empty("c", [si, sj, sl])
+        contract(1.0, pa, pb, 0.0, pc, mesh=pm, **_RI_KW)
+        outs.append(pc)
+    assert np.array_equal(outs[0].to_dense(), outs[1].to_dense())
+    rec = [r for r in flight.records() if r.get("op") == "mesh_multiply"][-1]
+    assert rec["cannon_mode"] == "double_buffer"
 
 
 def test_tensor_numpy_state_round_trip():
