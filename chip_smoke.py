@@ -230,16 +230,43 @@ non-zero:
    s per multiply, the world rate;
 29. mesh_models: one sparse McWeeny step at 2208^2 on 1x2x2 against the
    single-device step, and the RI contraction's grid branch at 32
-   molecules on 1x2x2 against the single-device contraction (1e-10).
+   molecules on 1x2x2 against the single-device contraction (1e-10);
+30. telemetry: the health, telemetry and diagnosis plane under
+   ``DBCSR_TPU_TORCH_SYNC_TIMING=1`` with a sample at every product and
+   incident bundles in a temporary directory: the north star forced
+   dense, then on the stack format (a real step on this card); a
+   change-point on ``multiply_latency_ms`` in the regressing direction
+   (its shift time and magnitude), RCA's top cause the ``knob_change``
+   of ``mm_format``, the ``rca:multiply_latency_ms`` bundle on disk, the
+   verdict OK before the step; a ``pallas`` fault on one shape until its
+   breaker opens (``drivers`` DEGRADED with its reason, OK after the
+   reset); the store's (driver, mnk, dtype) cells; `mesh_world`'s
+   ``mp_world_join`` watchdog outcomes; the hooks' cost (the north star
+   with the store and health on against off, in pairs of turns);
+31. autotune: from an empty temporary table, the north star and
+   `mixed_blocks.perf` with the store on (what the health detectors
+   fire during the warm-up, OK once warm), then `TuneService.cycle()`:
+   the mined cells with their wasted FLOP-seconds, the trial's
+   candidates (K1, K3 at its legal packs, K4 where the persisting-L2
+   window admits them, K1's demoted forms) with GFLOP/s and their check
+   against the plain version, the winner, the promotion and the params
+   generation before and after (a second cycle with the margin at -1
+   when the first held); a cycle with ``tune_trial`` injected promotes
+   nothing; an idle cycle's format trial (or the format trial of the
+   north star's cell) beside the north star's own stack and dense
+   times; the next north-star multiply after the promotion misses the
+   plan cache, launches the kernel the row names and keeps its checksum
+   within 1e-9; the committed table is byte for byte unchanged.
 
-Phases 1-22 and 28-29 (and 27's gates and f32 leg) run with an empty
+Phases 1-22 and 28-30 (and 27's gates and f32 leg) run with an empty
 tuned-table directory, so on the untuned rules, as before the committed
 table existed; every phase line names the table it ran from
 (``"table"``: "none", "committed" or "temporary").
 
 The phases before `incremental` run with ``incremental="off"``, as the
 perf driver's repeats do: they time the engine.  Every phase but
-resilience, integrity and incremental injects nothing and must end with
+resilience, integrity, incremental, telemetry and autotune injects
+nothing and must end with
 no driver failure, fallback, ABFT mismatch or rollback (`_clean`); those
 three clear their faults and reset the breakers whatever happens.
 
@@ -255,7 +282,9 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import hashlib
 import itertools
 import json
 import os
@@ -283,6 +312,7 @@ from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix, _Bin
 from dbcsr_tpu_torch.interop import matrix_from_numpy_state, matrix_to_numpy_state
 from dbcsr_tpu_torch.device import resolve_device
 from dbcsr_tpu_torch.mm import incremental as port_inc
+from dbcsr_tpu_torch.mm import format_planner
 from dbcsr_tpu_torch.mm import multiply as mm
 from dbcsr_tpu_torch.mm.multiply import (
     _build_spans,
@@ -316,7 +346,8 @@ from dbcsr_tpu_torch.ops.operations import FUNC_TANH, function_of_elements, hada
 from dbcsr_tpu_torch.ops.test_methods import checksum, make_random_matrix
 from dbcsr_tpu_torch.ops.tests import TEST_BINARY_IO, TEST_MM, run_tests
 from dbcsr_tpu_torch.obs import costmodel as port_costmodel
-from dbcsr_tpu_torch.obs import events, metrics, profiler
+from dbcsr_tpu_torch.obs import changepoint, events, health, metrics, profiler, rca, slo
+from dbcsr_tpu_torch.obs import timeseries as obs_ts
 from dbcsr_tpu_torch.obs import tracer as obs_tracer
 from dbcsr_tpu_torch.obs.costmodel import (
     crosspack_entries,
@@ -338,6 +369,9 @@ from dbcsr_tpu_torch.perf.driver import (
     run_perf_multiproc,
 )
 from dbcsr_tpu_torch.resilience import breaker, faults
+from dbcsr_tpu_torch.tune import miner as tune_miner
+from dbcsr_tpu_torch.tune import service as tune_service
+from dbcsr_tpu_torch.tune import trials as tune_trials
 from dbcsr_tpu_torch.tensor import (
     batched_contraction,
     contract,
@@ -3409,6 +3443,8 @@ MESH_GRIDS = ((1, 2, 2), (2, 2, 2), (1, 2, 4))
 MESH_NREP = 3
 WORLD_RANKS = 4
 WORLD_TIMEOUT_S = 420
+# `dbcsr_tpu_watchdog_outcomes_total{name="mp_world_join"}` of mesh_world
+_WORLD_WATCHDOG: dict = {}
 
 
 def _card_grid(shape) -> Grid:
@@ -3611,6 +3647,12 @@ def phase_mesh_world(ref_1x2x2: dict) -> dict:
              "mesh_world: rma ranks differ from the one-process grid")
     out["rma"] = {**rma, "one_process_checksum": one["checksum"],
                   "bit_identical_to_one_process": True}
+    # both worlds joined through the `mp_world_join` watchdog
+    _WORLD_WATCHDOG.update({lab["outcome"]: v for lab, v in metrics.counter_items(
+        "dbcsr_tpu_watchdog_outcomes_total") if lab.get("name") == "mp_world_join"})
+    _require(_WORLD_WATCHDOG.get("OK", 0) + _WORLD_WATCHDOG.get("SLOW", 0) == 2,
+             f"mesh_world: watchdog outcomes {_WORLD_WATCHDOG}")
+    out["watchdog_mp_world_join"] = dict(_WORLD_WATCHDOG)
     _emit(out)
     return {k: ns["launches"][k] + rma["launches"][k] for k in ns["launches"]}
 
@@ -3655,6 +3697,374 @@ def phase_mesh_models() -> dict:
                              "launches": counts, **cmp}
     _emit(out)
     return {k: launched[k] + counts[k] for k in counts}
+
+
+# ------------------------------------------------- telemetry and autotune
+TELEMETRY_STEPS = 10      # north-star multiplies on each side of the step
+TELEMETRY_PAIRS = 3       # on/off pairs of turns of the hooks' cost
+WARM_MAX = 160            # mixed_blocks repeats at most, until the verdict is OK
+TUNE_TRIAL_BUDGET_S = 20  # the trials' wall budget here (the default is 120 s)
+COMMITTED_TABLE = os.path.join(TABLE_DIR, "parameters_NVIDIA_H100_80GB_HBM3.json")
+_PLANE_ENV = {"DBCSR_TPU_TORCH_SYNC_TIMING": "1", "DBCSR_TPU_TORCH_TS_INTERVAL_S": "0",
+              "DBCSR_TPU_TORCH_INCIDENT_INTERVAL_S": "0", "DBCSR_TPU_TORCH_CP_REF_N": "8",
+              "DBCSR_TPU_TORCH_TUNE_BUDGET_S": str(TUNE_TRIAL_BUDGET_S)}
+
+
+@contextlib.contextmanager
+def _environ(values: dict):
+    """Set environment variables for the block, restoring them after."""
+    prev = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _fresh_plane() -> None:
+    """A fresh telemetry plane: metrics and statistics (with the
+    attribution ledger, incident budget, profile, change-points and change
+    ledger), the health windows and detector states with the SLOs, the
+    store, the events ring, breakers and the tuner service."""
+    metrics.reset()
+    health.reset()
+    obs_ts.reset()
+    events.clear()
+    breaker.reset_board()
+    tune_service.stop_service()
+
+
+def _anomalies() -> list:
+    return [{k: e.get(k) for k in ("kind", "rate_per_multiply", "dur_ms", "driver",
+                                   "threshold", "window")}
+            for e in events.records(kind="anomaly")]
+
+
+def _hooks_ms(a, b) -> dict:
+    """The north star with the event bus (the health windows) and the
+    store sampling at every product on against both off, in pairs of
+    turns (on, off), (off, on), ..."""
+    times: dict = {"on": [], "off": []}
+    _northstar_multiply(a, b)  # the plan cache warm
+    for i in range(TELEMETRY_PAIRS):
+        for leg in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            events.set_enabled(leg == "on")
+            obs_ts.set_enabled(leg == "on")
+            try:
+                times[leg].append(_northstar_multiply(a, b))
+            finally:
+                events.set_enabled(True)
+                obs_ts.set_enabled(True)
+    return {"times_s": times, "mean_on_s": float(np.mean(times["on"])),
+            "mean_off_s": float(np.mean(times["off"])),
+            "on_minus_off_ms": 1e3 * float(np.mean(times["on"]) - np.mean(times["off"]))}
+
+
+def phase_telemetry() -> dict:
+    """The telemetry, health and diagnosis plane on the card (module
+    docstring, phase 30).  Returns the phase's launches."""
+    out = {"phase": "telemetry", "env": dict(_PLANE_ENV)}
+    res = run_perf(_northstar_cfg(1), verbose=False)
+    a, b = res["matrices"]["a"], res["matrices"]["b"]
+    del res
+    launched: dict = {}
+
+    def tally():
+        for k, v in _counts().items():
+            launched[k] = launched.get(k, 0) + v
+        _reset_counts()
+
+    with tempfile.TemporaryDirectory() as inc_dir, \
+            _environ(dict(_PLANE_ENV, DBCSR_TPU_TORCH_INCIDENTS=inc_dir)):
+        _fresh_plane()
+        _reset_counts()
+        # the step: forced dense, then the stack format
+        set_config(mm_format="dense")
+        dense_s = [_northstar_multiply(a, b) for _ in range(TELEMETRY_STEPS)]
+        warm = health.verdict()
+        warm_fired = _anomalies()
+        _require(warm["status"] == "OK",
+                 f"telemetry: verdict {warm['status']} before the step: "
+                 f"{ {n: c['reasons'] for n, c in warm['components'].items() if c['reasons']} }")
+        t_step = time.time()
+        set_config(mm_format="stack")
+        stack_s = [_northstar_multiply(a, b) for _ in range(TELEMETRY_STEPS)]
+        set_config(mm_format="auto")
+        counts = _counts()
+        _require(_k1(counts) > 0 and counts["plain"] == 0,
+                 f"telemetry: the stack side's launches {counts}")
+        tally()
+        cps = changepoint.changepoints(series="multiply_latency_ms")
+        reg = [c for c in cps if c["regression"]]
+        _require(reg and reg[0]["direction"] == "up",
+                 f"telemetry: no regressing change-point on multiply_latency_ms: {cps}")
+        cp = reg[0]
+        reports = [r for r in rca.reports()
+                   if (r["changepoint"] or {}).get("series") == "multiply_latency_ms"]
+        _require(reports and reports[0]["top_cause"] == "knob_change"
+                 and reports[0]["causes"][0].get("knob") == "mm_format",
+                 f"telemetry: RCA's top cause {[r['causes'][:2] for r in reports]}")
+        bundles = sorted(os.listdir(inc_dir))
+        _require(any(f.startswith("incident-rca_multiply_latency_ms-") for f in bundles),
+                 f"telemetry: no rca:multiply_latency_ms bundle among {bundles}")
+        out["step"] = {
+            "dense_s": dense_s, "stack_s": stack_s,
+            "verdict_before_step": warm["status"], "anomalies_before_step": warm_fired,
+            "changepoint": {k: cp[k] for k in ("series", "direction", "baseline", "level",
+                                               "magnitude", "sigma", "n")},
+            "shift_after_step_s": cp["t_shift"] - t_step,
+            "detected_after_step_s": cp["t"] - t_step,
+            "changepoints_all": [{k: c[k] for k in ("series", "labels", "direction",
+                                                    "magnitude", "regression")} for c in cps],
+            "rca_causes": [{k: c.get(k) for k in ("rank", "kind", "knob", "value", "prev",
+                                                  "score")} for c in reports[0]["causes"]],
+            "incident_bundles": bundles,
+            "anomalies_after_step": _anomalies(),
+            "slo": {n: {k: r[k] for k in ("status", "burn")}
+                    for n, r in slo.evaluate().items()},
+            "verdict_after_step": health.verdict()["status"],
+        }
+        out["cells"] = [{**ser["labels"], "flops": ser["value"]} for ser in
+                        obs_ts.query("dbcsr_tpu_cell_flops_total", agg="last")]
+        out["rates"] = {ser["metric"] + "|" + ser["labels"]["driver"]: ser["value"]
+                        for m in ("dbcsr_tpu_achieved_gflops", "dbcsr_tpu_roofline_fraction")
+                        for ser in obs_ts.query(m, agg="last")}
+        out["watchdog_mp_world_join"] = dict(_WORLD_WATCHDOG)
+        # one pallas fault on one shape (the models' density: every block
+        # 23^3) until its breaker opens; K3 serves the shape meanwhile
+        _fresh_plane()
+        p = make_test_density(MODEL_BLOCKS, MODEL_BLOCK, seed=MODEL_SEED)
+        key = (MODEL_BLOCK, MODEL_BLOCK, MODEL_BLOCK, "float64")
+        set_config(mm_format="stack")
+        products = 0
+        try:
+            with faults.inject_faults("pallas:raise") as specs:
+                while breaker.get_board().state("pallas", key) != breaker.OPEN \
+                        and products < 8:
+                    mm.clear_plan_cache()  # a cached plan heals onto K3
+                    c = BlockSparseMatrix("C", p.row_blk_sizes, p.col_blk_sizes, p.dtype,
+                                          device=p.device)
+                    mm.multiply("N", "N", 1.0, p, p, 0.0, c)
+                    products += 1
+            torch.cuda.synchronize()
+            fired = specs[0].fired
+            comp = health.verdict()["components"]["drivers"]
+            shape = "x".join(str(x) for x in key)
+            _require(comp["status"] == "DEGRADED"
+                     and comp["reasons"] == [f"breaker open: pallas|{shape} (runtime)"],
+                     f"telemetry: drivers {comp}")
+            out["breaker"] = {"products": products, "faults_fired": fired,
+                              "drivers": comp, "chain": port_smm.breaker_chain(f"pallas|{shape}"),
+                              "launches": _counts()}
+        finally:
+            faults.clear()
+            set_config(mm_format="auto")
+            _reset_counts()
+            _fresh_plane()
+            port_smm._cross_disabled.clear()
+        after = health.verdict()
+        _require(after["status"] == "OK", f"telemetry: verdict {after['status']} after reset")
+        out["breaker"]["verdict_after_reset"] = after["status"]
+        set_config(mm_format="stack")
+        _reset_counts()
+        out["hooks"] = _hooks_ms(a, b)
+        set_config(mm_format="auto")
+        tally()
+        _fresh_plane()
+    out["launches"] = dict(launched)
+    _emit(out)
+    _TELEMETRY_TIMES.update(dense_s=dense_s, stack_s=stack_s)
+    return launched
+
+
+_TELEMETRY_TIMES: dict = {}
+_KERNEL_COUNT = {"smm_stack": _k1, "smm_crosspack": lambda c: c["smm_crosspack"],
+                 "smm_crosspack_resident": lambda c: c["smm_crosspack_resident"]}
+
+
+def _cycle_row(svc, label: str, cells, **kw) -> dict:
+    """One `TuneService.cycle` with what it mined, trialed and promoted."""
+    gen0 = params.generation()
+    svc.last_trial = None
+    t0 = time.perf_counter()
+    got = svc.cycle(cells=cells, **kw)
+    row = {"cycle": label, "outcome": got["outcome"], "seconds": time.perf_counter() - t0,
+           "generation_before": gen0, "generation_after": params.generation(),
+           "cell": got.get("cell"), "promoted": got.get("promoted"), "error": got.get("error"),
+           "mined": [{k: c.get(k) for k in ("m", "n", "k", "dtype", "driver", "stack_size",
+                                            "observed_gflops", "target_gflops",
+                                            "wasted_flop_seconds", "reason")}
+                     for c in (cells or [])[:5]]}
+    trial = svc.last_trial
+    if trial is not None:
+        row["trial"] = {"outcome": trial.outcome, "stack_size": trial.stack_size,
+                        "elapsed_s": trial.elapsed_s, "budget_hit": trial.budget_hit,
+                        "candidates": [{k: c.get(k) for k in (
+                            "candidate", "kernel", "variant", "pack_p", "precision",
+                            "format", "seconds", "gflops", "max_rel_err", "tol")}
+                            for c in trial.candidates]}
+        if trial.candidates and "format" not in trial.candidates[0]:
+            cell = got["cell"]
+            win = tune_trials.select_winner(trial.candidates, cell["m"], cell["n"], cell["k"],
+                                            cell["dtype"])
+            row["winner"] = {k: win.get(k) for k in ("candidate", "kernel", "gflops")}
+            _require(all(c["max_rel_err"] <= c["tol"] for c in trial.candidates),
+                     f"autotune: a candidate disagrees with its plain version {row['trial']}")
+    return row
+
+
+def _not_ok(verdict: dict) -> dict:
+    return {n: c["reasons"] for n, c in verdict["components"].items() if c["status"] != "OK"}
+
+
+def _warm(a, b, admission: bool = False) -> dict:
+    """North-star repeats until the health verdict is OK (a first-use
+    validation storm ages out of the window, the JAX package's
+    semantics), or with ``admission`` until the verdict the tuner's gate
+    reads is (an advisory SLO burn stays for its windows)."""
+    def ok():
+        return (health.admission_status() if admission
+                else health.verdict()["status"]) == "OK"
+
+    n = 0
+    while not ok() and n < WARM_MAX:
+        _northstar_multiply(a, b)
+        n += 1
+    verdict = health.verdict()
+    _require(ok(), f"autotune: not OK after {n} warm repeats: {_not_ok(verdict)}")
+    return {"repeats": n, "verdict": verdict["status"], "not_ok": _not_ok(verdict)}
+
+
+def phase_autotune(none_dir: str) -> dict:
+    """The online tuner on the card from an empty temporary table (module
+    docstring, phase 31).  Returns the phase's launches."""
+    with open(COMMITTED_TABLE, "rb") as f:
+        committed = hashlib.sha256(f.read()).hexdigest()
+    out = {"phase": "autotune", "table": "temporary", "env": dict(_PLANE_ENV)}
+    launched: dict = {}
+
+    def tally():
+        for k, v in _counts().items():
+            launched[k] = launched.get(k, 0) + v
+        _reset_counts()
+
+    with tempfile.TemporaryDirectory() as tmp, _environ(_PLANE_ENV):
+        _use_table(tmp)
+        try:
+            _fresh_plane()
+            _reset_counts()
+            ns = run_perf(_northstar_cfg(2), verbose=False)
+            a, b = ns["matrices"]["a"], ns["matrices"]["b"]
+            pre = BlockSparseMatrix("C", a.row_blk_sizes, b.col_blk_sizes, a.dtype,
+                                    device=a.device)
+            mm.multiply("N", "N", 1.0, a, b, 0.0, pre)
+            torch.cuda.synchronize()
+            pre_cache, pre_sum = pre._mm_plan_cache, checksum(pre)
+            del pre
+            del run_perf(_mixed_cfg(3, 3), verbose=False)["matrices"]
+            warm_fired = _anomalies()
+            warm = _warm(a, b)
+            tally()
+            out["warmup"] = {"northstar_times_s": ns["times_s"], "plan_cache": pre_cache,
+                             "anomalies": warm_fired, "warm": warm}
+            # the purify loop's dense product (the models' density forced
+            # dense): its measured rate against the planner's model goes
+            # to the regret ring the format axis mines
+            p = make_test_density(MODEL_BLOCKS, MODEL_BLOCK, seed=MODEL_SEED)
+            set_config(mm_format="dense")
+            _northstar_multiply(p, p)
+            set_config(mm_format="auto")
+            del p
+            regrets = format_planner.regret_records()
+            out["format_regret"] = regrets[-1] if regrets else None
+            out["mis_crossovers"] = len(format_planner.mis_crossovers())
+            _warm(a, b, admission=True)
+            svc = tune_service.TuneService(interval_s=3600)
+            # an idle cycle first: the format axis (a format row it
+            # promotes at the north star's cell is replaced by the kernel
+            # row the mined cycle promotes at the same key)
+            idle = _cycle_row(svc, "idle (format axis)", [])
+            if idle.get("trial") is None:
+                occ = 832484 / 435.0 ** 3  # the north star's products over its block triples
+                cell = {"m": 23, "n": 23, "k": 23, "dtype": "float64", "occ": occ,
+                        "grid": [435, 435, 435], "stack_size": 30000}
+                trial = tune_trials.run_format_trial(cell)
+                idle["trial"] = {"outcome": trial.outcome, "cell": cell,
+                                 "grid_run": [max(2, min(g, 16)) for g in cell["grid"]],
+                                 "elapsed_s": trial.elapsed_s,
+                                 "candidates": trial.candidates, "entry": trial.entry,
+                                 "run_by": "trials.run_format_trial (nothing mined)"}
+                _require(trial.ok and trial.candidates, f"autotune: format trial {trial!r}")
+            idle["northstar_dense_s"] = _TELEMETRY_TIMES.get("dense_s")
+            idle["northstar_stack_s"] = _TELEMETRY_TIMES.get("stack_s")
+            # the format trial's small products feed the health windows
+            # too (a "pallas" roofline collapse on the CPU rehearsal)
+            idle["anomalies_after"] = _anomalies()
+            idle["rewarm"] = _warm(a, b, admission=True)
+            tally()
+            cells = tune_miner.mine()
+            _require(cells, "autotune: the miner found no cell")
+            cycles = [idle, _cycle_row(svc, "mined", cells)]
+            if cycles[-1]["outcome"] != "promoted":
+                svc.margin = -1.0  # any winner beats the bar: the generation check needs one
+                cycles.append(_cycle_row(svc, "mined, margin -1", cells))
+            _require(cycles[-1]["outcome"] == "promoted", f"autotune: no promotion {cycles}")
+            row = params.lookup(cells[0]["m"], cells[0]["n"], cells[0]["k"], cells[0]["dtype"],
+                                stack_size=cells[0]["stack_size"])
+            with faults.inject_faults("tune_trial:raise,times=1") as specs:
+                faulted = _cycle_row(svc, "tune_trial fault", cells)
+            _require(specs[0].fired == 1 and faulted["outcome"] == "trial_faulted"
+                     and faulted["generation_after"] == faulted["generation_before"],
+                     f"autotune: the faulted cycle {faulted}")
+            cycles.append(faulted)
+            tally()
+            # the next multiply after the promotion: a plan-cache miss on
+            # the promoted row's kernel, the checksum of the unpromoted run
+            post = BlockSparseMatrix("C", a.row_blk_sizes, b.col_blk_sizes, a.dtype,
+                                     device=a.device)
+            mm.multiply("N", "N", 1.0, a, b, 0.0, post)
+            torch.cuda.synchronize()
+            counts = _counts()
+            post_sum = checksum(post)
+            rel = abs(post_sum - pre_sum) / abs(pre_sum)
+            kernel = row.get("kernel")
+            _require(post._mm_plan_cache == "miss" and kernel in _KERNEL_COUNT
+                     and _KERNEL_COUNT[kernel](counts) > 0 and rel <= 1e-9,
+                     f"autotune: after the promotion plan cache {post._mm_plan_cache}, "
+                     f"row kernel {kernel}, launches {counts}, checksum rel {rel:.3e}")
+            tally()
+            # a second repeat hits the new plan
+            again = BlockSparseMatrix("C", a.row_blk_sizes, b.col_blk_sizes, a.dtype,
+                                      device=a.device)
+            mm.multiply("N", "N", 1.0, a, b, 0.0, again)
+            torch.cuda.synchronize()
+            out["after_promotion"] = {"row": {k: row.get(k) for k in (
+                "m", "n", "k", "dtype", "stack_size", "kernel", "variant", "pack_p",
+                "precision", "gflops", "tuned_by", "promoted_gen")},
+                "plan_cache_before": pre_cache, "plan_cache": post._mm_plan_cache,
+                "launches": counts, "checksum": post_sum, "checksum_unpromoted": pre_sum,
+                "rel_checksum": rel, "repeat_plan_cache": again._mm_plan_cache,
+                "repeat_rel_checksum": abs(checksum(again) - pre_sum) / abs(pre_sum),
+                "verdict": health.verdict()["status"], "anomalies": _anomalies()}
+            del post, again
+            tally()
+            out["cycles"] = cycles
+        finally:
+            faults.clear()
+            _use_table(none_dir)
+            set_config(mm_format="auto")
+            _fresh_plane()
+    with open(COMMITTED_TABLE, "rb") as f:
+        _require(hashlib.sha256(f.read()).hexdigest() == committed,
+                 "autotune: the committed table changed")
+    out["committed_table_unchanged"] = True
+    out["launches"] = dict(launched)
+    _emit(out)
+    return launched
 
 
 def main() -> int:
@@ -3738,6 +4148,15 @@ def _run_phases(none_dir: str) -> int:
     by_phase["mesh"] = {k: mesh[k] for k in ("smm_stack", "smm_crosspack")}
     by_phase["mesh_world"] = _clean("mesh_world", phase_mesh_world, mesh["ref_1x2x2"])
     by_phase["mesh_models"] = _clean("mesh_models", phase_mesh_models)
+    # the telemetry plane and the online tuner: both inject a fault, so
+    # neither runs under `_clean`; each resets the plane it used
+    for phase, fn, args in (("telemetry", phase_telemetry, ()),
+                            ("autotune", phase_autotune, (none_dir,))):
+        _PHASE_NOW[0] = phase
+        metrics.reset()
+        _reset_counts()
+        by_phase[phase] = fn(*args)
+        _reset_counts()
     for row in (k1, k3, k4):
         for phase, counts in by_phase.items():
             row["launches_by_path"][phase] = counts.get(row["name"], 0)

@@ -454,13 +454,28 @@ def _record_fallback(from_driver: str, to_driver: str, shape_key) -> None:
                    flight=("failover", {"from": from_driver, "to": to_driver}))
 
 
-def _record_failure(driver: str, shape_key, exc) -> str:
+# the failover chain each recorded breaker's stacks take: "card" or
+# "cpu", keyed like the board's snapshot ("driver|MxNxKxdtype"); the
+# health model's ``drivers`` component maps its backstop rule onto it
+_breaker_chains: dict = {}
+
+
+def breaker_chain(key: str) -> Optional[str]:
+    """"card" or "cpu" for a breaker key of `BreakerBoard.snapshot`,
+    None when no stack recorded a failure under it."""
+    return _breaker_chains.get(key)
+
+
+def _record_failure(driver: str, shape_key, exc, c_data=None) -> str:
     """Classify a failed launch of ``driver`` and record it (breaker,
-    counter, event); a crosspack launch that failed to run demotes its
-    shape, for the session unless the failure was out of memory.
-    Returns the class."""
+    counter, event, and the chain ``c_data``'s stacks take); a crosspack
+    launch that failed to run demotes its shape, for the session unless
+    the failure was out of memory.  Returns the class."""
     kind = _classify_failure(exc)
     breaker.get_board().record_failure(driver, shape_key, kind=kind)
+    if c_data is not None:
+        _breaker_chains[f"{driver}|{'x'.join(str(x) for x in shape_key)}"] = \
+            "card" if _on_card(c_data) else "cpu"
     _record_driver_failure(driver, kind, exc, shape_key)
     if driver == "pallas_cross" and kind in ("runtime", "oom"):
         if kind == "runtime":
@@ -577,7 +592,7 @@ def _failover_execute(c_data, a_data, b_data, plan: StackPlan, alpha, c_zero: bo
         except BuildError:
             raise
         except Exception as exc2:  # noqa: BLE001 -- classified and recorded
-            kind = _record_failure(drv, shape_key, exc2)
+            kind = _record_failure(drv, shape_key, exc2, c_data)
             if kind == "validation":
                 _restore(c_data, base, c_zero)
                 raise
@@ -638,7 +653,7 @@ def execute_stack(c_data, a_data, b_data, plan: Optional[StackPlan], alpha=1.0,
         # when the probe raised; re-execute natively
         return _promote_execute(c_data, a_data, b_data, plan, alpha, c_zero, base, exc)
     except Exception as exc:  # noqa: BLE001 -- classified and recorded
-        if _record_failure(plan.label, shape_key, exc) == "validation":
+        if _record_failure(plan.label, shape_key, exc, c_data) == "validation":
             raise  # the oracle ran before the launch: C is untouched
         return _failover_execute(c_data, a_data, b_data, plan, alpha, c_zero, exc, base=base)
     board.record_success(plan.label, shape_key)
@@ -951,7 +966,7 @@ def execute_superstack(c_data, a_datas, b_datas, splan: SuperstackPlan, alpha=1.
             try:
                 _ensure_validated(c_data, a_d, b_d, plan)
             except KernelValidationError as exc:
-                _record_failure(plan.label, _stack_shape_key(c_data, a_d, b_d), exc)
+                _record_failure(plan.label, _stack_shape_key(c_data, a_d, b_d), exc, c_data)
                 raise  # the oracle ran on its own C: c_data is untouched
     if board._breakers and not board.allow(FUSED_DRIVER, bin_key):
         return _decompose_superstack(c_data, a_datas, b_datas, plans, alpha, c_zero,

@@ -33,14 +33,15 @@ def finalize_lib(print_stats: bool = False, out=print) -> None:
 def print_statistics(out=print) -> None:
     """The STATISTICS table, the timers and, when an opt-in obs layer
     captured something (a trace session, the events sink or ring), one
-    JSON line of `obs.metrics.snapshot()` (ref `dbcsr_print_statistics`,
+    JSON line of `obs.metrics.snapshot()` and the final
+    `obs.health.verdict()` (ref `dbcsr_print_statistics`,
     `src/core/dbcsr_lib.F:326`)."""
     from dbcsr_tpu_torch import obs
-    from dbcsr_tpu_torch.obs import metrics
+    from dbcsr_tpu_torch.obs import health, metrics
 
     stats.print_statistics(out=out)
     timings.report(out=out)
     if obs.obs_active():
         out(" -" + "OBS SNAPSHOT (machine-readable)".center(68) + "-")
-        out(json.dumps({"obs_schema": obs.OBS_SCHEMA_VERSION, "snapshot": metrics.snapshot()},
-                       default=str))
+        out(json.dumps({"obs_schema": obs.OBS_SCHEMA_VERSION, "snapshot": metrics.snapshot(),
+                        "health": health.verdict()}, default=str))

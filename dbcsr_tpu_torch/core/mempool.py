@@ -61,9 +61,10 @@ import numpy as np
 import torch
 
 from dbcsr_tpu_torch.obs import metrics as _metrics
+from dbcsr_tpu_torch.utils import lockcheck as _lockcheck
 
 _enabled = os.environ.get("DBCSR_TPU_TORCH_POOL", "1") not in ("0", "false", "no")
-_lock = threading.Lock()
+_lock = _lockcheck.wrap("core.mempool", threading.Lock())
 
 # matrices freed by chains and the device bytes their bins held; the
 # free lists' checkouts, returns and evictions and the bytes they hold;

@@ -51,13 +51,18 @@ class _CommStat:
 @dataclasses.dataclass
 class _DriverAgg:
     """One driver's flops, modeled bytes and seconds, with its flops by
-    dtype (the roofline takes the dominant dtype's peak); ``sync_stacks``
-    counts the regions timed after a synchronize."""
+    dtype (the roofline takes the dominant dtype's peak); ``sync_*``
+    hold the same sums over the regions timed after a synchronize only,
+    whose seconds are device seconds (the rates `obs.timeseries`,
+    `obs.health` and the tuner's miner read)."""
     flops: int = 0
     nbytes: int = 0
     seconds: float = 0.0
     stacks: int = 0
     sync_stacks: int = 0
+    sync_flops: int = 0
+    sync_nbytes: int = 0
+    sync_seconds: float = 0.0
     by_dtype: dict = dataclasses.field(default_factory=dict)
 
 
@@ -76,6 +81,9 @@ def _agg_driver(driver: str, flops: int, nbytes: int, seconds: float, dtype: str
     agg.stacks += stacks
     if sync:
         agg.sync_stacks += stacks
+        agg.sync_flops += flops
+        agg.sync_nbytes += nbytes
+        agg.sync_seconds += seconds
     if dtype:
         agg.by_dtype[dtype] = agg.by_dtype.get(dtype, 0) + flops
 
@@ -101,7 +109,8 @@ def driver_rollup() -> dict:
     """The per-driver aggregates as plain dicts."""
     return {d: {"flops": a.flops, "bytes": a.nbytes, "seconds": a.seconds,
                 "stacks": a.stacks, "sync_stacks": a.sync_stacks,
-                "by_dtype": dict(a.by_dtype)}
+                "sync_flops": a.sync_flops, "sync_bytes": a.sync_nbytes,
+                "sync_seconds": a.sync_seconds, "by_dtype": dict(a.by_dtype)}
             for d, a in _driver_agg.items()}
 
 

@@ -14,7 +14,8 @@ batched GEMM).  The decision funnel, first hit wins:
 2. ``mm_format`` forced: that format (``"forced"``), or stack when the
    product cannot take it (``"ineligible"``: composite without panels);
 3. a tuned row of the block cell (`acc/params.py:lookup`) with
-   ``format``/``format_occ`` columns: its format at or above its
+   ``format``/``format_occ`` columns, or else the nearest row that has
+   them (`tune.predictor.format_prior`): its format at or above its
    occupancy crossover, else stack (``"tuned"``);
 4. the dense heuristic (`mm.multiply._dense_mode_wanted`): dense
    (``"heuristic"``);
@@ -32,9 +33,9 @@ noted on the flight record and the multiply's span (`note_decision`),
 and a changed choice for a cell is published as a ``format_decision``
 event; every executed canvas product reports its measured rate against
 the model's (`note_outcome`) into a bounded regret ring
-(`regret_records`, `regret_gauges`, `mis_crossovers`).  The JAX
-package's MXU cost curves (step 5 there) and its donor row
-(`tune.predictor.format_prior`) have no counterpart here.
+(`regret_records`, `regret_gauges`, `mis_crossovers`), which the online
+tuner mines (`tune.miner.mine_format`).  The JAX package's MXU cost
+curves (step 5 there) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -97,8 +98,15 @@ def reset() -> None:
 
 
 def _tuned_row(bm: int, bn: int, bk: int, dtype: str) -> Optional[dict]:
-    """The tuned row of this block cell if it carries a format."""
+    """The tuned row of this block cell if it carries a format, else the
+    nearest same-device-kind row that carries one
+    (`tune.predictor.format_prior`, the donor), else None."""
     row = params.lookup(bm, bn, bk, dtype)
+    if row and row.get("format") in FORMATS:
+        return row
+    from dbcsr_tpu_torch.tune.predictor import format_prior
+
+    row = format_prior(bm, bn, bk, dtype)
     return row if row and row.get("format") in FORMATS else None
 
 

@@ -15,8 +15,10 @@ The sink: ``DBCSR_TPU_TORCH_EVENTS=<base path>`` at import, or
 index is known, settled by `rebind` or at close).
 ``DBCSR_TPU_TORCH_EVENTS=0`` (or ``off``) turns the bus off; then
 `publish` only forwards to the tracer and the flight recorder.  The ring
-holds ``RING_SIZE`` events.  Not ported yet (`ROADMAP.md`, obs): the
-health and telemetry feeds of `end_product`.
+holds ``RING_SIZE`` events.  `end_product` feeds the health model's
+windows (`obs.health.observe_multiply`, while the bus is on) and, once
+the product popped, the telemetry store's sample boundary
+(`obs.timeseries.on_product`).
 
 Stdlib-only.
 """
@@ -128,11 +130,37 @@ def end_product(rec: dict | None = None, error: str | None = None, **fields) -> 
             args["drivers"] = {d: v.get("stacks", 0) for d, v in rec["drivers"].items()}
     if error is not None:
         args["error"] = error[:300]
+    publish("multiply_end", args)
     try:
-        publish("multiply_end", args)
+        if _enabled:
+            from dbcsr_tpu_torch.obs import health as _health
+
+            _health.observe_multiply(dur_ms=args.get("dur_ms"), error=error)
+    except Exception as exc:
+        if device_error(exc):
+            raise
+        # health sampling is bookkeeping: it never fails a multiply
     finally:
         if st and st[-1] == pid:
             st.pop()
+    # the product boundary is a telemetry sample boundary, after the pop:
+    # a forced sample's health collector must not see this product open
+    from dbcsr_tpu_torch.obs import timeseries as _ts
+
+    _ts.on_product()
+
+
+def device_error(exc: BaseException) -> bool:
+    """Whether ``exc`` comes from a kernel or the device (a CUDA error, a
+    device out-of-memory, a kernel that failed to build or disagreed with
+    its oracle, corrupted output): the obs hooks swallow their own
+    bookkeeping errors, never these."""
+    if type(exc).__name__ in ("AcceleratorError", "OutOfMemoryError", "BuildError",
+                              "KernelValidationError", "CorruptedOutputError",
+                              "AbftMismatchError"):
+        return True
+    msg = str(exc)
+    return "CUDA error" in msg or "CUDA driver error" in msg or "CUDA out of memory" in msg
 
 
 @contextlib.contextmanager
@@ -208,6 +236,11 @@ def records(product_id: str | None = None, kind: str | None = None,
     if limit is not None and limit >= 0:
         out = out[-limit:]
     return out
+
+
+def to_json(**filters) -> str:
+    """`records` (same filters) as one JSON array."""
+    return json.dumps(records(**filters), default=str)
 
 
 def clear() -> None:

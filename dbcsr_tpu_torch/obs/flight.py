@@ -33,6 +33,10 @@ _current: list = []  # stack of open records (nested multiplies)
 _seq = 0
 
 
+def ring_capacity() -> int:
+    return _ring.maxlen
+
+
 def begin(**fields) -> dict:
     """Open a record for the multiply that is starting."""
     global _seq

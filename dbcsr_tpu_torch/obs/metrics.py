@@ -168,8 +168,10 @@ def jit_stats() -> dict:
 def reset(include_stats: bool = True) -> None:
     """Clear the registries and the first-use mirror; ``include_stats``
     also resets `core.stats` (flops, traffic, driver rollups, memory
-    meters), the memory pool's counters and the profile epochs, so that
-    ``reset(); snapshot()`` starts fresh."""
+    meters), the memory pool's counters, and, after them, the tenant
+    attribution ledger (re-baselined on the zeroed rollup), the incident
+    budget, the profile epochs, the change-point baselines and the
+    change ledger, so that ``reset(); snapshot()`` starts fresh."""
     with _lock:
         _counters.clear()
         _gauges.clear()
@@ -179,10 +181,13 @@ def reset(include_stats: bool = True) -> None:
         from dbcsr_tpu_torch.core import stats
 
         stats.reset()
-        for name in ("dbcsr_tpu_torch.core.mempool", "dbcsr_tpu_torch.obs.profiler"):
-            mod = sys.modules.get(name)
+        mp = sys.modules.get("dbcsr_tpu_torch.core.mempool")
+        if mp is not None:
+            mp.reset_stats()
+        for name in ("attribution", "incidents", "profiler", "changepoint", "rca"):
+            mod = sys.modules.get(f"dbcsr_tpu_torch.obs.{name}")
             if mod is not None:
-                (mod.reset_stats if name.endswith("mempool") else mod.reset)()
+                mod.reset()
 
 
 def _roofline_rollup() -> dict:

@@ -12,10 +12,11 @@ Every 64 multiplies the accumulation is sealed into an
 epoch stamped with its time range and `acc.params.generation()`, kept
 in a ring of 32.  `diff` compares two snapshots (or merged ranges,
 `merge`) per key and per phase and names the worst regression;
-`diff_around` splits the epochs at a time.  The JAX package's
-``DBCSR_TPU_PROFILE`` switch and JSONL sink of sealed epochs have no
-counterpart: nothing reads the epochs from disk until `obs.rca` is
-ported.
+`diff_around` splits the epochs at a time (`obs.rca`'s report reads
+it).  `set_enabled(False)` stops the folding (the JAX package's
+``DBCSR_TPU_PROFILE=0``; `reset` turns it back on); `epoch_n` is the
+epoch length.  The JAX package's JSONL sink of sealed epochs has no
+counterpart.
 
 Stdlib-only: `obs.flight.commit` calls `observe`.
 """
@@ -34,6 +35,21 @@ _HIST_BUCKETS = 18      # log2-ms buckets: <1ms .. >64s
 
 # multiplies per sealed epoch
 _epoch_n = 64
+_enabled = True
+
+
+def epoch_n() -> int:
+    return _epoch_n
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def set_enabled(on: bool) -> None:
+    """Turn the folding of flight records on or off."""
+    global _enabled
+    _enabled = bool(on)
 
 
 # ----------------------------------------------------------- current fold
@@ -84,7 +100,7 @@ def observe(rec: dict) -> None:
     """Fold one committed flight record into the current epoch (called
     by `obs.flight.commit`)."""
     global _current
-    if not rec:
+    if not rec or not _enabled:
         return
     phases = rec.get("phases_ms")
     if not phases:
@@ -317,8 +333,9 @@ def diff_around(t: float, top: int = 8) -> dict:
 
 
 def reset() -> None:
-    """Drop all accumulation and sealed epochs."""
-    global _current, _epoch_seq
+    """Drop all accumulation and sealed epochs, and fold again."""
+    global _current, _epoch_seq, _enabled
+    _enabled = True
     with _lock:
         _current = _new_current()
         _epochs.clear()

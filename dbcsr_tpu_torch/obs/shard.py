@@ -12,6 +12,8 @@ base path:
 * `process_index()`: the rank of an already initialized
   `torch.distributed` group, else None; it never initializes one (a
   one-process run settles on 0 when its sink closes);
+* `expand_family(base)`: the files of a base's shard family (the
+  telemetry store's replay reads them);
 * `settle(base, path, fh, index)`: move a provisional shard onto its
   final ``p{index}`` name, appending onto an existing shard instead of
   replacing it, and keeping the provisional shard on an OSError.
@@ -49,6 +51,23 @@ def process_index() -> int | None:
     if dist is None or not dist.is_available() or not dist.is_initialized():
         return None
     return int(dist.get_rank())
+
+
+def expand_family(base: str) -> list:
+    """The read side: a shard base (or a concrete file or glob) to its
+    family's files.  ``t.jsonl`` expands to ``t.p*.jsonl`` without the
+    unsettled ``.ptmp*`` shards (a run that ended before its index was
+    known); a concrete path, even a provisional one, stays itself."""
+    import glob
+
+    hits = sorted(glob.glob(base))
+    if not hits and not re.search(r"\.p\d+\.", os.path.basename(base)):
+        root, ext = os.path.splitext(base)
+        hits = [h for h in sorted(glob.glob(f"{root}.p*{ext}"))
+                if ".ptmp" not in os.path.basename(h)]
+    if not hits and os.path.exists(base):
+        hits = [base]
+    return hits
 
 
 def settle(base: str, path: str, fh, index: int) -> tuple:

@@ -84,11 +84,14 @@ def _note_degraded_to_serial(exc: BaseException, coordinator, timeout_s) -> None
 
 
 def _rebind_obs() -> None:
-    """Settle the tracer's and the event sink's shards on this rank."""
+    """Settle the tracer's, the event sink's and the telemetry store's
+    shards on this rank."""
+    from dbcsr_tpu_torch.obs import timeseries as _timeseries
     from dbcsr_tpu_torch.obs import tracer as _trace
 
     idx = process_id()
     _events.rebind(idx)
+    _timeseries.rebind(idx)
     if _trace.active():
         _trace.rebind(idx)
 

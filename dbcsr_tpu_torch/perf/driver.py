@@ -382,16 +382,31 @@ def run_perf_multiproc(cfg_path, nproc: int, images_per_proc: int = 1,
     ``nproc`` spawned ranks over gloo, each owning ``images_per_proc``
     images of one grid on ``device`` (the
     mpiexec-driven reference driver, `dbcsr_performance_driver.F:47-56`).
-    Returns the rank-aggregated result; raises when a rank fails, the
-    world does not finish within ``timeout`` seconds, or the ranks'
-    checksums differ."""
+    The world runs under the ``mp_world_join`` watchdog: a world that
+    does not finish within ``timeout`` seconds is WEDGED and is spawned
+    once more on a fresh rendezvous directory after a backoff, a rank
+    that fails is TRANSIENT (both counted in
+    ``dbcsr_tpu_watchdog_outcomes_total{name="mp_world_join"}``).
+    Returns the rank-aggregated result; raises when the world fails,
+    overruns twice, or the ranks' checksums differ."""
     from dbcsr_tpu_torch.parallel import multihost
+    from dbcsr_tpu_torch.resilience import watchdog
 
     dev = str(resolve_device(device))
-    results = multihost.spawn_world("dbcsr_tpu_torch.perf.driver:_mp_worker", nproc,
-                                    (cfg_path, images_per_proc, nrep or 0, dev),
-                                    timeout_s=timeout)
-    agg = aggregate_rank_results(results)
+    wd = watchdog.Watchdog("mp_world_join", deadline_s=timeout,
+                           backoff_base_s=1.0, backoff_max_s=15.0)
+
+    def attempt(deadline_s):
+        # each spawn makes its own rendezvous directory
+        return multihost.spawn_world("dbcsr_tpu_torch.perf.driver:_mp_worker", nproc,
+                                     (cfg_path, images_per_proc, nrep or 0, dev),
+                                     timeout_s=deadline_s)
+
+    res = wd.run(attempt, retries=1, retry_on=(watchdog.WEDGED,))
+    if not res.ok:
+        raise RuntimeError(f"{nproc}-process world failed after {res.attempts} "
+                           f"attempt(s): outcome={res.outcome} {res.error}")
+    agg = aggregate_rank_results(res.value)
     if verbose:
         print(f" {nproc}-process world: {agg['gflops_world']:.3f} GFLOP/s "
               f"(slowest-rank best), checksum {agg['checksum']:.9e} identical on all ranks")

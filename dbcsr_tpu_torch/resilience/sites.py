@@ -3,10 +3,10 @@
 A copy of `dbcsr_tpu/resilience/sites.py`, limited to the sites that
 exist in the port: the stack launch, the fused C-bin launch, the stack
 planning, the canvas (dense and composite) formats, the storage-format
-planner, the incremental splice, and the grid engines' world join,
-dispatch and tick edges.  The JAX package's probe, attribution,
-serving, fleet and tuner sites come back with their modules
-(`ROADMAP.md`, Queue 1).  Every literal site the port passes to `faults.maybe_inject`
+planner, the incremental splice, the grid engines' world join,
+dispatch and tick edges, the tenant billing window and the online
+tuner's trials.  The JAX package's probe, serving and fleet sites come
+back with their modules (`ROADMAP.md`, Queue 1).  Every literal site the port passes to `faults.maybe_inject`
 or `faults.corrupt` is registered here (`tests/test_torch_resilience.py`
 checks the sources).
 
@@ -78,9 +78,35 @@ SITES = {
                     "`cannon_db` keyed engine=\"tas\")",
         "corruptible": True, "chaos": True, "dynamic": True,
     },
+    "attribution": {
+        "boundary": "`obs.attribution.bill_window` (the tenant billing "
+                    "path): observable, never unbalances the books or "
+                    "fails a request (labels `requests`, `request_id`)",
+        "corruptible": False, "chaos": True, "dynamic": False,
+    },
+    "tune_trial": {
+        "boundary": "the online tuner's trial boundary (`tune.trials`, one "
+                    "per candidate sweep or format trial; labels `mnk`, "
+                    "`dtype`): a fault aborts the trial and nothing is "
+                    "promoted from it",
+        "corruptible": False, "chaos": True, "dynamic": False,
+    },
 }
 
 # driver labels a fault spec's *target* may also match at a site
 # (``pallas:nan`` fires on execute_stack launches of the base kernel):
 # the config's driver names, as the breakers and counters use them
 DRIVER_TARGETS = ("pallas_cross", "pallas", "torch", "host")
+
+
+def chaos_sites() -> tuple:
+    """The targets a randomized chaos schedule draws from: every
+    ``chaos`` site and the driver labels."""
+    return tuple(s for s, meta in SITES.items() if meta["chaos"]) + DRIVER_TARGETS
+
+
+def chaos_corrupt_targets() -> tuple:
+    """The targets whose output a nan/flip spec can corrupt in such a
+    schedule: the corruptible chaos sites and the driver labels."""
+    return tuple(s for s, meta in SITES.items()
+                 if meta["chaos"] and meta["corruptible"]) + DRIVER_TARGETS
