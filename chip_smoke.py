@@ -257,9 +257,47 @@ non-zero:
    times; the next north-star multiply after the promotion misses the
    plan cache, launches the kernel the row names and keeps its checksum
    within 1e-9; the committed table is byte for byte unchanged.
+32. serve (after autotune): an in-process `ServeEngine` on the card, 4
+   tenants with north-star operands (one pattern, each tenant's own
+   values drawn on the card), with the quotas and the product cache's
+   bytes raised past a north-star request (`SERVE_CFG`, printed; the
+   JAX package's defaults shed it): warm legs until admission reads OK;
+   the 4 requests inside one batching window, serialized and coalesced,
+   with no table (the composite takes K1's fused launch) and the
+   committed table (K3), each tenant's C bit for bit its standalone
+   product and within 1e-10 of one ``mm_driver="torch"`` product, the
+   launches and dispatches of each; `SERVE_PAIRS` coalesced/serialized
+   pairs in turns (committed table): requests/s, each tenant's median
+   and largest latency (n = the legs), the composite's host phases
+   (from each member's attribution row), the card's busy share over one
+   coalesced leg; the product cache (an identical request hits with no
+   launch, A scaled in place misses and gives the new product's bits);
+   a served NaN (``serve_execute:nan``) caught by the per-request
+   ABFT probe and re-executed, bit for bit the clean C; a
+   ``serve_admit`` fault shed with the structured rejection.  No stack
+   reaches a plain version;
+33. serve_http: the obs endpoint on a free localhost port in this
+   process: ``/serve/session/open``, ``/serve/matrix`` (north-star
+   specs made on the card), ``/serve/submit`` with ``wait``,
+   ``/serve/status``, ``/serve/tenants``, ``/serve/checksum`` (equal to
+   the in-process checksum), ``/healthz``, ``/metrics``, ``/usage``,
+   and a shed answered 429 with the rejection;
+34. fleet: `Fleet(n=2, device="cuda")`, two worker processes on the one
+   card (coalescing off), each one's start seconds: the router places
+   two tenants on different workers, each submits north-star requests;
+   the first tenant's worker is SIGKILLed with `FLEET_REQUESTS` in
+   flight, `failover` replays its journal on the peer, `audit` shows
+   every request landed exactly once, and every checksum equals a
+   clean in-process run's bit for bit; then, the killed worker
+   respawned, a product-cache hit through the peer tier on the models'
+   2208^2 operands (a north-star C is 792 MB) with no launch and no
+   dispatch on the second worker.  The workers' launches come from
+   their kernel wrappers' own counts on their ``/metrics``
+   (`obs.server.kernel_counts_text`), each read as a difference from the
+   worker's start; no worker's stack may call a plain version.
 
-Phases 1-22 and 28-30 (and 27's gates and f32 leg) run with an empty
-tuned-table directory, so on the untuned rules, as before the committed
+Phases 1-22, 28-30 and 33-34 (and 27's gates and f32 leg, and 32's
+no-table leg) run with an empty tuned-table directory, so on the untuned rules, as before the committed
 table existed; every phase line names the table it ran from
 (``"table"``: "none", "committed" or "temporary").
 
@@ -291,6 +329,7 @@ import os
 import re
 import subprocess
 import sys
+import statistics
 import tempfile
 import time
 
@@ -347,6 +386,7 @@ from dbcsr_tpu_torch.ops.test_methods import checksum, make_random_matrix
 from dbcsr_tpu_torch.ops.tests import TEST_BINARY_IO, TEST_MM, run_tests
 from dbcsr_tpu_torch.obs import costmodel as port_costmodel
 from dbcsr_tpu_torch.obs import changepoint, events, health, metrics, profiler, rca, slo
+from dbcsr_tpu_torch.obs import server as obs_server
 from dbcsr_tpu_torch.obs import timeseries as obs_ts
 from dbcsr_tpu_torch.obs import tracer as obs_tracer
 from dbcsr_tpu_torch.obs.costmodel import (
@@ -369,6 +409,12 @@ from dbcsr_tpu_torch.perf.driver import (
     run_perf_multiproc,
 )
 from dbcsr_tpu_torch.resilience import breaker, faults
+from dbcsr_tpu_torch.serve import engine as serve_engine
+from dbcsr_tpu_torch.serve import product_cache
+from dbcsr_tpu_torch.serve import session as serve_session
+from dbcsr_tpu_torch.serve.engine import ServeEngine
+from dbcsr_tpu_torch.serve.fleet import Fleet
+from dbcsr_tpu_torch.serve.session import Session
 from dbcsr_tpu_torch.tune import miner as tune_miner
 from dbcsr_tpu_torch.tune import service as tune_service
 from dbcsr_tpu_torch.tune import trials as tune_trials
@@ -4067,6 +4113,605 @@ def phase_autotune(none_dir: str) -> dict:
     return launched
 
 
+# ------------------------------------------------------------ serving plane
+SERVE_TENANTS = 4
+SERVE_PAIRS = 3          # coalesced/serialized pairs of legs, in turns
+SERVE_PATTERN_SEED = 20261019
+# The JAX defaults shed a north-star request (A + B + C is about 950 MB
+# against serve_tenant_bytes = 256 MB) and never bank its 792 MB C
+# (serve_product_cache_bytes = 128 MB): the smoke sets room for both.
+# A group closes when its 4 tenants are in (serve_coalesce_max), not at
+# the end of the window.
+SERVE_CFG = {"serve_window_ms": 50.0, "serve_coalesce_max": SERVE_TENANTS,
+             "serve_tenant_bytes": 64 << 30, "serve_product_cache_bytes": 8 << 30,
+             "serve_product_cache_entries": 32, "serve_queue_max": 256,
+             "serve_tenant_inflight": 8}
+SERVE_WARM_MAX = 40      # north-star groups at most, until admission is OK
+
+
+def _northstar_sizes() -> list:
+    cfg = _northstar_cfg(1)
+    return [int(x) for x in expand_block_sizes(cfg.m, cfg.m_sizes)]
+
+
+def _revalued(m, seed: int, name: str):
+    """A copy of ``m`` (same pattern) with standard-normal values drawn on
+    the card from ``seed``."""
+    out = m.copy(name)
+    gen = torch.Generator(device=m.device)
+    gen.manual_seed(seed)
+    out.map_bin_data(lambda d: torch.randn(d.shape, generator=gen, dtype=d.dtype,
+                                           device=d.device))
+    return out
+
+
+def _dispatch_total() -> float:
+    return sum(v for _, v in metrics.counter_items("dbcsr_tpu_dispatches_total"))
+
+
+def _serve_leg(eng, sessions, cname: str, coalesce_on: bool) -> dict:
+    """Every tenant submits C = A B into a fresh ``cname`` inside one
+    batching window; returns the tickets, wall seconds, launches and
+    dispatches of the leg (the serve path's launches: the caller tallies
+    them)."""
+    set_config(serve_coalesce=coalesce_on)
+    rows = _northstar_sizes()
+    for s in sessions:
+        if cname in s.matrices():
+            s.drop(cname)
+        s.create(cname, rows, rows)
+    torch.cuda.synchronize()
+    d0 = _dispatch_total()
+    verdicts, reqs = [], []
+    not_ok = _not_ok(health.verdict())
+    t0 = time.perf_counter()
+    for s in sessions:
+        verdicts.append(health.admission_status())
+        reqs.append(eng.submit(s, a="A", b="B", c=cname))
+    for r in reqs:
+        _require(r.wait(600) and r.state == "done", f"serve: request {r.info()}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    _require(counts["plain"] == 0, f"serve: a stack reached a plain version {counts}")
+    return {"mode": "coalesced" if coalesce_on else "serialized", "wall_s": wall,
+            "requests_per_s": len(reqs) / wall,
+            "latency_ms": [r.info()["latency_ms"] for r in reqs],
+            "phases_ms": [(r.info().get("attribution") or {}).get("phases_ms") for r in reqs],
+            "coalesced": [r.result.get("coalesced") for r in reqs],
+            "verdicts_at_submit": verdicts, "not_ok_before": not_ok, "launches": counts,
+            "dispatches": _dispatch_total() - d0, "tickets": reqs}
+
+
+def _drop_tickets(leg: dict) -> dict:
+    return {k: v for k, v in leg.items() if k != "tickets"}
+
+
+def _latency_by_tenant(legs: list) -> dict:
+    """{tenant: the count, median and largest of its latencies (ms) over
+    the tickets of ``legs``}: a leg gives each tenant one latency, too
+    few for a tail quantile."""
+    by: dict = {}
+    for leg in legs:
+        for r in leg["tickets"]:
+            by.setdefault(r.tenant, []).append((r.t_done - r.t_submit) * 1e3)
+    return {t: {"n": len(xs), "median_ms": statistics.median(xs), "max_ms": max(xs)}
+            for t, xs in by.items()}
+
+
+def phase_serve(none_dir: str) -> dict:
+    """The serving plane on the card (module docstring, phase 32).
+    Returns the phase's launches by kernel."""
+    out = {"phase": "serve", "tenants": SERVE_TENANTS, "shape": [10000, 10000, 10000],
+           "block": 23, "occupancy": 0.1, "dtype": "float64", "config": dict(SERVE_CFG),
+           "config_by_leg": {"serve_product_cache": "off but in the product-cache leg",
+                             "abft": "off but 'verify' in the integrity leg",
+                             "serve_coalesce": "per leg", "mm_driver": "auto ('torch' for "
+                             "the one reference product)", "incremental": "off"}}
+    launched: dict = {}
+
+    def tally(counts=None):
+        _add_counts(launched, counts if counts is not None else _counts())
+        _reset_counts()
+
+    def drop_counts():  # comparison work: counted nowhere
+        stack_kernel.reset_counts()
+        crosspack_kernel.reset_counts()
+
+    t_phase = time.perf_counter()
+    set_config(**SERVE_CFG, serve_product_cache=False, abft="off")
+    eng = ServeEngine(device="cuda")
+    rows = _northstar_sizes()
+    sessions = []
+    try:
+        t0 = time.perf_counter()
+        a0 = make_random_matrix("A", rows, rows, occupation=0.1,
+                                rng=np.random.default_rng(SERVE_PATTERN_SEED), device="cuda")
+        b0 = make_random_matrix("B", rows, rows, occupation=0.1,
+                                rng=np.random.default_rng(SERVE_PATTERN_SEED + 1),
+                                device="cuda")
+        for t in range(SERVE_TENANTS):
+            s = eng.open_session(f"tenant{t}")
+            s.put("A", _revalued(a0, 2 * t + 1, f"A{t}"))
+            s.put("B", _revalued(b0, 2 * t + 2, f"B{t}"))
+            sessions.append(s)
+        del a0, b0
+        torch.cuda.synchronize()
+        out["operands_s"] = time.perf_counter() - t0
+        # warm: first-use plans of the composite and its validations,
+        # until admission reads OK (a first-use storm ages out)
+        n = 0
+        while n < SERVE_WARM_MAX and (n < 2 or health.admission_status() != "OK"):
+            _serve_leg(eng, sessions, "Cw", coalesce_on=(n % 2 == 0))
+            n += 1
+        drop_counts()
+        _require(health.admission_status() == "OK",
+                 f"serve: admission not OK after {n} warm legs: {_not_ok(health.verdict())}")
+        out["warm_legs"] = n
+        for s in sessions:
+            s.drop("Cw")
+        # 1. bits and launches, no table (K1 fused) and committed (K3)
+        bits = {}
+        for table, tdir in (("none", none_dir), ("committed", TABLE_DIR)):
+            _use_table(tdir)
+            _serve_leg(eng, sessions, "Cwarm", coalesce_on=True)  # this table's plans
+            drop_counts()
+            for s in sessions:
+                s.drop("Cwarm")
+            ser = _serve_leg(eng, sessions, "Cs", coalesce_on=False)
+            tally(ser["launches"])
+            co = _serve_leg(eng, sessions, "Cc", coalesce_on=True)
+            tally(co["launches"])
+            _require(all(x == SERVE_TENANTS for x in co["coalesced"]),
+                     f"serve: the group did not coalesce {co['coalesced']}")
+            same = [_same_matrix(s.get("Cs"), s.get("Cc")) for s in sessions]
+            _require(all(same), f"serve ({table}): coalesced C differs from standalone {same}")
+            if table == "none":
+                _require(co["launches"]["smm_superstack"] > 0 and
+                         co["launches"]["smm_crosspack"] == 0,
+                         f"serve: no table, the composite's launches {co['launches']}")
+            else:
+                _require(co["launches"]["smm_crosspack"] > 0,
+                         f"serve: committed table, no K3 launch {co['launches']}")
+            # one plain-version product, the comparison leg
+            set_config(mm_driver="torch")
+            try:
+                ref = BlockSparseMatrix("Cref", rows, rows, torch.float64, device="cuda")
+                mm.multiply("N", "N", 1.0, sessions[0].get("A"), sessions[0].get("B"), 0.0,
+                            ref)
+                torch.cuda.synchronize()
+            finally:
+                set_config(mm_driver="auto")
+            drop_counts()
+            rel = _bins_rel(sessions[0].get("Cc"), ref)
+            _require(rel <= 1e-10, f"serve ({table}): against the torch driver rel {rel:.3e}")
+            del ref
+            bits[table] = {"bit_for_bit_standalone": same, "rel_torch_driver": rel,
+                           "serialized": _drop_tickets(ser), "coalesced": _drop_tickets(co),
+                           "composite_phases_ms": co["phases_ms"][0]}
+        out["bits"] = bits
+        # 2. coalesced against serialized, committed table, in turns
+        legs = {"coalesced": [], "serialized": []}
+        busy = None
+        for i in range(SERVE_PAIRS):
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                if on and busy is None:
+                    with tempfile.TemporaryDirectory() as tmp:
+                        path = os.path.join(tmp, "serve.json")
+                        with torch.profiler.profile(activities=[
+                                torch.profiler.ProfilerActivity.CPU,
+                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+                            leg = _serve_leg(eng, sessions, "Ct", coalesce_on=True)
+                        prof.export_chrome_trace(path)
+                        busy = _busy_share(path)
+                else:
+                    leg = _serve_leg(eng, sessions, "Ct", coalesce_on=on)
+                tally(leg["launches"])
+                leg["composite_phases_ms"] = leg["phases_ms"][0] if on else None
+                legs["coalesced" if on else "serialized"].append(leg)
+        out["in_turns"] = {
+            mode: {"requests_per_s": [x["requests_per_s"] for x in ls],
+                   "wall_s": [x["wall_s"] for x in ls],
+                   "dispatches": [x["dispatches"] for x in ls],
+                   "launches": [x["launches"] for x in ls],
+                   "composite_phases_ms": [x["composite_phases_ms"] for x in ls],
+                   "latency_ms": _latency_by_tenant(ls)}
+            for mode, ls in legs.items()}
+        out["in_turns"]["busy_share_coalesced_leg"] = busy
+        out["latency_quantiles_engine"] = eng.latency_quantiles()
+        took = {k: v for k, v in _integrity_counts().items() if v}
+        _require(not took, f"serve: the clean legs took the integrity plane: {took}")
+        # 3. the product cache: an identical request hits with no launch;
+        # A changed in place misses and gives the new product's bits
+        set_config(serve_product_cache=True)
+        s0 = sessions[0]
+        for name in ("Cp0", "Cp1", "Cp2", "Cp3"):
+            s0.create(name, rows, rows)
+        miss = eng.submit(s0, a="A", b="B", c="Cp0")
+        _require(miss.wait(600) and miss.state == "done", f"serve: {miss.info()}")
+        torch.cuda.synchronize()
+        tally()
+        hit = eng.submit(s0, a="A", b="B", c="Cp1")
+        _require(hit.wait(600) and hit.state == "done", f"serve: {hit.info()}")
+        torch.cuda.synchronize()
+        hit_counts = _counts()
+        _require(hit.result.get("cached") == 1 and sum(
+            v for k, v in hit_counts.items()) == 0,
+            f"serve: the repeat did not hit without launches {hit.result} {hit_counts}")
+        _require(_same_matrix(s0.get("Cp0"), s0.get("Cp1")), "serve: the hit's C differs")
+        scale(s0.get("A"), 1.5)  # in place
+        mut = eng.submit(s0, a="A", b="B", c="Cp2")
+        _require(mut.wait(600) and mut.state == "done", f"serve: {mut.info()}")
+        torch.cuda.synchronize()
+        mut_counts = _counts()
+        tally()
+        _require(not mut.result.get("cached") and _k1(mut_counts) > 0,
+                 f"serve: the mutated operand hit the cache {mut.result} {mut_counts}")
+        mm.multiply("N", "N", 1.0, s0.get("A"), s0.get("B"), 0.0, s0.get("Cp3"))
+        torch.cuda.synchronize()
+        drop_counts()
+        _require(_same_matrix(s0.get("Cp2"), s0.get("Cp3")),
+                 "serve: the miss after the mutation is not the new product's bits")
+        out["product_cache"] = {
+            "miss_latency_ms": miss.info()["latency_ms"],
+            "hit_latency_ms": hit.info()["latency_ms"], "hit_launches": hit_counts,
+            "saved_flops": hit.result.get("saved_flops"),
+            "saved_seconds": hit.result.get("saved_seconds"),
+            "after_in_place_mutation": {"cached": bool(mut.result.get("cached")),
+                                        "launches": mut_counts,
+                                        "latency_ms": mut.info()["latency_ms"]},
+            "snapshot": product_cache.snapshot()}
+        set_config(serve_product_cache=False)
+        product_cache.clear()
+        for name in ("Cp0", "Cp1", "Cp2", "Cp3"):
+            s0.drop(name)
+        # 4. integrity: a served NaN, caught by the per-request probe,
+        # restored and re-executed once, bit for bit the clean C
+        set_config(abft="verify")
+        for name in ("Ci0", "Ci1"):
+            s0.create(name, rows, rows)
+        clean = eng.submit(s0, a="A", b="B", c="Ci0")
+        _require(clean.wait(600) and clean.state == "done", f"serve: {clean.info()}")
+        rec0 = _ctr("dbcsr_tpu_abft_recoveries_total", driver="serve")
+        with faults.inject_faults("serve_execute:nan,times=1") as specs:
+            bad = eng.submit(s0, a="A", b="B", c="Ci1")
+            _require(bad.wait(600) and bad.state == "done", f"serve: {bad.info()}")
+        torch.cuda.synchronize()
+        tally()
+        recovered = _ctr("dbcsr_tpu_abft_recoveries_total", driver="serve") - rec0
+        _require(specs[0].fired == 1 and recovered == 1 and bad.result.get("verified") == 1
+                 and _same_matrix(s0.get("Ci0"), s0.get("Ci1")),
+                 f"serve: the probe did not recover the served NaN ({specs[0].fired} fired, "
+                 f"{recovered} recovered, {bad.result})")
+        out["integrity"] = {"fault": "serve_execute:nan,times=1", "fired": specs[0].fired,
+                            "recoveries": recovered, "result": bad.result,
+                            "bit_for_bit_clean": True,
+                            "mismatches": _ctr("dbcsr_tpu_abft_mismatches_total")}
+        set_config(abft="off")
+        # 5. shedding: a serve_admit fault sheds with the structured reason
+        with faults.inject_faults("serve_admit:raise,times=1"):
+            shed = eng.submit(s0, a="A", b="B", c="Ci1")
+        _require(shed.state == "shed" and shed.error.startswith("shed: fault"),
+                 f"serve: the admit fault did not shed {shed.info()}")
+        out["shed"] = {"state": shed.state, "outcome": shed.outcome, "error": shed.error,
+                       "shed_total": {lab["reason"]: v for lab, v in
+                                      metrics.counter_items("dbcsr_tpu_serve_shed_total")}}
+    finally:
+        faults.clear()
+        breaker.reset_board()
+        _use_table(none_dir)
+        set_config(abft="off", serve_product_cache=True, serve_coalesce=True)
+        eng.shutdown()
+        for s in sessions:
+            s.close()
+        product_cache.clear()
+        # the served NaN's mismatch must not degrade the later phases'
+        # verdicts: a fresh plane, as telemetry and autotune leave it
+        _fresh_plane()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = dict(launched)
+    _emit(out)
+    return launched
+
+
+def _http(url: str, route: str, body=None, timeout: float = 600.0):
+    """(status, payload) of one call to the obs endpoint."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + route, data=data, headers=(
+        {"Content-Type": "application/json"} if data else {}))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            raw, code = resp.read().decode(), resp.status
+    except urllib.error.HTTPError as exc:
+        raw, code = exc.read().decode(), exc.code
+    try:
+        return code, json.loads(raw)
+    except ValueError:
+        return code, raw
+
+
+def phase_serve_http() -> dict:
+    """The HTTP endpoint in this process over the card's engine (module
+    docstring, phase 33).  Returns the phase's launches."""
+    t_phase = time.perf_counter()
+    set_config(**SERVE_CFG, serve_product_cache=False)
+    rows = _northstar_sizes()
+    eng = serve_engine.get_engine(device="cuda")
+    obs_server.start(0)
+    url = obs_server.url()
+    out = {"phase": "serve_http", "url_port": obs_server.get().port,
+           "config": dict(SERVE_CFG), "routes": {}}
+    try:
+        def call(route, body=None, want=200):
+            t0 = time.perf_counter()
+            code, payload = _http(url, route, body)
+            _require(code == want, f"serve_http: {route} answered {code}: {str(payload)[:300]}")
+            out["routes"].setdefault(route.split("?")[0], []).append(
+                {"status": code, "ms": 1e3 * (time.perf_counter() - t0)})
+            return payload
+
+        sid = call("/serve/session/open", {"tenant": "http", "session_id": "http-1"})[
+            "session_id"]
+        for name, seed in (("a", 1), ("b", 2)):
+            call("/serve/matrix", {"session": sid, "name": name, "row_blk": rows,
+                                   "occupation": 0.1, "seed": seed})
+        call("/serve/matrix", {"session": sid, "name": "c", "row_blk": rows,
+                               "kind": "create"})
+        sess = serve_session.get_session(sid)
+        _require(sess.get("a").device.type == "cuda", "serve_http: operands off the card")
+        torch.cuda.synchronize()
+        _reset_counts()
+        info = call("/serve/submit", {"session": sid, "a": "a", "b": "b", "c": "c",
+                                      "wait": True, "timeout_s": 600})
+        torch.cuda.synchronize()
+        launched = _counts()
+        _reset_counts()
+        _require(info["state"] == "done" and _k1(launched) > 0 and launched["plain"] == 0,
+                 f"serve_http: submit {info} launches {launched}")
+        status = call("/serve/status")
+        tenants = call("/serve/tenants")
+        ck = call(f"/serve/checksum?session={sid}&name=c")
+        local = float(checksum(sess.get("c")))
+        _require(ck["checksum"] == local,
+                 f"serve_http: /serve/checksum {ck['checksum']} != in-process {local}")
+        health_v = call("/healthz")
+        code, prom = _http(url, "/metrics")
+        _require(code == 200 and "dbcsr_tpu_serve_requests_total" in prom,
+                 "serve_http: /metrics lacks the serve counters")
+        usage = call("/usage")
+        with faults.inject_faults("serve_admit:raise,times=1"):
+            shed = call("/serve/submit", {"session": sid, "a": "a", "b": "b", "c": "c"},
+                        want=429)
+        _require(shed["state"] == "shed" and "fault" in shed["error"],
+                 f"serve_http: the shed {shed}")
+        out.update({"request": {k: info.get(k) for k in ("request_id", "state", "outcome",
+                                                          "latency_ms", "result")},
+                    "status": status, "tenants": tenants, "checksum": ck["checksum"],
+                    "checksum_in_process": local, "healthz": health_v["status"],
+                    "usage_tenants": sorted((usage.get("tenants") or {})),
+                    "shed": {k: shed.get(k) for k in ("state", "outcome", "error")},
+                    "launches": launched})
+    finally:
+        faults.clear()
+        obs_server.stop()
+        serve_engine.shutdown()
+        for s in serve_session.sessions().values():
+            s.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    _emit(out)
+    return launched
+
+
+FLEET_REQUESTS = 3       # north-star requests a tenant submits before the kill
+# the peer tier's wait for one peer: the default 0.3 s is too short for
+# an entry of the models' size to travel as base64 JSON
+FLEET_ENV = {"DBCSR_TPU_TORCH_FLEET_CACHE_TIMEOUT_S": "60"}
+# the workers' quota: the default 256 MB of queued operands a tenant
+# sheds a second queued north-star request (A and B are 160 MB)
+FLEET_CONFIG = {"serve_tenant_bytes": 64 << 30}
+
+
+def _worker_launches(url: str) -> dict:
+    """A worker's kernel wrappers' own counts, by kernel, from its
+    /metrics (`obs.server.kernel_counts_text`): each wrapper's launches,
+    and "plain", the calls of the plain versions."""
+    code, text = _http(url, "/metrics", timeout=30)
+    _require(code == 200, f"fleet: {url}/metrics answered {code}")
+    out: dict = {"plain": 0}
+    for line in text.splitlines():
+        m = re.match(r'^dbcsr_tpu_kernel_(launches|plain_calls)_total\{kernel="([^"]+)"\} (\S+)$',
+                     line)
+        if m:
+            key = m.group(2) if m.group(1) == "launches" else "plain"
+            out[key] = out.get(key, 0) + int(float(m.group(3)))
+    _require(len(out) == 5, f"fleet: {url}/metrics lacks the kernel counts: {out}")
+    return out
+
+
+def _since(now: dict, base: dict) -> dict:
+    return {k: n - base.get(k, 0) for k, n in now.items()}
+
+
+def _worker_dispatches(url: str) -> float:
+    code, text = _http(url, "/metrics", timeout=30)
+    return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+               if line.startswith("dbcsr_tpu_dispatches_total"))
+
+
+def phase_fleet() -> dict:
+    """Two worker processes on the one card behind the router (module
+    docstring, phase 34).  Returns the workers' launches by kernel."""
+    t_phase = time.perf_counter()
+    rows = _northstar_sizes()
+    dens = [MODEL_BLOCK] * MODEL_BLOCKS
+    out = {"phase": "fleet", "workers": 2, "device": "cuda", "coalesce": "off",
+           "table_dir_inherited": os.environ.get("DBCSR_TPU_TORCH_PARAMS_DIR"),
+           "env": dict(FLEET_ENV), "config": dict(FLEET_CONFIG)}
+    launched: dict = {}
+    with tempfile.TemporaryDirectory() as wd:
+        fl = Fleet(n=2, device="cuda", workdir=wd, env=FLEET_ENV, config=FLEET_CONFIG)
+        t0 = time.perf_counter()
+        with fl:
+            out["start_s"] = dict(fl.start_s)
+            out["fleet_start_s"] = time.perf_counter() - t0
+            r = fl.router()
+            _require(r.check() == {"w0": "up", "w1": "up"}, "fleet: a worker is not up")
+            urls = {n: s["url"] for n, s in fl.specs.items()}
+            # each worker's counts are read as differences from its start
+            base = {n: _worker_launches(u) for n, u in urls.items()}
+            sids = {}
+            for t, seed in (("alpha", 11), ("beta", 21)):
+                sid = r.open_session(t, session_id=f"{t}-s")
+                r.matrix(sid, name="a", row_blk=rows, occupation=0.1, seed=seed)
+                r.matrix(sid, name="b", row_blk=rows, occupation=0.1, seed=seed + 1)
+                for i in range(FLEET_REQUESTS + 1):
+                    r.matrix(sid, name=f"c{i}", row_blk=rows, kind="create")
+                sids[t] = sid
+            placed = {t: r.sessions[sid]["worker"] for t, sid in sids.items()}
+            _require(len(set(placed.values())) == 2, f"fleet: placement {placed}")
+            # one request each, waited: the workers' plans and first uses
+            for t, sid in sids.items():
+                info = r.submit(sid, request_id=f"{t}-0", op="multiply", a="a", b="b",
+                                c="c0", wait=True, timeout_s=600)
+                _require(info["state"] == "done", f"fleet: {info}")
+            owner = placed["alpha"]
+            peer = placed["beta"]
+            # the doomed worker's tenant submits and is killed in flight
+            # (a north-star request takes tens of ms on the host alone,
+            # so the kill lands before the first of them is done); what
+            # it launched for them dies with it, uncounted
+            before_kill = _since(_worker_launches(urls[owner]), base[owner])
+            subs = [r.submit(sids["alpha"], request_id=f"alpha-{i}", op="multiply", a="a",
+                             b="b", c=f"c{i}") for i in range(1, FLEET_REQUESTS + 1)]
+            rids = [x["request_id"] for x in subs]
+            t_kill = time.perf_counter()
+            fl.kill(owner)
+            r.mark_down(owner)
+            moved = r.failover(owner)
+            r.settle_replayed(moved["replayed"], moved["target"], timeout=600.0)
+            failover_s = time.perf_counter() - t_kill
+            for i in range(1, FLEET_REQUESTS + 1):
+                info = r.submit(sids["beta"], request_id=f"beta-{i}", op="multiply", a="a",
+                                b="b", c=f"c{i}", wait=True, timeout_s=600)
+                _require(info["state"] == "done", f"fleet: {info}")
+            audit = r.audit()
+            _require(all(x["state"] not in ("shed", "failed") for x in subs),
+                     f"fleet: in-flight submissions {[x['state'] for x in subs]}")
+            _require(audit["duplicated"] == [] and audit["unresolved"] == []
+                     and moved["target"] == peer and moved["replayed"],
+                     f"fleet: audit {audit['duplicated']} {audit['unresolved']}, "
+                     f"moved {moved}")
+            # a clean in-process run of the same specs, coalescing off
+            set_config(serve_coalesce=False)
+            clean = {}
+            for t, seed in (("alpha", 11), ("beta", 21)):
+                s = Session(f"clean-{t}", register=False, device="cuda")
+                a = s.random("a", rows, rows, occupation=0.1, seed=seed)
+                b = s.random("b", rows, rows, occupation=0.1, seed=seed + 1)
+                c = s.create("c", rows, rows)
+                mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+                torch.cuda.synchronize()
+                clean[t] = float(checksum(c))
+                s.close()
+            stack_kernel.reset_counts()
+            crosspack_kernel.reset_counts()
+            set_config(serve_coalesce=True)
+            got = {}
+            for rid in moved["replayed"]:
+                i = int(rid.rsplit("-", 1)[1])
+                got[rid] = _fleet_checksum(urls[peer], sids["alpha"], f"c{i}")
+            for i in range(FLEET_REQUESTS + 1):
+                got[f"beta-{i}"] = _fleet_checksum(urls[peer], sids["beta"], f"c{i}")
+            for rid, ck in got.items():
+                want = clean[rid.split("-")[0]]
+                _require(ck == want, f"fleet: {rid} checksum {ck} != clean {want}")
+            # the peer tier of the product cache on the models' operands
+            # (2208^2: a north-star C is 792 MB, too large for base64)
+            fl.respawn(owner)
+            r.rejoin(owner)
+            out["respawn_start_s"] = fl.start_s[owner]
+            base[owner] = _worker_launches(urls[owner])
+            sid_p = r.open_session("beta", session_id="beta-s")  # on the peer
+            for name, seed in (("pa", 0),):
+                r.matrix(sid_p, name=name, row_blk=dens, kind="density", occupation=0.2,
+                         seed=seed)
+            r.matrix(sid_p, name="pc", row_blk=dens, kind="create")
+            first = r.submit(sid_p, request_id="dens-0", op="multiply", a="pa", b="pa",
+                             c="pc", wait=True, timeout_s=600)
+            r.affinity["gamma"] = owner
+            sid_g = r.open_session("gamma", session_id="gamma-s")
+            r.matrix(sid_g, name="pa", row_blk=dens, kind="density", occupation=0.2, seed=0)
+            r.matrix(sid_g, name="pc", row_blk=dens, kind="create")
+            n0, d0 = _worker_launches(urls[owner]), _worker_dispatches(urls[owner])
+            hit = r.submit(sid_g, request_id="dens-1", op="multiply", a="pa", b="pa", c="pc",
+                           wait=True, timeout_s=600)
+            n1, d1 = _worker_launches(urls[owner]), _worker_dispatches(urls[owner])
+            cache_lines = [ln for ln in _http(urls[owner], "/metrics", timeout=30)[1].splitlines()
+                           if ln.startswith("dbcsr_tpu_product_cache_total")]
+            p = make_test_density(MODEL_BLOCKS, MODEL_BLOCK, occ=0.2, seed=0, device="cuda")
+            pc = BlockSparseMatrix("pc", dens, dens, torch.float64, device="cuda")
+            mm.multiply("N", "N", 1.0, p, p, 0.0, pc)
+            torch.cuda.synchronize()
+            stack_kernel.reset_counts()
+            crosspack_kernel.reset_counts()
+            want = float(checksum(pc))
+            del p, pc
+            ck_hit = _fleet_checksum(urls[owner], sid_g, "pc")
+            _require(first["state"] == "done" and hit["state"] == "done"
+                     and hit["result"].get("cached") == 1 and n1 == n0 and d1 == d0
+                     and ck_hit == want,
+                     f"fleet: the peer-tier hit {hit}, launches {n0} -> {n1}, "
+                     f"dispatches {d0} -> {d1}, checksum {ck_hit} vs {want}, cache {cache_lines}")
+            after = {n: _since(_worker_launches(u), base[n]) for n, u in urls.items()}
+            for src in (before_kill, after[peer], after[owner]):
+                _require(src.pop("plain") == 0,
+                         f"fleet: a worker's stack ran a plain version {src}")
+                _add_counts(launched, src)
+            out.update({
+                "placed": placed, "killed": owner, "in_flight": rids,
+                "in_flight_states_at_submit": [x["state"] for x in subs],
+                "failover": {k: moved[k] for k in ("target", "pending", "skipped",
+                                                   "replayed", "repinned")},
+                "failover_s": failover_s,
+                "audit": {"requests": len(audit["requests"]),
+                          "duplicated": audit["duplicated"],
+                          "unresolved": audit["unresolved"]},
+                "checksums": got, "clean_checksums": clean,
+                "peer_tier": {"size": "2208^2 (make_test_density(96, 23, occ=0.2, seed=0))",
+                              "result": hit["result"], "latency_ms": hit.get("latency_ms"),
+                              "launches_on_second_worker": {"before": n0, "after": n1},
+                              "dispatches_on_second_worker": {"before": d0, "after": d1},
+                              "checksum": ck_hit, "clean_checksum": want,
+                              "cache_counters": cache_lines,
+                              "first_latency_ms": first.get("latency_ms")},
+                "worker_launches": {"killed_before_kill": before_kill, **after},
+                "health_fleet": health.verdict()["components"].get("fleet")})
+        out["workers_exit"] = {n: p.returncode for n, p in fl.procs.items()}
+        _require(all(p.poll() is not None for p in fl.procs.values()),
+                 "fleet: a worker is still running")
+    counts = {"smm_stack": launched.get("smm_stack", 0),
+              "smm_superstack": launched.get("smm_superstack", 0),
+              "smm_crosspack": launched.get("smm_crosspack", 0),
+              "smm_crosspack_resident": launched.get("smm_crosspack_resident", 0)}
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = counts
+    _emit(out)
+    return counts
+
+
+def _fleet_checksum(url: str, sid: str, name: str) -> float:
+    code, payload = _http(url, f"/serve/checksum?session={sid}&name={name}", timeout=120)
+    _require(code == 200, f"fleet: checksum of {sid}/{name} answered {code}: {payload}")
+    return payload["checksum"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; "
@@ -4157,6 +4802,17 @@ def _run_phases(none_dir: str) -> int:
         _reset_counts()
         by_phase[phase] = fn(*args)
         _reset_counts()
+    # the serving plane: the in-process engine on the card (it injects
+    # faults, so it checks its clean legs itself), the HTTP endpoint, and
+    # a two-worker fleet (the workers' wrapper counts come from their /metrics)
+    _PHASE_NOW[0] = "serve"
+    metrics.reset()
+    _reset_counts()
+    by_phase["serve"] = phase_serve(none_dir)
+    _reset_counts()
+    by_phase["serve_http"] = _clean("serve_http", phase_serve_http)
+    by_phase["fleet"] = _clean("fleet", phase_fleet)
+    _SUPERSTACK_BY_PATH["fleet"] = by_phase["fleet"]["smm_superstack"]
     for row in (k1, k3, k4):
         for phase, counts in by_phase.items():
             row["launches_by_path"][phase] = counts.get(row["name"], 0)

@@ -1,6 +1,6 @@
 """Global configuration: the subset of `dbcsr_tpu/core/config.py` the
-multiply, the TAS split, the grid engines, the integrity plane and the
-statistics read
+multiply, the TAS split, the grid engines, the integrity plane, the
+statistics and the serving plane read
 (ref `dbcsr_cfg`, `src/core/dbcsr_config.F`).  Every field is set in
 code (`set_config`); none is read from the environment.
 """
@@ -91,6 +91,29 @@ class Config:
     # 2.5D k layers of an automatically shaped grid (ref NUM_LAYERS_3D,
     # dbcsr_config.F:152): 0 lets `parallel.mesh.grid_shape` choose
     num_layers_3d: int = 0
+    # ---- serving plane (serve/), the JAX package's defaults ----
+    # bound on queued requests; beyond it submissions shed queue_full
+    serve_queue_max: int = 256
+    # the batching window: how long the worker waits for more requests
+    # of the same coalesce key after popping one (0: only requests
+    # already queued group)
+    serve_window_ms: float = 5.0
+    # block-diagonal composite execution on or off (off: every request
+    # runs serialized, the comparison leg)
+    serve_coalesce: bool = True
+    # largest request group one composite multiply carries
+    serve_coalesce_max: int = 8
+    # per-tenant quotas: queued + running requests, and queued operand
+    # bytes (A + B + C)
+    serve_tenant_inflight: int = 8
+    serve_tenant_bytes: int = 256 * 1024 * 1024
+    # deadline given under a DEGRADED verdict to a request without one
+    serve_degraded_deadline_s: float = 10.0
+    # the content-addressed product cache (serve/product_cache.py) and
+    # its bounds
+    serve_product_cache: bool = True
+    serve_product_cache_entries: int = 32
+    serve_product_cache_bytes: int = 128 * 1024 * 1024
 
     def validate(self) -> None:
         if self.mm_driver not in MM_DRIVERS:
@@ -124,6 +147,22 @@ class Config:
                              f"got {self.cannon_overlap!r}")
         if self.num_layers_3d < 0:
             raise ValueError("num_layers_3d must be >= 0")
+        if self.serve_queue_max <= 0:
+            raise ValueError("serve_queue_max must be positive")
+        if self.serve_window_ms < 0:
+            raise ValueError("serve_window_ms must be >= 0")
+        if self.serve_coalesce_max < 1:
+            raise ValueError("serve_coalesce_max must be >= 1")
+        if self.serve_tenant_inflight <= 0:
+            raise ValueError("serve_tenant_inflight must be positive")
+        if self.serve_tenant_bytes <= 0:
+            raise ValueError("serve_tenant_bytes must be positive")
+        if self.serve_degraded_deadline_s <= 0:
+            raise ValueError("serve_degraded_deadline_s must be positive")
+        if self.serve_product_cache_entries < 1:
+            raise ValueError("serve_product_cache_entries must be >= 1")
+        if self.serve_product_cache_bytes <= 0:
+            raise ValueError("serve_product_cache_bytes must be positive")
 
 
 _cfg = Config()

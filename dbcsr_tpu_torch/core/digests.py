@@ -13,7 +13,7 @@ The port's own copy of `dbcsr_tpu/core/digests.py`:
 * value digests of matrices (`bin_value_digest`, `matrix_value_digest`):
   a bin's content hash memoized on the tensor's identity and version,
   and a matrix's memoized on its mutation epoch
-  (`BlockSparseMatrix.mutation_epoch`).
+  (`BlockSparseMatrix.mutation_epoch`) and its bins' versions.
 """
 
 from __future__ import annotations
@@ -102,9 +102,11 @@ def bin_value_digest(data, count: int) -> bytes:
 def matrix_value_digest(m) -> bytes:
     """Value digest of a finalized matrix: its pattern fingerprint, dtype
     and every bin's content, memoized on the matrix by its mutation
-    epoch (every value funnel bumps it)."""
+    epoch (every value funnel bumps it) and its bins' identities and
+    versions (a write into a bin tensor that no funnel saw)."""
+    held = tuple((id(b.data), b.data._version) for b in m.bins)
     cached = getattr(m, "_value_digest_cache", None)
-    if cached is not None and cached[0] == m.mutation_epoch:
+    if cached is not None and cached[0] == m.mutation_epoch and cached[2] == held:
         return cached[1]
     parts = [repr(m.pattern_fingerprint()).encode(), str(m.dtype).encode()]
     for b in m.bins:
@@ -112,7 +114,7 @@ def matrix_value_digest(m) -> bytes:
         if b.count:
             parts.append(bin_value_digest(b.data, b.count))
     d = digest(*parts)
-    m._value_digest_cache = (m.mutation_epoch, d)
+    m._value_digest_cache = (m.mutation_epoch, d, held)
     return d
 
 

@@ -57,18 +57,40 @@ KNOBS = {
         "doc": "fault-injection specs (the JAX package's DSL), read on first "
                "use.",
     },
+    "DBCSR_TPU_TORCH_FLEET_BACKOFF_S": {
+        "owner": "serve/router.py",
+        "doc": "base seconds of the router's exponential backoff between submit attempts "
+               "(default 0.05).",
+    },
     "DBCSR_TPU_TORCH_FLEET_CACHE_TIMEOUT_S": {
         "owner": "tune/store.py",
         "doc": "seconds peer_sync waits for one peer (default 0.3).",
     },
+    "DBCSR_TPU_TORCH_FLEET_HEARTBEAT_TIMEOUT_S": {
+        "owner": "serve/router.py",
+        "doc": "seconds one heartbeat or /healthz probe may take (default 2).",
+    },
     "DBCSR_TPU_TORCH_FLEET_PEERS": {
         "owner": "tune/store.py",
         "doc": "comma-separated base URLs of same-device-kind peers whose "
-               "promotions peer_sync adopts.",
+               "promotions peer_sync adopts (and whose product caches a serve "
+               "worker asks after a local miss, serve/product_cache.py).",
     },
     "DBCSR_TPU_TORCH_FLEET_PEER_COOLOFF_S": {
         "owner": "tune/store.py",
         "doc": "seconds a peer that errored is skipped (default 30).",
+    },
+    "DBCSR_TPU_TORCH_FLEET_RETRIES": {
+        "owner": "serve/router.py",
+        "doc": "attempts the router makes to land one request on its worker (default 3).",
+    },
+    "DBCSR_TPU_TORCH_FLEET_SUBMIT_TIMEOUT_S": {
+        "owner": "serve/router.py",
+        "doc": "seconds one routed HTTP call may take (default 10).",
+    },
+    "DBCSR_TPU_TORCH_FLEET_SUSPECT_AFTER": {
+        "owner": "serve/router.py",
+        "doc": "consecutive missed heartbeats that declare a worker DOWN (default 3).",
     },
     "DBCSR_TPU_TORCH_HEALTH_BREAKER_CRITICAL_N": {
         "owner": "obs/health.py",
@@ -142,6 +164,14 @@ KNOBS = {
         "doc": "=0 runs the multiply's index build and sort on the NumPy path "
                "instead of the native engine.",
     },
+    "DBCSR_TPU_TORCH_OBS_HOST": {
+        "owner": "obs/server.py",
+        "doc": "address the HTTP endpoint binds (default 127.0.0.1).",
+    },
+    "DBCSR_TPU_TORCH_OBS_PORT": {
+        "owner": "obs/server.py",
+        "doc": "at import: serve the HTTP endpoint on this base port (+ the rank).",
+    },
     "DBCSR_TPU_TORCH_PARAMS_DIR": {
         "owner": "acc/params.py",
         "doc": "directory of the tuned parameter table.",
@@ -177,6 +207,24 @@ KNOBS = {
     "DBCSR_TPU_TORCH_ROOFLINE": {
         "owner": "obs/costmodel.py",
         "doc": "JSON dict of peak rows merged over the roofline table.",
+    },
+    "DBCSR_TPU_TORCH_SERVE_JOURNAL": {
+        "owner": "serve/engine.py",
+        "doc": "the drain/write-ahead journal path; an engine started with it replays "
+               "what it holds.",
+    },
+    "DBCSR_TPU_TORCH_SERVE_TENANT_MAX": {
+        "owner": "serve/engine.py",
+        "doc": "tenant rows of latency and outcome tallies an engine keeps (default 256).",
+    },
+    "DBCSR_TPU_TORCH_SERVE_TENANT_TTL_S": {
+        "owner": "serve/engine.py",
+        "doc": "seconds an idle tenant's tallies are kept (default 3600).",
+    },
+    "DBCSR_TPU_TORCH_SERVE_WAL": {
+        "owner": "serve/engine.py",
+        "doc": "=1: journal every by-name request at submit and tombstone it at its end "
+               "(fleet workers).",
     },
     "DBCSR_TPU_TORCH_SLO_CRITICAL_BURN": {
         "owner": "obs/slo.py",
@@ -290,5 +338,9 @@ KNOBS = {
         "owner": "resilience/watchdog.py",
         "doc": "size past which a watchdog's outcome JSONL is rotated (default 1 "
                "MiB).",
+    },
+    "DBCSR_TPU_TORCH_WORKLOAD": {
+        "owner": "serve/workload.py",
+        "doc": "at import: record every terminal serve request to this JSONL base.",
     },
 }

@@ -25,9 +25,10 @@ the STATISTICS block `dbcsr_mm_sched.F:390-546`):
 * `changepoint` and `rca`: CUSUM level shifts over the store and the
   change ledger that ranks their causes;
 * `attribution` and `incidents` (imported on first use): tenant cost
-  billing and the rate-limited incident bundles.
-
-Not ported yet (`ROADMAP.md`, Queue 1): server.
+  billing and the rate-limited incident bundles;
+* `server`: the opt-in stdlib HTTP endpoint
+  (``DBCSR_TPU_TORCH_OBS_PORT``) of the live state and the serving
+  plane.
 """
 
 from dbcsr_tpu_torch.obs import shard
@@ -43,6 +44,7 @@ from dbcsr_tpu_torch.obs import health
 from dbcsr_tpu_torch.obs import profiler
 from dbcsr_tpu_torch.obs import changepoint
 from dbcsr_tpu_torch.obs import rca
+from dbcsr_tpu_torch.obs import server
 
 from dbcsr_tpu_torch.obs.tracer import (  # noqa: F401
     add as trace_add,
@@ -76,15 +78,16 @@ def get_tracer() -> "tracer.Tracer | None":
 
 
 def obs_active() -> bool:
-    """Whether an opt-in obs layer captured something in this process: a
-    trace session, the events sink, or records in the event ring."""
-    return (tracer.active() or events.sink_active()
+    """Whether an opt-in obs layer is on in this process: a trace
+    session, the HTTP endpoint, the events sink, or records in the event
+    ring."""
+    return (tracer.active() or server.running() or events.sink_active()
             or (events.enabled() and bool(events.records(limit=1))))
 
 
 __all__ = [
     "tracer", "flight", "metrics", "costmodel", "events", "shard", "profiler",
-    "windows", "timeseries", "slo", "health", "changepoint", "rca",
+    "windows", "timeseries", "slo", "health", "changepoint", "rca", "server",
     "enable_trace", "disable_trace", "trace_enabled", "get_tracer",
     "annotate", "trace_add", "instant", "shard_path",
     "write_chrome_trace", "OBS_SCHEMA_VERSION", "obs_active",

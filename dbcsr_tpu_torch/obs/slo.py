@@ -20,8 +20,8 @@ objective              bad when / budget
                        ``DBCSR_TPU_TORCH_SLO_SDC_BUDGET`` (1e-6)
 =====================  ==============================================
 
-The two serve objectives read no data until the port has a serving
-plane (``NO_DATA``).  ``roofline_floor`` reads the store's
+The two serve objectives read the serving plane (`serve/`): they stay
+``NO_DATA`` until it has finished requests.  ``roofline_floor`` reads the store's
 ``dbcsr_tpu_roofline_fraction``, which holds device-second rates only
 (synchronized regions; `obs.timeseries`), on the port's byte convention:
 the least bytes a launch moves (`obs.costmodel.stack_min_bytes`), not

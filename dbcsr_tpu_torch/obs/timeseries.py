@@ -297,8 +297,8 @@ def _collect_engine() -> list:
 
 
 def _collect_serve() -> list:
-    """Serve queue/latency/shed rates (empty until the port has a
-    serving plane; a scrape never creates one)."""
+    """Serve queue/latency/shed rates of the running engine (a scrape
+    never creates one)."""
     import sys
 
     pts: list = []
@@ -532,8 +532,7 @@ def _collect_attribution() -> list:
 
 
 def _collect_workload() -> list:
-    """Workload observability plane (the serve recorder, once ported):
-    trace records captured by the serve recorder, replayed-request
+    """Workload observability plane: trace records captured by the serve recorder, replayed-request
     meters, and whether the recorder sink is live — so a capacity
     certification run leaves its own telemetry trail."""
     import sys

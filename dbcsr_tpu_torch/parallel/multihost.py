@@ -85,13 +85,17 @@ def _note_degraded_to_serial(exc: BaseException, coordinator, timeout_s) -> None
 
 def _rebind_obs() -> None:
     """Settle the tracer's, the event sink's and the telemetry store's
-    shards on this rank."""
+    shards on this rank, and move the HTTP endpoint to its ``base +
+    rank`` port (`obs.server.rebind`; a no-op when it was never
+    asked for)."""
+    from dbcsr_tpu_torch.obs import server as _server
     from dbcsr_tpu_torch.obs import timeseries as _timeseries
     from dbcsr_tpu_torch.obs import tracer as _trace
 
     idx = process_id()
     _events.rebind(idx)
     _timeseries.rebind(idx)
+    _server.rebind(idx)
     if _trace.active():
         _trace.rebind(idx)
 

@@ -29,11 +29,26 @@ import torch
 from dbcsr_tpu.acc import params as jax_params
 from dbcsr_tpu.acc.bench import bench_smm as jax_bench_smm
 from dbcsr_tpu.acc.smm import transpose_blocks as jax_transpose_blocks
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 
 from dbcsr_tpu_torch.acc import bench, params, stack_kernel, tune
 from dbcsr_tpu_torch.acc.bench import bench_smm, bench_trans
 from dbcsr_tpu_torch.acc.smm import transpose_blocks
 from dbcsr_tpu_torch.acc.tune import candidate_set, table_rows, tune_smm
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's metrics,
+    health model and telemetry store (their first compiles read as a
+    recompile storm, their samples as a burning roofline objective): a
+    later file in the same process must not inherit a DEGRADED verdict."""
+    yield
+    for reset in (jax_metrics.reset, jax_health.reset, jax_timeseries.reset):
+        reset()
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = {"smm_stack", "smm_crosspack", "smm_crosspack_resident"}

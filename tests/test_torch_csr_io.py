@@ -26,6 +26,9 @@ import dbcsr_tpu as jdt
 from dbcsr_tpu.core.kinds import enum_of as jax_enum_of
 from dbcsr_tpu.ops import csr as jax_csr
 from dbcsr_tpu.ops import io as jax_io
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 
 import dbcsr_tpu_torch as pdt
 from dbcsr_tpu_torch import native
@@ -33,6 +36,17 @@ from dbcsr_tpu_torch.interop import matrix_from_numpy_state
 from dbcsr_tpu_torch.mm import multiply as port_mm
 from dbcsr_tpu_torch.ops import csr as port_csr
 from dbcsr_tpu_torch.ops import io as port_io
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's metrics,
+    health model and telemetry store (their first compiles read as a
+    recompile storm, their samples as a burning roofline objective): a
+    later file in the same process must not inherit a DEGRADED verdict."""
+    yield
+    for reset in (jax_metrics.reset, jax_health.reset, jax_timeseries.reset):
+        reset()
 
 
 def jax_state(m) -> dict:

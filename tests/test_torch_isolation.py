@@ -68,7 +68,8 @@ print(len(mods), "modules:", " ".join(mods))
 # precision planner and the incremental multiply, and the statistics,
 # tracer, profile epochs, library lifecycle and knob registry, and the
 # distributed engine (grid, ticks, engines, world), and the telemetry,
-# health and diagnosis plane with the watchdog, lockcheck and the tuner
+# health and diagnosis plane with the watchdog, lockcheck and the tuner,
+# and the serving plane with its HTTP endpoint, router and fleet
 _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.crosspack",
              "dbcsr_tpu_torch.acc.crosspack_kernel", "dbcsr_tpu_torch.acc.params",
              "dbcsr_tpu_torch.acc.smm", "dbcsr_tpu_torch.acc.stack_kernel",
@@ -104,7 +105,12 @@ _REQUIRED = {"chip_smoke", "dbcsr_tpu_torch.acc.build", "dbcsr_tpu_torch.acc.cro
              "dbcsr_tpu_torch.obs.rca", "dbcsr_tpu_torch.tune", "dbcsr_tpu_torch.tune._env",
              "dbcsr_tpu_torch.tune.store", "dbcsr_tpu_torch.tune.predictor",
              "dbcsr_tpu_torch.tune.miner", "dbcsr_tpu_torch.tune.trials",
-             "dbcsr_tpu_torch.tune.service"}
+             "dbcsr_tpu_torch.tune.service", "dbcsr_tpu_torch.serve",
+             "dbcsr_tpu_torch.serve.session", "dbcsr_tpu_torch.serve.queue",
+             "dbcsr_tpu_torch.serve.coalesce", "dbcsr_tpu_torch.serve.product_cache",
+             "dbcsr_tpu_torch.serve.engine", "dbcsr_tpu_torch.serve.workload",
+             "dbcsr_tpu_torch.serve.router", "dbcsr_tpu_torch.serve.fleet",
+             "dbcsr_tpu_torch.obs.server"}
 
 
 def _env(**extra):
@@ -118,7 +124,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          env=_env(), capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, _, names = out.stdout.partition("modules:")
-    assert int(count) >= 82
+    assert int(count) >= 92
     assert _REQUIRED <= set(names.split())
 
 
@@ -194,6 +200,44 @@ def test_constructors_raise_without_cuda_unless_cpu_is_asked(no_cuda):
             make(device="cuda")
         t = make(device="cpu")
         assert t.matrix.device.type == "cpu"
+
+
+def test_serving_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
+    """`ServeEngine`, `Session`, `Fleet`, the engine an HTTP route serves
+    from, and a fleet worker: each asked for the card (by default or by
+    name) raises on a host without one, and runs when the CPU is asked
+    for."""
+    from dbcsr_tpu_torch.serve import ServeEngine, Session
+    from dbcsr_tpu_torch.serve import engine as serve_engine
+    from dbcsr_tpu_torch.serve.fleet import Fleet, _worker_main
+
+    for make in (lambda **kw: ServeEngine(start=False, **kw),
+                 lambda **kw: Session("t", register=False, **kw),
+                 lambda **kw: serve_engine.get_engine(start=False, **kw)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+        with pytest.raises(RuntimeError, match="cuda"):
+            make(device="cuda")
+        assert make(device="cpu").device.type == "cpu"
+        serve_engine.shutdown()
+    with pytest.raises(RuntimeError, match="cuda"):
+        Fleet(n=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Fleet(n=1, device="cuda")
+    assert serve_engine.current_engine() is None
+    with pytest.raises(RuntimeError, match="cuda"):
+        _worker_main("cuda", {"serve_coalesce": False})
+    assert serve_engine.current_engine() is None
+
+
+def test_fleet_worker_asked_for_cuda_fails_to_start(tmp_path):
+    """A worker process asked for the card on a host without one exits
+    before its engine runs, so it never answers a heartbeat."""
+    env = _env(CUDA_VISIBLE_DEVICES="", DBCSR_TPU_TORCH_OBS_PORT="0")
+    out = subprocess.run([sys.executable, "-m", "dbcsr_tpu_torch.serve.fleet", "--worker",
+                          "--device", "cuda"], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0 and "cuda" in out.stderr
 
 
 def test_set_default_device_cpu_is_explicit(no_cuda):

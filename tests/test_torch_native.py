@@ -22,10 +22,25 @@ from dbcsr_tpu.core.kinds import enum_of as jax_enum_of
 from dbcsr_tpu.core.matrix import create as jax_create
 from dbcsr_tpu.mm.multiply import _candidates_numpy as jax_candidates_numpy
 from dbcsr_tpu.ops import test_methods as jax_tm
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 
 from dbcsr_tpu_torch import native
 from dbcsr_tpu_torch.interop import matrix_from_numpy_state
 from dbcsr_tpu_torch.mm import multiply as mm
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's metrics,
+    health model and telemetry store (their first compiles read as a
+    recompile storm, their samples as a burning roofline objective): a
+    later file in the same process must not inherit a DEGRADED verdict."""
+    yield
+    for reset in (jax_metrics.reset, jax_health.reset, jax_timeseries.reset):
+        reset()
+
 
 MIXED = np.array([2, 3, 5, 3, 4, 2, 3, 5, 2, 4])
 

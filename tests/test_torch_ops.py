@@ -12,10 +12,25 @@ import pytest
 from dbcsr_tpu.core.kinds import enum_of as jax_enum_of
 from dbcsr_tpu.ops import operations as jops
 from dbcsr_tpu.ops import test_methods as jax_tm
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 
 from dbcsr_tpu_torch.interop import matrix_from_numpy_state
 from dbcsr_tpu_torch.ops import operations as pops
 from dbcsr_tpu_torch.ops import test_methods as port_tm
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's metrics,
+    health model and telemetry store (their first compiles read as a
+    recompile storm, their samples as a burning roofline objective): a
+    later file in the same process must not inherit a DEGRADED verdict."""
+    yield
+    for reset in (jax_metrics.reset, jax_health.reset, jax_timeseries.reset):
+        reset()
+
 
 SIZES = np.array([2, 3, 5, 3, 4])
 RTOL = {np.float64: 1e-13, np.float32: 1e-6}

@@ -28,6 +28,9 @@ import torch
 
 from dbcsr_tpu.acc import abft as jax_abft
 from dbcsr_tpu.obs import costmodel as jax_costmodel
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 
 from dbcsr_tpu_torch.acc import abft
 from dbcsr_tpu_torch.core import stats
@@ -43,6 +46,18 @@ from dbcsr_tpu_torch.parallel import (
 from dbcsr_tpu_torch.parallel import overlap as ovl
 from dbcsr_tpu_torch.parallel.sparse_dist import clear_mesh_plans
 from dbcsr_tpu_torch.resilience import breaker, faults
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's metrics,
+    health model and telemetry store (their first compiles read as a
+    recompile storm, their samples as a burning roofline objective): a
+    later file in the same process must not inherit a DEGRADED verdict."""
+    yield
+    for reset in (jax_metrics.reset, jax_health.reset, jax_timeseries.reset):
+        reset()
+
 
 CPU = torch.device("cpu")
 

@@ -28,6 +28,9 @@ from dbcsr_tpu.parallel import grid_shape as jax_grid_shape
 from dbcsr_tpu.parallel import make_grid as jax_make_grid
 from dbcsr_tpu.parallel import make_image_dist as jax_make_image_dist
 from dbcsr_tpu.parallel.mesh import optimize_grid as jax_optimize_grid
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 
 import dbcsr_tpu_torch as pdt
 from dbcsr_tpu_torch.core.dist import Distribution, ProcessGrid
@@ -49,6 +52,18 @@ from dbcsr_tpu_torch.parallel import (
     replicate,
 )
 from dbcsr_tpu_torch.parallel.mesh import Grid, optimize_grid
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's metrics,
+    health model and telemetry store (their first compiles read as a
+    recompile storm, their samples as a burning roofline objective): a
+    later file in the same process must not inherit a DEGRADED verdict."""
+    yield
+    for reset in (jax_metrics.reset, jax_health.reset, jax_timeseries.reset):
+        reset()
+
 
 CPU = torch.device("cpu")
 

@@ -19,6 +19,9 @@ from dbcsr_tpu.acc import smm as jax_smm
 from dbcsr_tpu.core.config import get_config as jax_get_config
 from dbcsr_tpu.core.config import set_config as jax_set_config
 from dbcsr_tpu.obs.costmodel import kernel_validation_tolerance as jax_tolerance
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 
 from dbcsr_tpu_torch.acc import smm as port_smm
 from dbcsr_tpu_torch.acc import stack_kernel
@@ -26,6 +29,18 @@ from dbcsr_tpu_torch.core.config import get_config, set_config
 from dbcsr_tpu_torch.obs import metrics
 from dbcsr_tpu_torch.obs.costmodel import kernel_validation_tolerance
 from dbcsr_tpu_torch.resilience import breaker, faults
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_health():
+    """The JAX products of these tests feed the JAX package's metrics,
+    health model and telemetry store (their first compiles read as a
+    recompile storm, their samples as a burning roofline objective): a
+    later file in the same process must not inherit a DEGRADED verdict."""
+    yield
+    for reset in (jax_metrics.reset, jax_health.reset, jax_timeseries.reset):
+        reset()
+
 
 SHAPES = [(23, 23, 23), (5, 13, 23), (18, 23, 18)]
 ALPHA = -1.25
