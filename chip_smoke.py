@@ -12,8 +12,10 @@ printing one JSON line; any failure raises and the script exits
 non-zero:
 
 1. build: the card's name and power limit, CUDA version, nvcc seconds
-   and ptxas resource lines of each source, the persisting-L2 limit,
-   and the index engine's g++ flags and seconds;
+   and ptxas resource lines of each source, K1's compiled instance of
+   every form at one shape of each path and register class (registers,
+   spilled bytes, shared memory, warps a block, blocks an SM), the
+   persisting-L2 limit, and the index engine's g++ flags and seconds;
 2. kernel_vs_plain: the base stack kernel (K1) against its plain PyTorch
    version, f64/f32/bf16 at block shapes (23,23,23), (23,18,23),
    (18,23,18), (5,13,23), the warp path's edges (32,32,32), (33,24,23)
@@ -131,11 +133,15 @@ non-zero:
    stack format redoes it, within 1e-12); the north star, f64 (K1) and
    f32 (K3), under "verify" against "off" in turns, C bit for bit, with
    the probe's milliseconds beside the stacks'.
-18. complex (before resilience): the north star's pattern at complex128
-   and complex64 through `run_perf` on K1's complex form (the tiled
+18. complex (before resilience): both complex forms of K1 against their
+   plain version on both paths ((23,23,23), (5,13,7), (32,32,32),
+   (100,50,20); runs of 1-16 entries and one of 5000; complex alpha)
+   within `form_tolerance`; the north star's pattern at complex128
+   and complex64 through `run_perf` on K1's complex form (the warp
    path; no crosspack, no plain call), against ``"torch"`` (1e-10 at
    complex128, the kernel validation tolerance at complex64), its
-   stacks timed beside their bound; and C = alpha A B^H at 2208^2
+   stacks timed beside their bound and native f64 K1's time on the
+   north star; and C = alpha A B^H at 2208^2
    (``transb="C"``) against the plain driver and a dense oracle;
 19. precision (before resilience): every demoted form of K1 against its
    plain version on both paths (runs up to 5000 entries) within the
@@ -144,7 +150,9 @@ non-zero:
    and ``abft="verify"`` (every stack demoted, every probe passing, C
    within the ceiling of native, seconds per multiply native and
    demoted in turns); the forced modes "f32" and "bf16" and a tuned
-   ``precision`` column on `test_H2O` (each form's launches and stacks);
+   ``precision`` column on `test_H2O` (each form's launches and stacks,
+   the units its products run on, and its time over native K1's on the
+   same stacks, native K1 timed here for `test_H2O`);
    a forced promote (ceiling sabotaged; beta 0 and 0.5): a native
    re-execution bit for bit the native product, the cell native after;
    the sign loop under adaptive + verify demoting, promoting once and
@@ -310,7 +318,7 @@ three clear their faults and reset the breakers whatever happens.
 
 The line before the last is the kernels' JSON summary (K1's entry lists
 its complex and demoted ``forms``, each with its launches on its
-phase's main path, time, error and bound; K1's fused launch
+phase's main path, time, error, bound, units and ratio to native K1; K1's fused launch
 ``smm_superstack`` has its own entry, its launches by phase beside it;
 "auto" fuses every C bin of several K1 spans, so the phases that
 require K1 count its per-span and fused launches together); the last line is
@@ -565,7 +573,7 @@ def phase_build() -> str:
     print(card, flush=True)
     build.build_all()
     native.get_lib()
-    _emit({"phase": "build", "card": card, "torch": torch.__version__,
+    _emit({"phase": "build", "card": card, "k1_instances": _k1_instances(), "torch": torch.__version__,
            "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
            "nvcc_s": {src: build.build_seconds[src] for src in build.SOURCES},
            "ptxas": {src: [ln.strip() for ln in build.build_logs.get(src, "").splitlines()
@@ -578,15 +586,36 @@ def phase_build() -> str:
     return card
 
 
-def _synthetic_stack(rng, m, n, k, dtype, long_run=5000):
-    """Operand bins and a sorted stack: 300 C blocks with runs of 1-4
-    entries, plus one C block with a run of ``long_run`` entries."""
+def _k1_instances() -> list:
+    """Every form of K1 at one shape of each warp-path register class
+    (2, 3 and 4 tiles of 8) and on the tiled path: the compiled instance's
+    registers, local (spilled) bytes, shared bytes, warps a block and
+    blocks an SM, as the card reports them."""
+    rows = []
+    for dtype, spec in K1_FORMS:
+        for m, n, k in ((5, 13, 7), (23, 23, 23), (32, 32, 32), (100, 50, 20)):
+            path = stack_kernel.kernel_path(m, n, k, dtype)
+            rows.append({"form": stack_kernel.form_name(dtype, spec), "mnk": [m, n, k],
+                         "path": path, "units": (stack_kernel.form_units(dtype, spec)
+                                                 if path == "warp" else "cuda_cores"),
+                         **stack_kernel.kernel_attrs(m, n, k, dtype, spec)})
+    return rows
+
+
+def _synthetic_stack(rng, m, n, k, dtype, long_run=5000, max_len=4):
+    """Operand bins and a sorted stack: 300 C blocks with runs of 1 to
+    ``max_len`` entries, plus one C block with a run of ``long_run``
+    entries (complex values for a complex dtype)."""
     na, nb, nc = 700, 600, 301
     dev = resolve_device()
-    a = torch.from_numpy(rng.standard_normal((na, m, k))).to(dev, dtype)
-    b = torch.from_numpy(rng.standard_normal((nb, k, n))).to(dev, dtype)
-    c = torch.from_numpy(rng.standard_normal((nc, m, n))).to(dev, dtype)
-    lens = rng.integers(1, 5, size=nc)
+
+    def values(shape):
+        x = rng.standard_normal(shape)
+        if dtype.is_complex:
+            x = x + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(x).to(dev, dtype)
+    a, b, c = values((na, m, k)), values((nb, k, n)), values((nc, m, n))
+    lens = rng.integers(1, max_len + 1, size=nc)
     lens[150] = long_run
     c_idx = np.repeat(np.arange(nc), lens)
     a_idx = rng.integers(0, na, size=len(c_idx))
@@ -1220,6 +1249,7 @@ def _stacks_phase(phase: str, a, b, c, kernels=(None,), reps=5, path="warp") -> 
         counts = (name_of(cd.dtype), sp.m, sp.n, sp.k, sp.entries,
                   len(torch.unique(plan.a_idx)), len(torch.unique(plan.b_idx)), plan.nruns)
         bound, by = stack_bound_s(*counts, precision=plan.precision)
+        row.update(n_a=counts[5], n_b=counts[6])
         min_bytes += stack_min_bytes(*counts)
         modeled_bytes += stack_bytes(sp.m, sp.n, sp.k, sp.entries, nseg=plan.nruns,
                                      itemsize=cd.element_size())
@@ -2564,29 +2594,94 @@ def phase_integrity() -> dict:
 COMPLEX_NREP = 2
 
 
-def _form_row(form: str, launches: int, timing: dict) -> dict:
+def _form_row(form: str, launches: int, timing: dict, units: str, native_ms: float) -> dict:
     """One of K1's forms in the kernels line: its launches on the main
-    path beside its stacks' times, error and bound (one `_stacks_phase`)."""
+    path beside its stacks' times, error and bound (one `_stacks_phase`),
+    the units its products run on, and its time over native K1's on the
+    same product's stacks in this run."""
     return {"form": form, "launches": launches, "max_abs_err": timing["max_abs_err"][0],
             "ms": timing["ms"][0], "plain_ms": timing["plain_ms"],
-            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"], "library_ms": None}
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"], "library_ms": None,
+            "units": units, "native_k1_ms": native_ms,
+            "ratio_to_native": timing["ms"][0] / native_ms}
+
+
+# K1's complex forms against their plain version: one shape of each
+# warp-path register class and one on the tiled path
+COMPLEX_SHAPES = ((23, 23, 23), (5, 13, 7), (32, 32, 32), (100, 50, 20))
+
+
+def _forms_vs_plain(forms, shapes, seed: int, alpha, max_len: int = 4) -> list:
+    """Every form of ``forms`` ((dtype, precision spec) pairs) at every
+    block shape against its plain version on synthetic stacks (runs of 1
+    to ``max_len`` entries and one of 5000), timed: both compute the same
+    function from the same operands, so they agree within the rounding of
+    the form's sums (`form_tolerance` at the stack's k and longest run).
+    Both K1 paths must run."""
+    rng = np.random.default_rng(seed)
+    cases, paths = [], set()
+    for dtype, spec in forms:
+        for m, n, k in shapes:
+            a, b, c, a_idx, b_idx, c_idx = _synthetic_stack(rng, m, n, k, dtype,
+                                                            max_len=max_len)
+            plan = prepare_stack(c, a, b, a_idx, b_idx, c_idx, variant="kmerge")
+            args = (plan.a_idx, plan.b_idx, plan.run_ptr, plan.run_c)
+
+            def kernel(c_, a_, b_, al, spec=spec, args=args):
+                return stack_kernel.smm_stack(c_, a_, b_, *args, al, precision=spec)
+
+            def plain(c_, a_, b_, al, spec=spec, args=args):
+                return stack_kernel.smm_stack_plain(c_, a_, b_, *args, al, precision=spec)
+            path = stack_kernel.kernel_path(m, n, k, dtype)
+            paths.add(path)
+            got = _written(kernel, c, a, b, alpha)
+            want = plain(c.clone(), a, b, alpha)
+            torch.cuda.synchronize()
+            rel = _rel_err(got, want)
+            form = stack_kernel.form_name(dtype, spec)
+            tol = form_tolerance(name_of(dtype), spec, k, plan.max_run)
+            _require(np.isfinite(rel) and rel <= tol,
+                     f"{form} != plain at {(m, n, k)} ({path} path): rel {rel:.3e} > {tol:.1e}")
+            scratch = c.clone()
+            bound, by = stack_bound_s(name_of(dtype), m, n, k, plan.entries,
+                                      len(np.unique(a_idx)), len(np.unique(b_idx)), plan.nruns,
+                                      precision=spec)
+            cases.append({"form": form, "mnk": [m, n, k], "path": path,
+                          "entries": plan.entries, "runs": plan.nruns,
+                          "longest_run": plan.max_run, "max_rel_err": rel, "tolerance": tol,
+                          "ms": _time_ms(lambda: kernel(scratch, a, b, alpha), 10),
+                          "plain_ms": _time_ms(lambda: plain(scratch, a, b, alpha), 3),
+                          "bound_ms": bound * 1e3, "bound_by": by})
+            del a, b, c, got, want, scratch
+    _require(paths == {"warp", "tiled"}, f"the forms {forms} ran the paths {sorted(paths)}")
+    return cases
+
+
+def _complex_vs_plain() -> list:
+    """Both complex forms on both K1 paths against their plain version,
+    complex alpha, runs of 1-16 entries and one of 5000."""
+    return _forms_vs_plain(((torch.complex128, None), (torch.complex64, None)),
+                           COMPLEX_SHAPES, 20261022, 0.75 - 0.5j, max_len=16)
 
 
 def _forms_since_reset() -> dict:
     return dict(stack_kernel.launches_by_form)
 
 
-def phase_complex() -> dict:
-    """The north star's pattern (10,000^2, 23x23 blocks, occupancy 0.1) at
+def phase_complex(native_ms: float) -> dict:
+    """Both complex forms against their plain version on both K1 paths
+    (`_complex_vs_plain`); the north star's pattern (10,000^2, 23x23
+    blocks, occupancy 0.1) at
     complex128 and then complex64 through `run_perf`, on K1's complex form
-    (its tiled path): no crosspack launch, no plain call; C against one
+    (its warp path): no crosspack launch, no plain call; C against one
     repeat under ``"torch"`` (elementwise and checksums within 1e-10 at
     complex128, the kernel validation tolerance at complex64); the stacks
-    by CUDA events beside their bound and the plain version's time; then
+    by CUDA events beside their bound, the plain version's time and
+    native f64 K1's on the north star (``native_ms``, this run); then
     C = alpha A B^H at `test_H2O`'s blocking (2208^2), ``transb="C"``,
     against the plain driver and a dense oracle on the card.  Returns
     K1's launches and its complex form rows."""
-    out = {"phase": "complex", "northstar": {}}
+    out = {"phase": "complex", "kernel_vs_plain": _complex_vs_plain(), "northstar": {}}
     forms, launches = [], 0
     for data_type in (7, 5):
         dtype = dtype_of(data_type)
@@ -2613,8 +2708,9 @@ def phase_complex() -> dict:
         launches += counts["smm_stack"]
         operands = _operands(res, _northstar_cfg(1, data_type))
         del res
-        timing = _stacks_phase(f"complex_{dname}_stacks", *operands, path="tiled")
-        forms.append(_form_row(dname, counts["smm_stack"], timing))
+        timing = _stacks_phase(f"complex_{dname}_stacks", *operands, path="warp")
+        forms.append(_form_row(dname, counts["smm_stack"], timing,
+                               stack_kernel.form_units(dtype), native_ms))
         del operands
     # C = alpha A B^H at 2208^2, complex128
     a, b = _resilience_operands(torch.complex128, seed=20261019)[:2]
@@ -2651,8 +2747,9 @@ def phase_complex() -> dict:
 DEMOTED_FORMS = ((torch.float64, ("float32", False)), (torch.float64, ("float32", True)),
                  (torch.float64, ("bfloat16", False)), (torch.float64, ("bfloat16", True)),
                  (torch.float32, ("bfloat16", False)), (torch.float32, ("bfloat16", True)))
-# one shape on each K1 path: the north star's (warp) and 100/50/20 (tiled)
-DEMOTED_SHAPES = ((23, 23, 23), (100, 50, 20))
+# a shape of each warp-path register class (the north star's in the
+# middle one) and 100/50/20 on the tiled path, as `COMPLEX_SHAPES`
+DEMOTED_SHAPES = ((23, 23, 23), (5, 13, 7), (32, 32, 32), (100, 50, 20))
 
 
 def _demoted_vs_plain() -> list:
@@ -2661,43 +2758,12 @@ def _demoted_vs_plain() -> list:
     same operands, so they agree within the rounding of the form's sums
     (`form_tolerance` at the stack's k and longest run), far inside the
     demotion ceiling."""
-    rng = np.random.default_rng(20261020)
-    alpha = -0.75
-    cases, paths = [], set()
-    for dtype, spec in DEMOTED_FORMS:
-        for m, n, k in DEMOTED_SHAPES:
-            a, b, c, a_idx, b_idx, c_idx = _synthetic_stack(rng, m, n, k, dtype)
-            plan = prepare_stack(c, a, b, a_idx, b_idx, c_idx, variant="kmerge")
-            args = (plan.a_idx, plan.b_idx, plan.run_ptr, plan.run_c)
+    return _forms_vs_plain(DEMOTED_FORMS, DEMOTED_SHAPES, 20261020, -0.75)
 
-            def kernel(c_, a_, b_, al, spec=spec, args=args):
-                return stack_kernel.smm_stack(c_, a_, b_, *args, al, precision=spec)
 
-            def plain(c_, a_, b_, al, spec=spec, args=args):
-                return stack_kernel.smm_stack_plain(c_, a_, b_, *args, al, precision=spec)
-            path = stack_kernel.kernel_path(m, n, k, dtype)
-            paths.add(path)
-            got = _written(kernel, c, a, b, alpha)
-            want = plain(c.clone(), a, b, alpha)
-            torch.cuda.synchronize()
-            rel = _rel_err(got, want)
-            tol = form_tolerance(name_of(dtype), spec, k, plan.max_run)
-            _require(np.isfinite(rel) and rel <= tol,
-                     f"demoted {spec} != plain for {dtype} {(m, n, k)} ({path} path): "
-                     f"rel {rel:.3e} > {tol:.1e}")
-            scratch = c.clone()
-            bound, by = stack_bound_s(name_of(dtype), m, n, k, plan.entries,
-                                      len(np.unique(a_idx)), len(np.unique(b_idx)), plan.nruns,
-                                      precision=spec)
-            cases.append({"form": stack_kernel.form_name(dtype, spec), "mnk": [m, n, k],
-                          "path": path, "entries": plan.entries, "runs": plan.nruns,
-                          "longest_run": plan.max_run, "max_rel_err": rel, "tolerance": tol,
-                          "ms": _time_ms(lambda: kernel(scratch, a, b, alpha), 10),
-                          "plain_ms": _time_ms(lambda: plain(scratch, a, b, alpha), 3),
-                          "bound_ms": bound * 1e3, "bound_by": by})
-            del a, b, c, got, want, scratch
-    _require(paths == {"warp", "tiled"}, f"the demoted forms ran the paths {sorted(paths)}")
-    return cases
+# every form of K1: native real, complex, demoted
+K1_FORMS = ((torch.float64, None), (torch.float32, None), (torch.bfloat16, None),
+            (torch.complex128, None), (torch.complex64, None)) + DEMOTED_FORMS
 
 
 def _demoted_counts() -> int:
@@ -2737,7 +2803,7 @@ def _h2o_form(data_type: int, mode: str, column=None) -> tuple:
     rel_el = _canvas_rel(res["matrices"]["c_out"], native_res["matrices"]["c_out"])
     _require(rel_cs <= tol and rel_el <= tol,
              f"test_H2O {form}: rel {rel_cs:.3e}/{rel_el:.3e} against native > {tol:.1e}")
-    row = {"form": form, "mode": mode, "column": column, "launches": counts,
+    row = {"form": form, "spec": spec, "mode": mode, "column": column, "launches": counts,
            "demoted_launches": _demoted_counts(), "times_s": res["times_s"],
            "native_times_s": native_res["times_s"], "rel_checksum": rel_cs,
            "rel_elementwise": rel_el, "tolerance": tol,
@@ -2756,7 +2822,21 @@ def _sabotaged(fn):
         port_costmodel.demoted_abft_tolerance = real
 
 
-def phase_precision() -> dict:
+def _h2o_native_ms(data_type: int) -> float:
+    """Native K1 on `test_H2O`'s stacks at ``data_type`` (K1 forced: f32
+    would take K3 under "auto"), summed over the stacks."""
+    cfg = parse_perf_file(os.path.join(INPUTS, "test_H2O.perf"))
+    cfg.data_type, cfg.nrep, cfg.check = data_type, 1, False
+    set_config(mm_driver="pallas")
+    try:
+        res = run_perf(cfg, verbose=False)
+        return _stacks_phase(f"precision_h2o_{data_type}_native_stacks",
+                             *_operands(res, cfg))["ms"][0]
+    finally:
+        set_config(mm_driver="auto")
+
+
+def phase_precision(native_ms: float) -> dict:
     """The precision planner and K1's demoted forms: every form against its
     plain version on both paths; the f64 north star under
     ``precision="adaptive"``, ``abft="verify"`` (every stack demoted,
@@ -2767,7 +2847,9 @@ def phase_precision() -> dict:
     native re-execution bit for bit, the cell native afterwards; and the
     sign loop at the models' size under adaptive + verify, demoting,
     promoting and converging as the native loop does.  Returns K1's
-    launches on the main path and its demoted form rows."""
+    launches on the main path and its demoted form rows, each with its
+    units and its time over native K1's on the same stacks (``native_ms``
+    on the north star; `test_H2O` timed here)."""
     out = {"phase": "precision", "kernel_vs_plain": _demoted_vs_plain()}
     forms, launches = {}, 0
     port_precision.reset()
@@ -2819,7 +2901,9 @@ def phase_precision() -> dict:
     finally:
         set_config(precision="native", abft="off")
     del a, b, c_nat, c_dem, c, empty
-    rows = [_form_row("float64:float32", forms["float64:float32"], ns_timing)]
+    rows = [_form_row("float64:float32", forms["float64:float32"], ns_timing,
+                      stack_kernel.form_units(torch.float64, ("float32", False)), native_ms)]
+    h2o_native = {dt: _h2o_native_ms(dt) for dt in (3, 1)}
     # the forced modes and the tuned column on test_H2O
     prev_dir = os.environ.get("DBCSR_TPU_TORCH_PARAMS_DIR")
     h2o = []
@@ -2832,7 +2916,10 @@ def phase_precision() -> dict:
                 port_precision.reset()
                 row, n, timing = _h2o_form(data_type, mode, column)
                 h2o.append(row)
-                rows.append(_form_row(row["form"], n, timing))
+                rows.append(_form_row(row["form"], n, timing,
+                                      stack_kernel.form_units(dtype_of(data_type),
+                                                              row.pop("spec")),
+                                      h2o_native[data_type]))
                 launches += n
         finally:
             if prev_dir is None:
@@ -4742,9 +4829,9 @@ def _run_phases(none_dir: str) -> int:
     ns_a, ns_b = ns["a"], ns["b"]
     _clean("native_index", phase_native_index, ns["a"], ns["b"], ns["c"])
     _clean("obs", phase_obs, ns["a"], ns["b"])
-    k1 = _kernel_row("smm_stack", ns.pop("launches"), _clean(
-        "northstar_stacks", _stacks_phase, "northstar_stacks", ns.pop("a"), ns.pop("b"),
-        ns.pop("c")))
+    ns_timing = _clean("northstar_stacks", _stacks_phase, "northstar_stacks", ns.pop("a"),
+                       ns.pop("b"), ns.pop("c"))
+    k1 = _kernel_row("smm_stack", ns.pop("launches"), ns_timing)
     k3 = _clean("northstar_f32", phase_northstar_f32)
     k4 = _clean("resident_f32", phase_resident_f32)
     k1["launches_by_path"] = {"northstar": k1["launches"],
@@ -4761,8 +4848,8 @@ def _run_phases(none_dir: str) -> int:
     k1["by_path"] = {"tensor": {**tensor, "library_ms": None}}
     # K1's complex and demoted forms, each beside its launches on its
     # phase's main path
-    cx = _clean("complex", phase_complex)
-    pr = _clean("precision", phase_precision)
+    cx = _clean("complex", phase_complex, ns_timing["ms"][0])
+    pr = _clean("precision", phase_precision, ns_timing["ms"][0])
     k1["launches_by_path"]["complex"] = cx["launches"]
     k1["launches_by_path"]["precision"] = pr["launches"]
     k1["forms"] = cx["forms"] + pr["forms"]

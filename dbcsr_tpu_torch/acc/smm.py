@@ -84,7 +84,7 @@ fused launch of K1 (`stack_kernel.smm_superstack`), bit for bit the
 per-span launches, under the same guard with its own ``fused`` breaker;
 a failed fused launch decomposes into `execute_stack` per span.
 
-**Complex** stacks run on K1's complex forms (its tiled path) on the
+**Complex** stacks run on K1's complex forms (both its paths) on the
 card, on the plain version or the host driver on the CPU, never on
 crosspack: ``mm_driver="pallas_cross"`` or a crosspack variant on a
 complex stack raises `TypeError`, as ``"host"`` does for bf16.

@@ -16,12 +16,13 @@ falls back to the plain version: a CUDA launch that fails raises, and
 
 Besides float64, float32 and bfloat16, the kernel has two groups of
 forms that the JAX package computes in XLA, never in Pallas
-(`dbcsr_tpu/acc/smm.py:78-135`): complex64/complex128 (the tiled path,
-complex alpha), and the demoted compute forms of a ``precision`` spec
+(`dbcsr_tpu/acc/smm.py:78-135`): complex64/complex128 (complex alpha),
+and the demoted compute forms of a ``precision`` spec
 (`acc/precision.py`): ("float32", False), ("float32", True),
 ("bfloat16", False) and ("bfloat16", True) for float64 data, the bf16
-pair for float32 data, on both paths.  The plain version computes each
-form as `_batch_dot` does.
+pair for float32 data.  Every form takes both paths.  The plain version
+computes each form as `_batch_dot` does; `form_units` names the units
+each runs on.
 
 `smm_superstack` is the same kernel's fused launch over every span of
 one C bin (``csrc/smm_stack.cu``, `smm_superstack_launch`; the JAX
@@ -97,6 +98,8 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.smm_stack_launch.restype = ctypes.c_int
         lib.smm_stack_path.argtypes = [ctypes.c_int] * 4
         lib.smm_stack_path.restype = ctypes.c_int
+        lib.smm_stack_attrs.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        lib.smm_stack_attrs.restype = ctypes.c_int
         lib.smm_stack_error_string.argtypes = [ctypes.c_int]
         lib.smm_stack_error_string.restype = ctypes.c_char_p
         ptrs = ctypes.POINTER(ctypes.c_longlong)
@@ -115,9 +118,46 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def kernel_path(m: int, n: int, k: int, dtype: torch.dtype = torch.float64) -> str:
     """Which hand-written path of ``csrc/smm_stack.cu`` a launch of (m, n, k)
-    blocks of ``dtype`` takes: "warp" (one warp per run, m, n, k <= 32,
-    real dtypes) or "tiled" (complex always)."""
+    blocks of ``dtype`` takes, whatever its form: "warp" (one warp per
+    run, m, n, k <= 32; complex and demoted forms too) or "tiled"."""
     return "warp" if _kernel_lib().smm_stack_path(_DTYPE_CODE[dtype], m, n, k) == 1 else "tiled"
+
+
+# the units each form runs on, on the warp path: "dmma" the FP64 tensor
+# cores, "fp32_fma" the CUDA cores in f32, "bf16_mma" the tensor cores
+# with bf16 inputs and f32 sums
+_FORM_UNITS = {("float64", None): "dmma", ("float32", None): "fp32_fma",
+               ("bfloat16", None): "fp32_fma", ("complex128", None): "dmma",
+               ("complex64", None): "fp32_fma",
+               ("float64", ("float32", False)): "fp32_fma",
+               ("float64", ("float32", True)): "dmma",
+               ("float64", ("bfloat16", False)): "bf16_mma",
+               ("float64", ("bfloat16", True)): "dmma",
+               ("float32", ("bfloat16", False)): "bf16_mma",
+               ("float32", ("bfloat16", True)): "bf16_mma"}
+
+
+def form_units(dtype: torch.dtype, precision=None) -> str:
+    """The units a form's products run on, on the warp path (the tiled
+    path runs every form on the CUDA cores)."""
+    spec = None if precision is None else tuple(precision)
+    return _FORM_UNITS[(str(dtype).replace("torch.", ""), spec)]
+
+
+def kernel_attrs(m: int, n: int, k: int, dtype: torch.dtype = torch.float64,
+                 precision=None) -> dict:
+    """The compiled instance a launch of this form and shape runs, as the
+    card reports it: registers and local (spilled) bytes a thread, shared
+    bytes a block, warps a block, resident blocks an SM."""
+    lib = _kernel_lib()
+    out = (ctypes.c_int * 5)()
+    err = lib.smm_stack_attrs(_DTYPE_CODE[dtype], compute_code(dtype, precision), m, n, k, out)
+    if err != 0:
+        raise RuntimeError(f"smm_stack_attrs failed for {form_name(dtype, precision)} "
+                           f"{(m, n, k)}: CUDA error {err}: "
+                           f"{lib.smm_stack_error_string(err).decode()}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "warps", "blocks_per_sm"),
+                    out))
 
 
 def compute_code(dtype: torch.dtype, precision) -> int:

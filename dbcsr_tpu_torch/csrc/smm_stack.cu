@@ -50,21 +50,40 @@
 // bit for bit the per-span launches (the superstack section below).
 //
 // Two more groups of forms, behind the same entry point (the JAX package
-// runs both in XLA, dbcsr_tpu/acc/smm.py:78-135, never in Pallas):
-// * complex c4/c8 (smm_stack_complex_kernel), the tiled path only (the
-//   warp path's DMMA is real-only): interleaved real and imaginary
-//   parts, 4 real FMAs a complex multiply-add in the storage precision,
-//   complex alpha.  Bound on the c8 north star: 3.6 GB of bytes, about
-//   1.07 ms; 8.1e10 real flops, 1.2 ms at the FP64 tensor-core rate or
-//   2.4 ms on the FP64 CUDA cores these FMAs run on.
+// runs both in XLA, dbcsr_tpu/acc/smm.py:78-135, never in Pallas), both
+// on both paths (the warp path's register tiles in smm_warp.cuh):
+// * complex c4/c8: interleaved real and imaginary parts, complex alpha.
+//   On the warp path the parts are staged as they lie and a fragment
+//   reads both parts of an element in one load; c8 runs 4 DMMAs a tile
+//   and k-step (Ar.Br, (-Ai).Bi, Ar.Bi, Ai.Br) with two warps a block
+//   (each warp's slots take 37 kB at 23x23x23) and reads C at the end of
+//   a run (two register tiles leave no room for it); c4 runs 4 f32 FMAs
+//   a multiply-add on Tile<float>'s lane layout.  The tiled path
+//   (smm_stack_complex_kernel) stays for larger blocks.  Bound on the
+//   north star: 8.0e10 real flops, 1.20 ms at 67 TFLOP/s on the FP64
+//   tensor cores (c8) or the f32 CUDA cores (c4); the bytes take less.
 // * demoted compute (acc/precision.py): the operands stay at the request
-//   dtype and are rounded to f32 or bf16 as they are staged (tiled) or
-//   read from shared memory (warp path, smm_warp.cuh:DemTile).
+//   dtype in device memory and are converted once, as each staged slot
+//   lands (warp path) or each slice is staged (tiled path).
 //   Uncompensated, an entry's k-sum runs in f32 and is widened into the
-//   run's sum; compensated, hi*hi + (hi*lo + lo*hi) of the operands'
-//   hi/lo splits accumulates in the wide type.  The bytes are those of
-//   the native form, and f32 CUDA-core FMAs are no faster than the FP64
-//   tensor cores: demotion saves nothing on this card.
+//   run's sum: f64->f32 on f32 FMAs, ->bf16 on the bf16 tensor cores
+//   (mma.sync m16n8k16, f32 out).  Compensated, each product of the
+//   operands' hi/lo splits is summed in the wide type: for f64 data one
+//   DMMA product of depth 3k over the hi and lo parts, which are exact
+//   in f64 (at least 3x the FP64 tensor cores' time for native f64's
+//   products, where `stack_bound_s` takes the compute type's peak); for
+//   f32 data the bf16 tensor cores into the f32 sum.  Each form moves
+//   the native form's bytes.
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (perf/tree_ab.py,
+// this source against the tiled complex and per-read-converting demoted
+// kernels in turns, north star per multiply, `test_H2O` per product):
+// c8 8.5 ms (11.7 before; bound 1.22 ms), c4 5.2 ms (8.9; 1.21), f64->f32
+// 4.0 ms (7.2; 0.534 ms, bytes), against native f64 K1's 2.1 ms.  On
+// `test_H2O` (native f64 K1 1.1 ms, bound 0.21): f64->f32c 3.7 ms (6.1-6.4;
+// bound 0.62 ms, its DMMA products alone), f64->bf16c 4.2 ms (8.1; 0.043),
+// f64->bf16 1.9 ms (6.1-6.2; 0.043), f32->bf16c 2.8 ms (3.7; 0.042),
+// f32->bf16 1.5 ms (3.4; 0.022).  Every form inherits native K1's
+// staging-bound warp pipeline (see above) and adds its own work per entry.
 
 #include <type_traits>
 
@@ -86,17 +105,19 @@ constexpr int NTX = 16; // threads along n; each thread owns 2 x 2 outputs
 constexpr int NTY = 16; // threads along m
 constexpr int NTHREADS = NTX * NTY;
 
-template <typename T, int MAXT, typename TileT>
-__global__ void __launch_bounds__(W * 32, 1)
+// WN warps a block; Z = 2 for complex data (T its real type)
+template <typename T, int MAXT, typename TileT, int WN, int Z>
+__global__ void __launch_bounds__(WN * 32, 1)
 smm_stack_warp_kernel(const T* __restrict__ a, const T* __restrict__ b,
                       T* __restrict__ c, const int* __restrict__ a_idx,
                       const int* __restrict__ b_idx,
                       const int* __restrict__ run_ptr,
                       const int* __restrict__ run_c, int nruns, int m, int n,
-                      int k, typename AccOf<T>::type alpha) {
-  smm::warp_kernel<T, MAXT, smm::ConsecutiveRuns, TileT>(
+                      int k, typename AccOf<T>::type alpha,
+                      typename AccOf<T>::type alpha_im) {
+  smm::warp_kernel<T, MAXT, smm::ConsecutiveRuns, TileT, Z>(
       a, b, c, a_idx, b_idx, run_ptr, run_c, m, n, k, 1, alpha,
-      smm::ConsecutiveRuns{nruns});
+      smm::ConsecutiveRuns{nruns}, alpha_im);
 }
 
 template <typename T>
@@ -363,84 +384,161 @@ smm_stack_complex_kernel(const R* __restrict__ a, const R* __restrict__ b,
   }
 }
 
-template <typename T, int MAXT, typename TileT>
-cudaError_t launch_warp(const void* a, const void* b, void* c, const void* a_idx,
-                        const void* b_idx, const void* run_ptr, const void* run_c,
-                        int nruns, int m, int n, int k, double alpha,
-                        cudaStream_t stream) {
-  using Acc = typename AccOf<T>::type;
-  const size_t smem = (size_t)W * smm::warp_geom(m, n, k, 1, sizeof(Acc)).per_warp * sizeof(Acc);
-  const int ngroups = (nruns + W - 1) / W;
-  int grid = 0;
-  const cudaError_t err = smm::persistent_grid(smm_stack_warp_kernel<T, MAXT, TileT>,
-                                               W * 32, smem, ngroups, &grid);
+// One launch's arguments.  attrs non-null asks for the instance's
+// attributes instead of a launch: registers a thread, local (spilled)
+// bytes a thread, shared bytes a block, warps a block, blocks an SM.
+struct Args {
+  const void *a, *b;
+  void* c;
+  const void *a_idx, *b_idx, *run_ptr, *run_c;
+  int nruns, m, n, k;
+  double alpha, alpha_im;
+  cudaStream_t stream;
+  int* attrs;
+};
+
+template <typename K>
+cudaError_t kernel_attrs(K kernel, int threads, size_t smem, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return err;
-  smm_stack_warp_kernel<T, MAXT, TileT><<<grid, W * 32, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
-      static_cast<const int*>(a_idx), static_cast<const int*>(b_idx),
-      static_cast<const int*>(run_ptr), static_cast<const int*>(run_c), nruns,
-      m, n, k, static_cast<Acc>(alpha));
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)(smem + fa.sharedSizeBytes);
+  out[3] = threads / 32;
+  out[4] = per_sm;
+  return err;
+}
+
+template <typename T, int MAXT, typename TileT, int WN = W, int Z = 1>
+cudaError_t launch_warp(const Args& x) {
+  using Acc = typename AccOf<T>::type;
+  const size_t smem = (size_t)WN *
+                      smm::warp_geom(x.m, x.n, x.k, 1, sizeof(Acc), Z,
+                                     TileT::plane_bytes(x.m, x.n, x.k)).per_warp *
+                      sizeof(Acc);
+  const auto kernel = smm_stack_warp_kernel<T, MAXT, TileT, WN, Z>;
+  int grid = 0;
+  const cudaError_t err =
+      smm::persistent_grid(kernel, WN * 32, smem, (x.nruns + WN - 1) / WN, &grid);
+  if (err != cudaSuccess) return err;
+  if (x.attrs) return kernel_attrs(kernel, WN * 32, smem, x.attrs);
+  kernel<<<grid, WN * 32, smem, x.stream>>>(
+      static_cast<const T*>(x.a), static_cast<const T*>(x.b), static_cast<T*>(x.c),
+      static_cast<const int*>(x.a_idx), static_cast<const int*>(x.b_idx),
+      static_cast<const int*>(x.run_ptr), static_cast<const int*>(x.run_c), x.nruns, x.m,
+      x.n, x.k, static_cast<Acc>(x.alpha), static_cast<Acc>(x.alpha_im));
   return cudaGetLastError();
 }
 
-// The warp path's register tile of a form: Tile for native compute
-// (DMMA for f64), DemTile for a demoted one (CT >= 0).
-template <typename T, int MAXT, int CT, bool COMP>
-using TileOf = typename std::conditional<
-    (CT < 0), smm::Tile<typename AccOf<T>::type, MAXT>,
-    smm::DemTile<typename AccOf<T>::type, MAXT, (CT < 0 ? 0 : CT), COMP>>::type;
+// The warp path's register tile of a form (smm_warp.cuh): CT = -1 native
+// (Tile: DMMA for f64, FMAs for f32/bf16); demoted to f32 (CT 0) or bf16
+// (CT 1), COMP compensated.
+template <typename T, int MAXT, int CT, bool COMP> struct FormTile {
+  using type = smm::Tile<typename AccOf<T>::type, MAXT>;
+};
+template <int MAXT> struct FormTile<double, MAXT, 0, false> {
+  using type = smm::F32Tile<MAXT>;
+};
+template <int MAXT> struct FormTile<double, MAXT, 0, true> {
+  using type = smm::CompTile<MAXT, 0>;
+};
+template <int MAXT> struct FormTile<double, MAXT, 1, false> {
+  using type = smm::BfTile<double, MAXT, false>;
+};
+template <int MAXT> struct FormTile<double, MAXT, 1, true> {
+  using type = smm::CompTile<MAXT, 1>;
+};
+template <int MAXT> struct FormTile<float, MAXT, 1, false> {
+  using type = smm::BfTile<float, MAXT, false>;
+};
+template <int MAXT> struct FormTile<float, MAXT, 1, true> {
+  using type = smm::BfTile<float, MAXT, true>;
+};
 
 // CT = -1: native compute; 0/1: demoted to f32/bf16, COMP compensated.
 template <typename T, int CT, bool COMP>
-cudaError_t launch(const void* a, const void* b, void* c, const void* a_idx,
-                   const void* b_idx, const void* run_ptr, const void* run_c,
-                   int nruns, int m, int n, int k, double alpha,
-                   cudaStream_t stream) {
+cudaError_t launch(const Args& x) {
   using Acc = typename AccOf<T>::type;
-  if (smm::warp_dims(m, n, k)) {
-    switch (smm::warp_class(m, n)) {
-      case 2:
-        return launch_warp<T, 2, TileOf<T, 2, CT, COMP>>(
-            a, b, c, a_idx, b_idx, run_ptr, run_c, nruns, m, n, k, alpha, stream);
-      case 3:
-        return launch_warp<T, 3, TileOf<T, 3, CT, COMP>>(
-            a, b, c, a_idx, b_idx, run_ptr, run_c, nruns, m, n, k, alpha, stream);
-      default:
-        return launch_warp<T, 4, TileOf<T, 4, CT, COMP>>(
-            a, b, c, a_idx, b_idx, run_ptr, run_c, nruns, m, n, k, alpha, stream);
+  if (smm::warp_dims(x.m, x.n, x.k)) {
+    switch (smm::warp_class(x.m, x.n)) {
+      case 2: return launch_warp<T, 2, typename FormTile<T, 2, CT, COMP>::type>(x);
+      case 3: return launch_warp<T, 3, typename FormTile<T, 3, CT, COMP>::type>(x);
+      default: return launch_warp<T, 4, typename FormTile<T, 4, CT, COMP>::type>(x);
     }
   }
-  const dim3 grid(nruns, (m + TM - 1) / TM, (n + TN - 1) / TN);
+  const dim3 grid(x.nruns, (x.m + TM - 1) / TM, (x.n + TN - 1) / TN);
   const dim3 block(NTX, NTY);
+#define TILED_ARGS                                                                     \
+  static_cast<const T*>(x.a), static_cast<const T*>(x.b), static_cast<T*>(x.c),        \
+      static_cast<const int*>(x.a_idx), static_cast<const int*>(x.b_idx),              \
+      static_cast<const int*>(x.run_ptr), static_cast<const int*>(x.run_c), x.m, x.n, x.k, \
+      static_cast<Acc>(x.alpha)
   if constexpr (CT < 0) {
-    smm_stack_kernel<T><<<grid, block, 0, stream>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
-        static_cast<const int*>(a_idx), static_cast<const int*>(b_idx),
-        static_cast<const int*>(run_ptr), static_cast<const int*>(run_c), m, n,
-        k, static_cast<Acc>(alpha));
+    if (x.attrs) return kernel_attrs(smm_stack_kernel<T>, NTHREADS, 0, x.attrs);
+    smm_stack_kernel<T><<<grid, block, 0, x.stream>>>(TILED_ARGS);
   } else {
-    smm_stack_demoted_kernel<T, CT, COMP><<<grid, block, 0, stream>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
-        static_cast<const int*>(a_idx), static_cast<const int*>(b_idx),
-        static_cast<const int*>(run_ptr), static_cast<const int*>(run_c), m, n,
-        k, static_cast<Acc>(alpha));
+    if (x.attrs)
+      return kernel_attrs(smm_stack_demoted_kernel<T, CT, COMP>, NTHREADS, 0, x.attrs);
+    smm_stack_demoted_kernel<T, CT, COMP><<<grid, block, 0, x.stream>>>(TILED_ARGS);
   }
+#undef TILED_ARGS
   return cudaGetLastError();
 }
 
+// c8 takes two warps a block: a warp's two step buffers hold 37 kB at
+// 23x23x23, so three such blocks fill an SM
 template <typename R>
-cudaError_t launch_complex(const void* a, const void* b, void* c, const void* a_idx,
-                           const void* b_idx, const void* run_ptr, const void* run_c,
-                           int nruns, int m, int n, int k, double alpha,
-                           double alpha_im, cudaStream_t stream) {
-  const dim3 grid(nruns, (m + TM - 1) / TM, (n + TN - 1) / TN);
+cudaError_t launch_complex(const Args& x) {
+  constexpr int WN = sizeof(R) == 8 ? 2 : W;
+  if (smm::warp_dims(x.m, x.n, x.k)) {
+    switch (smm::warp_class(x.m, x.n)) {
+      case 2: return launch_warp<R, 2, smm::CTile<R, 2>, WN, 2>(x);
+      case 3: return launch_warp<R, 3, smm::CTile<R, 3>, WN, 2>(x);
+      default: return launch_warp<R, 4, smm::CTile<R, 4>, WN, 2>(x);
+    }
+  }
+  if (x.attrs) return kernel_attrs(smm_stack_complex_kernel<R>, NTHREADS, 0, x.attrs);
+  const dim3 grid(x.nruns, (x.m + TM - 1) / TM, (x.n + TN - 1) / TN);
   const dim3 block(NTX, NTY);
-  smm_stack_complex_kernel<R><<<grid, block, 0, stream>>>(
-      static_cast<const R*>(a), static_cast<const R*>(b), static_cast<R*>(c),
-      static_cast<const int*>(a_idx), static_cast<const int*>(b_idx),
-      static_cast<const int*>(run_ptr), static_cast<const int*>(run_c), m, n,
-      k, static_cast<R>(alpha), static_cast<R>(alpha_im));
+  smm_stack_complex_kernel<R><<<grid, block, 0, x.stream>>>(
+      static_cast<const R*>(x.a), static_cast<const R*>(x.b), static_cast<R*>(x.c),
+      static_cast<const int*>(x.a_idx), static_cast<const int*>(x.b_idx),
+      static_cast<const int*>(x.run_ptr), static_cast<const int*>(x.run_c), x.m, x.n, x.k,
+      static_cast<R>(x.alpha), static_cast<R>(x.alpha_im));
   return cudaGetLastError();
+}
+
+// dtype: 0 = float64, 1 = float32, 2 = bfloat16, 3 = complex64,
+// 4 = complex128.  compute: 0 = native, 1 = f32, 2 = f32 compensated,
+// 3 = bf16, 4 = bf16 compensated (float64 takes all five, float32 the
+// native and bf16 forms, the others native only).
+cudaError_t dispatch(int dtype, int compute, const Args& x) {
+  const cudaError_t bad = cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0:
+      switch (compute) {
+        case 0: return launch<double, -1, false>(x);
+        case 1: return launch<double, 0, false>(x);
+        case 2: return launch<double, 0, true>(x);
+        case 3: return launch<double, 1, false>(x);
+        case 4: return launch<double, 1, true>(x);
+        default: return bad;
+      }
+    case 1:
+      switch (compute) {
+        case 0: return launch<float, -1, false>(x);
+        case 3: return launch<float, 1, false>(x);
+        case 4: return launch<float, 1, true>(x);
+        default: return bad;
+      }
+    case 2: return compute == 0 ? launch<__nv_bfloat16, -1, false>(x) : bad;
+    case 3: return compute == 0 ? launch_complex<float>(x) : bad;
+    case 4: return compute == 0 ? launch_complex<double>(x) : bad;
+    default: return bad;
+  }
 }
 
 
@@ -679,57 +777,33 @@ cudaError_t launch_superstack(const SpanTable& spans, int kmin, int kmax, void* 
 
 extern "C" {
 
-// dtype: 0 = float64, 1 = float32, 2 = bfloat16, 3 = complex64,
-// 4 = complex128.  compute: 0 = native, 1 = f32, 2 = f32 compensated,
-// 3 = bf16, 4 = bf16 compensated (float64 takes all five, float32 the
-// native and bf16 forms, the others native only).  alpha_im is the
-// imaginary part of a complex alpha.  Returns the launch's cudaError_t
-// (0 = success); the caller raises on anything else.
+// The stack launch of one form (dtype and compute as `dispatch`);
+// alpha_im is the imaginary part of a complex alpha.  Returns the
+// launch's cudaError_t (0 = success); the caller raises on anything else.
 int smm_stack_launch(int dtype, int compute, const void* a, const void* b,
                      void* c, const void* a_idx, const void* b_idx,
                      const void* run_ptr, const void* run_c, int nruns, int m,
                      int n, int k, double alpha, double alpha_im, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nruns <= 0) return 0;
-#define SMM_ARGS a, b, c, a_idx, b_idx, run_ptr, run_c, nruns, m, n, k, alpha, s
-  const int bad = static_cast<int>(cudaErrorInvalidValue);
-  switch (dtype) {
-    case 0:
-      switch (compute) {
-        case 0: return launch<double, -1, false>(SMM_ARGS);
-        case 1: return launch<double, 0, false>(SMM_ARGS);
-        case 2: return launch<double, 0, true>(SMM_ARGS);
-        case 3: return launch<double, 1, false>(SMM_ARGS);
-        case 4: return launch<double, 1, true>(SMM_ARGS);
-        default: return bad;
-      }
-    case 1:
-      switch (compute) {
-        case 0: return launch<float, -1, false>(SMM_ARGS);
-        case 3: return launch<float, 1, false>(SMM_ARGS);
-        case 4: return launch<float, 1, true>(SMM_ARGS);
-        default: return bad;
-      }
-    case 2:
-      return compute == 0 ? launch<__nv_bfloat16, -1, false>(SMM_ARGS) : bad;
-    case 3:
-      return compute == 0 ? launch_complex<float>(a, b, c, a_idx, b_idx, run_ptr, run_c,
-                                                  nruns, m, n, k, alpha, alpha_im, s)
-                          : bad;
-    case 4:
-      return compute == 0 ? launch_complex<double>(a, b, c, a_idx, b_idx, run_ptr, run_c,
-                                                   nruns, m, n, k, alpha, alpha_im, s)
-                          : bad;
-    default:
-      return bad;
-  }
-#undef SMM_ARGS
+  const Args x{a, b, c, a_idx, b_idx, run_ptr, run_c, nruns, m, n, k, alpha, alpha_im,
+               static_cast<cudaStream_t>(stream), nullptr};
+  return static_cast<int>(dispatch(dtype, compute, x));
 }
 
-// The path a launch of this dtype and shape takes: 1 = warp path, 0 =
-// tiled path (complex always takes the tiled path).
+// The attributes of the instance a launch of this form and shape runs
+// (out[5]: registers a thread, local bytes a thread, shared bytes a
+// block, warps a block, blocks an SM); returns a cudaError_t.
+int smm_stack_attrs(int dtype, int compute, int m, int n, int k, int* out) {
+  const Args x{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, m, n, k,
+               1.0, 0.0, nullptr, out};
+  return static_cast<int>(dispatch(dtype, compute, x));
+}
+
+// The path a launch of this shape takes: 1 = warp path, 0 = tiled path
+// (every dtype and form alike).
 int smm_stack_path(int dtype, int m, int n, int k) {
-  return dtype < 3 && smm::warp_dims(m, n, k) ? 1 : 0;
+  (void)dtype;
+  return smm::warp_dims(m, n, k) ? 1 : 0;
 }
 
 // The fused launch of one C bin: nspans (<= smm_superstack_max_spans())

@@ -32,14 +32,20 @@
 // are bit for bit equal.  Blocks are persistent: each loops over groups
 // of runs, so a warp whose run ends early takes the next one.
 //
-// K1's demoted forms (acc/precision.py) take the f32 lane layout with
-// `DemTile` in place of `Tile`: the staged operands stay at the request
-// dtype and are rounded to the compute dtype (f32 or bf16) as they are
-// read from shared memory.  Uncompensated, each entry's k-sum runs in
-// f32 and is then added to the run's sum in the wide type (f64 for f64
-// data); compensated, each operand splits into hi + lo in the compute
-// dtype and hi*hi + (hi*lo + lo*hi) accumulates in the wide type
-// (dbcsr_tpu/acc/smm.py:_batch_dot, :78-135).
+// K1's complex and demoted forms take the same pipeline with their own
+// register tiles (the tiles' section below).  Complex data is staged as
+// it lies, its parts interleaved (z = 2 reals an element in the slot's
+// geometry): c8 on DMMA, four a tile and k-step; c4 on f32 FMAs.  A
+// demoted tile converts each value of a slot once, as the slot lands,
+// into planes of its own in shared memory: f32 planes for f64 -> f32
+// (f32 FMAs, each entry's k-sum widened into the f64 sum), bf16 planes
+// for -> bf16 (the bf16 tensor cores, mma.sync m16n8k16 with f32 sums),
+// and, for f64 data's compensated forms, hi in place in the slot and lo
+// in a plane, multiplied as one DMMA product of depth 3k (the parts'
+// products are exact in f64).  The forms keep the determinism contract:
+// each element sums its entries in stack order, in a fixed order within
+// an entry (dbcsr_tpu/acc/smm.py:_batch_dot, :78-135, computes the same
+// function).
 
 #pragma once
 
@@ -96,22 +102,27 @@ struct WarpGeom {
   int stage;       // one step buffer: r slots
   int buf;         // one step buffer, large enough for the C block too
   int offs;        // start of the slots' block offsets (2 ints a slot, 2r slots)
-  int per_warp;    // two step buffers and the offsets
+  int planes;      // start of the register tile's converted planes
+  int per_warp;    // two step buffers, the offsets and the planes
 };
 
-__host__ __device__ inline WarpGeom warp_geom(int m, int n, int k, int r, int size) {
+// z: reals an element holds (2 for complex, staged as its interleaved
+// parts); plane_bytes: the converted planes of a demoted tile
+__host__ __device__ inline WarpGeom warp_geom(int m, int n, int k, int r, int size,
+                                              int z = 1, int plane_bytes = 0) {
   const int q = 16 / size;
   WarpGeom g;
   g.mt = (m + 7) / 8;
   g.nt = (n + 7) / 8;
   g.kp = (k + 3) / 4 * 4;
   g.sb = pad_stride(8 * g.nt);
-  g.a_area = round_up(8 * g.mt * k + g.kp + q, q);
-  g.slot = g.a_area + round_up(g.kp * n + 8 * g.nt + q, q);
+  g.a_area = round_up(z * (8 * g.mt * k + g.kp) + q, q);
+  g.slot = g.a_area + round_up(z * (g.kp * n + 8 * g.nt) + q, q);
   g.stage = r * g.slot;
-  g.buf = g.stage > 8 * g.mt * g.sb ? g.stage : 8 * g.mt * g.sb;
+  g.buf = g.stage > z * 8 * g.mt * g.sb ? g.stage : z * 8 * g.mt * g.sb;
   g.offs = 2 * g.buf;
-  g.per_warp = g.offs + round_up(4 * r * 4 / size, q);
+  g.planes = g.offs + round_up(4 * r * 4 / size, q);
+  g.per_warp = g.planes + round_up(plane_bytes, 16) / size;
   return g;
 }
 
@@ -171,16 +182,50 @@ __device__ __forceinline__ int stage_flat(float* area, const __nv_bfloat16* src,
   return 0;
 }
 
-// a lane's walk over a row-major block of `cols` columns, 32 elements at
-// a time: start (r0, c0) = divmod(lane, cols), step divmod(32, cols)
+// a lane's walk over a row-major block of `cols` columns: start (r0, c0)
+// = divmod(start, cols), step divmod(step, cols) (32 elements at a time
+// from the lane's own by default)
 struct FlatIter {
   int r0, c0, q, rem;
 };
-__device__ __forceinline__ FlatIter flat_iter(int cols, int lane) {
-  return {lane / cols, lane % cols, 32 / cols, 32 % cols};
+__device__ __forceinline__ FlatIter flat_iter(int cols, int start, int step = 32) {
+  return {start / cols, start % cols, step / cols, step % cols};
+}
+
+// Convert the row-major rows x cols block at src (flat, as staged) into
+// dst, row stride ld, or transposed (TRANS: column c of src is row c of
+// dst, stride ld): each element once, f(x) its converted value.
+template <bool TRANS, typename D, typename Src, typename F>
+__device__ __forceinline__ void convert_block(D* dst, int ld, const Src* src, int rows,
+                                              int cols, int lane, F f) {
+  const FlatIter it = flat_iter(cols, lane);
+  int r = it.r0, c = it.c0;
+  for (int w = lane; w < rows * cols; w += 32) {
+    dst[TRANS ? c * ld + r : r * ld + c] = f(src[w]);
+    c += it.rem;
+    r += it.q;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
 }
 
 // ------------------------------------------------------ block products
+//
+// A register tile sums one run's products.  warp_kernel calls, per run,
+// zero(), then entry() once per entry as its slot lands (the A and B
+// blocks flat, as staged), then store() to put the sum in shared memory.
+// A tile that converts its operands owns `plane_bytes(m, n, k)` of the
+// warp's shared memory (`planes`), set up once per launch by init().
+// PREFETCH_C: whether the run's C block also fits in registers.
+
+__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0,%1}, {%2}, {%3}, {%0,%1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
 
 template <typename S, int MAXT> struct Tile;
 
@@ -189,6 +234,10 @@ template <typename S, int MAXT> struct Tile;
 // k and n); the k padding is zeroed by predicate.
 template <int MAXT> struct Tile<double, MAXT> {
   double v[MAXT][MAXT][2];
+  static constexpr bool PREFETCH_C = true;
+
+  __host__ __device__ static int plane_bytes(int, int, int) { return 0; }
+  __device__ static void init(unsigned char*, int, int, int, int) {}
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
@@ -215,12 +264,13 @@ template <int MAXT> struct Tile<double, MAXT> {
       for (int i = 0; i < MAXT; ++i)
 #pragma unroll
         for (int j = 0; j < MAXT; ++j)
-          if (i < g.mt && j < g.nt)
-            asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-                "{%0,%1}, {%2}, {%3}, {%0,%1};\n"
-                : "+d"(v[i][j][0]), "+d"(v[i][j][1])
-                : "d"(af[i]), "d"(bf[j]));
+          if (i < g.mt && j < g.nt) dmma(v[i][j], af[i], bf[j]);
     }
+  }
+
+  __device__ __forceinline__ void entry(double* as, double* bs, const WarpGeom& g, int,
+                                        int n, int k, int lane, unsigned char*) {
+    mma(as, bs, g, n, k, lane);
   }
 
   // cs = the sum, over the valid elements
@@ -239,11 +289,30 @@ template <int MAXT> struct Tile<double, MAXT> {
   }
 };
 
+// cs = a micro-tile sum (the f32 lane layout below: rows lane/4 + 8i,
+// columns (lane%4)*2nt + j), over the valid elements
+template <typename S, typename V, int MAXT>
+__device__ __forceinline__ void store_micro(S* cs, const V (&v)[MAXT][2 * MAXT],
+                                            const WarpGeom& g, int m, int n, int lane) {
+  const int tn = 2 * g.nt, r0 = lane >> 2, c0 = (lane & 3) * tn;
+#pragma unroll
+  for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+    for (int j = 0; j < 2 * MAXT; ++j) {
+      const int r = r0 + 8 * i, c = c0 + j;
+      if (i < g.mt && j < tn && r < m && c < n) cs[r * g.sb + c] = v[i][j];
+    }
+}
+
 // f32 (and bf16 staged as f32): FMAs on the CUDA cores; the lane owns
 // rows lane/4 + 8i (i < mt) and columns (lane%4)*2nt .. +2nt.  A read
 // past row m-1 or B past column n-1 touches only padded outputs.
 template <int MAXT> struct Tile<float, MAXT> {
   float v[MAXT][2 * MAXT];
+  static constexpr bool PREFETCH_C = true;
+
+  __host__ __device__ static int plane_bytes(int, int, int) { return 0; }
+  __device__ static void init(unsigned char*, int, int, int, int) {}
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
@@ -272,22 +341,151 @@ template <int MAXT> struct Tile<float, MAXT> {
     }
   }
 
+  __device__ __forceinline__ void entry(float* as, float* bs, const WarpGeom& g, int,
+                                        int n, int k, int lane, unsigned char*) {
+    mma(as, bs, g, n, k, lane);
+  }
+
   __device__ __forceinline__ void store(float* cs, const WarpGeom& g, int m,
                                         int n, int lane) const {
+    store_micro(cs, v, g, m, n, lane);
+  }
+};
+
+// ------------------------------------------------------- complex forms
+// The operands are staged as they lie, real and imaginary parts
+// interleaved; a fragment reads both parts of an element in one load.
+template <typename R, int MAXT> struct CTile;
+
+// c8: DMMA.  Per 4-deep k-step each 8x8 tile of the real sum takes
+// Ar.Br and then (-Ai).Bi, the imaginary one Ar.Bi and then Ai.Br: 4
+// DMMAs, each element summing its entries in stack order.
+template <int MAXT> struct CTile<double, MAXT> {
+  double re[MAXT][MAXT][2], im[MAXT][MAXT][2];
+  static constexpr bool PREFETCH_C = false;  // two tiles leave no room
+
+  __host__ __device__ static int plane_bytes(int, int, int) { return 0; }
+  __device__ static void init(unsigned char*, int, int, int, int) {}
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+      for (int j = 0; j < MAXT; ++j) re[i][j][0] = re[i][j][1] = im[i][j][0] = im[i][j][1] = 0.0;
+  }
+
+  __device__ __forceinline__ void entry(double* as, double* bs, const WarpGeom& g, int,
+                                        int n, int k, int lane, unsigned char*) {
+    const int gr = lane >> 2, t = lane & 3;
+    const double2* ap = reinterpret_cast<const double2*>(as) + gr * k + t;
+    const double2* bp = reinterpret_cast<const double2*>(bs) + t * n + gr;
+#pragma unroll 1
+    for (int kk = 0; kk < g.kp; kk += 4) {
+      const bool kin = kk + t < k;
+      double2 af[MAXT], bf[MAXT];
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i)
+        af[i] = i < g.mt && kin ? ap[8 * i * k + kk] : make_double2(0.0, 0.0);
+#pragma unroll
+      for (int j = 0; j < MAXT; ++j)
+        bf[j] = j < g.nt && kin ? bp[kk * n + 8 * j] : make_double2(0.0, 0.0);
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i) {
+        const double nai = -af[i].y;
+#pragma unroll
+        for (int j = 0; j < MAXT; ++j)
+          if (i < g.mt && j < g.nt) {
+            dmma(re[i][j], af[i].x, bf[j].x);
+            dmma(re[i][j], nai, bf[j].y);
+            dmma(im[i][j], af[i].x, bf[j].y);
+            dmma(im[i][j], af[i].y, bf[j].x);
+          }
+      }
+    }
+  }
+
+  // cs = the sum, interleaved, over the valid elements
+  __device__ __forceinline__ void store(double* cs, const WarpGeom& g, int m, int n,
+                                        int lane) const {
+    const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+      for (int j = 0; j < MAXT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = gr + 8 * i, c = 8 * j + 2 * t + h;
+          if (i < g.mt && j < g.nt && r < m && c < n) {
+            cs[2 * (r * g.sb + c)] = re[i][j][h];
+            cs[2 * (r * g.sb + c) + 1] = im[i][j][h];
+          }
+        }
+  }
+};
+
+// c4: FMAs on the CUDA cores in Tile<float>'s lane layout, 4 a
+// multiply-add in the tiled complex kernel's order, never TF32.
+template <int MAXT> struct CTile<float, MAXT> {
+  float re[MAXT][2 * MAXT], im[MAXT][2 * MAXT];
+  static constexpr bool PREFETCH_C = MAXT < 4;
+
+  __host__ __device__ static int plane_bytes(int, int, int) { return 0; }
+  __device__ static void init(unsigned char*, int, int, int, int) {}
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+      for (int j = 0; j < 2 * MAXT; ++j) re[i][j] = im[i][j] = 0.0f;
+  }
+
+  __device__ __forceinline__ void entry(float* as, float* bs, const WarpGeom& g, int, int n,
+                                        int k, int lane, unsigned char*) {
+    const int tn = 2 * g.nt;
+    const float2* ap = reinterpret_cast<const float2*>(as) + (lane >> 2) * k;
+    const float2* bp = reinterpret_cast<const float2*>(bs) + (lane & 3) * tn;
+#pragma unroll 1
+    for (int kk = 0; kk < k; ++kk) {
+      float2 af[MAXT], bf[2 * MAXT];
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i)
+        af[i] = i < g.mt ? ap[8 * i * k + kk] : make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int j = 0; j < 2 * MAXT; ++j)
+        bf[j] = j < tn ? bp[kk * n + j] : make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * MAXT; ++j)
+          if (i < g.mt && j < tn) {
+            re[i][j] = fmaf(af[i].x, bf[j].x, re[i][j]);
+            re[i][j] = fmaf(-af[i].y, bf[j].y, re[i][j]);
+            im[i][j] = fmaf(af[i].x, bf[j].y, im[i][j]);
+            im[i][j] = fmaf(af[i].y, bf[j].x, im[i][j]);
+          }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* cs, const WarpGeom& g, int m, int n,
+                                        int lane) const {
     const int tn = 2 * g.nt, r0 = lane >> 2, c0 = (lane & 3) * tn;
 #pragma unroll
     for (int i = 0; i < MAXT; ++i)
 #pragma unroll
       for (int j = 0; j < 2 * MAXT; ++j) {
         const int r = r0 + 8 * i, c = c0 + j;
-        if (i < g.mt && j < tn && r < m && c < n) cs[r * g.sb + c] = v[i][j];
+        if (i < g.mt && j < tn && r < m && c < n) {
+          cs[2 * (r * g.sb + c)] = re[i][j];
+          cs[2 * (r * g.sb + c) + 1] = im[i][j];
+        }
       }
   }
 };
 
-// Demoted compute: CT 0 = f32, 1 = bf16; the compute value is held in
-// f32, which represents both exactly (bf16 rounds through f32, as
-// torch's conversion does).
+// ------------------------------------------------------- demoted forms
+// Demoted compute: CT 0 = f32, 1 = bf16.  A staged value is converted
+// once, as its entry lands; bf16 rounds through f32, as torch's
+// conversion does.
 template <int CT>
 __device__ __forceinline__ float to_compute(double x) {
   const float f = static_cast<float>(x);
@@ -305,70 +503,294 @@ __device__ __forceinline__ void split_hi_lo(W x, W& hi, W& lo) {
   lo = static_cast<W>(to_compute<CT>(x - hi));
 }
 
-// The demoted forms' register tile: the lane layout of Tile<float>, the
-// run's sum in the staged (wide) type S.
-template <typename S, int MAXT, int CT, bool COMP> struct DemTile {
-  S v[MAXT][2 * MAXT];
+__device__ __forceinline__ float f4_at(const float4& x, int s) {
+  return s == 0 ? x.x : s == 1 ? x.y : s == 2 ? x.z : x.w;
+}
+
+// f64 -> f32, uncompensated: the operands converted into f32 planes, A
+// with rows of KA = 4 (mod 8) floats (a lane's 4-deep A read is one
+// conflict-free 16-byte load), B with rows of 8 nt floats, the k and
+// row padding zero; each entry's k-sum in f32 on the CUDA cores in
+// Tile<float>'s lane layout, then widened into the run's f64 sum.
+template <int MAXT> struct F32Tile {
+  double v[MAXT][2 * MAXT];
+  static constexpr bool PREFETCH_C = MAXT < 4;
+
+  __host__ __device__ static int ka(int k) {
+    const int k4 = round_up(k, 4);
+    return k4 % 8 ? k4 : k4 + 4;
+  }
+  __host__ __device__ static int plane_bytes(int m, int n, int k) {
+    return 4 * round_up(8 * ((m + 7) / 8) * ka(k) + round_up(k, 4) * 8 * ((n + 7) / 8), 4);
+  }
+  __device__ static void init(unsigned char* planes, int m, int n, int k, int lane) {
+    float* p = reinterpret_cast<float*>(planes);
+    for (int w = lane; w < plane_bytes(m, n, k) / 4; w += 32) p[w] = 0.0f;
+  }
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int i = 0; i < MAXT; ++i)
 #pragma unroll
-      for (int j = 0; j < 2 * MAXT; ++j) v[i][j] = S(0);
+      for (int j = 0; j < 2 * MAXT; ++j) v[i][j] = 0.0;
   }
 
-  __device__ __forceinline__ void mma(const S* as, const S* bs, const WarpGeom& g, int n,
-                                      int k, int lane) {
-    const int tn = 2 * g.nt;
-    const S* ap = as + (lane >> 2) * k;
-    const S* bp = bs + (lane & 3) * tn;
-    if (!COMP) {
-      float p[MAXT][2 * MAXT];
-#pragma unroll
-      for (int i = 0; i < MAXT; ++i)
-#pragma unroll
-        for (int j = 0; j < 2 * MAXT; ++j) p[i][j] = 0.0f;
-      for (int kk = 0; kk < k; ++kk) {
-        float af[MAXT], bf[2 * MAXT];
-#pragma unroll
-        for (int i = 0; i < MAXT; ++i) af[i] = i < g.mt ? to_compute<CT>(ap[8 * i * k + kk]) : 0.0f;
-#pragma unroll
-        for (int j = 0; j < 2 * MAXT; ++j) bf[j] = j < tn ? to_compute<CT>(bp[kk * n + j]) : 0.0f;
-#pragma unroll
-        for (int i = 0; i < MAXT; ++i)
-#pragma unroll
-          for (int j = 0; j < 2 * MAXT; ++j)
-            if (i < g.mt && j < tn) p[i][j] = fmaf(af[i], bf[j], p[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < MAXT; ++i)
-#pragma unroll
-        for (int j = 0; j < 2 * MAXT; ++j) v[i][j] += static_cast<S>(p[i][j]);
-    } else {
-      for (int kk = 0; kk < k; ++kk) {
-        S ah[MAXT], al[MAXT], bh[2 * MAXT], bl[2 * MAXT];
-#pragma unroll
-        for (int i = 0; i < MAXT; ++i) split_hi_lo<CT>(i < g.mt ? ap[8 * i * k + kk] : S(0), ah[i], al[i]);
-#pragma unroll
-        for (int j = 0; j < 2 * MAXT; ++j) split_hi_lo<CT>(j < tn ? bp[kk * n + j] : S(0), bh[j], bl[j]);
-#pragma unroll
-        for (int i = 0; i < MAXT; ++i)
-#pragma unroll
-          for (int j = 0; j < 2 * MAXT; ++j)
-            if (i < g.mt && j < tn) v[i][j] += ah[i] * bh[j] + (ah[i] * bl[j] + al[i] * bh[j]);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(S* cs, const WarpGeom& g, int m, int n, int lane) const {
-    const int tn = 2 * g.nt, r0 = lane >> 2, c0 = (lane & 3) * tn;
+  __device__ __forceinline__ void entry(double* as, double* bs, const WarpGeom& g, int m,
+                                        int n, int k, int lane, unsigned char* planes) {
+    const int KA = ka(k), NB = 8 * g.nt, k4 = round_up(k, 4), tn = 2 * g.nt;
+    float* const pa = reinterpret_cast<float*>(planes);
+    float* const pb = pa + 8 * g.mt * KA;
+    auto cvt = [](double x) { return static_cast<float>(x); };
+    __syncwarp();  // the planes' last readers are done
+    convert_block<false>(pa, KA, as, m, k, lane, cvt);
+    convert_block<false>(pb, NB, bs, k, n, lane, cvt);
+    __syncwarp();
+    float p[MAXT][2 * MAXT];
 #pragma unroll
     for (int i = 0; i < MAXT; ++i)
 #pragma unroll
-      for (int j = 0; j < 2 * MAXT; ++j) {
-        const int r = r0 + 8 * i, c = c0 + j;
-        if (i < g.mt && j < tn && r < m && c < n) cs[r * g.sb + c] = v[i][j];
+      for (int j = 0; j < 2 * MAXT; ++j) p[i][j] = 0.0f;
+    const float* ap = pa + (lane >> 2) * KA;
+    const float* bp = pb + (lane & 3) * tn;
+#pragma unroll 1
+    for (int kk = 0; kk < k4; kk += 4) {
+      float4 a4[MAXT];
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i)
+        a4[i] = i < g.mt ? *reinterpret_cast<const float4*>(ap + 8 * i * KA + kk)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        float bf[2 * MAXT];
+#pragma unroll
+        for (int j = 0; j < MAXT; ++j) {
+          const float2 x = j < g.nt ? *reinterpret_cast<const float2*>(bp + (kk + s) * NB + 2 * j)
+                                    : make_float2(0.0f, 0.0f);
+          bf[2 * j] = x.x;
+          bf[2 * j + 1] = x.y;
+        }
+#pragma unroll
+        for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+          for (int j = 0; j < 2 * MAXT; ++j)
+            if (i < g.mt && j < tn) p[i][j] = fmaf(f4_at(a4[i], s), bf[j], p[i][j]);
       }
+    }
+#pragma unroll
+    for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+      for (int j = 0; j < 2 * MAXT; ++j) v[i][j] += static_cast<double>(p[i][j]);
+  }
+
+  __device__ __forceinline__ void store(double* cs, const WarpGeom& g, int m, int n,
+                                        int lane) const {
+    store_micro(cs, v, g, m, n, lane);
+  }
+};
+
+__device__ __forceinline__ void bf16_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// -> bf16 on the tensor cores (mma.sync m16n8k16, bf16 in, f32 out):
+// the operands converted into bf16 planes, A row-major and B transposed
+// (n rows of k), rows of KS = k rounded up to 16, plus 8 (conflict-free
+// 4-byte fragment loads), the padding zero.  Fragments (g = lane/4,
+// t = lane%4): A rows g and g+8 at columns 2t, 2t+1 and 2t+8, 2t+9; B
+// column g at the same depths; C rows g, g+8 at columns 2t, 2t+1.  W is
+// the run's sum, f64 for f64 data and f32 for f32 data, held in the
+// fragments' layout.  Each entry's k-sum runs in a fresh f32 fragment
+// (compensated, f32 data only: hi.hi, hi.lo and lo.hi of the splits;
+// f64 data takes CompTile) and is then added into the sum by an f32 or
+// f64 add.  The tensor cores' f32 sums truncate: a 5000-entry run summed
+// in the fragment itself missed `form_tolerance` by 9x on the H100
+// (7.6e-4 against 8.3e-5); an entry's 3k products do not.
+template <typename W, int MAXT, bool COMP> struct BfTile {
+  static constexpr int MT = (MAXT + 1) / 2;  // 16-row tiles
+  W v[MT][MAXT][4];
+  static constexpr bool PREFETCH_C = MAXT < 4 || sizeof(W) == 4;
+
+  __host__ __device__ static int ks(int k) { return round_up(k, 16) + 8; }
+  __host__ __device__ static int plane_bytes(int m, int n, int k) {
+    return round_up(2 * ks(k) * (16 * ((m + 15) / 16) + 8 * ((n + 7) / 8)) * (COMP ? 2 : 1), 16);
+  }
+  __device__ static void init(unsigned char* planes, int m, int n, int k, int lane) {
+    uint32_t* p = reinterpret_cast<uint32_t*>(planes);
+    for (int w = lane; w < plane_bytes(m, n, k) / 4; w += 32) p[w] = 0u;
+  }
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < MAXT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[i][j][q] = W(0);
+  }
+
+  __device__ __forceinline__ void entry(W* as, W* bs, const WarpGeom& g, int m, int n, int k,
+                                        int lane, unsigned char* planes) {
+    const int KS = ks(k), mt16 = (m + 15) / 16;
+    __nv_bfloat16* const pa = reinterpret_cast<__nv_bfloat16*>(planes);
+    __nv_bfloat16* const pb = pa + 16 * mt16 * KS;
+    __nv_bfloat16* const pal = pb + 8 * g.nt * KS;
+    __nv_bfloat16* const pbl = pal + 16 * mt16 * KS;
+    auto hi = [](W x) { return __float2bfloat16(static_cast<float>(x)); };
+    auto lo = [](W x) {
+      return __float2bfloat16(static_cast<float>(
+          x - static_cast<W>(__bfloat162float(__float2bfloat16(static_cast<float>(x))))));
+    };
+    __syncwarp();  // the planes' last readers are done
+    convert_block<false>(pa, KS, as, m, k, lane, hi);
+    convert_block<true>(pb, KS, bs, k, n, lane, hi);
+    if (COMP) {
+      convert_block<false>(pal, KS, as, m, k, lane, lo);
+      convert_block<true>(pbl, KS, bs, k, n, lane, lo);
+    }
+    __syncwarp();
+    const int gr = lane >> 2, t = lane & 3;
+    float p[MT][MAXT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < MAXT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) p[i][j][q] = 0.0f;
+    auto frag_a = [&](const __nv_bfloat16* base, int i, int kc, uint32_t (&f)[4]) {
+      const __nv_bfloat16* x = base + (16 * i + gr) * KS + kc + 2 * t;
+      f[0] = *reinterpret_cast<const uint32_t*>(x);
+      f[1] = *reinterpret_cast<const uint32_t*>(x + 8 * KS);
+      f[2] = *reinterpret_cast<const uint32_t*>(x + 8);
+      f[3] = *reinterpret_cast<const uint32_t*>(x + 8 * KS + 8);
+    };
+#pragma unroll 1
+    for (int kc = 0; kc < KS - 8; kc += 16) {
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        if (i < mt16) {
+          frag_a(pa, i, kc, ah[i]);
+          if (COMP) frag_a(pal, i, kc, al[i]);
+        }
+#pragma unroll
+      for (int j = 0; j < MAXT; ++j)
+        if (j < g.nt) {
+          const __nv_bfloat16* x = pb + (8 * j + gr) * KS + kc + 2 * t;
+          const uint32_t bh0 = *reinterpret_cast<const uint32_t*>(x);
+          const uint32_t bh1 = *reinterpret_cast<const uint32_t*>(x + 8);
+          uint32_t bl0 = 0u, bl1 = 0u;
+          if (COMP) {
+            const __nv_bfloat16* y = pbl + (8 * j + gr) * KS + kc + 2 * t;
+            bl0 = *reinterpret_cast<const uint32_t*>(y);
+            bl1 = *reinterpret_cast<const uint32_t*>(y + 8);
+          }
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+            if (i < mt16) {
+              bf16_mma(p[i][j], ah[i], bh0, bh1);
+              if (COMP) {
+                bf16_mma(p[i][j], ah[i], bl0, bl1);
+                bf16_mma(p[i][j], al[i], bh0, bh1);
+              }
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < MAXT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[i][j][q] += static_cast<W>(p[i][j][q]);
+  }
+
+  __device__ __forceinline__ void store(W* cs, const WarpGeom& g, int m, int n,
+                                        int lane) const {
+    const int gr = lane >> 2, t = lane & 3, mt16 = (m + 15) / 16;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < MAXT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = 16 * i + gr + 8 * (q >> 1), c = 8 * j + 2 * t + (q & 1);
+          if (i < mt16 && j < g.nt && r < m && c < n) cs[r * g.sb + c] = v[i][j][q];
+        }
+  }
+};
+
+// f64 data, compensated (f32c, bf16c): the parts' products are exact in
+// f64, so the form is one DMMA product of depth 3k, [Ah | Ah | Al] .
+// [Bh ; Bl ; Bh], each entry summed straight into the run's f64 sum.  As
+// a slot lands its values are split once: hi replaces the value in the
+// slot, lo goes to a plane laid out as the slot's blocks.
+template <int MAXT, int CT> struct CompTile {
+  Tile<double, MAXT> t;
+  static constexpr bool PREFETCH_C = MAXT < 4;
+
+  __host__ __device__ static int lo_a(int m, int k) {
+    return round_up(8 * ((m + 7) / 8) * k + round_up(k, 4), 2);
+  }
+  __host__ __device__ static int plane_bytes(int m, int n, int k) {
+    return 8 * (lo_a(m, k) + round_up(k, 4) * n + 8 * ((n + 7) / 8));
+  }
+  __device__ static void init(unsigned char*, int, int, int, int) {}
+
+  __device__ __forceinline__ void zero() { t.zero(); }
+
+  __device__ __forceinline__ void entry(double* as, double* bs, const WarpGeom& g, int m,
+                                        int n, int k, int lane, unsigned char* planes) {
+    double* const al = reinterpret_cast<double*>(planes);
+    double* const bl = al + lo_a(m, k);
+    __syncwarp();  // the planes' last readers are done
+#pragma unroll 4
+    for (int w = lane; w < m * k; w += 32) split_hi_lo<CT>(as[w], as[w], al[w]);
+#pragma unroll 4
+    for (int w = lane; w < k * n; w += 32) split_hi_lo<CT>(bs[w], bs[w], bl[w]);
+    __syncwarp();
+    // per 4-deep k-step: hi.hi, then hi.lo, then lo.hi of every tile (a
+    // sum's DMMAs mt nt apart); A and B read flat, as Tile<double> reads them
+    const int gr = lane >> 2, tq = lane & 3;
+    const double *ahp = as + gr * k + tq, *alp = al + gr * k + tq;
+    const double *bhp = bs + tq * n + gr, *blp = bl + tq * n + gr;
+#pragma unroll 1
+    for (int kk = 0; kk < g.kp; kk += 4) {
+      const bool kin = kk + tq < k;
+      double ah[MAXT], alo[MAXT], bh[MAXT], blo[MAXT];
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i) {
+        ah[i] = i < g.mt && kin ? ahp[8 * i * k + kk] : 0.0;
+        alo[i] = i < g.mt && kin ? alp[8 * i * k + kk] : 0.0;
+      }
+#pragma unroll
+      for (int j = 0; j < MAXT; ++j) {
+        bh[j] = j < g.nt && kin ? bhp[kk * n + 8 * j] : 0.0;
+        blo[j] = j < g.nt && kin ? blp[kk * n + 8 * j] : 0.0;
+      }
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+        for (int j = 0; j < MAXT; ++j)
+          if (i < g.mt && j < g.nt) dmma(t.v[i][j], ah[i], bh[j]);
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+        for (int j = 0; j < MAXT; ++j)
+          if (i < g.mt && j < g.nt) dmma(t.v[i][j], ah[i], blo[j]);
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+        for (int j = 0; j < MAXT; ++j)
+          if (i < g.mt && j < g.nt) dmma(t.v[i][j], alo[i], bh[j]);
+    }
+  }
+
+  __device__ __forceinline__ void store(double* cs, const WarpGeom& g, int m, int n,
+                                        int lane) const {
+    t.store(cs, g, m, n, lane);
   }
 };
 
@@ -409,24 +831,33 @@ struct RunInfo {
 // or two ahead (its run index, its run_ptr/run_c, its first 32 entry
 // indices, its C block into registers), so that no load waits at the
 // start of a run.
+// Z = 2: complex data, T the real type, each element its two parts;
+// alpha_im is then alpha's imaginary part.
 template <typename T, int MAXT, typename RunOf,
-          typename TileT = Tile<typename AccOf<T>::type, MAXT>>
+          typename TileT = Tile<typename AccOf<T>::type, MAXT>, int Z = 1>
 __device__ __forceinline__ void warp_kernel(
     const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
     const int* __restrict__ a_idx, const int* __restrict__ b_idx,
     const int* __restrict__ run_ptr, const int* __restrict__ run_c,
     int m, int n, int k, int r, typename AccOf<T>::type alpha,
-    RunOf run_of) {
+    RunOf run_of, typename AccOf<T>::type alpha_im = 0) {
   using S = typename AccOf<T>::type;
   constexpr int CPL = 2 * MAXT * MAXT;  // C elements of a lane: (8 MAXT)^2 / 32
+  // the C block is read into registers as its run starts, unless the
+  // register tile leaves no room for it (PREFETCH_C false: c8, and the
+  // 32x32 class of c4 and of f64's demoted forms); then it is read at
+  // the run's end
+  constexpr bool CPRE = TileT::PREFETCH_C;
+  constexpr int CREG = CPRE ? Z * CPL : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* sm = reinterpret_cast<S*>(smem_raw);
-  const WarpGeom g = warp_geom(m, n, k, r, sizeof(S));
+  const WarpGeom g = warp_geom(m, n, k, r, sizeof(S), Z, TileT::plane_bytes(m, n, k));
   const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const FlatIter itn = flat_iter(n, lane);
-  const int mk = m * k, kn = k * n, mn = m * n;
+  const FlatIter itn = flat_iter(n, Z == 1 ? lane : lane >> 1, 32 / Z);
+  const int mk = Z * m * k, kn = Z * k * n, mn = Z * m * n;  // in reals
   S* const wsm = sm + warp * g.per_warp;
   int* const offs = reinterpret_cast<int*>(wsm + g.offs);
+  unsigned char* const planes = reinterpret_cast<unsigned char*>(wsm + g.planes);
   auto run_at = [&](int i) { return run_of(i, warp, nw); };
   auto info_of = [&](int run) {
     RunInfo x{0, 0, 0};
@@ -468,6 +899,7 @@ __device__ __forceinline__ void warp_kernel(
   int nrun = 0;  // cur is the warp's nrun-th run
   RunInfo cur = info_of(run_at(0));
   if (cur.len <= 0) return;
+  TileT::init(planes, m, n, k, lane);
   RunInfo nx1 = info_of(run_at(1));
   int r2 = run_at(2);
   int chunk = 0, ai, bi;
@@ -479,11 +911,13 @@ __device__ __forceinline__ void warp_kernel(
     // loads for later: this run's C block, the next run's first indices,
     // the info of the run after it, and the run index after that
     T* const cblk_p = c + (int64_t)cur.cblk * mn;
-    S creg[CPL];
+    S creg[CREG];
+    if (CPRE) {
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int w = lane + 32 * i;
-      creg[i] = w < mn ? load_acc(cblk_p + w) : S(0);
+      for (int i = 0; i < CREG; ++i) {
+        const int w = lane + 32 * i;
+        creg[i] = w < mn ? load_acc(cblk_p + w) : S(0);
+      }
     }
     int nchunk = 0, nai, nbi;
     load_chunk(nx1, 0, nai, nbi);
@@ -502,11 +936,12 @@ __device__ __forceinline__ void warp_kernel(
       cp_async_wait<1>();  // every group but the newest: step sc has landed
       __syncwarp();
       const int bb = sc & 1;
-      const S* buf = wsm + bb * g.buf;
+      S* const buf = wsm + bb * g.buf;
       const int cnt = min(r, cur.len - s * r);
       for (int j = 0; j < cnt; ++j) {
         const int* o = offs + 2 * (bb * r + j);
-        acc.mma(buf + j * g.slot + o[0], buf + j * g.slot + g.a_area + o[1], g, n, k, lane);
+        acc.entry(buf + j * g.slot + o[0], buf + j * g.slot + g.a_area + o[1], g, m, n, k,
+                  lane, planes);
       }
       __syncwarp();  // the buffer is free for step sc + 2
     }
@@ -518,9 +953,18 @@ __device__ __forceinline__ void warp_kernel(
     __syncwarp();
     int rr = itn.r0, cc = itn.c0;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
+    for (int i = 0; i < Z * CPL; ++i) {
       const int w = lane + 32 * i;
-      if (w < mn) store_acc(cblk_p + w, creg[i] + alpha * cs[rr * g.sb + cc]);
+      if (w < mn) {
+        const S cv = CPRE ? creg[CPRE ? i : 0] : load_acc(cblk_p + w);
+        if (Z == 1) {
+          store_acc(cblk_p + w, cv + alpha * cs[rr * g.sb + cc]);
+        } else {  // the lane's part of element (rr, cc): real on even lanes
+          const S sr = cs[2 * (rr * g.sb + cc)], si = cs[2 * (rr * g.sb + cc) + 1];
+          store_acc(cblk_p + w, lane & 1 ? cv + (alpha * si + alpha_im * sr)
+                                         : cv + (alpha * sr - alpha_im * si));
+        }
+      }
       cc += itn.rem;
       rr += itn.q;
       if (cc >= n) {

@@ -2,14 +2,16 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 -m dbcsr_tpu_torch.perf.kernel_ab [--tiles 16,32,64,128] [variant ...]
+    python3 -m dbcsr_tpu_torch.perf.kernel_ab [--tiles 16,32,64,128] [--forms] [variant ...]
 
 Each variant is the committed ``csrc/`` with a few text substitutions
 (`VARIANTS`), built by nvcc into a temporary directory beside the
-committed sources ("base").  K1 is timed on every stack of the f64 north
+committed sources ("base").  Plans follow the untuned rules (an empty
+parameter directory).  K1 is timed on every stack of the f64 north
 star (10k^2, 23x23 blocks, occupancy 0.1) and K3 on every stack of the
 f32 one, each variant in turns, twice; a time is the sum over the stacks
-of the mean of 10 launches (CUDA events).  ``--tiles`` also times K1 with
+of the mean of 10 launches (CUDA events); ``--forms`` times K1's
+f64->f32, c8 and c4 forms on their north stars too.  ``--tiles`` also times K1 with
 the runs of each stack walked in square tiles of C blocks of each width
 (0: the stack's own order, row by row), after checking that the order
 leaves C bit for bit equal.  One JSON line per timing.
@@ -29,7 +31,7 @@ import tempfile
 import numpy as np
 import torch
 
-from dbcsr_tpu_torch.acc import build
+from dbcsr_tpu_torch.acc import build, params
 from dbcsr_tpu_torch.core.config import set_config
 from dbcsr_tpu_torch.mm.multiply import _build_spans, _candidates, _effective
 from dbcsr_tpu_torch.perf.driver import parse_perf_file, run_perf
@@ -38,8 +40,8 @@ NORTHSTAR = os.path.join(os.path.dirname(build.PKG_DIR), "tests", "inputs", "nor
 
 _STAGE = ("const int oa = stage_flat(slot, a + (int64_t)av * mk, mk, lane);\n"
           "      const int ob = stage_flat(slot + g.a_area, b + (int64_t)bv * kn, kn, lane);")
-_MMA = ("acc.mma(buf + j * g.slot + o[0], buf + j * g.slot + g.a_area + o[1], "
-        "g, n, k, lane);")
+_MMA = ("acc.entry(buf + j * g.slot + o[0], buf + j * g.slot + g.a_area + o[1], g, m, n, k,\n"
+        "                  lane, planes);")
 _CREG = "creg[i] = w < mn ? load_acc(cblk_p + w) : S(0);"
 _GRID_STRIDE = "    const int run = (blockIdx.x + i * gridDim.x) * nw + w;"
 _B_SCALAR = ("#pragma unroll\n"
@@ -77,10 +79,13 @@ VARIANTS = {
     # what bounds the kernels: no products, or no operand copies
     "no_products": [("smm_warp.cuh", _MMA, "(void)o;")],
     "no_copies": [("smm_warp.cuh", _STAGE, "const int oa = av & 1, ob = bv & 1;")],
+    # the same for every form: c8's 16-byte fragment loads need offset 0
+    "no_copies_aligned": [("smm_warp.cuh", _STAGE,
+                           "(void)av;\n      (void)bv;\n      const int oa = 0, ob = 0;")],
     # C read at the end of a run instead of into registers at its start
     "c_at_end": [("smm_warp.cuh", _CREG, "creg[i] = S(0);"),
-                 ("smm_warp.cuh", "store_acc(cblk_p + w, creg[i] + alpha",
-                  "store_acc(cblk_p + w, load_acc(cblk_p + w) + alpha")],
+                 ("smm_warp.cuh", "const S cv = CPRE ? creg[CPRE ? i : 0] : load_acc(cblk_p + w);",
+                  "const S cv = load_acc(cblk_p + w);")],
     # K1 blocks taking one contiguous share of the groups instead of grid-stride
     "k1_shares": [("smm_warp.cuh", _GRID_STRIDE,
                    "    const int share = ((nruns + nw - 1) / nw + gridDim.x - 1) / gridDim.x;\n"
@@ -89,8 +94,8 @@ VARIANTS = {
     # f32/bf16: B read in 8-byte pairs (the row's alignment is warp-uniform)
     "b_pairs": [("smm_warp.cuh", _B_SCALAR, _B_PAIRS)],
     # three K1 blocks an SM (at most 170 registers) instead of two
-    "k1_3_blocks": [("smm_stack.cu", "__launch_bounds__(W * 32, 1)",
-                     "__launch_bounds__(W * 32, MAXT < 4 ? 3 : 1)")],
+    "k1_3_blocks": [("smm_stack.cu", "__launch_bounds__(WN * 32, 1)",
+                     "__launch_bounds__(WN * 32, MAXT < 4 ? 3 : 1)")],
     # three or eight runs a K1 block
     "k1_w3": [("smm_stack.cu", "constexpr int W = 4;", "constexpr int W = 3;")],
     "k1_w8": [("smm_stack.cu", "constexpr int W = 4;", "constexpr int W = 8;")],
@@ -154,14 +159,16 @@ def time_ms(fn, reps: int = 10) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def launcher(lib: dict, sp, a, b, c, plan_arrays=None):
+def launcher(lib: dict, sp, a, b, c, plan_arrays=None, compute: int = 0):
     """A no-argument call of the span's kernel from ``lib`` on scratch C
     (K1 with ``plan_arrays`` = (a_idx, b_idx, run_ptr, run_c) overrides
-    the plan's runs); returns (call, scratch)."""
+    the plan's runs, ``compute`` picks a demoted form as
+    `stack_kernel.compute_code` numbers them); returns (call, scratch)."""
     ad, bd = a.bins[sp.abin].data, b.bins[sp.bbin].data
     scratch = c.bins[sp.cbin].data.clone()
     p, st = sp.plan, torch.cuda.current_stream().cuda_stream
-    dt = {torch.float64: 0, torch.float32: 1}[scratch.dtype]
+    dt = {torch.float64: 0, torch.float32: 1, torch.complex64: 3,
+          torch.complex128: 4}[scratch.dtype]
     if p.driver == "crosspack":
         f = lib["smm_crosspack.cu"].smm_crosspack_launch
         f.argtypes = [_I] + [_V] * 8 + [_I] * 6 + [ctypes.c_double, _V]
@@ -171,11 +178,11 @@ def launcher(lib: dict, sp, a, b, c, plan_arrays=None):
                 p.pack[1], sp.m, sp.n, sp.k, 1.0, st)
     else:
         f = lib["smm_stack.cu"].smm_stack_launch
-        f.argtypes = [_I] + [_V] * 7 + [_I] * 4 + [ctypes.c_double, _V]
+        f.argtypes = [_I, _I] + [_V] * 7 + [_I] * 4 + [ctypes.c_double] * 2 + [_V]
         ai, bi, rp, rc = plan_arrays or (p.a_idx, p.b_idx, p.run_ptr, p.run_c)
-        args = (dt, ad.data_ptr(), bd.data_ptr(), scratch.data_ptr(), ai.data_ptr(),
+        args = (dt, compute, ad.data_ptr(), bd.data_ptr(), scratch.data_ptr(), ai.data_ptr(),
                 bi.data_ptr(), rp.data_ptr(), rc.data_ptr(), rc.numel(), sp.m, sp.n, sp.k,
-                1.0, st)
+                1.0, 0.0, st)
 
     def call(keep=(scratch, plan_arrays)):  # the tensors behind the pointers
         err = f(*args)
@@ -208,6 +215,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="*", help=f"any of {', '.join(VARIANTS)}")
     ap.add_argument("--tiles", default="", help="tile widths for K1's work order, e.g. 16,64")
+    ap.add_argument("--forms", action="store_true",
+                    help="also K1's f64->f32, c8 and c4 forms on their north stars")
     args = ap.parse_args(argv)
     unknown = set(args.variants) - set(VARIANTS)
     if unknown:
@@ -216,17 +225,25 @@ def main(argv=None) -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     set_config(mm_driver="auto", validate_kernels=False)
+    # plan on the untuned rules, as the smoke's kernel phases do: the
+    # committed table sends f64 23^3 to K3
+    os.environ["DBCSR_TPU_TORCH_PARAMS_DIR"] = tempfile.mkdtemp(prefix="kernel_ab_params_")
+    params.invalidate()
     names = ["base", *args.variants]
     libs = {name: build_variant(VARIANTS.get(name, [])) for name in names}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    for data_type, what in ((3, "K1 f64 north star"), (1, "K3 f32 north star")):
+    cases = [(3, "K1 f64 north star", 0)]
+    if args.forms:
+        cases += [(3, "K1 f64->f32 north star", 1), (7, "K1 c8 north star", 0),
+                  (5, "K1 c4 north star", 0)]
+    for data_type, what, compute in cases + [(1, "K3 f32 north star", 0)]:
         a, b, c, spans = northstar_stacks(data_type)
         for name in names * 2:
-            calls = [launcher(libs[name], sp, a, b, c)[0] for sp in spans]
+            calls = [launcher(libs[name], sp, a, b, c, compute=compute)[0] for sp in spans]
             ms = sum(time_ms(call) for call in calls)
             print(json.dumps({"what": what, "variant": name, "ms": ms, "card": card}), flush=True)
-        if data_type == 3 and args.tiles:
+        if what == "K1 f64 north star" and args.tiles:
             widths = [0] + [int(w) for w in args.tiles.split(",")]
             for width in widths * 2:
                 ms = 0.0

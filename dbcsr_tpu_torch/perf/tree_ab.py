@@ -1,14 +1,20 @@
 """Time two checkouts of the repository in turns on one card.
 
 Each run is a fresh process in the checkout's root that imports that
-checkout's `chip_smoke.py`, builds its kernels (`phase_build`) and runs
-the phases named (``northstar``, ``models``, ``tensor``), each of which
-checks its own results and prints its JSON line.  The checkouts run in
+checkout's `chip_smoke.py`, points dispatch at an empty table directory
+and turns incremental reuse off (as the smoke's `main` does), builds its
+kernels (`phase_build`) and runs the phases named (``northstar``,
+``models``, ``tensor``, ``complex``, ``precision``), each of which
+checks its own results and prints its JSON line.  A phase that takes
+native K1's north-star stack time as an argument (``complex`` and
+``precision`` where they do) gets it from a ``northstar_stacks`` run
+first.  The checkouts run in
 the order given, so ``parent change change parent`` puts each pair on
 the same host in turns.  Every line goes to ``--out``; the summary
 printed per run is the north star's seconds per multiply (repeats 2-3),
-the model loops' walls under the planner (sign with the index engine)
-and the full-width contraction's wall.
+the model loops' walls under the planner (sign with the index engine),
+the full-width contraction's wall and every ``*_stacks`` line's kernel
+milliseconds.
 
     python3 -m dbcsr_tpu_torch.perf.tree_ab _archive/parent . . _archive/parent \\
         --phases northstar,models,tensor --out chiprun_out/tree_ab.jsonl
@@ -23,13 +29,22 @@ import subprocess
 import sys
 
 _RUN = """
-import sys
+import inspect, sys, tempfile
 sys.path.insert(0, ".")
 import chip_smoke as s
-s.set_config(mm_driver="auto", validate_kernels=True)
+s.set_config(mm_driver="auto", validate_kernels=True, incremental="off")
+s._use_table(tempfile.mkdtemp())
 s.phase_build()
+native = None
 for phase in {phases!r}:
-    getattr(s, "phase_" + phase)()
+    fn = getattr(s, "phase_" + phase)
+    if inspect.signature(fn).parameters:
+        if native is None:
+            ns = s.phase_northstar()
+            native = s._stacks_phase("northstar_stacks", ns["a"], ns["b"], ns["c"])["ms"][0]
+        fn(native)
+    else:
+        fn()
 """
 
 
@@ -46,6 +61,8 @@ def _summary(lines: list) -> dict:
                 out[f"{name}_s"] = [r["wall_s"] for r in runs]
         elif phase == "tensor":
             out["contract_s"] = ln["auto"]["wall_s"]
+        elif phase and phase.endswith("_stacks"):
+            out[phase + "_ms"] = ln["ms"]
     return out
 
 
