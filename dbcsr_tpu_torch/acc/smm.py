@@ -106,7 +106,7 @@ from dbcsr_tpu_torch.acc.crosspack import choose_pack, prepare_crosspack, runs, 
 from dbcsr_tpu_torch.core.config import get_config
 from dbcsr_tpu_torch.core.kinds import name_of
 from dbcsr_tpu_torch.core.matrix import to_host
-from dbcsr_tpu_torch.obs import events, flight, metrics
+from dbcsr_tpu_torch.obs import events, flight, metrics, tracer
 from dbcsr_tpu_torch.obs.costmodel import form_tolerance
 from dbcsr_tpu_torch.resilience import breaker, faults
 
@@ -367,7 +367,10 @@ def _prepare_stack_impl(c_data, a_data, b_data, a_idx, b_idx, c_idx,
         run_ptr, run_c = runs(c_idx)
     elif prec is not None:
         # a demoted plan: K1's demoted form (the plain version where the
-        # config asks for "torch"), never crosspack
+        # config asks for "torch"), never crosspack; the span records the
+        # precision the stack computes in, not the one requested
+        # (dbcsr_tpu/acc/smm.py:617)
+        tracer.annotate(precision=f"{prec[0]}{'+comp' if prec[1] else ''}")
         plan.driver = "torch" if driver == "torch" else "kernel"
         plan.precision = tuple(prec)
         run_ptr, run_c = runs(c_idx)

@@ -7,7 +7,8 @@ Computes, for each run r of a stack sorted by destination block,
 
 in place.  On a CUDA tensor `smm_stack` launches the hand-written kernel
 of ``csrc/smm_stack.cu``, its warp path or its tiled path by shape
-(`kernel_path`; it replaces the Pallas kernel
+(`kernel_path`; the tiled path's geometry is `tiled_geometry`, read
+from the kernel library; it replaces the Pallas kernel
 `dbcsr_tpu/acc/pallas_smm.py:_smm_kernel`, base and kmerge variants); on
 a CPU tensor it runs `smm_stack_plain`, the same function as
 gather -> `torch.bmm` -> `index_add_` in stack order.  The wrapper never
@@ -29,10 +30,11 @@ one C bin (``csrc/smm_stack.cu``, `smm_superstack_launch`; the JAX
 package's fused chain of K1 launches, `dbcsr_tpu/acc/smm.py:_fused_fn`):
 `superstack_table` merges the spans' runs into one run per C block, a
 list of segments in span order, and the launch walks them so that the
-result is bit for bit the spans' launches one after the other.  Its
-plain version `smm_superstack_plain` is exactly that sequence of
-`smm_stack_plain` calls.  Native real forms only (float64, float32,
-bfloat16).
+result is bit for bit the spans' launches one after the other: on both
+paths the per-span kernel's own body with a segment policy, C updated
+at each segment's end as each span's launch updates it.  Its plain version
+`smm_superstack_plain` is exactly that sequence of `smm_stack_plain`
+calls.  Native real forms only (float64, float32, bfloat16).
 """
 
 from __future__ import annotations
@@ -112,6 +114,12 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.smm_superstack_launch.restype = ctypes.c_int
         lib.smm_superstack_max_spans.argtypes = []
         lib.smm_superstack_max_spans.restype = ctypes.c_int
+        ints = ctypes.POINTER(ctypes.c_int)
+        lib.smm_superstack_attrs.argtypes = [ctypes.c_int, ctypes.c_int, ints, ctypes.c_int,
+                                             ctypes.c_int, ints]
+        lib.smm_superstack_attrs.restype = ctypes.c_int
+        lib.smm_stack_tiled_geom.argtypes = [ctypes.c_int] * 4 + [ints]
+        lib.smm_stack_tiled_geom.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -138,10 +146,21 @@ _FORM_UNITS = {("float64", None): "dmma", ("float32", None): "fp32_fma",
 
 
 def form_units(dtype: torch.dtype, precision=None) -> str:
-    """The units a form's products run on, on the warp path (the tiled
-    path runs every form on the CUDA cores)."""
+    """The units a form's products run on, on the warp path (on the tiled
+    path the native forms run as here, f64 on DMMA and f32/bf16 on f32
+    FMAs, and the complex and demoted forms on the CUDA cores)."""
     spec = None if precision is None else tuple(precision)
     return _FORM_UNITS[(str(dtype).replace("torch.", ""), spec)]
+
+
+_ATTRS = ("registers", "local_bytes", "shared_bytes", "warps", "blocks_per_sm")
+
+
+def _attrs_or_raise(lib, err: int, out, what: str) -> dict:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}: "
+                           f"{lib.smm_stack_error_string(err).decode()}")
+    return dict(zip(_ATTRS, out))
 
 
 def kernel_attrs(m: int, n: int, k: int, dtype: torch.dtype = torch.float64,
@@ -152,12 +171,41 @@ def kernel_attrs(m: int, n: int, k: int, dtype: torch.dtype = torch.float64,
     lib = _kernel_lib()
     out = (ctypes.c_int * 5)()
     err = lib.smm_stack_attrs(_DTYPE_CODE[dtype], compute_code(dtype, precision), m, n, k, out)
+    return _attrs_or_raise(lib, err, out, f"smm_stack_attrs failed for "
+                                          f"{form_name(dtype, precision)} {(m, n, k)}")
+
+
+def superstack_attrs(m: int, n: int, ks, dtype: torch.dtype = torch.float64) -> dict:
+    """The compiled instance a fused launch of an (m, n) bin whose spans
+    have the depths ``ks`` runs, as `kernel_attrs` reports it."""
+    lib = _kernel_lib()
+    out = (ctypes.c_int * 5)()
+    span_k = (ctypes.c_int * len(ks))(*ks)
+    err = lib.smm_superstack_attrs(_DTYPE_CODE[dtype], len(ks), span_k, m, n, out)
+    return _attrs_or_raise(lib, err, out, f"smm_superstack_attrs failed for {dtype} "
+                                          f"{(m, n)} k={list(ks)}")
+
+
+# ------------------------------------------------------------ tiled path
+_TILED_KEYS = ("wr", "wc", "rmt", "cnt", "nrc", "ncc", "flat", "ks", "lda", "ldb", "a_area",
+               "smem")
+
+
+def tiled_geometry(m: int, n: int, kmax: int, dtype: torch.dtype = torch.float64) -> dict:
+    """The tiled path's geometry of a launch (native forms) of (m, n)
+    blocks whose entries reach depth ``kmax``, as the kernel library's
+    `tiled::geom` computes it (csrc/smm_stack.cu): the warps' arrangement
+    ``wr`` x ``wc``, a chunk's ``rmt`` row and ``cnt`` column tiles of
+    8x8, ``nrc`` x ``ncc`` chunks a C block, whole entries staged
+    ``flat`` or k slices of ``ks`` (row strides ``lda``, ``ldb``), the A
+    area of a buffer (elements) and the shared bytes of the two buffers."""
+    lib = _kernel_lib()
+    out = (ctypes.c_int * len(_TILED_KEYS))()
+    err = lib.smm_stack_tiled_geom(_DTYPE_CODE[dtype], m, n, kmax, out)
     if err != 0:
-        raise RuntimeError(f"smm_stack_attrs failed for {form_name(dtype, precision)} "
-                           f"{(m, n, k)}: CUDA error {err}: "
-                           f"{lib.smm_stack_error_string(err).decode()}")
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "warps", "blocks_per_sm"),
-                    out))
+        raise RuntimeError(f"smm_stack_tiled_geom failed for {dtype} {(m, n, kmax)}: "
+                           f"CUDA error {err}")
+    return dict(zip(_TILED_KEYS, out))
 
 
 def compute_code(dtype: torch.dtype, precision) -> int:

@@ -39,6 +39,11 @@ KNOBS = {
         "owner": "acc/smm.py",
         "doc": "=1 at import: a finite-output check after every stack launch.",
     },
+    "DBCSR_TPU_TORCH_CHECKSUM_RETRY": {
+        "owner": "perf/driver.py",
+        "doc": "=0: run_perf raises on a checksum mismatch at once, with no repeat "
+               "on the safe driver (chip_smoke.py's gates).",
+    },
     "DBCSR_TPU_TORCH_CP_H": {
         "owner": "obs/changepoint.py",
         "doc": "CUSUM decision threshold in baseline sigmas (default 8).",

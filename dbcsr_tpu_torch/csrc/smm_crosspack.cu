@@ -194,8 +194,9 @@ smm_crosspack_warp_kernel(const T* __restrict__ a, const T* __restrict__ b,
                           const int* __restrict__ run_c,
                           const int* __restrict__ pack_runs, int npacks, int m,
                           int n, int k, int r, typename AccOf<T>::type alpha) {
-  smm::warp_kernel<T, MAXT>(a, b, c, a_idx, b_idx, run_ptr, run_c, m, n, k, r,
-                            alpha, smm::PackRuns{pack_runs, npacks});
+  smm::warp_kernel<T, MAXT, smm::PackRuns, smm::StackRuns>(
+      smm::StackRuns{a, b, a_idx, b_idx, run_ptr, run_c, 0, k}, c, m, n, k, r, alpha,
+      smm::PackRuns{pack_runs, npacks});
 }
 
 struct Shape {

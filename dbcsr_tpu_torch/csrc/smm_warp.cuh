@@ -1,8 +1,10 @@
 // The warp path shared by the stack kernel (smm_stack.cu, K1) and the
 // crosspack kernel (smm_crosspack.cu, K3 and K4): one warp computes one
 // run, C[run_c] = C[run_c] + alpha * sum_{e in run} A[a_idx[e]] @ B[b_idx[e]],
-// for blocks with m, n, k <= WARP_MAX_DIM.  The two kernels differ only
-// in which runs the warps of a block take (`ConsecutiveRuns`, `PackRuns`).
+// for blocks with m, n, k <= WARP_MAX_DIM.  The kernels differ only in
+// which runs the warps of a block take (`ConsecutiveRuns`, `PackRuns`)
+// and what a run is made of (`StackRuns`: one stack's; K1's fused launch,
+// smm_stack.cu's SegmentRuns: a C block's segments, one a span).
 //
 // Per warp, in shared memory (the staged type S is double for f64 and
 // float for f32 and bf16): two step buffers of r entry slots, each slot
@@ -76,6 +78,20 @@ __device__ __forceinline__ void store_acc(double* p, double v) { *p = v; }
 __device__ __forceinline__ void store_acc(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_acc(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+// c + alpha * x, one rounding: every C update of K1 (per span and fused)
+// takes this form, so that a fused bin is bit for bit its spans' launches
+__device__ __forceinline__ double fmadd(double alpha, double x, double c) {
+  return fma(alpha, x, c);
+}
+__device__ __forceinline__ float fmadd(float alpha, float x, float c) {
+  return fmaf(alpha, x, c);
+}
+// v rounded to the storage type T and read back, as a store and a load
+__device__ __forceinline__ float round_as(const float*, float v) { return v; }
+__device__ __forceinline__ double round_as(const double*, double v) { return v; }
+__device__ __forceinline__ float round_as(const __nv_bfloat16*, float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
 // ---------------------------------------------------------------- layout
@@ -246,6 +262,10 @@ template <int MAXT> struct Tile<double, MAXT> {
       for (int j = 0; j < MAXT; ++j) v[i][j][0] = v[i][j][1] = 0.0;
   }
 
+  // FULL: the block fills the register tile (mt = nt = MAXT), so no
+  // product needs a predicate (the fused launch takes it; the sums are
+  // the same either way)
+  template <bool FULL = false>
   __device__ __forceinline__ void mma(const double* as, const double* bs,
                                       const WarpGeom& g, int n, int k, int lane) {
     const int gr = lane >> 2, t = lane & 3;
@@ -257,14 +277,14 @@ template <int MAXT> struct Tile<double, MAXT> {
       const bool kin = kk + t < k;
       double af[MAXT], bf[MAXT];
 #pragma unroll
-      for (int i = 0; i < MAXT; ++i) af[i] = i < g.mt && kin ? ap[8 * i * k + kk] : 0.0;
+      for (int i = 0; i < MAXT; ++i) af[i] = (FULL || i < g.mt) && kin ? ap[8 * i * k + kk] : 0.0;
 #pragma unroll
-      for (int j = 0; j < MAXT; ++j) bf[j] = j < g.nt && kin ? bp[kk * n + 8 * j] : 0.0;
+      for (int j = 0; j < MAXT; ++j) bf[j] = (FULL || j < g.nt) && kin ? bp[kk * n + 8 * j] : 0.0;
 #pragma unroll
       for (int i = 0; i < MAXT; ++i)
 #pragma unroll
         for (int j = 0; j < MAXT; ++j)
-          if (i < g.mt && j < g.nt) dmma(v[i][j], af[i], bf[j]);
+          if (FULL || (i < g.mt && j < g.nt)) dmma(v[i][j], af[i], bf[j]);
     }
   }
 
@@ -321,6 +341,7 @@ template <int MAXT> struct Tile<float, MAXT> {
       for (int j = 0; j < 2 * MAXT; ++j) v[i][j] = 0.0f;
   }
 
+  template <bool FULL = false>  // as Tile<double>'s
   __device__ __forceinline__ void mma(const float* as, const float* bs,
                                       const WarpGeom& g, int n, int k, int lane) {
     const int tn = 2 * g.nt;
@@ -330,14 +351,14 @@ template <int MAXT> struct Tile<float, MAXT> {
     for (int kk = 0; kk < k; ++kk) {
       float af[MAXT], bf[2 * MAXT];
 #pragma unroll
-      for (int i = 0; i < MAXT; ++i) af[i] = i < g.mt ? ap[8 * i * k + kk] : 0.0f;
+      for (int i = 0; i < MAXT; ++i) af[i] = FULL || i < g.mt ? ap[8 * i * k + kk] : 0.0f;
 #pragma unroll
-      for (int j = 0; j < 2 * MAXT; ++j) bf[j] = j < tn ? bp[kk * n + j] : 0.0f;
+      for (int j = 0; j < 2 * MAXT; ++j) bf[j] = FULL || j < tn ? bp[kk * n + j] : 0.0f;
 #pragma unroll
       for (int i = 0; i < MAXT; ++i)
 #pragma unroll
         for (int j = 0; j < 2 * MAXT; ++j)
-          if (i < g.mt && j < tn) v[i][j] = fmaf(af[i], bf[j], v[i][j]);
+          if (FULL || (i < g.mt && j < tn)) v[i][j] = fmaf(af[i], bf[j], v[i][j]);
     }
   }
 
@@ -820,63 +841,131 @@ struct PackRuns {
   }
 };
 
-struct RunInfo {
-  int e0, len, cblk;  // len 0: no run
+// What a run is made of.  A segment: the entries e0..e1-1 of span sp's
+// stack.  A run is a list of segments in order; the runs give each span's
+// operand bins, operand indices and k.  SEGMENTS false: one segment a run,
+// of one span (every stack launch); true: the merged runs of a fused C bin
+// (smm_stack.cu's SegmentRuns).
+struct Seg {
+  int sp, e0, e1;
+};
+
+// the runs of one stack: one segment a run, one span
+struct StackRuns {
+  static constexpr bool SEGMENTS = false;
+  const void *a_bin, *b_bin;
+  const int *a_idx, *b_idx, *run_ptr, *run_c;
+  int nruns, kk;
+  __device__ __forceinline__ int cblk(int r) const { return __ldg(run_c + r); }
+  __device__ __forceinline__ int segs_from(int r) const { return r; }
+  __device__ __forceinline__ int segs_to(int r) const { return r + 1; }
+  __device__ __forceinline__ Seg seg(int s) const {
+    return {0, __ldg(run_ptr + s), __ldg(run_ptr + s + 1)};
+  }
+  __device__ __forceinline__ const void* a(int) const { return a_bin; }
+  __device__ __forceinline__ const void* b(int) const { return b_bin; }
+  __device__ __forceinline__ const int* ai(int) const { return a_idx; }
+  __device__ __forceinline__ const int* bi(int) const { return b_idx; }
+  __device__ __forceinline__ int k(int) const { return kk; }
 };
 
 // The body of a warp-path kernel: blockDim.x/32 warps, each walking the
 // runs `run_of` gives it, r entries per step.  The walk is one pipeline
-// across runs: while a run's last step multiplies, the next run's first
-// step is in flight, and the loads each run needs first are issued a run
-// or two ahead (its run index, its run_ptr/run_c, its first 32 entry
-// indices, its C block into registers), so that no load waits at the
-// start of a run.
+// across segments and runs: while a segment's last step multiplies, the
+// next segment's first step is in flight, and the loads each segment
+// needs first are issued one to three segments ahead (its run index, its
+// segment and C block, its first 32 entry indices, its run's C block
+// into registers), so that no load waits at the start of a segment.
+// Each segment sums in the register tile, and at its end the C block
+// becomes C + alpha * sum, rounded to T.  A fused bin's run (segments,
+// one a span) keeps that C in registers until the run ends (f32 and bf16
+// sums), or stores it and reads it again at the next segment's end from
+// L2, where it was prefetched two segments ahead (f64: its registers are
+// worth more as blocks in flight).  Either way each segment sums and
+// rounds exactly as its span's launch does at that run's end, bit for
+// bit.  With segments, k is the largest of the spans' depths (the slots'
+// size) and a block that fills the register tile multiplies without a
+// predicate a product (the sums are the same either way).
 // Z = 2: complex data, T the real type, each element its two parts;
 // alpha_im is then alpha's imaginary part.
-template <typename T, int MAXT, typename RunOf,
+template <typename T, int MAXT, typename RunOf, typename Runs,
           typename TileT = Tile<typename AccOf<T>::type, MAXT>, int Z = 1>
 __device__ __forceinline__ void warp_kernel(
-    const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
-    const int* __restrict__ a_idx, const int* __restrict__ b_idx,
-    const int* __restrict__ run_ptr, const int* __restrict__ run_c,
-    int m, int n, int k, int r, typename AccOf<T>::type alpha,
-    RunOf run_of, typename AccOf<T>::type alpha_im = 0) {
+    const Runs& runs, T* __restrict__ c, int m, int n, int k, int r,
+    typename AccOf<T>::type alpha, RunOf run_of, typename AccOf<T>::type alpha_im = 0) {
   using S = typename AccOf<T>::type;
+  constexpr bool SEG = Runs::SEGMENTS;
+  static_assert(!SEG || Z == 1, "segments take real data");
   constexpr int CPL = 2 * MAXT * MAXT;  // C elements of a lane: (8 MAXT)^2 / 32
   // the C block is read into registers as its run starts, unless the
   // register tile leaves no room for it (PREFETCH_C false: c8, and the
-  // 32x32 class of c4 and of f64's demoted forms); then it is read at
-  // the run's end
-  constexpr bool CPRE = TileT::PREFETCH_C;
+  // 32x32 class of c4 and of f64's demoted forms) or, with segments,
+  // its sums are f64 (measured faster with C from L2 and more blocks an
+  // SM); then it is read at each segment's end
+  constexpr bool CPRE = TileT::PREFETCH_C && (!SEG || sizeof(S) == 4);
   constexpr int CREG = CPRE ? Z * CPL : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* sm = reinterpret_cast<S*>(smem_raw);
   const WarpGeom g = warp_geom(m, n, k, r, sizeof(S), Z, TileT::plane_bytes(m, n, k));
+  // a segment's geometry at its span's depth (the slots are g's)
+  auto geom_at = [&](int kk) { return SEG ? warp_geom(m, n, kk, r, sizeof(S)) : g; };
   const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const FlatIter itn = flat_iter(n, Z == 1 ? lane : lane >> 1, 32 / Z);
-  const int mk = Z * m * k, kn = Z * k * n, mn = Z * m * n;  // in reals
+  const int mn = Z * m * n;  // in reals
   S* const wsm = sm + warp * g.per_warp;
   int* const offs = reinterpret_cast<int*>(wsm + g.offs);
   unsigned char* const planes = reinterpret_cast<unsigned char*>(wsm + g.planes);
-  auto run_at = [&](int i) { return run_of(i, warp, nw); };
-  auto info_of = [&](int run) {
-    RunInfo x{0, 0, 0};
-    if (run >= 0) {
-      x.e0 = __ldg(run_ptr + run);
-      x.len = __ldg(run_ptr + run + 1) - x.e0;
-      x.cblk = __ldg(run_c + run);
+
+  // where the walk stands: the warp's i-th run, its segment s of s0..s1-1
+  struct Pos {
+    int i, run, s0, s, s1;
+  };
+  auto pos_at = [&](int i) {
+    Pos p{i, run_of(i, warp, nw), 0, 0, 0};
+    if (p.run >= 0) {
+      p.s0 = p.s = runs.segs_from(p.run);
+      p.s1 = runs.segs_to(p.run);
+    }
+    return p;
+  };
+  auto next_pos = [&](const Pos& p) {
+    if (SEG && p.run >= 0 && p.s + 1 < p.s1) return Pos{p.i, p.run, p.s0, p.s + 1, p.s1};
+    return pos_at(p.i + 1);
+  };
+  // a segment: its entries, C block and span; whether it opens and
+  // closes its run (len 0: none)
+  struct Unit {
+    int e0, len, cblk, sp;
+    bool first, last;
+  };
+  auto unit_at = [&](const Pos& p) {
+    Unit x{0, 0, 0, 0, true, true};
+    if (p.run >= 0) {
+      const Seg sg = runs.seg(p.s);
+      x.e0 = sg.e0;
+      x.len = sg.e1 - sg.e0;
+      x.sp = sg.sp;
+      x.cblk = runs.cblk(p.run);
+      if (SEG) {
+        x.first = p.s == p.s0;
+        x.last = p.s + 1 == p.s1;
+      }
     }
     return x;
   };
-  // entry indices of run x, entries 32*ch .. 32*ch+31, one per lane
-  auto load_chunk = [&](const RunInfo& x, int ch, int& ai, int& bi) {
+  // entry indices of segment x, entries 32*ch .. 32*ch+31, one per lane
+  auto load_chunk = [&](const Unit& x, int ch, int& ai, int& bi) {
     const int e = (ch << 5) + lane;
-    ai = e < x.len ? __ldg(a_idx + x.e0 + e) : 0;
-    bi = e < x.len ? __ldg(b_idx + x.e0 + e) : 0;
+    ai = e < x.len ? __ldg(runs.ai(x.sp) + x.e0 + e) : 0;
+    bi = e < x.len ? __ldg(runs.bi(x.sp) + x.e0 + e) : 0;
   };
-  // stage step s of run x into step buffer buf; (chunk, ai, bi) hold the
-  // run's current 32 entry indices
-  auto issue = [&](const RunInfo& x, int s, int buf, int& chunk, int& ai, int& bi) {
+  // stage step s of segment x into step buffer buf; (chunk, ai, bi) hold
+  // the segment's current 32 entry indices
+  auto issue = [&](const Unit& x, int s, int buf, int& chunk, int& ai, int& bi) {
+    const int kx = SEG ? runs.k(x.sp) : k;
+    const int mk = Z * m * kx, kn = Z * kx * n, a_area = geom_at(kx).a_area;
+    const T* const a = static_cast<const T*>(runs.a(x.sp));
+    const T* const b = static_cast<const T*>(runs.b(x.sp));
     const int j0 = s * r, j1 = min(x.len, j0 + r);
     S* base = wsm + buf * g.buf;
     for (int j = j0; j < j1; ++j) {
@@ -888,7 +977,7 @@ __device__ __forceinline__ void warp_kernel(
       const int bv = __shfl_sync(0xffffffffu, bi, j & 31);
       S* slot = base + (j - j0) * g.slot;
       const int oa = stage_flat(slot, a + (int64_t)av * mk, mk, lane);
-      const int ob = stage_flat(slot + g.a_area, b + (int64_t)bv * kn, kn, lane);
+      const int ob = stage_flat(slot + a_area, b + (int64_t)bv * kn, kn, lane);
       if (lane == 0) {
         offs[2 * (buf * r + j - j0)] = oa;
         offs[2 * (buf * r + j - j0) + 1] = ob;
@@ -896,33 +985,47 @@ __device__ __forceinline__ void warp_kernel(
     }
   };
 
-  int nrun = 0;  // cur is the warp's nrun-th run
-  RunInfo cur = info_of(run_at(0));
+  Pos p = pos_at(0);
+  Unit cur = unit_at(p);
   if (cur.len <= 0) return;
   TileT::init(planes, m, n, k, lane);
-  RunInfo nx1 = info_of(run_at(1));
-  int r2 = run_at(2);
-  int chunk = 0, ai, bi;
+  p = next_pos(p);
+  Unit nx1 = unit_at(p);
+  p = next_pos(p);
+  Unit nx2 = unit_at(p);
+  p = next_pos(p);  // the segment after nx2
+  int chunk = 0, ai, bi, nchunk = 0, nai, nbi;
   load_chunk(cur, 0, ai, bi);
+  load_chunk(nx1, 0, nai, nbi);
   int sc = 0;  // steps multiplied so far: step sc is in buffer sc & 1
   issue(cur, 0, 0, chunk, ai, bi);
   cp_async_commit();
+  S creg[CREG];
   while (true) {
-    // loads for later: this run's C block, the next run's first indices,
-    // the info of the run after it, and the run index after that
+    // loads for later: this run's C block, the first indices of the
+    // segment after next, the one after that, and its position's; with
+    // segments (a fused bin's runs hold one or two entries) the C block
+    // of the segment after next into L2 as well
     T* const cblk_p = c + (int64_t)cur.cblk * mn;
-    S creg[CREG];
-    if (CPRE) {
+    if (CPRE && cur.first) {
 #pragma unroll
       for (int i = 0; i < CREG; ++i) {
         const int w = lane + 32 * i;
         creg[i] = w < mn ? load_acc(cblk_p + w) : S(0);
       }
     }
-    int nchunk = 0, nai, nbi;
-    load_chunk(nx1, 0, nai, nbi);
-    const RunInfo nx2 = info_of(r2);
-    const int r3 = run_at(nrun + 3);
+    int n2ai, n2bi;
+    load_chunk(nx2, 0, n2ai, n2bi);
+    if (SEG && nx2.len > 0 && nx2.first) {
+      const char* const c0 = reinterpret_cast<const char*>(c + (int64_t)nx2.cblk * mn);
+      for (int off = 128 * lane - (int)(reinterpret_cast<uintptr_t>(c0) & 127);
+           off < mn * (int)sizeof(T); off += 32 * 128)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(c0 + off));
+    }
+    const Unit nx3 = unit_at(p);
+    const Pos p4 = next_pos(p);
+    const int ku = SEG ? runs.k(cur.sp) : k;
+    const WarpGeom gu = geom_at(ku);
 
     TileT acc;
     acc.zero();
@@ -940,16 +1043,25 @@ __device__ __forceinline__ void warp_kernel(
       const int cnt = min(r, cur.len - s * r);
       for (int j = 0; j < cnt; ++j) {
         const int* o = offs + 2 * (bb * r + j);
-        acc.entry(buf + j * g.slot + o[0], buf + j * g.slot + g.a_area + o[1], g, m, n, k,
-                  lane, planes);
+        S* const as = buf + j * g.slot + o[0];
+        S* const bs = buf + j * g.slot + gu.a_area + o[1];
+        if constexpr (SEG) {
+          if (gu.mt == MAXT && gu.nt == MAXT)
+            acc.template mma<true>(as, bs, gu, n, ku, lane);
+          else
+            acc.mma(as, bs, gu, n, ku, lane);
+        } else {
+          acc.entry(as, bs, gu, m, n, ku, lane, planes);
+        }
       }
       __syncwarp();  // the buffer is free for step sc + 2
     }
 
     // C = C + alpha * sum: the sum through shared memory (the buffer of
-    // the step just multiplied), then coalesced
+    // the step just multiplied), then coalesced, or left in registers
+    // where the run goes on
     S* const cs = wsm + ((sc + 1) & 1) * g.buf;
-    acc.store(cs, g, m, n, lane);
+    acc.store(cs, gu, m, n, lane);
     __syncwarp();
     int rr = itn.r0, cc = itn.c0;
 #pragma unroll
@@ -957,8 +1069,12 @@ __device__ __forceinline__ void warp_kernel(
       const int w = lane + 32 * i;
       if (w < mn) {
         const S cv = CPRE ? creg[CPRE ? i : 0] : load_acc(cblk_p + w);
-        if (Z == 1) {
-          store_acc(cblk_p + w, cv + alpha * cs[rr * g.sb + cc]);
+        if constexpr (Z == 1) {
+          const S cn = fmadd(alpha, cs[rr * g.sb + cc], cv);
+          if (CPRE && !cur.last)  // the run goes on: C, as stored, stays
+            creg[CPRE ? i : 0] = round_as(cblk_p, cn);
+          else
+            store_acc(cblk_p + w, cn);
         } else {  // the lane's part of element (rr, cc): real on even lanes
           const S sr = cs[2 * (rr * g.sb + cc)], si = cs[2 * (rr * g.sb + cc) + 1];
           store_acc(cblk_p + w, lane & 1 ? cv + (alpha * si + alpha_im * sr)
@@ -972,16 +1088,19 @@ __device__ __forceinline__ void warp_kernel(
         ++rr;
       }
     }
-    __syncwarp();  // the buffer is free for the next run's second step
+    __syncwarp();  // the buffer is free for the next segment's second step
 
     if (nx1.len <= 0) break;
     cur = nx1;
     nx1 = nx2;
-    r2 = r3;
+    nx2 = nx3;
+    p = p4;
     chunk = nchunk;
     ai = nai;
     bi = nbi;
-    ++nrun;
+    nchunk = 0;
+    nai = n2ai;
+    nbi = n2bi;
   }
   cp_async_wait<0>();
 }

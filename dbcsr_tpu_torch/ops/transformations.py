@@ -158,7 +158,7 @@ def redistribute(matrix: BlockSparseMatrix, dist: Distribution,
     """A copy of ``matrix`` under the distribution ``dist`` (ref
     `dbcsr_redistribute`, `dbcsr_transformations.F:1951`).  On one
     device every block stays where it is: the copy carries ``dist`` for
-    the distributed engine, which the port does not have yet."""
+    the distributed engine (`parallel/`), which places blocks by it."""
     if dist.nblkrows != matrix.nblkrows or dist.nblkcols != matrix.nblkcols:
         raise ValueError("distribution blocking mismatch")
     out = matrix.copy(name)

@@ -100,6 +100,32 @@ def _rebind_obs() -> None:
         _trace.rebind(idx)
 
 
+def _trace_clock_align() -> None:
+    """World-join trace bookkeeping (`dbcsr_tpu/parallel/multihost.py:57-93`):
+    a ``clock_align`` instant published from behind a world barrier, so
+    that every rank's trace shard records the same moment, the anchor
+    `tools/trace_merge.py` puts the ranks' clocks on one timeline by.
+    Nothing (and no barrier) when tracing is off: turn
+    ``DBCSR_TPU_TORCH_TRACE`` on for every rank or for none.  The barrier
+    is the gloo world's own (the JAX package's coordination service)."""
+    from dbcsr_tpu_torch.obs import tracer as _trace
+
+    if not _trace.active():
+        return
+    barrier = "none"
+    try:
+        _dist().barrier()
+        barrier = "gloo"
+    except Exception:  # noqa: BLE001 -- best effort: t_unix still aligns coarsely
+        pass
+    _events.publish("clock_align", {
+        "barrier": barrier,
+        "t_unix": time.time(),
+        "process": process_id(),
+        "nproc": process_count(),
+    })
+
+
 def init_multihost(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None,
@@ -147,6 +173,7 @@ def init_multihost(coordinator_address: Optional[str] = None,
         _note_degraded_to_serial(exc, method, timeout_s)
         return False
     _rebind_obs()
+    _trace_clock_align()
     return True
 
 

@@ -29,6 +29,7 @@ Usage:  python -m dbcsr_tpu_torch.perf.driver tests/inputs/test_H2O.perf [cpu]
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import time
 from typing import List, Optional, Tuple
@@ -179,7 +180,9 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
              n_images: Optional[int] = None) -> dict:
     """Run the configured multiply ``nrep`` times; returns a result dict
     and raises `PerfChecksumError` when the input's check fails (ref
-    `perf_multiply`, `dbcsr_performance_multiply.F:452-515`).  ``grid``
+    `perf_multiply`, `dbcsr_performance_multiply.F:452-515`) and one
+    repeat on the safe driver does not pass it (`_checksum_retry_safe`;
+    with ``DBCSR_TPU_TORCH_CHECKSUM_RETRY=0``, at once).  ``grid``
     (a `parallel.mesh.Grid`), ``n_images`` > 1 or npcols > 1 in the input
     runs the product on a process grid; ``grid`` overrides the rest
     (the multi-process driver passes the world's grid)."""
@@ -217,24 +220,30 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
     # the grid engine takes plain operands: op(A), op(B) resolved once
     a_op, b_op = ((_effective(a, cfg.transa), _effective(b, cfg.transb)) if grid is not None
                   else (a, b))
+
+    def _run_once():
+        """One repeat on a fresh copy of C: (C, flops, seconds)."""
+        c_run = c.copy()
+        _sync(dev)
+        t0 = time.perf_counter()
+        if grid is not None:
+            from dbcsr_tpu_torch.parallel.sparse_dist import sparse_multiply_distributed
+
+            c_run = sparse_multiply_distributed(
+                cfg.alpha, a_op, b_op, cfg.beta, c_run, grid,
+                retain_sparsity=cfg.retain_sparsity, element_limits=element_limits)
+            flops = c_run._last_flops
+        else:
+            flops = multiply(cfg.transa, cfg.transb, cfg.alpha, a, b, cfg.beta, c_run,
+                             retain_sparsity=cfg.retain_sparsity,
+                             element_limits=element_limits)
+        _sync(dev)
+        return c_run, flops, time.perf_counter() - t0
+
     try:
         for _ in range(cfg.nrep):
-            c_run = c.copy()
-            _sync(dev)
-            t0 = time.perf_counter()
-            if grid is not None:
-                from dbcsr_tpu_torch.parallel.sparse_dist import sparse_multiply_distributed
-
-                c_run = sparse_multiply_distributed(
-                    cfg.alpha, a_op, b_op, cfg.beta, c_run, grid,
-                    retain_sparsity=cfg.retain_sparsity, element_limits=element_limits)
-                flops = c_run._last_flops
-            else:
-                flops = multiply(cfg.transa, cfg.transb, cfg.alpha, a, b, cfg.beta, c_run,
-                                 retain_sparsity=cfg.retain_sparsity,
-                                 element_limits=element_limits)
-            _sync(dev)
-            times.append(time.perf_counter() - t0)
+            c_run, flops, dt = _run_once()
+            times.append(dt)
             flops_list.append(flops)
             phases.append(dict(getattr(c_run, "_mm_phase_s", {})))
             cache.append(getattr(c_run, "_mm_plan_cache", None))
@@ -303,8 +312,105 @@ def run_perf(cfg: PerfConfig, seed: int = 12341313, verbose: bool = True,
         print(f" checksum(C_out)             {cs:.15e}")
         print(f" checksum(C_out) POS         {cs_pos:.15e}")
     if cfg.check:
-        _verify_checksums(cfg, cs, cs_pos, verbose)
+        try:
+            _verify_checksums(cfg, cs, cs_pos, verbose)
+        except PerfChecksumError as first_err:
+            if os.environ.get("DBCSR_TPU_TORCH_CHECKSUM_RETRY", "1") == "0":
+                raise  # a gate: the mismatch itself is the verdict
+            # what the engine did for the last multiplies when the gate
+            # tripped (the flight recorder), then one repeat on the safe
+            # driver to classify the failure (`_checksum_retry_safe`)
+            from dbcsr_tpu_torch.obs import flight
+
+            flight.dump()
+            result = _checksum_retry_safe(cfg, _run_once, cs, first_err, result, verbose)
     return result
+
+
+# The driver a checksum retry runs on: the base stack kernel K1 with
+# dense mode off (the corruption may live in the dense carve), as the
+# models' integrity guard recomputes (`models.integrity.safe_engine`).
+# The JAX package's safe driver is its plain XLA stack path, "xla"
+# (`dbcsr_tpu/perf/driver.py:SAFE_DRIVER`); on the card the port's
+# retry stays on a hand-written kernel, and on CPU tensors "pallas"
+# runs the plain version, as "xla" does there.
+SAFE_DRIVER = "pallas"
+
+
+def _checksum_retry_safe(cfg: PerfConfig, run_once, cs_first: float,
+                         first_err: PerfChecksumError, result: dict,
+                         verbose: bool) -> dict:
+    """One-shot safe-driver retry for a tripped checksum gate
+    (`dbcsr_tpu/perf/driver.py:_checksum_retry_safe`).
+
+    Re-runs ONE repeat with ``mm_driver=SAFE_DRIVER`` and dense mode off,
+    and classifies the original failure:
+
+    * the retry passes and the original run used another driver:
+      ``driver``; the safe result is returned;
+    * the retry passes on the same driver: ``transient``; the safe
+      result is returned;
+    * the retry reproduces the same wrong checksum: ``deterministic``;
+      raised;
+    * the retry fails with another checksum: ``unstable``; raised;
+    * the retry itself raises: ``retry_error``; the original error
+      stands.
+
+    The class is counted in ``dbcsr_tpu_checksum_retry_total{outcome}``,
+    published as a ``checksum_retry`` event, named in the raised message
+    and returned in the result's ``checksum_retry``."""
+    from dbcsr_tpu_torch.obs import events as _events
+    from dbcsr_tpu_torch.obs import metrics as _metrics
+
+    counter = _metrics.counter("dbcsr_tpu_checksum_retry_total",
+                               "checksum-gate safe-driver retries by outcome")
+
+    def _publish_retry(outcome: str) -> None:
+        _events.publish("checksum_retry", {
+            "outcome": outcome, "safe_driver": SAFE_DRIVER,
+            "original_mm_driver": prev_driver,
+            "error": str(first_err)[:300],
+        })
+
+    live = get_config()
+    prev_driver, prev_dense = live.mm_driver, live.mm_dense
+    retried_same_path = prev_driver == SAFE_DRIVER
+    try:
+        set_config(mm_driver=SAFE_DRIVER, mm_dense=False)
+        c_run, _flops, _dt = run_once()
+    except Exception as exc:  # the retry itself died: the original error stands
+        counter.inc(outcome="retry_error")
+        _publish_retry("retry_error")
+        raise PerfChecksumError(
+            f"{first_err}; safe-driver retry also failed "
+            f"({type(exc).__name__}: {exc})") from first_err
+    finally:
+        set_config(mm_driver=prev_driver, mm_dense=prev_dense)
+    cs = matrix_checksum(c_run)
+    cs_pos = matrix_checksum(c_run, pos=True)
+    try:
+        _verify_checksums(cfg, cs, cs_pos, verbose=False)
+    except PerfChecksumError:
+        outcome = "deterministic" if cs == cs_first else "unstable"
+        counter.inc(outcome=outcome)
+        _publish_retry(outcome)
+        again = ("reproduced the same wrong checksum" if cs == cs_first
+                 else f"produced yet another checksum {cs:.15e}")
+        raise PerfChecksumError(
+            f"{first_err}; safe-driver ({SAFE_DRIVER}) retry {again}"
+            f" — classified {outcome.upper()}") from first_err
+    outcome = "transient" if retried_same_path else "driver"
+    counter.inc(outcome=outcome)
+    _publish_retry(outcome)
+    if verbose:
+        print(f" checksum gate: safe-driver retry PASSED — original "
+              f"failure classified {outcome.upper()} "
+              f"(driver path {prev_driver!r} -> {SAFE_DRIVER!r})")
+    return dict(result, checksum=cs, checksum_pos=cs_pos,
+                checksum_retry={"outcome": outcome, "failed_checksum": cs_first,
+                                "safe_driver": SAFE_DRIVER,
+                                "original_mm_driver": prev_driver,
+                                "error": str(first_err)})
 
 
 def _launch_counts() -> dict:

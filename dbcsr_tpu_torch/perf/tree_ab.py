@@ -4,7 +4,8 @@ Each run is a fresh process in the checkout's root that imports that
 checkout's `chip_smoke.py`, points dispatch at an empty table directory
 and turns incremental reuse off (as the smoke's `main` does), builds its
 kernels (`phase_build`) and runs the phases named (``northstar``,
-``models``, ``tensor``, ``complex``, ``precision``), each of which
+``models``, ``tensor_legs``, ``tensor``, ``superstack``, ``complex``,
+``precision``), each of which
 checks its own results and prints its JSON line.  A phase that takes
 native K1's north-star stack time as an argument (``complex`` and
 ``precision`` where they do) gets it from a ``northstar_stacks`` run
@@ -13,7 +14,9 @@ the order given, so ``parent change change parent`` puts each pair on
 the same host in turns.  Every line goes to ``--out``; the summary
 printed per run is the north star's seconds per multiply (repeats 2-3),
 the model loops' walls under the planner (sign with the index engine),
-the full-width contraction's wall and every ``*_stacks`` line's kernel
+the full-width contraction's wall and K1's stack milliseconds in it,
+the fused launch's milliseconds on `mixed_blocks` (between events and
+the kernels' own, f64 and f32) and every ``*_stacks`` line's kernel
 milliseconds.
 
     python3 -m dbcsr_tpu_torch.perf.tree_ab _archive/parent . . _archive/parent \\
@@ -61,6 +64,15 @@ def _summary(lines: list) -> dict:
                 out[f"{name}_s"] = [r["wall_s"] for r in runs]
         elif phase == "tensor":
             out["contract_s"] = ln["auto"]["wall_s"]
+            out["tensor_stack_ms"] = ln.get("stack_ms")
+        elif phase == "tensor_legs":
+            sd = ln.get("f32", {}).get("auto", {}).get("stack_device_s")
+            out["tensor_legs_f32_stack_ms"] = None if sd is None else sd * 1e3
+        elif phase == "superstack":
+            for dname, info in ln.get("dtypes", {}).items():
+                fk = info.get("fused_kernel", {})
+                out[f"fused_{dname}_ms"] = fk.get("ms")
+                out[f"fused_{dname}_device_ms"] = fk.get("device_ms")
         elif phase and phase.endswith("_stacks"):
             out[phase + "_ms"] = ln["ms"]
     return out

@@ -20,8 +20,8 @@ Every transition refreshes the ``dbcsr_tpu_breaker_state{driver,shape}``
 gauge (0 closed, 1 half-open, 2 open) and publishes a
 ``breaker_transition`` event with a flight note.  `acc.smm.execute_stack`
 calls `allow` before a launch and `record_failure`/`record_success`
-after it.  The JAX package's ``fused`` pseudo-driver has no counterpart
-yet (no superstack).
+after it; `acc.smm.execute_superstack` keeps the ``fused`` pseudo-driver's
+breaker per fused bin shape, as the JAX package does.
 
 Stdlib-only; the clock is injectable for tests.
 """

@@ -9,9 +9,10 @@ device the group loop reuses the engine's block-index limits, which
 bound each group's working set while keeping a fixed, deterministic
 accumulation order.
 
-The distributed path (``mesh=``, the JAX package's per-group Cannons)
-needs the port's `parallel/` package, which does not exist yet: a mesh
-raises instead of running on one device.
+With ``mesh=`` (a `parallel.mesh.Grid`) the split runs on the grid, as
+the JAX package's per-group Cannons do (`_tas_multiply_mesh`).  The
+tracer span carries the JAX package's attributes: name, m, n, k, the
+long dimension and nsplit (`dbcsr_tpu/tas/mm.py:95`, `:164`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from dbcsr_tpu_torch.core.config import get_config
 from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
 from dbcsr_tpu_torch.core.timings import timed
 from dbcsr_tpu_torch.mm.multiply import multiply
+from dbcsr_tpu_torch.obs import tracer
 from dbcsr_tpu_torch.ops.operations import scale
 from dbcsr_tpu_torch.parallel.mesh import Grid, optimize_grid
 from dbcsr_tpu_torch.tas.base import TASMatrix
@@ -92,6 +94,7 @@ def tas_multiply(
     with timed("tas_multiply"):
         dims = {"m": m_full, "n": n_full, "k": k_full}
         long_dim = max(dims, key=dims.get)
+        tracer.annotate(name=c.name, m=m_full, n=n_full, k=k_full, long_dim=long_dim)
 
         def _fresh_opt() -> int:
             long_blks = max(c.nblkrows, c.nblkcols, nblk_k)
@@ -146,6 +149,7 @@ def tas_multiply(
                         batch["resplit_count"] = batch.get("resplit_count", 0) + 1
 
         c._tas_nsplit = int(max(nsplit, 1))
+        tracer.annotate(nsplit=int(nsplit or 1))
         if mesh is not None:
             if batch is not None:
                 # batched pgrid re-optimization (ref `dbcsr_tensor.F:1964-2186`):

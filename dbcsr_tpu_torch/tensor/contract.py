@@ -7,9 +7,10 @@ result back.  `contract_a[i]` is contracted against `contract_b[i]`;
 `notcontract_a` dims land in C at positions `map_1` (order-preserving),
 `notcontract_b` at `map_2`.
 
-The JAX package also opens an event-bus product scope
-(`obs.events.product_scope`) and annotates the tracer's span around each
-contraction; the port has neither yet.
+Each contraction is one product on the ops plane, as in the JAX package
+(`dbcsr_tpu/tensor/contract.py:255-270`): an event-bus product scope
+``tensor_contract`` (a flight record and a product id under which the
+inner multiplies nest) and the tracer span's attributes.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from dbcsr_tpu_torch.core import mempool
 from dbcsr_tpu_torch.core.matrix import to_index
 from dbcsr_tpu_torch.core.timings import timed
+from dbcsr_tpu_torch.obs import events, tracer
 from dbcsr_tpu_torch.ops.operations import compress, copy as matrix_copy, scale
 from dbcsr_tpu_torch.tas.mm import tas_multiply
 from dbcsr_tpu_torch.tensor.types import BlockSparseTensor
@@ -254,7 +256,15 @@ def contract(
             batch["filter_eps"] = filter_eps
         filter_eps = None
 
-    with timed("tensor_contract"):
+    with timed("tensor_contract"), events.product_scope(
+            "tensor_contract", tensor_c.name, a=tensor_a.name, b=tensor_b.name,
+            ndim_a=tensor_a.ndim, ndim_b=tensor_b.ndim):
+        tracer.annotate(
+            a=tensor_a.name, b=tensor_b.name, c=tensor_c.name,
+            contract_a=list(ca), contract_b=list(cb),
+            ndim_a=tensor_a.ndim, ndim_b=tensor_b.ndim,
+            bounded=bool(a_bounds or b_bounds),
+        )
         # device-resident contraction intermediates (core.mempool): the
         # restriction copies, the remapped operand layouts and the
         # result-layout shell are all chain-owned, freed the moment

@@ -129,6 +129,29 @@ def test_stack_f64_matches_xla_driver(mnk, jax_config_restored):
     assert rel <= kernel_validation_tolerance("float64", k, depth)
 
 
+# the tiled path's shapes the card checks (`chip_smoke.py`, TILED_SHAPES
+# and SHAPES past 32): the plain version each kernel is held to there,
+# against the JAX package's XLA stack driver
+TILED_SHAPES = [(529, 23, 23), (64, 64, 64), (23, 100, 23), (100, 50, 20), (33, 24, 23)]
+
+
+@pytest.mark.parametrize("mnk", TILED_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+def test_tiled_shapes_match_xla_driver(dtype, mnk, jax_config_restored):
+    m, n, k = mnk
+    a, b, c, ai, bi, ci, depth = _stack(13, m, n, k, long_run=9)
+    jdt = {"float64": jnp.float64, "float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdt = {"float64": torch.float64, "float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    if dtype != "float64":  # both packages round the same float32 values
+        a, b, c = (x.astype(np.float32) for x in (a, b, c))
+    jax_set_config(mm_driver="xla")
+    want = np.asarray(jax_smm.process_stack(jnp.asarray(c, jdt), jnp.asarray(a, jdt),
+                                            jnp.asarray(b, jdt), ai, bi, ci, ALPHA),
+                      np.float64)
+    got = _port(a, b, c, ai, bi, ci, tdt)
+    assert _rel(got, want) <= kernel_validation_tolerance(dtype, k, depth)
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
 @pytest.mark.parametrize("k", [5, 23, 100])
 @pytest.mark.parametrize("depth", [1, 40, 5000])
