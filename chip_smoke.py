@@ -13,8 +13,9 @@ non-zero:
 
 1. build: the card's name and power limit, CUDA version, nvcc seconds
    and ptxas resource lines of each source, K1's compiled instance of
-   every form at one shape of each path and register class, the native
-   forms at the tiled path's shapes and the fused launch's instances
+   every form at one shape of each warp-path register class and at the
+   tiled path's shapes, the units its products run on, and the fused
+   launch's instances
    (registers, spilled bytes, shared memory, warps a block, blocks an SM), the
    persisting-L2 limit, and the index engine's g++ flags and seconds;
 2. kernel_vs_plain: the base stack kernel (K1) against its plain PyTorch
@@ -98,6 +99,11 @@ non-zero:
    (<= 1e-12); at 48 as f32 through the kernel "auto" picks (its line
    names it and its path) against ``"torch"`` at the kernel validation
    tolerance; at 12 `contract_test` against a dense einsum on the host;
+   at 84 in complex128 (complex T and M from the same generator; full
+   width would need about 84 GB of allocation, so the depth is the
+   largest whose peak stays under 60 GB) on K1's tiled c8 form, against
+   the plain driver in two mu batches (1e-10, checksums 1e-12), its
+   kernel's ms beside the bound;
 15. tensor: (mu nu|P) M(P,Q) -> (mu nu|Q) at full width through
    `tensor.contract` on `test_H2O`'s blocking: 96 molecules of 23
    orbitals, T where the density's pair pattern has (mu,nu) and (mu,P)
@@ -108,7 +114,11 @@ non-zero:
    time beside their bound, the plan-cache outcomes, the allocator's
    peak and retries, and holds every block of C against the plain
    driver (run in two mu batches with ``bounds_2``) at <= 1e-10, the
-   checksums at <= 1e-12;
+   checksums at <= 1e-12; then the same contraction under
+   ``precision="adaptive"`` and ``abft="verify"``: every stack on K1's
+   tiled f64->f32 form, none promoted, C against the plain driver under
+   the same precision at `form_tolerance`, the kernel's and the ABFT
+   probes' ms timed apart beside the bound and the native leg;
 16. resilience: faults injected on the card at `test_H2O`'s blocking
    (2208^2), each counted exactly, and no faulted product on the card
    ever runs a plain version (the card's chain holds the kernels only):
@@ -594,27 +604,19 @@ def phase_build() -> str:
 
 def _k1_instances() -> list:
     """Every form of K1 at one shape of each warp-path register class
-    (2, 3 and 4 tiles of 8) and on the tiled path, the native forms also
-    at the tiled path's shapes, and the fused launch's warp and tiled
-    instances: the compiled instance's registers, local (spilled) bytes,
-    shared bytes, warps a block and blocks an SM, as the card reports
-    them."""
+    (2, 3 and 4 tiles of 8) and at the tiled path's shapes (the RI
+    contraction's (529,23,23) first), and the fused launch's warp and
+    tiled instances: the compiled instance's registers, local (spilled)
+    bytes, shared bytes, warps a block and blocks an SM, as the card
+    reports them, with the units the form's products run on."""
     rows = []
-    native = {torch.float64: "dmma", torch.float32: "fp32_fma", torch.bfloat16: "fp32_fma"}
     for dtype, spec in K1_FORMS:
-        shapes = ((5, 13, 7), (23, 23, 23), (32, 32, 32), (100, 50, 20))
-        if spec is None and dtype in native:
-            shapes += tuple(x for x in TILED_SHAPES if x not in shapes)
-        for m, n, k in shapes:
-            path = stack_kernel.kernel_path(m, n, k, dtype)
-            if path == "warp":
-                units = stack_kernel.form_units(dtype, spec)
-            else:  # the tiled native forms: DMMA for f64, f32 FMAs
-                units = native[dtype] if spec is None and dtype in native else "cuda_cores"
+        for m, n, k in ((5, 13, 7), (23, 23, 23), (32, 32, 32)) + TILED_SHAPES:
             rows.append({"form": stack_kernel.form_name(dtype, spec), "mnk": [m, n, k],
-                         "path": path, "units": units,
+                         "path": stack_kernel.kernel_path(m, n, k, dtype),
+                         "units": stack_kernel.form_units(dtype, spec),
                          **stack_kernel.kernel_attrs(m, n, k, dtype, spec)})
-    for dtype in native:
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
         for m, n, ks in ((23, 23, (23, 18)), TILED_BIN):
             rows.append({"form": stack_kernel.form_name(dtype), "fused": True, "mn": [m, n],
                          "k": list(ks), "path": stack_kernel.kernel_path(m, n, max(ks), dtype),
@@ -2031,7 +2033,12 @@ def phase_models_f32() -> int:
 TENSOR_SEED = 20261017
 # the legs' depths (molecules), each cut from MODEL_BLOCKS; the batched
 # leg runs TENSOR_BATCHES mu batches
-TENSOR_LEGS = {"remap": 32, "batched": 48, "f32": 48, "contract_test": 12}
+TENSOR_LEGS = {"remap": 32, "batched": 48, "f32": 48, "contract_test": 12, "c128": 84}
+# the complex128 leg's depth: the largest whose allocator peak stays
+# under C128_PEAK_BYTES of the card's 80 GB (the peak runs 1.82-1.88
+# times T's and C's bytes: 84 molecules about 55 GB, 86 about 59, 88
+# about 65; full width about 84; PERF.md, Cells)
+C128_PEAK_BYTES = 60e9
 TENSOR_BATCHES = 4
 RI_KW = dict(contract_a=(2,), notcontract_a=(0, 1), contract_b=(0,), notcontract_b=(1,),
              map_1=(0, 1), map_2=(2,))
@@ -2056,18 +2063,31 @@ def _ri_pattern(d) -> dict:
 def _ri_operands(nmol: int, dtype=torch.float64):
     """T(mu,nu,P), mapped rows (mu,nu) cols (P), with seeded normal blocks
     drawn on the card; M(P,Q), the density as a rank-2 tensor; the
-    pattern's counts; and a maker of empty C tensors (mu,nu|Q)."""
-    d = make_test_density(nmol, MODEL_BLOCK, occ=0.2, seed=MODEL_SEED, dtype=dtype)
+    pattern's counts; and a maker of empty C tensors (mu,nu|Q).  Complex
+    data: the real parts as at the real dtype, then the imaginary parts
+    drawn from the same generator (T's normals, M's a tenth of the
+    density's scale), so neither operand's imaginary part is zero."""
+    real = torch.empty((), dtype=dtype).real.dtype
+    d = make_test_density(nmol, MODEL_BLOCK, occ=0.2, seed=MODEL_SEED, dtype=real)
     pat = _ri_pattern(d)
     sizes = [[MODEL_BLOCK] * nmol] * 3
     t = create_tensor("T", sizes, (0, 1), (2,), dtype=dtype)
     idx = pat["idx"]
     gen = torch.Generator(device=resolve_device()).manual_seed(TENSOR_SEED + nmol)
-    blocks = torch.randn((len(idx), MODEL_BLOCK ** 2, MODEL_BLOCK), generator=gen,
-                         dtype=dtype, device=resolve_device())
+
+    def normals(shape):
+        return torch.randn(shape, generator=gen, dtype=real, device=resolve_device())
+    shape = (len(idx), MODEL_BLOCK ** 2, MODEL_BLOCK)
+    blocks = normals(shape)
+    if dtype.is_complex:
+        blocks = torch.complex(blocks, normals(shape))
     t.matrix.stage_device_blocks(idx[:, 0] * nmol + idx[:, 1], idx[:, 2], blocks)
     del blocks
     t.finalize()
+    if dtype.is_complex:
+        d = _converted(d, dtype)
+        for bn in d.bins:
+            bn.data.imag.copy_(normals(bn.data.shape) * (0.1 / (nmol * MODEL_BLOCK) ** 0.5))
     m = copy_matrix_to_tensor(d, create_tensor("M", sizes[:2], (0,), (1,), dtype=dtype))
     del d
 
@@ -2129,7 +2149,9 @@ def _contract_run(driver: str, t, m, c, **kw) -> dict:
 def phase_tensor() -> dict:
     """The RI contraction at full width through `tensor.contract` (TAS
     split, K1's tiled path), held block by block against the plain
-    driver in two mu batches; returns K1's row for this path."""
+    driver in two mu batches, then again under adaptive precision
+    (`_tensor_adaptive`, K1's tiled f64->f32 form); returns K1's row for
+    this path and the adaptive leg's form row."""
     gc.collect()
     torch.cuda.empty_cache()
     t, m, pat, empty_c = _ri_operands(MODEL_BLOCKS)
@@ -2165,59 +2187,180 @@ def phase_tensor() -> dict:
            "c_bytes": pat["c_blocks"] * mnk[0] * mnk[1] * 8,
            "groups": ngroups, "bound_ms": bound * 1e3, "bound_by": by,
            "stack_ms": run["stack_device_s"] * 1e3, "auto": run}
-    # the plain driver, block by block, in two mu batches (a second C
-    # beside the first would need 18.6 GB more)
-    half = MODEL_BLOCKS // 2
-    refs, diffs = [], {"diff": 0.0, "scale": 0.0}
-    for lo, hi in ((0, half - 1), (half, MODEL_BLOCKS - 1)):
+    cmp = _against_plain_batches("tensor", t, m, c, empty_c, MODEL_BLOCKS)
+    _require(cmp["rel_to_plain"] <= 1e-10 and cmp["rel_checksum"] <= 1e-12
+             and cmp["rel_checksum_pos"] <= 1e-12,
+             f"tensor: K1 vs the plain driver rel {cmp['rel_to_plain']:.3e} (<= 1e-10), "
+             f"checksums {cmp['rel_checksum']:.3e}/{cmp['rel_checksum_pos']:.3e} (<= 1e-12)")
+    out.update(cmp)
+    del c
+    out["adaptive"] = _tensor_adaptive(t, m, pat, empty_c, out["stack_ms"])
+    _emit(out)
+    del t, m
+    ad = out["adaptive"]
+    return {"launches": la["smm_stack"], "path": path, "ms": out["stack_ms"],
+            "plain_ms": out["plain_stack_ms"], "bound_ms": out["bound_ms"], "bound_by": by,
+            "max_abs_err": out["max_abs_err"], "mnk": list(mnk),
+            "adaptive_launches": ad["launches"]["smm_stack"],
+            "form_row": _leg_form_row(ad, torch.float64, ("float32", False), out["stack_ms"])}
+
+
+def _against_plain_batches(what: str, t, m, c, empty_c, nmol: int) -> dict:
+    """``c`` (the contraction's C under the config in force) held block by
+    block against the plain driver under the same config, run in two mu
+    batches (a second C beside the first would need its size again):
+    the largest difference over the largest plain value, both checksums,
+    and the plain batches' runs (their stack ms summed, ``plain_stack_ms``)."""
+    half = nmol // 2
+    refs, diff, scale_ = [], 0.0, 0.0
+    for lo, hi in ((0, half - 1), (half, nmol - 1)):
         ref = empty_c("C_ref")
         refs.append(_contract_run("torch", t, m, ref, bounds_2=[(lo, hi), None]))
         lt = refs[-1]["launches"]
-        _require(lt["plain"] > 0 and lt["smm_stack"] == 0, f"tensor: torch launched {lt}")
+        _require(lt["plain"] > 0 and lt["smm_stack"] == 0, f"{what}: torch launched {lt}")
         rk = ref.matrix.keys
         pos = np.searchsorted(c.matrix.keys, rk)
         _require(bool(np.all(c.matrix.keys[np.minimum(pos, c.nblks - 1)] == rk)),
-                 "tensor: the plain batch holds blocks C lacks")
-        mu = rk // c.matrix.nblkcols // MODEL_BLOCKS
-        _require(bool(np.all((mu >= lo) & (mu <= hi))), "tensor: a batch left its mu range")
+                 f"{what}: the plain batch holds blocks C lacks")
+        mu = rk // c.matrix.nblkcols // nmol
+        _require(bool(np.all((mu >= lo) & (mu <= hi))), f"{what}: a batch left its mu range")
         _require(len(c.matrix.bins) == len(ref.matrix.bins) == 1,
-                 "tensor: C has more than one block shape")
+                 f"{what}: C has more than one block shape")
         cb, rb = c.matrix.bins[0].data, ref.matrix.bins[0].data
         slots = c.matrix.ent_slot[pos]
         for s0 in range(0, len(rk), 1 << 12):
             x = cb[torch.from_numpy(slots[s0: s0 + (1 << 12)].astype(np.int64)).to(cb.device)]
             y = rb[torch.from_numpy(ref.matrix.ent_slot[s0: s0 + (1 << 12)].astype(
                 np.int64)).to(cb.device)]
-            diffs["diff"] = max(diffs["diff"], float((x - y).abs().max()))
-            diffs["scale"] = max(diffs["scale"], float(y.abs().max()))
+            diff = max(diff, float((x - y).abs().max()))
+            scale_ = max(scale_, float(y.abs().max()))
         refs[-1]["checksums"] = (ref.checksum(), ref.checksum(pos=True))
         refs[-1]["c_blocks_batch"] = int(ref.nblks)
         del ref, cb, rb
     _require(sum(r["c_blocks_batch"] for r in refs) == c.nblks,
-             "tensor: the plain batches do not cover C")
-    rel = diffs["diff"] / diffs["scale"]
+             f"{what}: the plain batches do not cover C")
     cs, cs_pos = c.checksum(), c.checksum(pos=True)
-    rel_cs = abs(cs - sum(r["checksums"][0] for r in refs)) / abs(cs)
-    rel_pos = abs(cs_pos - sum(r["checksums"][1] for r in refs)) / abs(cs_pos)
-    _require(rel <= 1e-10 and rel_cs <= 1e-12 and rel_pos <= 1e-12,
-             f"tensor: K1 vs the plain driver rel {rel:.3e} (<= 1e-10), checksums "
-             f"{rel_cs:.3e}/{rel_pos:.3e} (<= 1e-12)")
-    plain_ms = sum(r["stack_device_s"] for r in refs) * 1e3
-    out.update(rel_to_plain=rel, max_abs_err=diffs["diff"], rel_checksum=rel_cs,
-               rel_checksum_pos=rel_pos, checksum=cs, checksum_pos=cs_pos,
-               plain_stack_ms=plain_ms, torch_batches=refs)
-    _emit(out)
-    del c, t, m
-    return {"launches": la["smm_stack"], "path": path, "ms": out["stack_ms"],
-            "plain_ms": plain_ms, "bound_ms": out["bound_ms"], "bound_by": by,
-            "max_abs_err": diffs["diff"], "mnk": list(mnk)}
+    return {"rel_to_plain": diff / scale_, "max_abs_err": diff,
+            "rel_checksum": abs(cs - sum(r["checksums"][0] for r in refs)) / abs(cs),
+            "rel_checksum_pos": abs(cs_pos - sum(r["checksums"][1] for r in refs)) / abs(cs_pos),
+            "checksum": cs, "checksum_pos": cs_pos,
+            "plain_stack_ms": sum(r["stack_device_s"] for r in refs) * 1e3, "torch_batches": refs}
 
 
-def phase_tensor_legs() -> int:
+def _leg_form_row(leg: dict, dtype, spec, native_ms: float) -> dict:
+    """One of K1's tiled forms in the kernels line, from a contraction leg:
+    its launches there beside its kernel's device ms (``stack_ms`` the
+    stacks' window, under "verify" with the ABFT probes, ``probe_ms``),
+    the plain driver's stacks, the error against it and the bound, and
+    its ms over native f64 K1's on the full-width contraction in this run
+    (the complex128 leg's is at its own depth)."""
+    return {"form": stack_kernel.form_name(dtype, spec), "path": "tiled", "leg": leg["leg"],
+            "launches": leg["launches"]["smm_stack"], "max_abs_err": leg["max_abs_err"],
+            "ms": leg["kernel_ms"], "stack_ms": leg["stack_ms"], "probe_ms": leg["probe_ms"],
+            "plain_ms": leg["plain_stack_ms"], "bound_ms": leg["bound_ms"],
+            "bound_by": leg["bound_by"], "library_ms": None,
+            "units": stack_kernel.form_units(dtype, spec),
+            "native_k1_ms": native_ms, "ratio_to_native": leg["kernel_ms"] / native_ms}
+
+
+@contextlib.contextmanager
+def _event_window(into: dict, key: str, module, name: str):
+    """CUDA-event ms of every call of ``module.name`` inside the block
+    (its device work, from the stream's position at the call to its
+    end), summed into ``into[key]``: K1's wrapper (`stack_kernel.smm_stack`)
+    or the ABFT stack probe (`abft.stack_probe`, right after its launch)."""
+    real, pairs = getattr(module, name), []
+
+    def timed(*args, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*args, **kw)
+        e1.record()
+        pairs.append((e0, e1))
+        return out
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+        torch.cuda.synchronize()
+        into[key] = sum(e0.elapsed_time(e1) for e0, e1 in pairs)
+
+
+def _timed_contract(t, m, c) -> dict:
+    """``contract`` under "auto" (`_contract_run`) with K1's launches and
+    the ABFT probes timed apart (`_event_window`): ``kernel_ms`` and
+    ``probe_ms`` beside the stacks' window."""
+    ms: dict = {}
+    with _event_window(ms, "kernel_ms", stack_kernel, "smm_stack"), \
+            _event_window(ms, "probe_ms", abft, "stack_probe"):
+        run = _contract_run("auto", t, m, c)
+    return {**run, **ms}
+
+
+def _tensor_adaptive(t, m, pat, empty_c, native_ms: float) -> dict:
+    """The full-width contraction under ``precision="adaptive"`` and
+    ``abft="verify"``: every (529,23,23) f64 stack demotes to f32 and runs
+    K1's tiled f64->f32 form, every probe passes (no promotion), and C
+    holds block by block to the plain driver under the same precision
+    (forced ``"torch"`` resolves the same demotion) at `form_tolerance`
+    for k = 23 and the longest run.  A contraction at `TENSOR_LEGS`'
+    remap depth validates the form first, so the timed stacks hold no
+    first-use check."""
+    mnk = (MODEL_BLOCK ** 2, MODEL_BLOCK, MODEL_BLOCK)
+    spec = ("float32", False)
+    form = stack_kernel.form_name(torch.float64, spec)
+    set_config(precision="adaptive", abft="verify")
+    try:
+        port_precision.reset()
+        tw, mw, _, ew = _ri_operands(TENSOR_LEGS["remap"])
+        warm = _contract_run("auto", tw, mw, ew("C_warm"))
+        del tw, mw
+        c = empty_c("C_adaptive")
+        ctrs = ("dbcsr_tpu_precision_launches_total", "dbcsr_tpu_precision_promotions_total",
+                "dbcsr_tpu_abft_mismatches_total")
+        before = [_ctr(x) for x in ctrs]
+        run = _timed_contract(t, m, c)
+        by_form = _forms_since_reset()
+        la = run["launches"]
+        demoted, promoted, mismatched = (_ctr(x) - b for x, b in zip(ctrs, before))
+        _require(la["plain"] == 0 and la["smm_crosspack"] == 0 and la["smm_superstack"] == 0
+                 and set(by_form) == {form} and by_form[form] == la["smm_stack"] > 0
+                 and demoted == la["smm_stack"] and promoted == 0 and mismatched == 0,
+                 f"tensor adaptive: launches {la}, by form {by_form}, {demoted} demoted, "
+                 f"{promoted} promoted, {mismatched} mismatched")
+        cells = port_precision.cells_snapshot()
+        _require(cells and all(i["state"] == "demoted" for i in cells.values()),
+                 f"tensor adaptive: cells {cells}")
+        cmp = _against_plain_batches("tensor adaptive", t, m, c, empty_c, MODEL_BLOCKS)
+        tol = form_tolerance("float64", spec, MODEL_BLOCK, run["longest_run"])
+        _require(cmp["rel_to_plain"] <= tol,
+                 f"tensor adaptive: {form} vs the plain driver rel {cmp['rel_to_plain']:.3e} "
+                 f"> {tol:.1e}")
+        bound, by = stack_bound_s("float64", *mnk, pat["products"], pat["t_blocks"],
+                                  pat["m_blocks"], pat["c_blocks"], precision=spec)
+        del c
+    finally:
+        set_config(precision="native", abft="off")
+        port_precision.reset()
+    return {"leg": "tensor", "precision": "adaptive", "abft": "verify", "form": form,
+            "path": stack_kernel.kernel_path(*mnk), "launches": la,
+            "launches_by_form": by_form, "warm_launches": warm["launches"],
+            "cells": {"x".join(map(str, k)): v for k, v in cells.items()},
+            "tolerance": tol, "stack_ms": run["stack_device_s"] * 1e3,
+            "kernel_ms": run["kernel_ms"], "probe_ms": run["probe_ms"],
+            "bound_ms": bound * 1e3, "bound_by": by,
+            "ratio_to_native": run["kernel_ms"] / native_ms,
+            "wall_s": run["wall_s"], "peak_allocated_bytes": run["peak_allocated_bytes"],
+            "alloc_retries": run["alloc_retries"], **cmp, "auto": run}
+
+
+def phase_tensor_legs() -> dict:
     """The smaller legs, each at a depth cut to `TENSOR_LEGS`: remap and
-    `tensor_copy` (32 molecules), a batched contraction (48), f32 (48)
-    and `contract_test` against a dense einsum on the host (12).
-    Returns K1's launches."""
+    `tensor_copy` (32 molecules), a batched contraction (48), f32 (48),
+    `contract_test` against a dense einsum on the host (12) and complex128
+    on K1's tiled c8 form (84, `_tensor_c128`).  Returns K1's launches
+    and the complex128 leg."""
     out = {"phase": "tensor_legs"}
     k1 = 0
     # remap and tensor_copy: (mu|nu,Q), then back to (mu,nu|Q), bit for bit
@@ -2286,9 +2429,59 @@ def phase_tensor_legs() -> int:
     ok = contract_test(1.0, t, m, 0.0, empty_c(), **RI_KW, io=msgs.append)
     _require(ok, f"tensor_legs: contract_test failed: {msgs}")
     out["contract_test"] = {"molecules": n, "ok": ok, "message": msgs[0].strip()}
+    del t, m
+    # complex128 through K1's tiled c8 form, against the plain driver
+    out["c128"] = leg = _tensor_c128(TENSOR_LEGS["c128"])
+    k1 += leg["launches"]["smm_stack"]
     out["k1_launches"] = k1
     _emit(out)
-    return k1
+    return {"launches": k1, "c128": leg}
+
+
+def _tensor_c128(nmol: int) -> dict:
+    """The RI contraction in complex128 at ``nmol`` molecules (full width
+    would need about 84 GB of allocation; `C128_PEAK_BYTES`): every stack
+    on K1's tiled c8 form, no plain call; C block by block against the
+    plain driver (two mu batches) within 1e-10 of max |C|, the checksums
+    within 1e-12."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    mnk = (MODEL_BLOCK ** 2, MODEL_BLOCK, MODEL_BLOCK)
+    # the form's first-use validation, at a shallow depth
+    tw, mw, _, ew = _ri_operands(TENSOR_LEGS["contract_test"], torch.complex128)
+    warm = _contract_run("auto", tw, mw, ew("C_warm"))
+    del tw, mw
+    t, m, pat, empty_c = _ri_operands(nmol, torch.complex128)
+    c = empty_c()
+    run = _timed_contract(t, m, c)
+    la, by_form = run["launches"], _forms_since_reset()
+    _require(la["plain"] == 0 and la["smm_crosspack"] == 0 and la["smm_superstack"] == 0
+             and set(by_form) == {"complex128"} and by_form["complex128"] == la["smm_stack"] > 0,
+             f"tensor_legs c128: launches {la}, by form {by_form}")
+    _require(c.nblks == pat["c_blocks"], f"tensor_legs c128: C holds {c.nblks} blocks, the "
+                                         f"pattern {pat['c_blocks']}")
+    _require(run["peak_allocated_bytes"] < C128_PEAK_BYTES,
+             f"tensor_legs c128: allocator peak {run['peak_allocated_bytes']} at {nmol} "
+             f"molecules, over {C128_PEAK_BYTES:.0f}")
+    cmp = _against_plain_batches("tensor_legs c128", t, m, c, empty_c, nmol)
+    _require(cmp["rel_to_plain"] <= 1e-10 and cmp["rel_checksum"] <= 1e-12
+             and cmp["rel_checksum_pos"] <= 1e-12,
+             f"tensor_legs c128: c8 vs the plain driver rel {cmp['rel_to_plain']:.3e} "
+             f"(<= 1e-10), checksums {cmp['rel_checksum']:.3e}/{cmp['rel_checksum_pos']:.3e} "
+             f"(<= 1e-12)")
+    bound, by = stack_bound_s("complex128", *mnk, pat["products"], pat["t_blocks"],
+                              pat["m_blocks"], pat["c_blocks"])
+    del c, t, m
+    return {"leg": "tensor_legs", "molecules": nmol, "cut": f"{nmol} of {MODEL_BLOCKS} molecules: "
+            f"the largest depth whose allocator peak stays under {C128_PEAK_BYTES / 1e9:.0f} GB",
+            "dtype": "complex128", "path": stack_kernel.kernel_path(*mnk, torch.complex128),
+            "t_blocks": pat["t_blocks"], "c_blocks": pat["c_blocks"],
+            "products": pat["products"], "launches": la, "launches_by_form": by_form,
+            "warm_launches": warm["launches"], "stack_ms": run["stack_device_s"] * 1e3,
+            "kernel_ms": run["kernel_ms"], "probe_ms": run["probe_ms"],
+            "bound_ms": bound * 1e3, "bound_by": by,
+            "wall_s": run["wall_s"], "peak_allocated_bytes": run["peak_allocated_bytes"],
+            "alloc_retries": run["alloc_retries"], **cmp, "auto": run}
 
 
 # the integrity plane's counters that a phase injecting nothing must
@@ -2754,6 +2947,8 @@ def _forms_vs_plain(forms, shapes, seed: int, alpha, max_len: int = 4) -> list:
                           "ms": _time_ms(lambda: kernel(scratch, a, b, alpha), 10),
                           "plain_ms": _time_ms(lambda: plain(scratch, a, b, alpha), 3),
                           "bound_ms": bound * 1e3, "bound_by": by})
+            if path == "tiled":
+                cases[-1]["geometry"] = stack_kernel.tiled_geometry(m, n, k, dtype, spec)
             del a, b, c, got, want, scratch
     _require(paths == {"warp", "tiled"}, f"the forms {forms} ran the paths {sorted(paths)}")
     return cases
@@ -4970,17 +5165,21 @@ def _run_phases(none_dir: str) -> int:
                               "models_f32": _clean("models_f32", phase_models_f32)}
     # the legs first: they validate K1 at (529, 23, 23) for f64 and f32,
     # so the full-width run's stack times hold no first-use check
-    k1["launches_by_path"]["tensor_legs"] = _clean("tensor_legs", phase_tensor_legs)
+    legs = _clean("tensor_legs", phase_tensor_legs)
+    k1["launches_by_path"]["tensor_legs"] = legs["launches"]
     tensor = _clean("tensor", phase_tensor)
     k1["launches_by_path"]["tensor"] = tensor.pop("launches")
+    k1["launches_by_path"]["tensor_adaptive"] = tensor.pop("adaptive_launches")
+    adaptive_row = tensor.pop("form_row")
     k1["by_path"] = {"tensor": {**tensor, "library_ms": None}}
     # K1's complex and demoted forms, each beside its launches on its
-    # phase's main path
+    # phase's main path; the tiled forms' rows from the contraction legs
     cx = _clean("complex", phase_complex, ns_timing["ms"][0])
     pr = _clean("precision", phase_precision, ns_timing["ms"][0])
     k1["launches_by_path"]["complex"] = cx["launches"]
     k1["launches_by_path"]["precision"] = pr["launches"]
-    k1["forms"] = cx["forms"] + pr["forms"]
+    k1["forms"] = cx["forms"] + pr["forms"] + [
+        _leg_form_row(legs["c128"], torch.complex128, None, tensor["ms"]), adaptive_row]
     for phase, fn in (("resilience", phase_resilience), ("integrity", phase_integrity),
                       ("incremental", phase_incremental)):
         _PHASE_NOW[0] = phase

@@ -21,7 +21,8 @@ forms that the JAX package computes in XLA, never in Pallas
 and the demoted compute forms of a ``precision`` spec
 (`acc/precision.py`): ("float32", False), ("float32", True),
 ("bfloat16", False) and ("bfloat16", True) for float64 data, the bf16
-pair for float32 data.  Every form takes both paths.  The plain version
+pair for float32 data.  Every form takes both paths, each on its own
+register tile of the path's one kernel body.  The plain version
 computes each form as `_batch_dot` does; `form_units` names the units
 each runs on.
 
@@ -118,7 +119,7 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.smm_superstack_attrs.argtypes = [ctypes.c_int, ctypes.c_int, ints, ctypes.c_int,
                                              ctypes.c_int, ints]
         lib.smm_superstack_attrs.restype = ctypes.c_int
-        lib.smm_stack_tiled_geom.argtypes = [ctypes.c_int] * 4 + [ints]
+        lib.smm_stack_tiled_geom.argtypes = [ctypes.c_int] * 5 + [ints]
         lib.smm_stack_tiled_geom.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -131,9 +132,9 @@ def kernel_path(m: int, n: int, k: int, dtype: torch.dtype = torch.float64) -> s
     return "warp" if _kernel_lib().smm_stack_path(_DTYPE_CODE[dtype], m, n, k) == 1 else "tiled"
 
 
-# the units each form runs on, on the warp path: "dmma" the FP64 tensor
-# cores, "fp32_fma" the CUDA cores in f32, "bf16_mma" the tensor cores
-# with bf16 inputs and f32 sums
+# the units each form's products run on, on both paths: "dmma" the FP64
+# tensor cores, "fp32_fma" the CUDA cores in f32, "bf16_mma" the tensor
+# cores with bf16 inputs and f32 sums
 _FORM_UNITS = {("float64", None): "dmma", ("float32", None): "fp32_fma",
                ("bfloat16", None): "fp32_fma", ("complex128", None): "dmma",
                ("complex64", None): "fp32_fma",
@@ -146,9 +147,8 @@ _FORM_UNITS = {("float64", None): "dmma", ("float32", None): "fp32_fma",
 
 
 def form_units(dtype: torch.dtype, precision=None) -> str:
-    """The units a form's products run on, on the warp path (on the tiled
-    path the native forms run as here, f64 on DMMA and f32/bf16 on f32
-    FMAs, and the complex and demoted forms on the CUDA cores)."""
+    """The units a form's products run on, the same on the warp path and
+    the tiled path (each form's register tile of either path uses them)."""
     spec = None if precision is None else tuple(precision)
     return _FORM_UNITS[(str(dtype).replace("torch.", ""), spec)]
 
@@ -188,23 +188,28 @@ def superstack_attrs(m: int, n: int, ks, dtype: torch.dtype = torch.float64) -> 
 
 # ------------------------------------------------------------ tiled path
 _TILED_KEYS = ("wr", "wc", "rmt", "cnt", "nrc", "ncc", "flat", "ks", "lda", "ldb", "a_area",
-               "smem")
+               "smem", "bufs")
 
 
-def tiled_geometry(m: int, n: int, kmax: int, dtype: torch.dtype = torch.float64) -> dict:
-    """The tiled path's geometry of a launch (native forms) of (m, n)
-    blocks whose entries reach depth ``kmax``, as the kernel library's
-    `tiled::geom` computes it (csrc/smm_stack.cu): the warps' arrangement
-    ``wr`` x ``wc``, a chunk's ``rmt`` row and ``cnt`` column tiles of
-    8x8, ``nrc`` x ``ncc`` chunks a C block, whole entries staged
-    ``flat`` or k slices of ``ks`` (row strides ``lda``, ``ldb``), the A
-    area of a buffer (elements) and the shared bytes of the two buffers."""
+def tiled_geometry(m: int, n: int, kmax: int, dtype: torch.dtype = torch.float64,
+                   precision=None) -> dict:
+    """The tiled path's geometry of a launch of one form (``dtype`` data,
+    ``precision`` a demoted spec or None) of (m, n) blocks whose entries
+    reach depth ``kmax``, as the kernel library's `tiled::geom` computes
+    it (csrc/smm_stack.cu): the warps' arrangement ``wr`` x ``wc``, a
+    chunk's ``rmt`` row and ``cnt`` column tiles of 8x8, ``nrc`` x ``ncc``
+    chunks a C block, whole entries staged ``flat`` or k slices of ``ks``
+    (row strides ``lda``, ``ldb``), the A area of a buffer (elements of
+    the staged dtype), the shared bytes of the staging buffers, the
+    converted planes and the sum, and ``bufs`` staging buffers (2, or 1
+    where a converted plane is multiplied while the next entry lands)."""
     lib = _kernel_lib()
     out = (ctypes.c_int * len(_TILED_KEYS))()
-    err = lib.smm_stack_tiled_geom(_DTYPE_CODE[dtype], m, n, kmax, out)
+    err = lib.smm_stack_tiled_geom(_DTYPE_CODE[dtype], compute_code(dtype, precision), m, n,
+                                   kmax, out)
     if err != 0:
-        raise RuntimeError(f"smm_stack_tiled_geom failed for {dtype} {(m, n, kmax)}: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"smm_stack_tiled_geom failed for {form_name(dtype, precision)} "
+                           f"{(m, n, kmax)}: CUDA error {err}")
     return dict(zip(_TILED_KEYS, out))
 
 

@@ -66,35 +66,32 @@
 // launches (the superstack section below).
 //
 // Two more groups of forms, behind the same entry point (the JAX package
-// runs both in XLA, dbcsr_tpu/acc/smm.py:78-135, never in Pallas), both
-// on both paths (the warp path's register tiles in smm_warp.cuh):
-// Their tiled forms (smm_stack_demoted_kernel, smm_stack_complex_kernel)
-// keep the earlier 32x32 tile for blocks past 32.
+// runs both in XLA, dbcsr_tpu/acc/smm.py:78-135, never in Pallas), on
+// both paths: the warp path's register tiles in smm_warp.cuh, the tiled
+// path's in its section below (the same kernel body, a form a policy).
 // * complex c4/c8: interleaved real and imaginary parts, complex alpha.
-//   On the warp path the parts are staged as they lie and a fragment
-//   reads both parts of an element in one load; c8 runs 4 DMMAs a tile
-//   and k-step (Ar.Br, (-Ai).Bi, Ar.Bi, Ai.Br) with two warps a block
-//   (each warp's slots take 37 kB at 23x23x23) and reads C at the end of
+//   The parts are staged as they lie and a fragment reads both parts of
+//   an element in one load; c8 runs 4 DMMAs a tile and k-step (Ar.Br,
+//   (-Ai).Bi, Ar.Bi, Ai.Br), on the warp path with two warps a block
+//   (each warp's slots take 37 kB at 23x23x23) and C read at the end of
 //   a run (two register tiles leave no room for it); c4 runs 4 f32 FMAs
-//   a multiply-add on Tile<float>'s lane layout.  The tiled path
-//   (smm_stack_complex_kernel) stays for larger blocks.  Bound on the
-//   north star: 8.0e10 real flops, 1.20 ms at 67 TFLOP/s on the FP64
-//   tensor cores (c8) or the f32 CUDA cores (c4); the bytes take less.
+//   a multiply-add on the f32 tiles' lane layout.  Bound on the north
+//   star: 8.0e10 real flops, 1.20 ms at 67 TFLOP/s on the FP64 tensor
+//   cores (c8) or the f32 CUDA cores (c4); the bytes take less.
 // * demoted compute (acc/precision.py): the operands stay at the request
 //   dtype in device memory and are converted once, as each staged slot
-//   lands (warp path) or each slice is staged (tiled path).
-//   Uncompensated, an entry's k-sum runs in f32 and is widened into the
-//   run's sum: f64->f32 on f32 FMAs, ->bf16 on the bf16 tensor cores
-//   (mma.sync m16n8k16, f32 out).  Compensated, each product of the
-//   operands' hi/lo splits is summed in the wide type: for f64 data one
-//   DMMA product of depth 3k over the hi and lo parts, which are exact
-//   in f64 (at least 3x the FP64 tensor cores' time for native f64's
-//   products, where `stack_bound_s` takes the compute type's peak); for
-//   f32 data the bf16 tensor cores into the f32 sum.  Each form moves
-//   the native form's bytes.
+//   lands.  Uncompensated, an entry's k-sum runs in f32 and is widened
+//   into the run's sum: f64->f32 on f32 FMAs, ->bf16 on the bf16 tensor
+//   cores (mma.sync m16n8k16, f32 out).  Compensated, each product of
+//   the operands' hi/lo splits is summed in the wide type: for f64 data
+//   one DMMA product of depth 3k over the hi and lo parts, which are
+//   exact in f64 (at least 3x the FP64 tensor cores' time for native
+//   f64's products, where `stack_bound_s` takes the compute type's
+//   peak); for f32 data the bf16 tensor cores into the f32 sum.  Each
+//   form moves the native form's bytes.
 // Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (perf/tree_ab.py,
-// this source against the tiled complex and per-read-converting demoted
-// kernels in turns, north star per multiply, `test_H2O` per product):
+// the warp path against the earlier per-read-converting forms in turns,
+// north star per multiply, `test_H2O` per product):
 // c8 8.5 ms (11.7 before; bound 1.22 ms), c4 5.2 ms (8.9; 1.21), f64->f32
 // 4.0 ms (7.2; 0.534 ms, bytes), against native f64 K1's 2.1 ms.  On
 // `test_H2O` (native f64 K1 1.1 ms, bound 0.21): f64->f32c 3.7 ms (6.1-6.4;
@@ -102,6 +99,7 @@
 // f64->bf16 1.9 ms (6.1-6.2; 0.043), f32->bf16c 2.8 ms (3.7; 0.042),
 // f32->bf16 1.5 ms (3.4; 0.022).  Every form inherits native K1's
 // staging-bound warp pipeline (see above) and adds its own work per entry.
+// The tiled forms' times are in the tiled section's note.
 
 #include <type_traits>
 
@@ -115,13 +113,7 @@ using smm::store_acc;
 using smm::split_hi_lo;
 using smm::to_compute;
 
-constexpr int W = 4;    // warps (runs) of a warp-path block
-constexpr int TM = 32;  // tiled path: output tile rows
-constexpr int TN = 32;  // output tile cols
-constexpr int TK = 16;  // depth of one staged operand slice
-constexpr int NTX = 16; // threads along n; each thread owns 2 x 2 outputs
-constexpr int NTY = 16; // threads along m
-constexpr int NTHREADS = NTX * NTY;
+constexpr int W = 4;  // warps (runs) of a warp-path block
 
 // WN warps a block; Z = 2 for complex data (T its real type)
 template <typename T, int MAXT, typename TileT, int WN, int Z>
@@ -136,200 +128,6 @@ smm_stack_warp_kernel(const T* __restrict__ a, const T* __restrict__ b,
   smm::warp_kernel<T, MAXT, smm::ConsecutiveRuns, smm::StackRuns, TileT, Z>(
       smm::StackRuns{a, b, a_idx, b_idx, run_ptr, run_c, nruns, k}, c, m, n, k, 1, alpha,
       smm::ConsecutiveRuns{nruns}, alpha_im);
-}
-
-// The tiled path's demoted forms: CT the compute dtype (0 f32, 1 bf16),
-// COMP the two-product compensation.  W is the wide type; the staged
-// slices hold the compute-rounded values (in f32) or, compensated, the
-// hi and lo parts (in W).
-template <typename T, int CT, bool COMP>
-__global__ void __launch_bounds__(NTHREADS)
-smm_stack_demoted_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                         T* __restrict__ c, const int* __restrict__ a_idx,
-                         const int* __restrict__ b_idx,
-                         const int* __restrict__ run_ptr,
-                         const int* __restrict__ run_c, int m, int n, int k,
-                         typename AccOf<T>::type alpha) {
-  using Wt = typename AccOf<T>::type;
-  using S = typename std::conditional<COMP, Wt, float>::type;
-  constexpr int LM = COMP ? TM : 1, LK = COMP ? TK : 1;
-  __shared__ S ah[TM][TK + 1];
-  __shared__ S bh[TK][TN + 1];
-  __shared__ S al[LM][TK + 1];
-  __shared__ S bl[LK][TN + 1];
-
-  const int run = blockIdx.x;
-  const int row0 = blockIdx.y * TM;
-  const int col0 = blockIdx.z * TN;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * NTX + tx;
-  const int64_t mk = (int64_t)m * k;
-  const int64_t kn = (int64_t)k * n;
-
-  Wt acc[2][2] = {{Wt(0), Wt(0)}, {Wt(0), Wt(0)}};
-  const int e0 = run_ptr[run];
-  const int e1 = run_ptr[run + 1];
-  for (int e = e0; e < e1; ++e) {
-    const T* ablk = a + (int64_t)a_idx[e] * mk;
-    const T* bblk = b + (int64_t)b_idx[e] * kn;
-    float p[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};  // an entry's f32 k-sum
-    for (int k0 = 0; k0 < k; k0 += TK) {
-      for (int i = tid; i < TM * TK; i += NTHREADS) {
-        const int r = i / TK, kk = i % TK;
-        const int gr = row0 + r, gk = k0 + kk;
-        const Wt x = (gr < m && gk < k) ? load_acc(ablk + (int64_t)gr * k + gk) : Wt(0);
-        if constexpr (COMP) {
-          Wt hi, lo;
-          split_hi_lo<CT>(x, hi, lo);
-          ah[r][kk] = hi;
-          al[r][kk] = lo;
-        } else {
-          ah[r][kk] = static_cast<S>(to_compute<CT>(x));
-        }
-      }
-      for (int i = tid; i < TK * TN; i += NTHREADS) {
-        const int kk = i / TN, cc = i % TN;
-        const int gk = k0 + kk, gc = col0 + cc;
-        const Wt x = (gk < k && gc < n) ? load_acc(bblk + (int64_t)gk * n + gc) : Wt(0);
-        if constexpr (COMP) {
-          Wt hi, lo;
-          split_hi_lo<CT>(x, hi, lo);
-          bh[kk][cc] = hi;
-          bl[kk][cc] = lo;
-        } else {
-          bh[kk][cc] = static_cast<S>(to_compute<CT>(x));
-        }
-      }
-      __syncthreads();
-      const int kend = min(TK, k - k0);
-      for (int kk = 0; kk < kend; ++kk) {
-        if constexpr (COMP) {
-          const Wt a0 = ah[ty][kk], a1 = ah[ty + NTY][kk];
-          const Wt a0l = al[ty][kk], a1l = al[ty + NTY][kk];
-          const Wt b0 = bh[kk][tx], b1 = bh[kk][tx + NTX];
-          const Wt b0l = bl[kk][tx], b1l = bl[kk][tx + NTX];
-          acc[0][0] += a0 * b0 + (a0 * b0l + a0l * b0);
-          acc[0][1] += a0 * b1 + (a0 * b1l + a0l * b1);
-          acc[1][0] += a1 * b0 + (a1 * b0l + a1l * b0);
-          acc[1][1] += a1 * b1 + (a1 * b1l + a1l * b1);
-        } else {
-          const float a0 = ah[ty][kk], a1 = ah[ty + NTY][kk];
-          const float b0 = bh[kk][tx], b1 = bh[kk][tx + NTX];
-          p[0][0] = fmaf(a0, b0, p[0][0]);
-          p[0][1] = fmaf(a0, b1, p[0][1]);
-          p[1][0] = fmaf(a1, b0, p[1][0]);
-          p[1][1] = fmaf(a1, b1, p[1][1]);
-        }
-      }
-      __syncthreads();
-    }
-    if constexpr (!COMP) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) acc[i][j] += static_cast<Wt>(p[i][j]);
-    }
-  }
-  T* cblk = c + (int64_t)run_c[run] * m * n;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int r = row0 + ty + i * NTY;
-      const int cc = col0 + tx + j * NTX;
-      if (r < m && cc < n) {
-        T* q = cblk + (int64_t)r * n + cc;
-        store_acc(q, load_acc(q) + alpha * acc[i][j]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float cfma(float x, float y, float z) { return fmaf(x, y, z); }
-__device__ __forceinline__ double cfma(double x, double y, double z) { return fma(x, y, z); }
-
-// The complex forms (R = float for c4, double for c8): the tiled path's
-// layout with the real and imaginary parts staged apart; each element
-// sums its entries in stack order and k ascending, 4 FMAs a multiply-add.
-template <typename R>
-__global__ void __launch_bounds__(NTHREADS)
-smm_stack_complex_kernel(const R* __restrict__ a, const R* __restrict__ b,
-                         R* __restrict__ c, const int* __restrict__ a_idx,
-                         const int* __restrict__ b_idx,
-                         const int* __restrict__ run_ptr,
-                         const int* __restrict__ run_c, int m, int n, int k,
-                         R alpha_re, R alpha_im) {
-  __shared__ R asr[TM][TK + 1], asi[TM][TK + 1];
-  __shared__ R bsr[TK][TN + 1], bsi[TK][TN + 1];
-
-  const int run = blockIdx.x;
-  const int row0 = blockIdx.y * TM;
-  const int col0 = blockIdx.z * TN;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * NTX + tx;
-  const int64_t mk = (int64_t)m * k;
-  const int64_t kn = (int64_t)k * n;
-
-  R re[2][2] = {{R(0), R(0)}, {R(0), R(0)}};
-  R im[2][2] = {{R(0), R(0)}, {R(0), R(0)}};
-  const int e0 = run_ptr[run];
-  const int e1 = run_ptr[run + 1];
-  for (int e = e0; e < e1; ++e) {
-    const R* ablk = a + 2 * (int64_t)a_idx[e] * mk;
-    const R* bblk = b + 2 * (int64_t)b_idx[e] * kn;
-    for (int k0 = 0; k0 < k; k0 += TK) {
-      for (int i = tid; i < TM * TK; i += NTHREADS) {
-        const int r = i / TK, kk = i % TK;
-        const int gr = row0 + r, gk = k0 + kk;
-        const bool in = gr < m && gk < k;
-        const int64_t o = 2 * ((int64_t)gr * k + gk);
-        asr[r][kk] = in ? ablk[o] : R(0);
-        asi[r][kk] = in ? ablk[o + 1] : R(0);
-      }
-      for (int i = tid; i < TK * TN; i += NTHREADS) {
-        const int kk = i / TN, cc = i % TN;
-        const int gk = k0 + kk, gc = col0 + cc;
-        const bool in = gk < k && gc < n;
-        const int64_t o = 2 * ((int64_t)gk * n + gc);
-        bsr[kk][cc] = in ? bblk[o] : R(0);
-        bsi[kk][cc] = in ? bblk[o + 1] : R(0);
-      }
-      __syncthreads();
-      const int kend = min(TK, k - k0);
-      for (int kk = 0; kk < kend; ++kk) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const R ar = asr[ty + i * NTY][kk], ai = asi[ty + i * NTY][kk];
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const R br = bsr[kk][tx + j * NTX], bi = bsi[kk][tx + j * NTX];
-            re[i][j] = cfma(ar, br, re[i][j]);
-            re[i][j] = cfma(-ai, bi, re[i][j]);
-            im[i][j] = cfma(ar, bi, im[i][j]);
-            im[i][j] = cfma(ai, br, im[i][j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  R* cblk = c + 2 * (int64_t)run_c[run] * m * n;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int r = row0 + ty + i * NTY;
-      const int cc = col0 + tx + j * NTX;
-      if (r < m && cc < n) {
-        R* q = cblk + 2 * ((int64_t)r * n + cc);
-        const R sr = re[i][j], si = im[i][j];
-        q[0] = q[0] + (alpha_re * sr - alpha_im * si);
-        q[1] = q[1] + (alpha_re * si + alpha_im * sr);
-      }
-    }
-  }
 }
 
 // One launch's arguments.  attrs non-null asks for the instance's
@@ -394,34 +192,59 @@ struct SegmentRuns {
 };
 
 // ------------------------------------------------------------ tiled path
-// Blocks with m, n or k > 32, native f64, f32 and bf16 (the complex and
-// demoted forms above keep the 32x32 tile).  One thread block of NW = 8
-// warps owns a chunk of a C block: all of it up to 8 * MTW * NTW tiles
-// of 8x8 (the (529,23,23) blocks of the RI contraction are one chunk of
-// 67 x 3 tiles), else one of the chunks the block is cut into; no two
-// blocks write one element.  The warps split the chunk's tiles as
-// wr x wc warps (`Geom`, the arrangement with the fewest chunks, then the
-// fewest tiles a warp): a warp owns every wr-th row tile and a contiguous
-// run of column tiles, at most MTW x NTW of them, its sum in registers:
-// f64 on DMMA (m8n8k4, the warp path's fragments), f32 and bf16 on the
-// CUDA cores in full f32, each lane a micro-tile of row tiles by 2 nc
-// contiguous columns (MTW A values and 2 NTW B values a k for 2 MTW NTW
-// FMAs).  Thread blocks are persistent and take the chunks grid-stride in
-// C order, so the blocks in flight share one block row's A blocks in L2.
-// Each entry is staged once for all warps with cp.async, two buffers deep
-// across entries, segments and runs: the next entry lands while this one
-// multiplies.  Whole entries ("flat"): the chunk's rows of A and all of
-// B, each copied flat, 16 bytes a thread, at the offset its source has
-// within 16 bytes (the warp path's trick); when two such slots exceed
-// the shared memory, k slices of `ks` (a multiple of 4) of A's chunk
-// rows and B's chunk columns, element by element, padded strides.  A
-// run's C chunk is prefetched into L2 as its first entry is staged; at
-// the end of a segment the warps write their sums into the buffer just
-// multiplied and the block updates C = C + alpha * sum with coalesced
-// loads and stores, once.  Each element sums its entries in stack order
-// and k in ascending 4-deep steps, whatever the chunking or the slicing,
-// so repeats are bit for bit equal and a fused bin (SegmentRuns) is bit
-// for bit its spans' launches (StackRuns).
+// Blocks with m, n or k > 32, every form.  One thread block of NW = 8
+// warps owns a chunk of a C block: all of it up to 8 * MT * NTW tiles of
+// 8x8 (MT the form's register tile rows; the (529,23,23) blocks of the
+// RI contraction are one chunk of 67 x 3 tiles for the native forms),
+// else one of the chunks the block is cut into; no two blocks write one
+// element.  The warps split the chunk's tiles as wr x wc warps (`Geom`,
+// the arrangement with the fewest chunks, then the fewest tiles a warp):
+// a warp owns every wr-th row tile and a contiguous run of column
+// tiles, at most MT x NTW of them, its sum in registers (the form's
+// register tile below).  Thread blocks are persistent and take the
+// chunks grid-stride in C order, so the blocks in flight share one block
+// row's A blocks in L2.  Each entry is staged once for all warps with
+// cp.async, across entries, segments and runs: the next entry lands
+// while this one multiplies.  Whole entries ("flat"): the chunk's rows
+// of A and all of B, each copied flat, 16 bytes a thread, at the offset
+// its source has within 16 bytes (the warp path's trick); when they
+// exceed the shared memory, k slices of `ks` (a multiple of 4) of A's
+// chunk rows and B's chunk columns, element by element, padded strides.
+// A run's C chunk is prefetched into L2 as its first entry is staged; at
+// the end of a segment the warps write their sums into shared memory
+// and the block updates C = C + alpha * sum with coalesced loads and
+// stores, once.  Each element sums its entries in stack order and k in
+// ascending steps (4 deep on DMMA, 16 on the bf16 tensor cores), whatever
+// the chunking or the slicing, so repeats are bit for bit equal and a
+// fused bin (SegmentRuns) is bit for bit its spans' launches (StackRuns).
+//
+// The forms (`Native`, `Complex`, `F32Form`, `BfForm`, `CompForm`) are
+// policies of the one kernel body: the data's type, the register tile,
+// and, for the demoted forms, a converted plane.
+// * native: two staging buffers; the tile reads them as they landed:
+//   f64 on DMMA (m8n8k4, the warp path's fragments), f32 and bf16 on the
+//   CUDA cores in full f32, each lane a micro-tile of row tiles by 2 nc
+//   contiguous columns.
+// * complex: staged as it lies, the parts interleaved (Z = 2 reals an
+//   element, as the warp path's CTile): c8 on DMMA, 4 products a tile and
+//   k-step (Ar.Br, (-Ai).Bi, Ar.Bi, Ai.Br) into a real and an imaginary
+//   sum; c4 on 4 f32 FMAs a multiply-add.  The two sums take twice the
+//   registers and the data twice the bytes, so the tile is 5 row tiles
+//   (MT) and a (529,23) C block is cut into two chunks of 34 and 33 row
+//   tiles, whose flat entries fit two buffers; complex alpha is applied
+//   once, at the C update.
+// * demoted (CVT): the operands stay at the request dtype in device
+//   memory and land raw in one staging buffer; as each slot lands the
+//   block converts it once into a plane of the compute form, which the
+//   tile multiplies while the next slot lands in the raw buffer: f64->f32
+//   as f32 in the slot's own layout (native f32's FMA tile, each entry's
+//   k-sum in f32 widened into the run's f64 sum); -> bf16 as bf16, B
+//   transposed, the k padding zero (the bf16 tensor cores, mma.sync
+//   m16n8k16 on two of the warp's row tiles at once, each entry's sum in
+//   a fresh f32 fragment added into the run's sum, the rule the warp
+//   path's BfTile keeps); f64 compensated as the hi and lo parts in f64,
+//   in the slot's layout (one DMMA product of depth 3k, CompTile's
+//   scheme).  The sums pass through the plane at a segment's end.
 //
 // Measured on 40,000 runs of (529,23,23) blocks at 4.5 entries a run
 // (perf/kernel_ab.py --tiled, NVIDIA H100 80GB HBM3, 700 W): f64 10.2 ms
@@ -430,13 +253,18 @@ struct SegmentRuns {
 // take about as long and each hides only part of the other with one
 // block an SM.  f32 7.0 against 18.9 (bound 1.50, operations); 5.1 and
 // 5.8.  A predicate on every product of the register tile cost the f32
-// tile 2.5x (19.2 ms), hence `full`.
+// tile 2.5x (19.2 ms), hence `full`.  The complex and demoted forms
+// (same stack, same card; PERF.md): c8 29.6 ms (bound 6.01, operations),
+// c4 19.6 (6.01), f64->f32 11.9 (2.44, bytes), f64->bf16 12.4 (2.44),
+// f64->f32c 24.6 (4.51), f64->bf16c 26.2 (2.44), f32->bf16 8.2 (1.22),
+// f32->bf16c 9.3 (1.22), against the earlier tile's 42.5, 31.5, 18.8,
+// 18.2-19.2, 38.5, 39.3, 17.4-18.3 and 28.9-30.3.
 namespace tiled {
 
 constexpr int NW = 8;    // warps a thread block
 constexpr int NTH = NW * 32;
-constexpr int MTW = 9;   // a warp's register tile: at most MTW row tiles
-constexpr int NTW = 3;   // by NTW column tiles of 8x8
+constexpr int MTW = 9;   // the native register tile: at most MTW row tiles
+constexpr int NTW = 3;   // by NTW column tiles of 8x8 (every form)
 constexpr int SMEM_MAX = 227 * 1024;  // dynamic shared memory a block may hold
 constexpr int EB = 8;    // C elements a thread loads at once when it updates C
 
@@ -450,27 +278,41 @@ struct Geom {
   int nrc, ncc;    // chunks along the rows and the columns of a C block
   int flat;        // 1: whole entries staged flat; 0: k slices
   int ks;          // k-slice depth (flat: k rounded up to 4)
-  int lda, ldb;    // sliced: row strides of the staged A and B slices
-  int a_area;      // elements of T of one buffer's A area
-  int buf;         // bytes of one buffer: a slot (A area, then B area) or the chunk's sum
-  int smem;        // bytes of dynamic shared memory: two buffers
+  int lda, ldb;    // sliced: row strides (elements) of the staged A and B slices
+  int a_area;      // reals of T of one buffer's A area
+  int buf;         // bytes of one staging buffer (native and complex: also the chunk's sum)
+  int bufs;        // staging buffers: 2, or 1 beside a converted plane
+  int pla, plb;    // the plane's row strides of A and B (elements of its type)
+  int pa, pp;      // the plane's A part and one whole part (hi; lo after it), elements
+  int smem;        // bytes of dynamic shared memory: the buffers, then the plane or sum
 };
 
-// two buffers, each a slot of `slot_bytes` or a chunk's sum, fit a block
-__host__ __device__ inline bool fits(int slot_bytes, int sum_bytes) {
+// the slot fits beside its second buffer, or beside the plane (and the
+// sum, which passes through the plane's room at a segment's end)
+__host__ __device__ inline bool fits(bool cvt, int slot_bytes, int plane_bytes, int sum_bytes) {
+  if (cvt)
+    return smm::round_up(slot_bytes, 16) + smm::round_up(imax(plane_bytes, sum_bytes), 16) <=
+           SMEM_MAX;
   return 2 * smm::round_up(imax(slot_bytes, sum_bytes), 16) <= SMEM_MAX;
 }
 
-// The geometry of a launch of (m, n) blocks whose entries reach depth
-// kmax; tsize and ssize are the bytes of the data and the sum types.
-__host__ __device__ inline Geom geom(int m, int n, int kmax, int tsize, int ssize) {
+// The geometry of a launch of form F on (m, n) blocks whose entries reach
+// depth kmax.  The complex and demoted forms (F::SPLIT) cut a C block's
+// rows into as many balanced chunks as their register tile needs, and
+// into more while a chunk's whole entries do not fit; then k slices (of
+// fewer rows a chunk where even a 4-deep slice leaves no room for the
+// chunk's sum).
+template <typename F>
+inline Geom geom(int m, int n, int kmax) {
+  constexpr int Z = F::Z, TS = sizeof(typename F::T);
+  constexpr int SS = sizeof(typename F::S);
   Geom g;
   g.mt = (m + 7) / 8;
   g.nt = (n + 7) / 8;
   long long best = -1;
   for (int wr = NW; wr >= 1; wr /= 2) {
     const int wc = NW / wr;
-    const int rmt = imin(g.mt, wr * MTW), cnt = imin(g.nt, wc * NTW);
+    const int rmt = imin(g.mt, wr * F::MT), cnt = imin(g.nt, wc * NTW);
     const int nrc = (g.mt + rmt - 1) / rmt, ncc = (g.nt + cnt - 1) / cnt;
     const int tr = (rmt + wr - 1) / wr, tc = (cnt + wc - 1) / wc;
     const long long key = (long long)nrc * ncc * 65536 + tr * tc * 256 + tr + tc;
@@ -479,27 +321,62 @@ __host__ __device__ inline Geom geom(int m, int n, int kmax, int tsize, int ssiz
       g.wr = wr, g.wc = wc, g.rmt = rmt, g.cnt = cnt, g.nrc = nrc, g.ncc = ncc;
     }
   }
-  const int q = 16 / tsize, kp = smm::round_up(kmax, 4);
-  const int sum_bytes = 8 * g.rmt * 8 * g.cnt * ssize;  // the chunk's sum, row stride 8 cnt
-  g.flat = 1;
-  g.ks = kp;
+  g.bufs = F::CVT ? 1 : 2;
+  const int q = 16 / TS, kp = smm::round_up(kmax, 4), nrc0 = g.nrc;
+  int slot = 0, plane = 0;
+  // the chunk's rows: balanced chunks for the forms that split
+  auto rows = [&]() {
+    if (F::SPLIT) g.rmt = (g.mt + g.nrc - 1) / g.nrc;
+  };
+  // one row tile fewer a chunk, while at least `least` are left
+  auto fewer = [&](int least) {
+    if (!F::SPLIT || g.rmt - 1 < least) return false;
+    g.nrc = (g.mt + g.rmt - 2) / (g.rmt - 1);
+    return true;
+  };
+  // whether the buffers (and the plane or the chunk's sum) fit
+  auto fit = [&]() {
+    return fits(F::CVT, slot * TS, plane, 8 * g.rmt * 8 * g.cnt * Z * SS);
+  };
+  auto sliced = [&](int ks) {
+    g.ks = ks;
+    g.lda = ks + 4;
+    g.a_area = smm::round_up(Z * 8 * g.rmt * g.lda, q);
+    slot = g.a_area + smm::round_up(Z * ks * g.ldb, q);
+    plane = F::plane(8 * g.rmt, 8 * g.cnt, ks, slot, g);
+    return fit();
+  };
   g.lda = g.ldb = 0;
-  g.a_area = smm::round_up(8 * g.rmt * kmax + kp + q, q);
-  int slot = g.a_area + smm::round_up(kp * n + 8 * g.nt + q, q);
-  if (!fits(slot * tsize, sum_bytes)) {
-    g.flat = 0;
-    g.ldb = 8 * g.cnt + 4;
-    for (g.ks = imin(kp, 64); g.ks > 4; g.ks -= 4) {
-      g.lda = g.ks + 4;
-      g.a_area = smm::round_up(8 * g.rmt * g.lda, q);
-      if (fits((g.a_area + smm::round_up(g.ks * g.ldb, q)) * tsize, sum_bytes)) break;
+  g.ks = kp;
+  for (g.flat = 1;;) {
+    rows();
+    g.a_area = smm::round_up(Z * (8 * g.rmt * kmax + kp) + q, q);
+    slot = g.a_area + smm::round_up(Z * (kp * n + 8 * g.nt) + q, q);
+    plane = F::plane(8 * g.rmt, 8 * g.cnt, kp, slot, g);
+    if (fit()) break;
+    if (!fewer(g.wr)) {
+      g.flat = 0;
+      break;
     }
-    g.lda = g.ks + 4;
-    g.a_area = smm::round_up(8 * g.rmt * g.lda, q);
-    slot = g.a_area + smm::round_up(g.ks * g.ldb, q);
   }
-  g.buf = smm::round_up(imax(slot * tsize, sum_bytes), 16);
-  g.smem = 2 * g.buf;
+  if (!g.flat) {
+    g.nrc = nrc0;
+    g.ldb = 8 * g.cnt + 4;
+    do {
+      rows();
+      int ks = imin(kp, 64);
+      while (ks > 4 && !sliced(ks)) ks -= 4;
+      if (sliced(ks)) break;
+    } while (fewer(1));
+  }
+  const int sum_bytes = 8 * g.rmt * 8 * g.cnt * Z * SS;  // the chunk's sum, row stride 8 cnt
+  if (F::CVT) {
+    g.buf = smm::round_up(slot * TS, 16);
+    g.smem = g.buf + smm::round_up(imax(plane, sum_bytes), 16);
+  } else {
+    g.buf = smm::round_up(imax(slot * TS, sum_bytes), 16);
+    g.smem = 2 * g.buf;
+  }
   return g;
 }
 
@@ -546,14 +423,43 @@ __device__ __forceinline__ void stage_2d(T* dst, int ldd, const T* src, int lds,
   }
 }
 
+// f(r, c) for every element of a rows x cols block, the block's threads
+// taking them in turn
+template <typename Fn>
+__device__ __forceinline__ void for_each_rc(int rows, int cols, int tid, Fn f) {
+  const smm::FlatIter it = smm::flat_iter(cols, tid, NTH);
+  int r = it.r0, c = it.c0;
+  for (int w = tid; w < rows * cols; w += NTH) {
+    f(r, c);
+    c += it.rem;
+    r += it.q;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // A warp's share of a chunk: row tiles r0, r0 + wr, ... (nr of them) and
 // column tiles c0 .. c0 + nc - 1 of the chunk; bc0 is the column tile c0
-// in the staged B (flat: all of B; sliced: the chunk's columns).
+// in the B the tile reads (staged flat: all of B; sliced or converted:
+// the chunk's columns).
 struct Strip {
   int r0, nr, c0, nc, bc0;
+};
+
+// Where a tile reads an entry (or slice): A(r, kk) = a[r * lda + kk] from
+// the chunk's first row, B(kk, c) = b[kk * ldb + c] (strides in elements;
+// complex data: elements of two reals), or a converted plane in its
+// form's layout, whose lo part (compensated forms) starts `part`
+// elements after the hi part.
+template <typename P>
+struct Src {
+  const P *a, *b;
+  int lda, ldb, part;
 };
 
 // A strip that fills at least 3/4 of the register tile multiplies all of
@@ -561,18 +467,26 @@ struct Strip {
 // (measured on the f32 FMAs: 7.8 against 19.2 ms on (529,23,23) stacks,
 // NVIDIA H100 80GB HBM3, `perf/kernel_ab.py --tiled`); a smaller strip
 // keeps the predicates.
-__device__ __forceinline__ bool full(const Strip& s) { return 4 * s.nr * s.nc >= 3 * MTW * NTW; }
+template <int MT>
+__device__ __forceinline__ bool full(const Strip& s) {
+  return 4 * s.nr * s.nc >= 3 * MT * NTW;
+}
+
+// ---------------------------------------------------- register tiles
+// Each: zero() at a segment's start, mma() per entry or slice,
+// end_entry() after an entry's last slice, store() of the sums into
+// shared memory (row stride sb elements; complex: two reals each).
 
 // f64 on DMMA: fragments of m8n8k4 as in smm::Tile<double> (g = lane/4,
-// t = lane%4: A(g, t), B(t, g), C(g, 2t) and C(g, 2t+1)); A(r, kk) is
-// as[r * lda + kk] and B(kk, c) is bs[kk * ldb + c]; the k padding of the
-// last 4-deep step is zeroed by predicate.
+// t = lane%4: A(g, t), B(t, g), C(g, 2t) and C(g, 2t+1)); the k padding
+// of the last 4-deep step is zeroed by predicate.
+template <int MT>
 struct DTile {
-  double v[MTW][NTW][2];
+  double v[MT][NTW][2];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int i = 0; i < MTW; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < NTW; ++j) v[i][j][0] = v[i][j][1] = 0.0;
   }
@@ -585,36 +499,38 @@ struct DTile {
 #pragma unroll 1
     for (int kk = 0; kk < kd; kk += 4) {
       const bool kin = kk + t < kd;
-      double af[MTW], bf[NTW];
+      double af[MT], bf[NTW];
 #pragma unroll
-      for (int i = 0; i < MTW; ++i) af[i] = i < s.nr && kin ? ap[i * astep + kk] : 0.0;
+      for (int i = 0; i < MT; ++i) af[i] = i < s.nr && kin ? ap[i * astep + kk] : 0.0;
 #pragma unroll
       for (int j = 0; j < NTW; ++j) bf[j] = j < s.nc && kin ? bp[kk * ldb + 8 * j] : 0.0;
 #pragma unroll
-      for (int i = 0; i < MTW; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int j = 0; j < NTW; ++j)
           if (FULL || (i < s.nr && j < s.nc)) smm::dmma(v[i][j], af[i], bf[j]);
     }
   }
 
-  __device__ __forceinline__ void mma(const double* as, int lda, const double* bs, int ldb,
-                                      int kd, int wr, const Strip& s, int lane) {
+  __device__ __forceinline__ void mma(const Src<double>& x, int kd, int wr, const Strip& s,
+                                      int lane) {
     const int gr = lane >> 2, t = lane & 3;
-    const double* ap = as + (8 * s.r0 + gr) * lda + t;
-    const double* bp = bs + t * ldb + 8 * s.bc0 + gr;
-    if (full(s))
-      mma_k<true>(ap, 8 * wr * lda, bp, ldb, kd, t, s);
+    const double* ap = x.a + (8 * s.r0 + gr) * x.lda + t;
+    const double* bp = x.b + t * x.ldb + 8 * s.bc0 + gr;
+    if (full<MT>(s))
+      mma_k<true>(ap, 8 * wr * x.lda, bp, x.ldb, kd, t, s);
     else
-      mma_k<false>(ap, 8 * wr * lda, bp, ldb, kd, t, s);
+      mma_k<false>(ap, 8 * wr * x.lda, bp, x.ldb, kd, t, s);
   }
+
+  __device__ __forceinline__ void end_entry() {}
 
   // cs (row stride sb, the chunk's rows and columns) = the warp's sums
   __device__ __forceinline__ void store(double* cs, int sb, int wr, const Strip& s,
                                         int lane) const {
     const int gr = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int i = 0; i < MTW; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < NTW; ++j)
         if (i < s.nr && j < s.nc) {
@@ -627,12 +543,13 @@ struct DTile {
 
 // f32 and bf16 on the CUDA cores in f32 (never TF32): the lane owns rows
 // 8 (r0 + wr i) + lane/4 and the 2 nc columns from 8 c0 + (lane%4) 2 nc.
+template <int MT>
 struct FTile {
-  float v[MTW][2 * NTW];
+  float v[MT][2 * NTW];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int i = 0; i < MTW; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < 2 * NTW; ++j) v[i][j] = 0.0f;
   }
@@ -642,13 +559,13 @@ struct FTile {
                                         int tn, const Strip& s) {
 #pragma unroll 2
     for (int kk = 0; kk < kd; ++kk) {
-      float af[MTW], bf[2 * NTW];
+      float af[MT], bf[2 * NTW];
 #pragma unroll
-      for (int i = 0; i < MTW; ++i) af[i] = i < s.nr ? to_f(ap[i * astep + kk]) : 0.0f;
+      for (int i = 0; i < MT; ++i) af[i] = i < s.nr ? to_f(ap[i * astep + kk]) : 0.0f;
 #pragma unroll
       for (int j = 0; j < 2 * NTW; ++j) bf[j] = j < tn ? to_f(bp[kk * ldb + j]) : 0.0f;
 #pragma unroll
-      for (int i = 0; i < MTW; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int j = 0; j < 2 * NTW; ++j)
           if (FULL || (i < s.nr && j < tn)) v[i][j] = fmaf(af[i], bf[j], v[i][j]);
@@ -656,30 +573,508 @@ struct FTile {
   }
 
   template <typename T>
-  __device__ __forceinline__ void mma(const T* as, int lda, const T* bs, int ldb, int kd,
-                                      int wr, const Strip& s, int lane) {
+  __device__ __forceinline__ void mma(const Src<T>& x, int kd, int wr, const Strip& s,
+                                      int lane) {
     const int tn = 2 * s.nc;
-    const T* ap = as + (8 * s.r0 + (lane >> 2)) * lda;
-    const T* bp = bs + 8 * s.bc0 + (lane & 3) * tn;
-    if (full(s))
-      mma_k<true>(ap, 8 * wr * lda, bp, ldb, kd, tn, s);
+    const T* ap = x.a + (8 * s.r0 + (lane >> 2)) * x.lda;
+    const T* bp = x.b + 8 * s.bc0 + (lane & 3) * tn;
+    if (full<MT>(s))
+      mma_k<true>(ap, 8 * wr * x.lda, bp, x.ldb, kd, tn, s);
     else
-      mma_k<false>(ap, 8 * wr * lda, bp, ldb, kd, tn, s);
+      mma_k<false>(ap, 8 * wr * x.lda, bp, x.ldb, kd, tn, s);
   }
+
+  __device__ __forceinline__ void end_entry() {}
+
+  template <typename W>
+  static __device__ __forceinline__ void store_micro(W* cs, const W (&v)[MT][2 * NTW], int sb,
+                                                     int wr, const Strip& s, int lane) {
+    const int tn = 2 * s.nc, r = lane >> 2, c = 8 * s.c0 + (lane & 3) * tn;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 2 * NTW; ++j)
+        if (i < s.nr && j < tn) cs[(8 * (s.r0 + wr * i) + r) * sb + c + j] = v[i][j];
+  }
+
+  __device__ __forceinline__ void store(float* cs, int sb, int wr, const Strip& s,
+                                        int lane) const {
+    store_micro(cs, v, sb, wr, s, lane);
+  }
+};
+
+// f64 -> f32: FTile on the f32 plane, each entry's f32 k-sum widened into
+// the run's f64 sum (the order `form_tolerance` assumes)
+template <int MT>
+struct F32WTile {
+  FTile<MT> f;
+  double w[MT][2 * NTW];
+
+  __device__ __forceinline__ void zero() {
+    f.zero();
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 2 * NTW; ++j) w[i][j] = 0.0;
+  }
+  __device__ __forceinline__ void mma(const Src<float>& x, int kd, int wr, const Strip& s,
+                                      int lane) {
+    f.mma(x, kd, wr, s, lane);
+  }
+  __device__ __forceinline__ void end_entry() {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 2 * NTW; ++j) {
+        w[i][j] += static_cast<double>(f.v[i][j]);
+        f.v[i][j] = 0.0f;
+      }
+  }
+  __device__ __forceinline__ void store(double* cs, int sb, int wr, const Strip& s,
+                                        int lane) const {
+    FTile<MT>::store_micro(cs, w, sb, wr, s, lane);
+  }
+};
+
+// f64 compensated (f32c, bf16c): DMMA on the hi and lo planes, per
+// 4-deep k-step hi.hi, then hi.lo, then lo.hi of every tile, straight
+// into the run's f64 sum: one product of depth 3k (CompTile's scheme)
+template <int MT>
+struct CompDTile {
+  DTile<MT> d;
+
+  __device__ __forceinline__ void zero() { d.zero(); }
+
+  template <bool FULL>
+  __device__ __forceinline__ void mma_k(const double* ap, int astep, const double* bp, int ldb,
+                                        int part, int kd, int t, const Strip& s) {
+#pragma unroll 1
+    for (int kk = 0; kk < kd; kk += 4) {
+      const bool kin = kk + t < kd;
+      double ah[MT], al[MT], bh[NTW], bl[NTW];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const bool in = i < s.nr && kin;
+        ah[i] = in ? ap[i * astep + kk] : 0.0;
+        al[i] = in ? ap[part + i * astep + kk] : 0.0;
+      }
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const bool in = j < s.nc && kin;
+        bh[j] = in ? bp[kk * ldb + 8 * j] : 0.0;
+        bl[j] = in ? bp[part + kk * ldb + 8 * j] : 0.0;
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+          if (FULL || (i < s.nr && j < s.nc)) smm::dmma(d.v[i][j], ah[i], bh[j]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+          if (FULL || (i < s.nr && j < s.nc)) smm::dmma(d.v[i][j], ah[i], bl[j]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+          if (FULL || (i < s.nr && j < s.nc)) smm::dmma(d.v[i][j], al[i], bh[j]);
+    }
+  }
+
+  __device__ __forceinline__ void mma(const Src<double>& x, int kd, int wr, const Strip& s,
+                                      int lane) {
+    const int gr = lane >> 2, t = lane & 3;
+    const double* ap = x.a + (8 * s.r0 + gr) * x.lda + t;
+    const double* bp = x.b + t * x.ldb + 8 * s.bc0 + gr;
+    if (full<MT>(s))
+      mma_k<true>(ap, 8 * wr * x.lda, bp, x.ldb, x.part, kd, t, s);
+    else
+      mma_k<false>(ap, 8 * wr * x.lda, bp, x.ldb, x.part, kd, t, s);
+  }
+
+  __device__ __forceinline__ void end_entry() {}
+
+  __device__ __forceinline__ void store(double* cs, int sb, int wr, const Strip& s,
+                                        int lane) const {
+    d.store(cs, sb, wr, s, lane);
+  }
+};
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// -> bf16 on the tensor cores (mma.sync m16n8k16, bf16 in, f32 out): a
+// fragment's 16 rows are two of the warp's row tiles, 2p and 2p + 1 of its
+// strip (rows g and g + 8 of the fragment: row g of each), B read from
+// the transposed plane.  Fragments as smm::BfTile's (g = lane/4, t =
+// lane%4: A rows g, g+8 at columns 2t, 2t+1 and 2t+8, 2t+9; B column g at
+// the same depths; C rows g, g+8 at columns 2t, 2t+1).  Each entry's sum
+// runs in a fresh f32 fragment (compensated: hi.hi, hi.lo and lo.hi) and
+// is then added into the run's sum W (f64 for f64 data, f32 for f32
+// data): the tensor cores' f32 sums truncate, and a run of thousands of
+// entries summed in the fragment itself misses `form_tolerance`.
+template <typename W, int MT, bool COMP>
+struct BTile {
+  static constexpr int MP = (MT + 1) / 2;  // fragments of two row tiles
+  W v[MP][NTW][4];
+  float p[MP][NTW][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < MP; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          v[i][j][q] = W(0);
+          p[i][j][q] = 0.0f;
+        }
+  }
+
+  __device__ __forceinline__ void mma(const Src<__nv_bfloat16>& x, int kd, int wr,
+                                      const Strip& s, int lane) {
+    const int gr = lane >> 2, t = lane & 3;
+    // kd's padding to 16 is zero in the planes
+#pragma unroll 1
+    for (int kc = 0; kc < kd; kc += 16) {
+      uint32_t ah[MP][4], al[MP][4];
+#pragma unroll
+      for (int i = 0; i < MP; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int tile = 2 * i + h;
+          const __nv_bfloat16* r = x.a + (8 * (s.r0 + wr * tile) + gr) * x.lda + kc + 2 * t;
+          const bool in = tile < s.nr;
+          ah[i][h] = in ? ld32(r) : 0u;
+          ah[i][h + 2] = in ? ld32(r + 8) : 0u;
+          al[i][h] = COMP && in ? ld32(r + x.part) : 0u;
+          al[i][h + 2] = COMP && in ? ld32(r + x.part + 8) : 0u;
+        }
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+        if (j < s.nc) {
+          const __nv_bfloat16* y = x.b + (8 * (s.bc0 + j) + gr) * x.ldb + kc + 2 * t;
+          const uint32_t bh0 = ld32(y), bh1 = ld32(y + 8);
+          const uint32_t bl0 = COMP ? ld32(y + x.part) : 0u;
+          const uint32_t bl1 = COMP ? ld32(y + x.part + 8) : 0u;
+#pragma unroll
+          for (int i = 0; i < MP; ++i)
+            if (2 * i < s.nr) {
+              smm::bf16_mma(p[i][j], ah[i], bh0, bh1);
+              if (COMP) {
+                smm::bf16_mma(p[i][j], ah[i], bl0, bl1);
+                smm::bf16_mma(p[i][j], al[i], bh0, bh1);
+              }
+            }
+        }
+    }
+  }
+
+  __device__ __forceinline__ void end_entry() {
+#pragma unroll
+    for (int i = 0; i < MP; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          v[i][j][q] += static_cast<W>(p[i][j][q]);
+          p[i][j][q] = 0.0f;
+        }
+  }
+
+  __device__ __forceinline__ void store(W* cs, int sb, int wr, const Strip& s, int lane) const {
+    const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MP; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int tile = 2 * i + (q >> 1);
+          if (tile < s.nr && j < s.nc)
+            cs[(8 * (s.r0 + wr * tile) + gr) * sb + 8 * (s.c0 + j) + 2 * t + (q & 1)] =
+                v[i][j][q];
+        }
+  }
+};
+
+// c8 on DMMA: per 4-deep k-step each 8x8 tile of the real sum takes
+// Ar.Br and then (-Ai).Bi, the imaginary one Ar.Bi and then Ai.Br (the
+// warp path's CTile order); a fragment reads both parts in one load
+template <int MT>
+struct CDTile {
+  double re[MT][NTW][2], im[MT][NTW][2];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) re[i][j][0] = re[i][j][1] = im[i][j][0] = im[i][j][1] = 0.0;
+  }
+
+  template <bool FULL>
+  __device__ __forceinline__ void mma_k(const double2* ap, int astep, const double2* bp,
+                                        int ldb, int kd, int t, const Strip& s) {
+#pragma unroll 1
+    for (int kk = 0; kk < kd; kk += 4) {
+      const bool kin = kk + t < kd;
+      double2 af[MT], bf[NTW];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        af[i] = i < s.nr && kin ? ap[i * astep + kk] : make_double2(0.0, 0.0);
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+        bf[j] = j < s.nc && kin ? bp[kk * ldb + 8 * j] : make_double2(0.0, 0.0);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const double nai = -af[i].y;
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+          if (FULL || (i < s.nr && j < s.nc)) {
+            smm::dmma(re[i][j], af[i].x, bf[j].x);
+            smm::dmma(re[i][j], nai, bf[j].y);
+            smm::dmma(im[i][j], af[i].x, bf[j].y);
+            smm::dmma(im[i][j], af[i].y, bf[j].x);
+          }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void mma(const Src<double>& x, int kd, int wr, const Strip& s,
+                                      int lane) {
+    const int gr = lane >> 2, t = lane & 3;
+    const double2* ap = reinterpret_cast<const double2*>(x.a) + (8 * s.r0 + gr) * x.lda + t;
+    const double2* bp = reinterpret_cast<const double2*>(x.b) + t * x.ldb + 8 * s.bc0 + gr;
+    if (full<MT>(s))
+      mma_k<true>(ap, 8 * wr * x.lda, bp, x.ldb, kd, t, s);
+    else
+      mma_k<false>(ap, 8 * wr * x.lda, bp, x.ldb, kd, t, s);
+  }
+
+  __device__ __forceinline__ void end_entry() {}
+
+  __device__ __forceinline__ void store(double* cs, int sb, int wr, const Strip& s,
+                                        int lane) const {
+    const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+        if (i < s.nr && j < s.nc)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            double* p = cs + 2 * ((8 * (s.r0 + wr * i) + gr) * sb + 8 * (s.c0 + j) + 2 * t + h);
+            p[0] = re[i][j][h];
+            p[1] = im[i][j][h];
+          }
+  }
+};
+
+// c4 on the CUDA cores in FTile's lane layout, 4 f32 FMAs a multiply-add
+// in the warp path's CTile<float> order, never TF32
+template <int MT>
+struct CFTile {
+  float re[MT][2 * NTW], im[MT][2 * NTW];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 2 * NTW; ++j) re[i][j] = im[i][j] = 0.0f;
+  }
+
+  template <bool FULL>
+  __device__ __forceinline__ void mma_k(const float2* ap, int astep, const float2* bp, int ldb,
+                                        int kd, int tn, const Strip& s) {
+#pragma unroll 1
+    for (int kk = 0; kk < kd; ++kk) {
+      float2 af[MT], bf[2 * NTW];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        af[i] = i < s.nr ? ap[i * astep + kk] : make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int j = 0; j < 2 * NTW; ++j)
+        bf[j] = j < tn ? bp[kk * ldb + j] : make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * NTW; ++j)
+          if (FULL || (i < s.nr && j < tn)) {
+            re[i][j] = fmaf(af[i].x, bf[j].x, re[i][j]);
+            re[i][j] = fmaf(-af[i].y, bf[j].y, re[i][j]);
+            im[i][j] = fmaf(af[i].x, bf[j].y, im[i][j]);
+            im[i][j] = fmaf(af[i].y, bf[j].x, im[i][j]);
+          }
+    }
+  }
+
+  __device__ __forceinline__ void mma(const Src<float>& x, int kd, int wr, const Strip& s,
+                                      int lane) {
+    const int tn = 2 * s.nc;
+    const float2* ap = reinterpret_cast<const float2*>(x.a) + (8 * s.r0 + (lane >> 2)) * x.lda;
+    const float2* bp = reinterpret_cast<const float2*>(x.b) + 8 * s.bc0 + (lane & 3) * tn;
+    if (full<MT>(s))
+      mma_k<true>(ap, 8 * wr * x.lda, bp, x.ldb, kd, tn, s);
+    else
+      mma_k<false>(ap, 8 * wr * x.lda, bp, x.ldb, kd, tn, s);
+  }
+
+  __device__ __forceinline__ void end_entry() {}
 
   __device__ __forceinline__ void store(float* cs, int sb, int wr, const Strip& s,
                                         int lane) const {
     const int tn = 2 * s.nc, r = lane >> 2, c = 8 * s.c0 + (lane & 3) * tn;
 #pragma unroll
-    for (int i = 0; i < MTW; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < 2 * NTW; ++j)
-        if (i < s.nr && j < tn) cs[(8 * (s.r0 + wr * i) + r) * sb + c + j] = v[i][j];
+        if (i < s.nr && j < tn) {
+          float* p = cs + 2 * ((8 * (s.r0 + wr * i) + r) * sb + c + j);
+          p[0] = re[i][j];
+          p[1] = im[i][j];
+        }
   }
 };
 
-template <typename T> struct TileOf { using type = FTile; };
-template <> struct TileOf<double> { using type = DTile; };
+// ------------------------------------------------------------- forms
+// T the data's real type (Z reals an element), S the sum's, P what the
+// tile reads (the data itself, or the plane it is converted into), MT
+// the register tile's row tiles, MINB the blocks an SM the registers are
+// capped for; CVT: one staging buffer and a converted plane, which the
+// tile multiplies while the next entry lands (a second staging buffer
+// measured no faster, PERF.md); MIRROR: the
+// plane has the staged slot's layout (the same offsets and strides, so
+// the tile reads it as a slot), each value converted in place of its
+// source; SPLIT: balanced chunks, more of them while a whole entry does
+// not fit.  plane() sets the plane's layout in g (its parts of `pp`
+// elements: hi, then lo) and returns its bytes; convert() fills it from
+// a landed slot (MIRROR: the whole slot of `pp` reals; otherwise A rv x
+// kv, row stride lda, and the chunk's columns of B, kv x cv, row stride
+// ldb).
+
+struct NoPlane {
+  static constexpr bool CVT = false, MIRROR = false;
+  __host__ __device__ static int plane(int, int, int, int, Geom& g) {
+    g.pla = g.plb = g.pa = g.pp = 0;
+    return 0;
+  }
+  template <typename... A>
+  __device__ static void convert(A...) {}
+};
+
+template <typename TT>
+struct Native : NoPlane {
+  using T = TT;
+  using S = typename AccOf<T>::type;
+  using P = T;
+  static constexpr int Z = 1, MT = MTW, MINB = sizeof(T) == 8 ? 1 : 2;
+  static constexpr bool SPLIT = false;
+  using Tile = typename std::conditional<sizeof(T) == 8, DTile<MT>, FTile<MT>>::type;
+};
+
+template <typename R>
+struct Complex : NoPlane {
+  using T = R;
+  using S = R;
+  using P = R;
+  static constexpr int Z = 2, MT = 5, MINB = sizeof(R) == 8 ? 1 : 2;
+  static constexpr bool SPLIT = true;
+  using Tile = typename std::conditional<sizeof(R) == 8, CDTile<MT>, CFTile<MT>>::type;
+};
+
+// f64 -> f32: the slot rounded to f32, two values a thread at a time.
+// The native f32 tile's 9 row tiles (a (529,23) C block one chunk, one
+// block an SM: 11.9 ms on the synthetic stack) beat two blocks an SM on
+// 5 row tiles in two chunks (13.6; 4 row tiles: 16.0; PERF.md)
+struct F32Form {
+  using T = double;
+  using S = double;
+  using P = float;
+  static constexpr int Z = 1, MT = MTW, MINB = 1;
+  static constexpr bool CVT = true, MIRROR = true, SPLIT = true;
+  using Tile = F32WTile<MT>;
+  __host__ __device__ static int plane(int, int, int, int slot, Geom& g) {
+    g.pla = g.plb = g.pa = 0;
+    g.pp = slot;
+    return 4 * slot;
+  }
+  __device__ static void convert(float* pl, const Geom& g, const double* raw, int tid) {
+    const double2* src = reinterpret_cast<const double2*>(raw);
+    float2* dst = reinterpret_cast<float2*>(pl);
+    for (int i = tid; i < g.pp / 2; i += NTH) {
+      const double2 x = src[i];
+      dst[i] = make_float2(static_cast<float>(x.x), static_cast<float>(x.y));
+    }
+  }
+};
+
+// -> bf16 (f64 or f32 data): A [rows][KS] and B transposed [cols][KS],
+// KS = ks rounded up to 16, plus 8 (conflict-free 4-byte fragment loads),
+// the k padding zero, two values of a row a thread at a time;
+// compensated, the lo parts after the hi parts.  f64 data takes the
+// native tile's 9 row tiles (a (529,23) C block one chunk: 12.4 against
+// 14.3 ms on 6 row tiles in two), f32 data 6 and two blocks an SM
+// (f32->bf16c 9.3 against 9.7 on 9; PERF.md)
+template <typename TT, bool COMP>
+struct BfForm {
+  using T = TT;
+  using S = TT;
+  using P = __nv_bfloat16;
+  static constexpr int Z = 1, MT = sizeof(TT) == 8 ? MTW : 6, MINB = sizeof(TT) == 8 ? 1 : 2;
+  static constexpr bool CVT = true, MIRROR = false, SPLIT = true;
+  using Tile = BTile<S, MT, COMP>;
+  __host__ __device__ static int plane(int rows, int cols, int ks, int, Geom& g) {
+    g.pla = g.plb = smm::round_up(ks, 16) + 8;
+    g.pa = rows * g.pla;
+    g.pp = smm::round_up(g.pa + cols * g.plb, 8);
+    return 2 * g.pp * (COMP ? 2 : 1);
+  }
+  __device__ static void convert(__nv_bfloat16* pl, const Geom& g, const TT* ra, int lda,
+                                 const TT* rb, int ldb, int rv, int kv, int cv, int tid) {
+    const int kh = smm::round_up(kv, 16) / 2;  // pairs of a row, the padding's included
+    auto put = [&](__nv_bfloat16* d, TT x0, TT x1) {
+      const __nv_bfloat162 hi =
+          __floats2bfloat162_rn(static_cast<float>(x0), static_cast<float>(x1));
+      *reinterpret_cast<__nv_bfloat162*>(d) = hi;
+      if (COMP)
+        *reinterpret_cast<__nv_bfloat162*>(d + g.pp) = __floats2bfloat162_rn(
+            static_cast<float>(x0 - static_cast<TT>(__low2float(hi))),
+            static_cast<float>(x1 - static_cast<TT>(__high2float(hi))));
+    };
+    for_each_rc(rv, kh, tid, [&](int r, int h) {
+      const int kk = 2 * h;
+      const TT* x = ra + r * lda + kk;
+      put(pl + r * g.pla + kk, kk < kv ? x[0] : TT(0), kk + 1 < kv ? x[1] : TT(0));
+    });
+    for_each_rc(cv, kh, tid, [&](int c, int h) {
+      const int kk = 2 * h;
+      const TT* x = rb + kk * ldb + c;
+      put(pl + g.pa + c * g.plb + kk, kk < kv ? x[0] : TT(0), kk + 1 < kv ? x[ldb] : TT(0));
+    });
+  }
+};
+
+// f64 compensated (CT 0 = f32c, 1 = bf16c): the slot's hi parts, then
+// its lo parts (the splits are exact in f64)
+template <int CT>
+struct CompForm {
+  using T = double;
+  using S = double;
+  using P = double;
+  static constexpr int Z = 1, MT = 5, MINB = 1;
+  static constexpr bool CVT = true, MIRROR = true, SPLIT = true;
+  using Tile = CompDTile<MT>;
+  __host__ __device__ static int plane(int, int, int, int slot, Geom& g) {
+    g.pla = g.plb = g.pa = 0;
+    g.pp = slot;
+    return 8 * 2 * slot;
+  }
+  __device__ static void convert(double* pl, const Geom& g, const double* raw, int tid) {
+    for (int i = tid; i < g.pp; i += NTH) smm::split_hi_lo<CT>(raw[i], pl[i], pl[g.pp + i]);
+  }
+};
 
 using smm::Seg;
 
@@ -693,19 +1088,26 @@ struct Cursor {
   Seg sg;
 };
 
-// two blocks an SM for 4- and 2-byte data (at most 128 registers; two
-// (529,23,23) f32 buffers take 103 kB), one for f64 (its 27 tiles take
-// 108 registers and its buffers 207 kB)
-template <typename T, typename Runs>
-__global__ void __launch_bounds__(NTH, sizeof(T) == 8 ? 1 : 2)
-tiled_kernel(Runs runs, T* __restrict__ c, int m, int n, Geom g, int nwork,
-             typename AccOf<T>::type alpha) {
-  using S = typename AccOf<T>::type;
-  using TileT = typename TileOf<T>::type;
+// The kernel body of every form F (above): registers capped for F::MINB
+// blocks an SM (native: two for 4- and 2-byte data, at most 128
+// registers, two (529,23,23) f32 buffers taking 103 kB; one for f64, its
+// 27 tiles taking 108 registers and its buffers 207 kB).  alpha_im is a
+// complex alpha's imaginary part.
+template <typename F, typename Runs>
+__global__ void __launch_bounds__(NTH, F::MINB)
+tiled_kernel(Runs runs, typename F::T* __restrict__ c, int m, int n, Geom g, int nwork,
+             typename F::S alpha, typename F::S alpha_im) {
+  using T = typename F::T;
+  using S = typename F::S;
+  using P = typename F::P;
+  using TileT = typename F::Tile;
+  constexpr int Z = F::Z;
+  constexpr bool CVT = F::CVT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wr = warp % g.wr, wc = warp / g.wr;
   const int nch = g.nrc * g.ncc, sb = 8 * g.cnt;
+  P* const plane = reinterpret_cast<P*>(smem_raw + g.bufs * g.buf);
 
   // the chunk of work item w: its first row and column, and its valid
   // rows and columns
@@ -723,11 +1125,13 @@ tiled_kernel(Runs runs, T* __restrict__ c, int m, int n, Geom g, int nwork,
   // the entry's A chunk rows and B block
   auto a_of = [&](const Cursor& x) {
     const int row0 = x.w % nch / g.ncc * 8 * g.rmt;
-    return static_cast<const T*>(runs.a(x.sg.sp)) + ((int64_t)x.ia * m + row0) * x.k;
+    return static_cast<const T*>(runs.a(x.sg.sp)) + Z * ((int64_t)x.ia * m + row0) * x.k;
   };
   auto b_of = [&](const Cursor& x) {
-    return static_cast<const T*>(runs.b(x.sg.sp)) + (int64_t)x.ib * x.k * n;
+    return static_cast<const T*>(runs.b(x.sg.sp)) + Z * (int64_t)x.ib * x.k * n;
   };
+  // a staged block's offset (reals) within its area
+  auto off = [](const T* p) { return (int)((reinterpret_cast<uintptr_t>(p) & 15) / sizeof(T)); };
   auto open_seg = [&](Cursor& x) {
     x.sg = runs.seg(x.s);
     x.k = runs.k(x.sg.sp);
@@ -758,6 +1162,8 @@ tiled_kernel(Runs runs, T* __restrict__ c, int m, int n, Geom g, int nwork,
       start(x, x.w + gridDim.x);
     }
   };
+  // the depth of the cursor's slice
+  auto depth = [&](const Cursor& x) { return g.flat ? x.k : imin(g.ks, x.k - x.sl * g.ks); };
   // the cursor's slice into buffer bb; the first slice of a work item
   // also prefetches its C chunk's rows into L2
   auto stage = [&](const Cursor& x, int bb) {
@@ -768,19 +1174,36 @@ tiled_kernel(Runs runs, T* __restrict__ c, int m, int n, Geom g, int nwork,
     const T* const ap = a_of(x);
     const T* const bp = b_of(x);
     if (g.flat) {
-      stage_flat(area, ap, rv * k, tid);
-      stage_flat(area + g.a_area, bp, k * n, tid);
+      stage_flat(area, ap, Z * rv * k, tid);
+      stage_flat(area + g.a_area, bp, Z * k * n, tid);
     } else {
-      const int k0 = x.sl * g.ks, kv = imin(g.ks, k - k0);
-      stage_2d(area, g.lda, ap + k0, k, rv, kv, tid);
-      stage_2d(area + g.a_area, g.ldb, bp + (int64_t)k0 * n + col0, n, kv, cv, tid);
+      const int k0 = x.sl * g.ks, kv = depth(x);
+      stage_2d(area, Z * g.lda, ap + Z * k0, Z * k, rv, Z * kv, tid);
+      stage_2d(area + g.a_area, Z * g.ldb, bp + Z * ((int64_t)k0 * n + col0), Z * n, kv,
+               Z * cv, tid);
     }
     if (x.fresh) {
-      const char* p0 = reinterpret_cast<const char*>(c + ((int64_t)x.cblk * m + row0) * n);
-      const char* p1 = p0 + (int64_t)rv * n * sizeof(T);
+      const char* p0 = reinterpret_cast<const char*>(c + Z * ((int64_t)x.cblk * m + row0) * n);
+      const char* p1 = p0 + (int64_t)Z * rv * n * sizeof(T);
       p0 -= reinterpret_cast<uintptr_t>(p0) & 127;
       for (const char* p = p0 + tid * 128; p < p1; p += NTH * 128)
         asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+    }
+  };
+  // CVT: the cursor's slot, landed in the one staging buffer, into the
+  // plane, each value converted once
+  auto convert = [&](const Cursor& x) {
+    const T* const area = reinterpret_cast<const T*>(smem_raw);
+    if constexpr (F::MIRROR) {
+      F::convert(plane, g, area, tid);
+    } else {
+      int row0, rv, col0, cv;
+      chunk(x.w, row0, rv, col0, cv);
+      if (g.flat)
+        F::convert(plane, g, area + off(a_of(x)), x.k, area + g.a_area + off(b_of(x)) + col0,
+                   n, rv, x.k, cv, tid);
+      else
+        F::convert(plane, g, area, g.lda, area + g.a_area, g.ldb, rv, depth(x), cv, tid);
     }
   };
   // the warp's share of the work item's chunk
@@ -793,11 +1216,12 @@ tiled_kernel(Runs runs, T* __restrict__ c, int m, int n, Geom g, int nwork,
     s.nr = wr < rmt_c ? (rmt_c - wr + g.wr - 1) / g.wr : 0;
     s.c0 = wc * per;
     s.nc = imax(0, imin(per, cnt_c - s.c0));
-    s.bc0 = g.flat ? cc * g.cnt + s.c0 : s.c0;
+    s.bc0 = g.flat && (!CVT || F::MIRROR) ? cc * g.cnt + s.c0 : s.c0;
     return s;
   };
 
-  // cur multiplies while nxt lands and fut's indices load
+  // cur multiplies while nxt lands and fut's indices load; with a plane
+  // (CVT), cur is in the plane and nxt lands in the one staging buffer
   Cursor cur;
   start(cur, blockIdx.x);
   if (cur.w >= nwork) return;
@@ -805,86 +1229,122 @@ tiled_kernel(Runs runs, T* __restrict__ c, int m, int n, Geom g, int nwork,
   smm::cp_async_commit();
   Cursor nxt = cur;
   advance(nxt);
+  if constexpr (CVT) {
+    smm::cp_async_wait<0>();
+    __syncthreads();
+    convert(cur);
+    __syncthreads();
+    if (nxt.w < nwork) stage(nxt, 0);
+    smm::cp_async_commit();
+  }
   TileT acc;
   int bb = 0;
   while (true) {
-    if (nxt.w < nwork) stage(nxt, bb ^ 1);
-    smm::cp_async_commit();
+    if constexpr (!CVT) {
+      if (nxt.w < nwork) stage(nxt, bb ^ 1);
+      smm::cp_async_commit();
+    }
     Cursor fut = nxt;
     if (nxt.w < nwork) advance(fut);
-    smm::cp_async_wait<1>();  // every group but the newest: this slice has landed
-    __syncthreads();
-    const Strip s = strip(cur.w);
-    const T* const area = reinterpret_cast<const T*>(smem_raw + bb * g.buf);
-    if (cur.e == cur.sg.e0 && cur.sl == 0) acc.zero();
-    if (g.flat) {
-      const int k = cur.k;
-      const int oa = (int)((reinterpret_cast<uintptr_t>(a_of(cur)) & 15) / sizeof(T));
-      const int ob = (int)((reinterpret_cast<uintptr_t>(b_of(cur)) & 15) / sizeof(T));
-      acc.mma(area + oa, k, area + g.a_area + ob, n, k, g.wr, s, lane);
-    } else {
-      acc.mma(area, g.lda, area + g.a_area, g.ldb, imin(g.ks, cur.k - cur.sl * g.ks),
-              g.wr, s, lane);
+    if constexpr (!CVT) {
+      smm::cp_async_wait<1>();  // every group but the newest: this slice has landed
+      __syncthreads();
     }
+    const Strip s = strip(cur.w);
+    if (cur.e == cur.sg.e0 && cur.sl == 0) acc.zero();
+    Src<P> src;
+    if constexpr (CVT && !F::MIRROR) {
+      src = {plane, plane + g.pa, g.pla, g.plb, g.pp};
+    } else {  // the slot, or the plane that mirrors it
+      const P* const base = CVT ? plane : reinterpret_cast<const P*>(smem_raw + bb * g.buf);
+      if (g.flat)
+        src = {base + off(a_of(cur)), base + g.a_area + off(b_of(cur)), cur.k, n, g.pp};
+      else
+        src = {base, base + g.a_area, g.lda, g.ldb, g.pp};
+    }
+    const int kd = depth(cur);
+    acc.mma(src, kd, g.wr, s, lane);
+    if (cur.sl + 1 == cur.nsl) acc.end_entry();
     if (cur.e + 1 == cur.sg.e1 && cur.sl + 1 == cur.nsl) {
       // the segment ends: C = C + alpha * sum over the chunk, the sums
-      // through the buffer just multiplied, then coalesced, EB loads of
-      // C in flight a thread before their stores
+      // through shared memory (the buffer just multiplied, or the plane),
+      // then coalesced, EB loads of C in flight a thread before their
+      // stores; complex: each real beside its element's other part
       __syncthreads();
-      S* const cs = reinterpret_cast<S*>(smem_raw + bb * g.buf);
+      S* const cs = reinterpret_cast<S*>(CVT ? reinterpret_cast<unsigned char*>(plane)
+                                             : smem_raw + bb * g.buf);
       acc.store(cs, sb, g.wr, s, lane);
       __syncthreads();
       int row0, rv, col0, cv;
       chunk(cur.w, row0, rv, col0, cv);
-      T* const cb = c + ((int64_t)cur.cblk * m + row0) * n + col0;
-      const smm::FlatIter it = smm::flat_iter(cv, tid, NTH);
-      const int total = rv * cv;
+      T* const cb = c + Z * (((int64_t)cur.cblk * m + row0) * n + col0);
+      const int cvr = Z * cv;  // reals of a chunk row
+      const smm::FlatIter it = smm::flat_iter(cvr, tid, NTH);
+      const int total = rv * cvr;
       int r = it.r0, cc = it.c0;
       for (int w0 = tid; w0 < total; w0 += EB * NTH) {
         S old[EB];
         int po[EB], so[EB];
 #pragma unroll
         for (int j = 0; j < EB; ++j) {
-          po[j] = r * n + cc;
-          so[j] = r * sb + cc;
+          po[j] = r * Z * n + cc;
+          so[j] = r * Z * sb + cc;
           old[j] = w0 + j * NTH < total ? load_acc(cb + po[j]) : S(0);
           cc += it.rem;
           r += it.q;
-          if (cc >= cv) {
-            cc -= cv;
+          if (cc >= cvr) {
+            cc -= cvr;
             ++r;
           }
         }
 #pragma unroll
         for (int j = 0; j < EB; ++j)
-          if (w0 + j * NTH < total) store_acc(cb + po[j], smm::fmadd(alpha, cs[so[j]], old[j]));
+          if (w0 + j * NTH < total) {
+            if constexpr (Z == 1) {
+              store_acc(cb + po[j], smm::fmadd(alpha, cs[so[j]], old[j]));
+            } else {
+              const S sr = cs[so[j] & ~1], si = cs[so[j] | 1];
+              store_acc(cb + po[j], so[j] & 1 ? old[j] + (alpha * si + alpha_im * sr)
+                                              : old[j] + (alpha * sr - alpha_im * si));
+            }
+          }
       }
     }
     if (nxt.w >= nwork) break;
-    __syncthreads();  // the buffer is free for the slice after next
+    if constexpr (CVT) {
+      smm::cp_async_wait<0>();  // nxt has landed
+      __syncthreads();          // and the plane's readers are done
+      convert(nxt);
+      __syncthreads();
+      if (fut.w < nwork) stage(fut, 0);
+      smm::cp_async_commit();
+    } else {
+      __syncthreads();  // the buffer is free for the slice after next
+      bb ^= 1;
+    }
     cur = nxt;
     nxt = fut;
-    bb ^= 1;
   }
   smm::cp_async_wait<0>();
 }
 
 // Launch (or, attrs non-null, report the instance of) the tiled kernel
-// on `runs`, whose entries reach depth kmax.
-template <typename T, typename Runs>
+// of form F on `runs`, whose entries reach depth kmax.
+template <typename F, typename Runs>
 cudaError_t launch(const Runs& runs, void* c, int m, int n, int kmax, double alpha,
-                   cudaStream_t stream, int* attrs) {
-  using S = typename AccOf<T>::type;
-  const Geom g = geom(m, n, kmax, sizeof(T), sizeof(S));
+                   double alpha_im, cudaStream_t stream, int* attrs) {
+  using S = typename F::S;
+  const Geom g = geom<F>(m, n, kmax);
   const long long work = (long long)runs.nruns * g.nrc * g.ncc;
   if (work > 0x7fffffff) return cudaErrorInvalidValue;
-  const auto kernel = tiled_kernel<T, Runs>;
+  const auto kernel = tiled_kernel<F, Runs>;
   int grid = 0;
   const cudaError_t err = smm::persistent_grid(kernel, NTH, g.smem, (int)work, &grid);
   if (err != cudaSuccess) return err;
   if (attrs) return kernel_attrs(kernel, NTH, g.smem, attrs);
-  kernel<<<grid, NTH, g.smem, stream>>>(runs, static_cast<T*>(c), m, n, g, (int)work,
-                                        static_cast<S>(alpha));
+  kernel<<<grid, NTH, g.smem, stream>>>(runs, static_cast<typename F::T*>(c), m, n, g,
+                                        (int)work, static_cast<S>(alpha),
+                                        static_cast<S>(alpha_im));
   return cudaGetLastError();
 }
 
@@ -936,10 +1396,38 @@ template <int MAXT> struct FormTile<float, MAXT, 1, true> {
   using type = smm::BfTile<float, MAXT, true>;
 };
 
+// The tiled path's form of (T, CT, COMP), as FormTile names the warp
+// path's register tile
+template <typename T, int CT, bool COMP> struct TiledForm {
+  using type = tiled::Native<T>;  // CT = -1
+};
+template <> struct TiledForm<double, 0, false> {
+  using type = tiled::F32Form;
+};
+template <> struct TiledForm<double, 0, true> {
+  using type = tiled::CompForm<0>;
+};
+template <> struct TiledForm<double, 1, false> {
+  using type = tiled::BfForm<double, false>;
+};
+template <> struct TiledForm<double, 1, true> {
+  using type = tiled::CompForm<1>;
+};
+template <> struct TiledForm<float, 1, false> {
+  using type = tiled::BfForm<float, false>;
+};
+template <> struct TiledForm<float, 1, true> {
+  using type = tiled::BfForm<float, true>;
+};
+
+smm::StackRuns stack_runs(const Args& x) {
+  return {x.a, x.b, static_cast<const int*>(x.a_idx), static_cast<const int*>(x.b_idx),
+          static_cast<const int*>(x.run_ptr), static_cast<const int*>(x.run_c), x.nruns, x.k};
+}
+
 // CT = -1: native compute; 0/1: demoted to f32/bf16, COMP compensated.
 template <typename T, int CT, bool COMP>
 cudaError_t launch(const Args& x) {
-  using Acc = typename AccOf<T>::type;
   if (smm::warp_dims(x.m, x.n, x.k)) {
     switch (smm::warp_class(x.m, x.n)) {
       case 2: return launch_warp<T, 2, typename FormTile<T, 2, CT, COMP>::type>(x);
@@ -947,29 +1435,12 @@ cudaError_t launch(const Args& x) {
       default: return launch_warp<T, 4, typename FormTile<T, 4, CT, COMP>::type>(x);
     }
   }
-  if constexpr (CT < 0) {
-    const smm::StackRuns runs{x.a, x.b,
-                                static_cast<const int*>(x.a_idx),
-                                static_cast<const int*>(x.b_idx),
-                                static_cast<const int*>(x.run_ptr),
-                                static_cast<const int*>(x.run_c), x.nruns, x.k};
-    return tiled::launch<T>(runs, x.c, x.m, x.n, x.k, x.alpha, x.stream, x.attrs);
-  } else {
-    if (x.attrs)
-      return kernel_attrs(smm_stack_demoted_kernel<T, CT, COMP>, NTHREADS, 0, x.attrs);
-    const dim3 grid(x.nruns, (x.m + TM - 1) / TM, (x.n + TN - 1) / TN);
-    const dim3 block(NTX, NTY);
-    smm_stack_demoted_kernel<T, CT, COMP><<<grid, block, 0, x.stream>>>(
-        static_cast<const T*>(x.a), static_cast<const T*>(x.b), static_cast<T*>(x.c),
-        static_cast<const int*>(x.a_idx), static_cast<const int*>(x.b_idx),
-        static_cast<const int*>(x.run_ptr), static_cast<const int*>(x.run_c), x.m, x.n, x.k,
-        static_cast<Acc>(x.alpha));
-    return cudaGetLastError();
-  }
+  return tiled::launch<typename TiledForm<T, CT, COMP>::type>(
+      stack_runs(x), x.c, x.m, x.n, x.k, x.alpha, 0.0, x.stream, x.attrs);
 }
 
-// c8 takes two warps a block: a warp's two step buffers hold 37 kB at
-// 23x23x23, so three such blocks fill an SM
+// c8 takes two warps a block on the warp path: a warp's two step buffers
+// hold 37 kB at 23x23x23, so three such blocks fill an SM
 template <typename R>
 cudaError_t launch_complex(const Args& x) {
   constexpr int WN = sizeof(R) == 8 ? 2 : W;
@@ -980,15 +1451,8 @@ cudaError_t launch_complex(const Args& x) {
       default: return launch_warp<R, 4, smm::CTile<R, 4>, WN, 2>(x);
     }
   }
-  if (x.attrs) return kernel_attrs(smm_stack_complex_kernel<R>, NTHREADS, 0, x.attrs);
-  const dim3 grid(x.nruns, (x.m + TM - 1) / TM, (x.n + TN - 1) / TN);
-  const dim3 block(NTX, NTY);
-  smm_stack_complex_kernel<R><<<grid, block, 0, x.stream>>>(
-      static_cast<const R*>(x.a), static_cast<const R*>(x.b), static_cast<R*>(x.c),
-      static_cast<const int*>(x.a_idx), static_cast<const int*>(x.b_idx),
-      static_cast<const int*>(x.run_ptr), static_cast<const int*>(x.run_c), x.m, x.n, x.k,
-      static_cast<R>(x.alpha), static_cast<R>(x.alpha_im));
-  return cudaGetLastError();
+  return tiled::launch<tiled::Complex<R>>(stack_runs(x), x.c, x.m, x.n, x.k, x.alpha,
+                                          x.alpha_im, x.stream, x.attrs);
 }
 
 // dtype: 0 = float64, 1 = float32, 2 = bfloat16, 3 = complex64,
@@ -1089,7 +1553,17 @@ cudaError_t launch_superstack(const SegmentRuns& runs, int kmin, int kmax, void*
     }
   }
   if (smm::warp_dims(m, n, kmin) || smm::warp_dims(m, n, kmax)) return cudaErrorInvalidValue;
-  return tiled::launch<T>(runs, c, m, n, kmax, alpha, stream, attrs);
+  return tiled::launch<tiled::Native<T>>(runs, c, m, n, kmax, alpha, 0.0, stream, attrs);
+}
+
+// a form's tiled geometry into out[13] (smm_stack_tiled_geom)
+template <typename F>
+int tiled_geom(int m, int n, int kmax, int* out) {
+  const tiled::Geom g = tiled::geom<F>(m, n, kmax);
+  const int vals[13] = {g.wr,  g.wc,  g.rmt, g.cnt,    g.nrc,  g.ncc, g.flat,
+                        g.ks,  g.lda, g.ldb, g.a_area, g.smem, g.bufs};
+  for (int i = 0; i < 13; ++i) out[i] = vals[i];
+  return 0;
 }
 
 }  // namespace
@@ -1185,19 +1659,28 @@ int smm_superstack_attrs(int dtype, int nspans, const int* span_k, int m, int n,
                     nullptr, nullptr, nullptr, nullptr, nullptr, 1, m, n, 1.0, nullptr, out);
 }
 
-// The tiled path's geometry of a launch (native forms) of (m, n) blocks
-// whose entries reach depth kmax (out[12]: wr, wc, rmt, cnt, nrc, ncc,
-// flat, ks, lda, ldb, a_area, smem; acc/stack_kernel.py:tiled_geometry
-// names them).  Returns cudaErrorInvalidValue for a dtype without one.
-int smm_stack_tiled_geom(int dtype, int m, int n, int kmax, int* out) {
-  const int sizes[3][2] = {{8, 8}, {4, 4}, {2, 4}};
-  if (dtype < 0 || dtype > 2 || m < 1 || n < 1 || kmax < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const tiled::Geom g = tiled::geom(m, n, kmax, sizes[dtype][0], sizes[dtype][1]);
-  const int vals[12] = {g.wr, g.wc, g.rmt, g.cnt, g.nrc, g.ncc, g.flat, g.ks, g.lda, g.ldb,
-                        g.a_area, g.smem};
-  for (int i = 0; i < 12; ++i) out[i] = vals[i];
-  return 0;
+// The tiled path's geometry of a launch of one form (dtype and compute
+// as smm_stack_launch) of (m, n) blocks whose entries reach depth kmax
+// (out[13]: wr, wc, rmt, cnt, nrc, ncc, flat, ks, lda, ldb, a_area,
+// smem, bufs; acc/stack_kernel.py:tiled_geometry names them).  Returns
+// cudaErrorInvalidValue for a form the kernel does not have.
+int smm_stack_tiled_geom(int dtype, int compute, int m, int n, int kmax, int* out) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1 || n < 1 || kmax < 1) return bad;
+  switch (dtype * 8 + compute) {
+    case 0: return tiled_geom<tiled::Native<double>>(m, n, kmax, out);
+    case 1: return tiled_geom<TiledForm<double, 0, false>::type>(m, n, kmax, out);
+    case 2: return tiled_geom<TiledForm<double, 0, true>::type>(m, n, kmax, out);
+    case 3: return tiled_geom<TiledForm<double, 1, false>::type>(m, n, kmax, out);
+    case 4: return tiled_geom<TiledForm<double, 1, true>::type>(m, n, kmax, out);
+    case 8: return tiled_geom<tiled::Native<float>>(m, n, kmax, out);
+    case 11: return tiled_geom<TiledForm<float, 1, false>::type>(m, n, kmax, out);
+    case 12: return tiled_geom<TiledForm<float, 1, true>::type>(m, n, kmax, out);
+    case 16: return tiled_geom<tiled::Native<__nv_bfloat16>>(m, n, kmax, out);
+    case 24: return tiled_geom<tiled::Complex<float>>(m, n, kmax, out);
+    case 32: return tiled_geom<tiled::Complex<double>>(m, n, kmax, out);
+    default: return bad;
+  }
 }
 
 int smm_superstack_max_spans() { return MAX_SPANS; }

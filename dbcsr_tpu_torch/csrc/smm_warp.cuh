@@ -445,7 +445,8 @@ template <int MAXT> struct CTile<double, MAXT> {
 };
 
 // c4: FMAs on the CUDA cores in Tile<float>'s lane layout, 4 a
-// multiply-add in the tiled complex kernel's order, never TF32.
+// multiply-add in c8's order (the tiled path's CFTile keeps it), never
+// TF32.
 template <int MAXT> struct CTile<float, MAXT> {
   float re[MAXT][2 * MAXT], im[MAXT][2 * MAXT];
   static constexpr bool PREFETCH_C = MAXT < 4;

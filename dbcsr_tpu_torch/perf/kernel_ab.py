@@ -3,7 +3,7 @@
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 -m dbcsr_tpu_torch.perf.kernel_ab [--tiles 16,32,64,128] [--forms] [variant ...]
-    python3 -m dbcsr_tpu_torch.perf.kernel_ab --tiled --fused
+    python3 -m dbcsr_tpu_torch.perf.kernel_ab --tiled [--forms] --fused
 
 Each variant is the committed ``csrc/`` with a few text substitutions
 (`VARIANTS`), built by nvcc into a temporary directory beside the
@@ -20,9 +20,10 @@ leaves C bit for bit equal.  One JSON line per timing.
 ``--tiled`` times K1's tiled path on a synthetic stack of the RI
 contraction's shape, (529,23,23) blocks at 3 to 6 entries a run (4.5 on
 average; the contraction's own runs average 4.9; `TILED_STACK`), f64
-and f32: whole, without its products
+and f32 (with ``--forms`` also every complex and demoted form,
+`TILED_FORMS`): whole, without its products
 ("tiled_no_products") and without its operand copies
-("tiled_no_copies").  ``--fused`` does the same for K1's fused launch on
+("tiled_no_copies"), each line beside the form's bound.  ``--fused`` does the same for K1's fused launch on
 the fused bins of `mixed_blocks.perf` (f64 and f32; "fused_no_products",
 "fused_no_copies").  Each mode builds K1 alone, every variant at once.
 
@@ -67,9 +68,9 @@ _MMA = ("        if constexpr (SEG) {\n"
         "          acc.entry(as, bs, gu, m, n, ku, lane, planes);\n"
         "        }")
 _CREG = "creg[i] = w < mn ? load_acc(cblk_p + w) : S(0);"
-_TILED_MMA = "acc.mma(area + oa, k, area + g.a_area + ob, n, k, g.wr, s, lane);"
-_TILED_STAGE = ("stage_flat(area, ap, rv * k, tid);\n"
-                "      stage_flat(area + g.a_area, bp, k * n, tid);")
+_TILED_MMA = "acc.mma(src, kd, g.wr, s, lane);"
+_TILED_STAGE = ("stage_flat(area, ap, Z * rv * k, tid);\n"
+                "      stage_flat(area + g.a_area, bp, Z * k * n, tid);")
 _GRID_STRIDE = "    const int run = (blockIdx.x + i * gridDim.x) * nw + w;"
 _B_SCALAR = ("#pragma unroll\n"
              "      for (int j = 0; j < 2 * MAXT; ++j) bf[j] = j < tn ? bp[kk * n + j] : 0.0f;\n")
@@ -132,7 +133,7 @@ VARIANTS = {
               '"r"(smem_addr(dst + head + i * q)), "l"(src + head + i * q) : "memory");')],
     # what bounds the tiled path (whole entries staged flat): no products,
     # or no operand copies
-    "tiled_no_products": [("smm_stack.cu", _TILED_MMA, "(void)oa;\n      (void)ob;")],
+    "tiled_no_products": [("smm_stack.cu", _TILED_MMA, "(void)src;\n    (void)kd;")],
     "tiled_no_copies": [("smm_stack.cu", _TILED_STAGE, "(void)rv;\n      (void)ap;\n      (void)bp;")],
 }
 # the fused warp kernel runs the warp path's body (smm_warp.cuh)
@@ -144,6 +145,12 @@ FUSED_VARIANTS = ("fused_no_products", "fused_no_copies")
 # run lengths drawn from 3..6 (4.5 entries a run on average; the RI
 # contraction's 943,698 products over 190,965 C blocks make 4.9)
 TILED_STACK = ((529, 23, 23), 4000, 400, 40000, (3, 7))
+# the tiled forms of --tiled --forms besides native f64 and f32: complex
+# c8 and c4, then every demoted (data dtype, precision spec) pair
+TILED_FORMS = ((torch.complex128, None), (torch.complex64, None),
+               (torch.float64, ("float32", False)), (torch.float64, ("float32", True)),
+               (torch.float64, ("bfloat16", False)), (torch.float64, ("bfloat16", True)),
+               (torch.float32, ("bfloat16", False)), (torch.float32, ("bfloat16", True)))
 
 _I, _V = ctypes.c_int, ctypes.c_void_p
 
@@ -255,13 +262,14 @@ def launcher(lib: dict, sp, a, b, c, plan_arrays=None, compute: int = 0):
     return call, scratch
 
 
-def _k1_launch(lib, dt: int, a, b, c, plan, alpha: float = 1.0):
-    """A no-argument launch of K1 (native form) from ``lib`` on the plan's
-    stack, raising on a CUDA error."""
+def _k1_launch(lib, dt: int, a, b, c, plan, alpha: float = 1.0, compute: int = 0):
+    """A no-argument launch of K1 from ``lib`` on the plan's stack (the
+    form ``compute``, numbered as `stack_kernel.compute_code` numbers it),
+    raising on a CUDA error."""
     f = lib["smm_stack.cu"].smm_stack_launch
     f.argtypes = [_I, _I] + [_V] * 7 + [_I] * 4 + [ctypes.c_double] * 2 + [_V]
     m, k = a.shape[1:]
-    args = (dt, 0, a.data_ptr(), b.data_ptr(), c.data_ptr(), plan.a_idx.data_ptr(),
+    args = (dt, compute, a.data_ptr(), b.data_ptr(), c.data_ptr(), plan.a_idx.data_ptr(),
             plan.b_idx.data_ptr(), plan.run_ptr.data_ptr(), plan.run_c.data_ptr(),
             plan.run_c.numel(), m, b.shape[2], k, alpha, 0.0,
             torch.cuda.current_stream().cuda_stream)
@@ -281,8 +289,12 @@ def tiled_stack(dtype):
 
     (m, n, k), na, nb, nc, (lo, hi) = TILED_STACK
     rng = np.random.default_rng(20261021)
-    a = torch.from_numpy(rng.standard_normal((na, m, k))).to("cuda", dtype)
-    b = torch.from_numpy(rng.standard_normal((nb, k, n))).to("cuda", dtype)
+
+    def values(shape):  # complex data: the imaginary parts drawn after the real ones
+        x = rng.standard_normal(shape)
+        return torch.from_numpy(x + 1j * rng.standard_normal(shape) if dtype.is_complex
+                                else x).to("cuda", dtype)
+    a, b = values((na, m, k)), values((nb, k, n))
     c = torch.zeros((nc, m, n), dtype=dtype, device="cuda")
     c_idx = np.repeat(np.arange(nc), rng.integers(lo, hi, size=nc))
     # a C block row shares its A blocks: run r reads A blocks near r's row
@@ -292,22 +304,28 @@ def tiled_stack(dtype):
     return a, b, c, plan
 
 
-def time_tiled(libs: dict, card: str) -> None:
-    """--tiled: each variant on the synthetic stack, in turns, twice."""
+def time_tiled(libs: dict, card: str, forms: bool = False) -> None:
+    """--tiled: each variant on the synthetic stack, in turns, twice, for
+    native f64 and f32 and, with ``forms``, every form of `TILED_FORMS`."""
+    from dbcsr_tpu_torch.acc import stack_kernel
     from dbcsr_tpu_torch.obs.costmodel import stack_bound_s
 
-    for dtype, dt, dname in ((torch.float64, 0, "float64"), (torch.float32, 1, "float32")):
+    cases = ((torch.float64, None), (torch.float32, None)) + (TILED_FORMS if forms else ())
+    for dtype, spec in cases:
         a, b, c, plan = tiled_stack(dtype)
         (m, n, k) = TILED_STACK[0]
+        dname = str(dtype).replace("torch.", "")
+        form = stack_kernel.form_name(dtype, spec)
+        dt, compute = stack_kernel._DTYPE_CODE[dtype], stack_kernel.compute_code(dtype, spec)
         bound, by = stack_bound_s(dname, m, n, k, plan.entries,
                                   len(torch.unique(plan.a_idx)), len(torch.unique(plan.b_idx)),
-                                  plan.nruns)
+                                  plan.nruns, precision=spec)
         for name in list(libs) * 2:
-            ms = time_ms(_k1_launch(libs[name], dt, a, b, c, plan), 5)
-            print(json.dumps({"what": f"K1 tiled {dname} {m}x{n}x{k}", "variant": name,
-                              "ms": ms, "entries": plan.entries, "runs": plan.nruns,
-                              "bound_ms": bound * 1e3, "bound_by": by, "card": card}),
-                  flush=True)
+            ms = time_ms(_k1_launch(libs[name], dt, a, b, c, plan, compute=compute), 5)
+            print(json.dumps({"what": f"K1 tiled {form} {m}x{n}x{k}", "form": form,
+                              "variant": name, "ms": ms, "entries": plan.entries,
+                              "runs": plan.nruns, "bound_ms": bound * 1e3, "bound_by": by,
+                              "card": card}), flush=True)
         del a, b, c, plan
 
 
@@ -425,7 +443,8 @@ def main(argv=None) -> int:
     ap.add_argument("variants", nargs="*", help=f"any of {', '.join(VARIANTS)}")
     ap.add_argument("--tiles", default="", help="tile widths for K1's work order, e.g. 16,64")
     ap.add_argument("--forms", action="store_true",
-                    help="also K1's f64->f32, c8 and c4 forms on their north stars")
+                    help="also K1's f64->f32, c8 and c4 forms on their north stars; with "
+                         "--tiled, every tiled complex and demoted form (TILED_FORMS)")
     ap.add_argument("--tiled", action="store_true",
                     help="only K1's tiled path on TILED_STACK: whole, without products, "
                          "without copies")
@@ -467,7 +486,7 @@ def main(argv=None) -> int:
         names = ["base", *(tiled if args.tiled else ()), *(fused if args.fused else ())]
         libs = build_variants(names, sources=("smm_stack.cu",), trees=trees, edits=edits)
         if args.tiled:
-            time_tiled({n: libs[n] for n in (*extra_names, "base", *tiled)}, card)
+            time_tiled({n: libs[n] for n in (*extra_names, "base", *tiled)}, card, args.forms)
         if args.fused:
             time_fused({n: libs[n] for n in (*extra_names, "base", *fused)}, card)
         return 0

@@ -14,7 +14,9 @@ the order given, so ``parent change change parent`` puts each pair on
 the same host in turns.  Every line goes to ``--out``; the summary
 printed per run is the north star's seconds per multiply (repeats 2-3),
 the model loops' walls under the planner (sign with the index engine),
-the full-width contraction's wall and K1's stack milliseconds in it,
+the full-width contraction's wall and K1's stack milliseconds in it
+(and its adaptive leg's kernel, probe and stack milliseconds), the
+complex128 leg's kernel milliseconds,
 the fused launch's milliseconds on `mixed_blocks` (between events and
 the kernels' own, f64 and f32) and every ``*_stacks`` line's kernel
 milliseconds.
@@ -65,9 +67,13 @@ def _summary(lines: list) -> dict:
         elif phase == "tensor":
             out["contract_s"] = ln["auto"]["wall_s"]
             out["tensor_stack_ms"] = ln.get("stack_ms")
+            ad = ln.get("adaptive", {})
+            for key in ("kernel_ms", "probe_ms", "stack_ms"):
+                out[f"tensor_adaptive_{key}"] = ad.get(key)
         elif phase == "tensor_legs":
             sd = ln.get("f32", {}).get("auto", {}).get("stack_device_s")
             out["tensor_legs_f32_stack_ms"] = None if sd is None else sd * 1e3
+            out["tensor_legs_c128_kernel_ms"] = ln.get("c128", {}).get("kernel_ms")
         elif phase == "superstack":
             for dname, info in ln.get("dtypes", {}).items():
                 fk = info.get("fused_kernel", {})

@@ -30,6 +30,7 @@ from dbcsr_tpu.perf.driver import run_perf as jax_run_perf
 from dbcsr_tpu.obs import events as jax_events
 from dbcsr_tpu.obs import health as jax_health
 from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 
 from dbcsr_tpu_torch.acc import abft, stack_kernel
 from dbcsr_tpu_torch.acc import smm as port_smm
@@ -44,6 +45,19 @@ from dbcsr_tpu_torch.ops import test_methods as port_tm
 from dbcsr_tpu_torch.ops import transformations as port_tr
 from dbcsr_tpu_torch.perf.driver import PerfConfig, run_perf
 from dbcsr_tpu_torch.resilience import breaker, faults
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_plane():
+    """The JAX package's runs in these tests feed its metrics, health
+    model, events and telemetry store: all four are reset after every
+    test, so a later file in the same worker (`tests/test_tune.py`'s
+    admission checks) does not start from a DEGRADED or CRITICAL
+    verdict."""
+    yield
+    for reset in (jax_metrics.reset, jax_health.reset, jax_events.clear, jax_timeseries.reset):
+        reset()
+
 
 SIZES = np.array([3, 5, 4, 5, 2, 4])
 RTOL = {np.complex128: 1e-12, np.complex64: 2e-5}

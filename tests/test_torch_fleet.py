@@ -35,6 +35,7 @@ import torch
 from dbcsr_tpu.obs import events as jax_events
 from dbcsr_tpu.obs import health as jax_health
 from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 from dbcsr_tpu.resilience import faults as jax_faults
 from dbcsr_tpu.serve import engine as jax_engine
 from dbcsr_tpu.serve import router as jax_router
@@ -47,6 +48,19 @@ from dbcsr_tpu_torch.serve import product_cache
 from dbcsr_tpu_torch.serve import router as port_router
 from dbcsr_tpu_torch.serve import session as port_session
 from dbcsr_tpu_torch.serve.fleet import Fleet
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_plane():
+    """The JAX package's runs in these tests feed its metrics, health
+    model, events and telemetry store: all four are reset after every
+    test, so a later file in the same worker (`tests/test_tune.py`'s
+    admission checks) does not start from a DEGRADED or CRITICAL
+    verdict."""
+    yield
+    for reset in (jax_metrics.reset, jax_health.reset, jax_events.clear, jax_timeseries.reset):
+        reset()
+
 
 PKGS = {
     "port": SimpleNamespace(router=port_router, faults=faults, metrics=metrics,

@@ -33,8 +33,10 @@ from dbcsr_tpu.mm import format_planner as jax_fp
 from dbcsr_tpu.mm import multiply as jax_mm
 from dbcsr_tpu.models import invsqrt as jax_invsqrt
 from dbcsr_tpu.models import purify as jax_purify
+from dbcsr_tpu.obs import events as jax_events
 from dbcsr_tpu.obs import health as jax_health
 from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 from dbcsr_tpu.ops import operations as jops
 from dbcsr_tpu.ops import test_methods as jax_tm
 
@@ -48,6 +50,19 @@ from dbcsr_tpu_torch.mm import multiply as mm
 from dbcsr_tpu_torch.models import invsqrt_iteration, make_test_density, mcweeny_purify
 from dbcsr_tpu_torch.ops import operations as pops
 from dbcsr_tpu_torch.ops import test_methods as port_tm
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_plane():
+    """The JAX package's runs in these tests feed its metrics, health
+    model, events and telemetry store: all four are reset after every
+    test, so a later file in the same worker (`tests/test_tune.py`'s
+    admission checks) does not start from a DEGRADED or CRITICAL
+    verdict."""
+    yield
+    for reset in (jax_metrics.reset, jax_health.reset, jax_events.clear, jax_timeseries.reset):
+        reset()
+
 
 FIELDS = ("mm_format", "mm_dense", "mm_driver", "dense_occ_threshold",
           "composite_max_panels", "composite_ksup")

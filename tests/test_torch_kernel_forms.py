@@ -12,13 +12,14 @@ stack driver (`_process_stack_xla`):
 * every demoted spec and both complex kinds (complex alpha), at one
   shape of each register class of the warp path (2, 3 and 4 tiles of 8
   rows: (1,1,1), (5,13,7), (8,8,8), (23,23,23), (24,24,24), (32,32,32),
-  (7,32,1)) and two of the tiled path ((33,23,23), (100,50,20)), on runs
-  of 1-16 entries, within the form's `form_tolerance`;
-* `stack_bound_s` at the north star's and `test_H2O`'s stacks as the
-  smoke measured them on the H100 (their counts below), and a
-  compensated spec's threefold operation count;
-* the units each form's products run on (`form_units`), for every form
-  the kernel takes.
+  (7,32,1)) and three of the tiled path ((33,23,23), (100,50,20) and the
+  RI contraction's (529,23,23)), on runs of 1-16 entries, within the
+  form's `form_tolerance`;
+* `stack_bound_s` at the north star's, `test_H2O`'s and the RI
+  contraction's stacks as the smoke measured them on the H100 (their
+  counts below), and a compensated spec's threefold operation count;
+* the units each form's products run on (`form_units`, the same on both
+  paths), for every form the kernel takes.
 """
 
 import zlib
@@ -30,10 +31,27 @@ import torch
 import jax.numpy as jnp
 
 from dbcsr_tpu.acc import smm as jax_smm
+from dbcsr_tpu.obs import events as jax_events
+from dbcsr_tpu.obs import health as jax_health
+from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 
 from dbcsr_tpu_torch.acc import stack_kernel
 from dbcsr_tpu_torch.acc.crosspack import runs
 from dbcsr_tpu_torch.obs import costmodel
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_plane():
+    """The JAX package's runs in these tests feed its metrics, health
+    model, events and telemetry store: all four are reset after every
+    test, so a later file in the same worker (`tests/test_tune.py`'s
+    admission checks) does not start from a DEGRADED or CRITICAL
+    verdict."""
+    yield
+    for reset in (jax_metrics.reset, jax_health.reset, jax_events.clear, jax_timeseries.reset):
+        reset()
+
 
 DEMOTED = [(torch.float64, ("float32", False)), (torch.float64, ("float32", True)),
            (torch.float64, ("bfloat16", False)), (torch.float64, ("bfloat16", True)),
@@ -41,9 +59,11 @@ DEMOTED = [(torch.float64, ("float32", False)), (torch.float64, ("float32", True
 COMPLEX = [(torch.complex64, None), (torch.complex128, None)]
 # warp path: register classes 2 ((1,1,1), (5,13,7), (8,8,8)), 3
 # ((23,23,23), (24,24,24)) and 4 ((32,32,32), (7,32,1)); tiled path:
-# (33,23,23) and (100,50,20)
+# (33,23,23), (100,50,20) and (529,23,23), the RI contraction's stacks
+# (their C blocks cut into two chunks of row tiles by the complex and
+# demoted forms)
 SHAPES = [(1, 1, 1), (5, 13, 7), (8, 8, 8), (23, 23, 23), (24, 24, 24), (32, 32, 32),
-          (7, 32, 1), (33, 23, 23), (100, 50, 20)]
+          (7, 32, 1), (33, 23, 23), (100, 50, 20), (529, 23, 23)]
 _NP = {torch.float64: np.float64, torch.float32: np.float32,
        torch.complex64: np.complex64, torch.complex128: np.complex128}
 
@@ -120,6 +140,11 @@ NORTHSTAR_COMPLEX = [(18, 18, 23, 6, 6, 6, 1), (18, 23, 23, 2073, 48, 2073, 430)
                      (23, 18, 23, 1648, 1648, 37, 425), (23, 23, 18, 2600, 52, 50, 2600),
                      (23, 23, 23, 823251, 19015, 18762, 186085)]
 H2O = (23, 23, 23, 566340, 7366, 7379, 9216)
+# The RI contraction's stacks, summed over its TAS groups: (529,23,23)
+# products, T's blocks, M's blocks, C's blocks, at full width (96
+# molecules; the adaptive leg) and at the complex128 leg's 84 molecules
+RI_96 = (529, 23, 23, 943698, 43526, 2008, 190965)
+RI_84 = (529, 23, 23, 550036, 28972, 1528, 125808)
 
 
 def _bound_ms(dtype, spans, precision=None):
@@ -132,7 +157,10 @@ def _bound_ms(dtype, spans, precision=None):
     ("complex64", NORTHSTAR_COMPLEX, None, 1.21, "operations"),
     ("float64", NORTHSTAR_F64, ("float32", False), 0.534, "bytes"),
     ("float32", [H2O], ("bfloat16", True), 0.042, "operations"),
-], ids=["c8_northstar", "c4_northstar", "f64_f32_northstar", "f32_bf16c_h2o"])
+    ("float64", [RI_96], ("float32", False), 12.367, "bytes"),
+    ("complex128", [RI_84], None, 18.379, "operations"),
+], ids=["c8_northstar", "c4_northstar", "f64_f32_northstar", "f32_bf16c_h2o",
+        "f64_f32_ri", "c8_ri_84"])
 def test_stack_bound_at_the_measured_stacks(dtype, spans, precision, ms, by):
     """`stack_bound_s` summed over a product's stacks gives the bounds
     `PERF.md` reports beside the forms' times, bound by what it says
@@ -158,8 +186,8 @@ def test_compensated_spec_triples_the_operations(dtype, compute):
 
 
 def test_every_form_names_its_units():
-    """Every form the kernel takes names the units its products run on
-    the warp path: DMMA for f64 products (native, complex128 and the f64
+    """Every form the kernel takes names the units its products run on,
+    on both paths: DMMA for f64 products (native, complex128 and the f64
     data's compensated forms), the bf16 tensor cores for uncompensated
     bf16 and f32 data's compensated bf16, f32 FMAs otherwise."""
     forms = [(dt, None) for dt in (torch.float64, torch.float32, torch.bfloat16,

@@ -25,8 +25,10 @@ from dbcsr_tpu.mm.multiply import multiply as jax_multiply
 from dbcsr_tpu.models import invsqrt as jax_invsqrt
 from dbcsr_tpu.models import purify as jax_purify
 from dbcsr_tpu.models import sign as jax_sign
+from dbcsr_tpu.obs import events as jax_events
 from dbcsr_tpu.obs import health as jax_health
 from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 from dbcsr_tpu.ops import operations as jops
 from dbcsr_tpu.ops import test_methods as jax_tm
 
@@ -52,13 +54,14 @@ RTOL = 1e-10
 
 @pytest.fixture(autouse=True)
 def reset_jax_health():
-    """The JAX products of these tests feed the JAX package's health model
-    (first compiles read as a recompile storm, CPU rates as a roofline
-    burn): reset it after each test, so a later file in the same process
-    does not start from a DEGRADED verdict."""
+    """The JAX package's runs in these tests feed its metrics, health
+    model, events and telemetry store: all four are reset after every
+    test, so a later file in the same worker (`tests/test_tune.py`'s
+    admission checks) does not start from a DEGRADED or CRITICAL
+    verdict."""
     yield
-    jax_metrics.reset()
-    jax_health.reset()
+    for reset in (jax_metrics.reset, jax_health.reset, jax_events.clear, jax_timeseries.reset):
+        reset()
 
 
 @pytest.fixture(autouse=True)

@@ -40,6 +40,7 @@ from dbcsr_tpu.obs import events as jax_events
 from dbcsr_tpu.obs import health as jax_health
 from dbcsr_tpu.obs import metrics as jax_metrics
 from dbcsr_tpu.obs import profiler as jax_profiler
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 from dbcsr_tpu.obs import tracer as jax_tracer
 
 import dbcsr_tpu_torch.obs as obs
@@ -51,6 +52,19 @@ from dbcsr_tpu_torch.mm import multiply as mm
 from dbcsr_tpu_torch.obs import costmodel, events, flight, metrics, profiler, shard, tracer
 from dbcsr_tpu_torch.ops import test_methods as port_tm
 from dbcsr_tpu_torch.resilience import faults
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_plane():
+    """The JAX package's runs in these tests feed its metrics, health
+    model, events and telemetry store: all four are reset after every
+    test, so a later file in the same worker (`tests/test_tune.py`'s
+    admission checks) does not start from a DEGRADED or CRITICAL
+    verdict."""
+    yield
+    for reset in (jax_metrics.reset, jax_health.reset, jax_events.clear, jax_timeseries.reset):
+        reset()
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZES = [5, 3, 5, 3, 5]

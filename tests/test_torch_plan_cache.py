@@ -20,8 +20,10 @@ import torch
 from dbcsr_tpu.core.config import get_config as jax_get_config
 from dbcsr_tpu.core.config import set_config as jax_set_config
 from dbcsr_tpu.mm.multiply import multiply as jax_multiply
+from dbcsr_tpu.obs import events as jax_events
 from dbcsr_tpu.obs import health as jax_health
 from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 from dbcsr_tpu.ops import test_methods as jax_tm
 
 from dbcsr_tpu_torch.acc import params, smm
@@ -38,13 +40,14 @@ SIZES = np.array([2, 3, 5, 3, 4, 2])
 
 @pytest.fixture(autouse=True)
 def reset_jax_health():
-    """The JAX products of these tests feed the JAX package's health model
-    (first compiles read as a recompile storm, CPU rates as a roofline
-    burn): reset it after each test, so a later file in the same process
-    does not start from a DEGRADED verdict."""
+    """The JAX package's runs in these tests feed its metrics, health
+    model, events and telemetry store: all four are reset after every
+    test, so a later file in the same worker (`tests/test_tune.py`'s
+    admission checks) does not start from a DEGRADED or CRITICAL
+    verdict."""
     yield
-    jax_metrics.reset()
-    jax_health.reset()
+    for reset in (jax_metrics.reset, jax_health.reset, jax_events.clear, jax_timeseries.reset):
+        reset()
 
 
 @pytest.fixture(autouse=True)

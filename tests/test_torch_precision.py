@@ -43,6 +43,7 @@ from dbcsr_tpu.models.sign import sign_iteration as jax_sign_iteration
 from dbcsr_tpu.obs import events as jax_events
 from dbcsr_tpu.obs import health as jax_health
 from dbcsr_tpu.obs import metrics as jax_metrics
+from dbcsr_tpu.obs import timeseries as jax_timeseries
 from dbcsr_tpu.resilience import breaker as jax_breaker
 from dbcsr_tpu.ops import test_methods as jax_tm
 
@@ -56,6 +57,19 @@ from dbcsr_tpu_torch.models import make_test_density, mcweeny_purify, sign_itera
 from dbcsr_tpu_torch.obs import costmodel, events, metrics
 from dbcsr_tpu_torch.ops import test_methods as port_tm
 from dbcsr_tpu_torch.resilience import breaker, faults
+
+
+@pytest.fixture(autouse=True)
+def reset_jax_plane():
+    """The JAX package's runs in these tests feed its metrics, health
+    model, events and telemetry store: all four are reset after every
+    test, so a later file in the same worker (`tests/test_tune.py`'s
+    admission checks) does not start from a DEGRADED or CRITICAL
+    verdict."""
+    yield
+    for reset in (jax_metrics.reset, jax_health.reset, jax_events.clear, jax_timeseries.reset):
+        reset()
+
 
 SPECS = [("float32", True), ("float32", False), ("bfloat16", True), ("bfloat16", False)]
 _JAX_CFG = ("precision", "abft", "mm_driver", "mm_format", "incremental", "platform_override")
