@@ -44,6 +44,7 @@ import torch
 from dbcsr_tpu_torch.core import digests, mempool
 from dbcsr_tpu_torch.core.dist import Distribution
 from dbcsr_tpu_torch.core.kinds import dtype_of, host_dtype, name_of, real_dtype_of
+from dbcsr_tpu_torch.core.timings import timed
 from dbcsr_tpu_torch.device import DeviceLike, resolve_device
 
 # matrix_type flags, ref dbcsr_type_no_symmetry/_symmetric/_antisymmetric/
@@ -83,16 +84,21 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 
 
 def to_index(idx: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Upload a host index array as an int64 tensor on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(idx, np.int64)).to(device)
+    """Upload a host index array as an int64 tensor on ``device``
+    (counted by `mempool.record_h2d`, whatever the device)."""
+    arr = np.ascontiguousarray(idx, np.int64)
+    mempool.record_h2d(arr.nbytes)
+    return torch.from_numpy(arr).to(device)
 
 
 def to_device(arr: np.ndarray, dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
-    """Upload a host block array as ``dtype`` on ``device``."""
+    """Upload a host block array as ``dtype`` on ``device`` (counted by
+    `mempool.record_h2d`, whatever the device)."""
     arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:  # torch.from_numpy wants a writable buffer
         arr = arr.copy()
+    mempool.record_h2d(arr.nbytes)
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
@@ -298,6 +304,7 @@ class BlockSparseMatrix:
         self._work_batches.extend(self._make_batches(rows, cols, blocks, summation))
         self.valid = False
 
+    @timed("matrix_stage")
     def stage_device_blocks(self, rows, cols, blocks: torch.Tensor,
                             summation: bool = False) -> None:
         """Stage an (N, bm, bn) tensor of same-shape blocks that already
@@ -402,6 +409,13 @@ class BlockSparseMatrix:
         if not self._work and not self._work_batches:
             self.valid = True
             return self
+        self._merge_staged()
+        return self
+
+    @timed("matrix_finalize")
+    def _merge_staged(self) -> None:
+        """`finalize`'s merge of the staged blocks, a `core.timings`
+        region of its own (a finalize with nothing staged is none)."""
         if self._work:
             # single-put stagings become a leading replace batch
             self._work_batches = self._make_batches(
@@ -448,7 +462,6 @@ class BlockSparseMatrix:
         self._work_batches.clear()
         self.set_structure_from_device(merged, bins, binning=(nb, nsl, shapes),
                                        value_delta_keys=staged_keys if same_pattern else None)
-        return self
 
     def set_structure_from_device(self, keys: np.ndarray, bins: List[_Bin],
                                   binning=None, value_delta_keys=None) -> None:

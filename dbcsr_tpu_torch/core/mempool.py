@@ -71,6 +71,7 @@ _lock = _lockcheck.wrap("core.mempool", threading.Lock())
 # host<->device transfer bytes
 _stats = {"freed": 0, "freed_bytes": 0, "hits": 0, "misses": 0, "returns": 0,
           "evictions": 0, "bytes_held": 0, "high_water": 0, "h2d_bytes": 0, "d2h_bytes": 0}
+_generation = 0  # `reset_stats` calls
 # the free lists' budget (the JAX package's default, 2 GiB)
 _POOL_BUDGET_BYTES = 2 << 30
 
@@ -121,9 +122,17 @@ def transfer_totals() -> dict:
     return {"h2d": _stats["h2d_bytes"], "d2h": _stats["d2h_bytes"]}
 
 
+def stats_generation() -> int:
+    """How many times `reset_stats` ran: a reader that took a baseline of
+    `transfer_totals` under another generation counts from zero."""
+    return _generation
+
+
 def reset_stats() -> None:
     """Zero the counters; held buffers and mirrors stay (`clear` drops
     them)."""
+    global _generation
+    _generation += 1
     with _lock:
         for k in _stats:
             _stats[k] = 0

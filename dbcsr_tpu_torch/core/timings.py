@@ -7,9 +7,10 @@ callgraph export at :303).  A host application can take the timer
 over with `set_hooks`, as `dbcsr_base_hooks.F:88-110` allows.
 
 `timed` also opens a `torch.profiler.record_function` range named
-``dbcsr_tpu_torch:<name>``, so a `torch.profiler` trace shows the
-engine's regions beside the card's kernels (the JAX package opens a
-`jax.profiler.TraceAnnotation`), and every region is a span of the
+``dbcsr_tpu_torch:<name>`` while a profiler records, so a
+`torch.profiler` trace shows the engine's regions beside the card's
+kernels (the JAX package opens a `jax.profiler.TraceAnnotation`), and
+every region but those timed with ``span=False`` is a span of the
 tracer (`obs/tracer.py`) when one is active, under the same name.  In
 a multi-process world (`parallel/multihost.py`) `report(aggregate=True)`
 prints the rank-aggregated table on the coordinator.
@@ -38,6 +39,7 @@ class _RoutineStat:
 _stats: dict[str, _RoutineStat] = {}
 _stack: list[list] = []  # entries: [name, t_start, child_time]
 _hooks = None  # optional (timeset_fn, timestop_fn) override
+_generation = 0  # bumped by every `reset`, so a baseline knows it is stale
 
 
 def set_hooks(timeset_fn, timestop_fn) -> None:
@@ -49,16 +51,16 @@ def set_hooks(timeset_fn, timestop_fn) -> None:
         timeset_fn, timestop_fn)
 
 
-def timeset(name: str) -> None:
+def timeset(name: str, span: bool = True) -> None:
     if _hooks:
         _hooks[0](name)
         return
     _stack.append([name, time.perf_counter(), 0.0])
-    if _trace._tracer is not None:
+    if span and _trace._tracer is not None:
         _trace._tracer.begin(name)
 
 
-def timestop(name: str) -> None:
+def timestop(name: str, span: bool = True) -> None:
     if _hooks:
         _hooks[1](name)
         return
@@ -66,7 +68,7 @@ def timestop(name: str) -> None:
     if ent[0] != name:
         raise RuntimeError(f"timer mismatch: stopped {name}, open {ent[0]}")
     dt = time.perf_counter() - ent[1]
-    if _trace._tracer is not None:
+    if span and _trace._tracer is not None:
         _trace._tracer.end(name, dur_s=dt)
     st = _stats.setdefault(name, _RoutineStat())
     st.calls += 1
@@ -81,21 +83,37 @@ def timestop(name: str) -> None:
 
 
 @contextlib.contextmanager
-def timed(name: str):
-    """Host timer, tracer span and profiler range around the block."""
-    timeset(name)
+def timed(name: str, span: bool = True):
+    """Host timer, tracer span and profiler range around the block.
+    ``span=False``: no tracer span, so the tracer attributes written
+    inside go to the enclosing span (a phase split out of it for timing).
+    The profiler range is opened only while a profiler records: it costs
+    most of a region's enter and exit and records nothing otherwise."""
+    timeset(name, span)
     try:
-        with torch.profiler.record_function(f"dbcsr_tpu_torch:{name}"):
+        if torch.autograd._profiler_enabled():
+            with torch.profiler.record_function(f"dbcsr_tpu_torch:{name}"):
+                yield
+        else:
             yield
     finally:
-        timestop(name)
+        timestop(name, span)
 
 
 def reset() -> None:
+    global _generation
+    _generation += 1
     _stats.clear()
     _stack.clear()
     if _trace._tracer is not None:
         _trace._tracer._span_stack.clear()  # in step with the timer stack
+
+
+def region_totals() -> tuple:
+    """(generation, {name: (calls, inclusive seconds)}) of every region
+    timed since the last `reset`; the generation changes at each reset,
+    so a reader holding an older baseline counts from zero."""
+    return _generation, {name: (st.calls, st.total) for name, st in _stats.items()}
 
 
 def report(out=print, top: int = 30, aggregate: bool = False) -> None:

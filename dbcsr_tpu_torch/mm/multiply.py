@@ -49,8 +49,13 @@ plan-cache entry and is built again when a heal changes the spans'
 drivers.  Every launch feeds `core.stats` (and the tracer's ``stack``
 instants); the phases are `core.timings.timed` regions (``multiply``
 around ``multiply_index``, ``multiply_c_assemble``, ``multiply_stacks``,
-``multiply_filter`` or ``multiply_dense``), so the span tracer and
-`torch.profiler` see them under the same names.
+``multiply_filter`` or ``multiply_dense``; "index" holds
+``multiply_index_expand``, ``multiply_index_keys`` and
+``multiply_plan_key``, "stacks" holds ``multiply_plan`` and
+``multiply_launch``), so the span tracer and `torch.profiler` see them
+under the same names.  `read_totals` reads every region, the plan
+cache's evictions, the bytes C's rebuilds move and the host-to-device
+bytes since `reset_totals`.
 
 Integrity (ref `dbcsr_tpu/mm/multiply.py:246-270,512-535,1891-2025`):
 each multiply opens an event-bus product and a flight record
@@ -92,7 +97,7 @@ from dbcsr_tpu_torch.acc.smm import StackPlan, execute_stack, execute_superstack
 from dbcsr_tpu_torch.core import digests, mempool, stats
 from dbcsr_tpu_torch.core.config import get_config
 from dbcsr_tpu_torch.core.kinds import name_of
-from dbcsr_tpu_torch.core.timings import timed
+from dbcsr_tpu_torch.core.timings import region_totals, timed
 from dbcsr_tpu_torch.core.matrix import (
     NO_SYMMETRY,
     BlockSparseMatrix,
@@ -116,19 +121,25 @@ _plan_cache: "OrderedDict[tuple, _CachedSpans]" = OrderedDict()
 _plan_cache_bytes = 0
 
 # what every multiply since `reset_totals` did: the count, host seconds
-# per phase, plan-cache outcomes, format decisions, the engine that ran
-# each expansion and sort, the longest run of any stack, the device
-# seconds per format already read from their CUDA event pairs, and the
-# pairs still pending
+# per phase, plan-cache outcomes and evictions, format decisions, the
+# engine that ran each expansion and sort, the longest run of any stack,
+# the bytes C's rebuilds allocated and moved, the device seconds per
+# format already read from their CUDA event pairs, and the pairs still
+# pending; and the baselines of the timer registry and of the
+# host-to-device counter, which are not cleared
 _totals: dict = {}
 
 
 def reset_totals() -> None:
     _totals.update(multiplies=0, host_phase_s={}, longest_run=0, device_s={}, timed={},
                    events=[], plan_cache={"hit": 0, "miss": 0, "uncacheable": 0}, reused=0,
+                   plan_evictions={"entries": 0, "bytes": 0, "pinned_bytes": 0},
+                   rebuild_bytes={"allocated": 0, "moved": 0},
                    formats={}, index_engine={"expand": {"native": 0, "numpy": 0},
                                              "sort": {"native": 0, "numpy": 0},
-                                             "coo_fill": {"native": 0, "numpy": 0}})
+                                             "coo_fill": {"native": 0, "numpy": 0}},
+                   regions0=region_totals(),
+                   h2d0=(mempool.stats_generation(), mempool.transfer_totals()["h2d"]))
 
 
 reset_totals()
@@ -148,21 +159,43 @@ def _fold_events(wait: bool) -> None:
 
 def read_totals() -> dict:
     """The totals since `reset_totals`: ``multiplies``, ``host_phase_s``
-    (summed per phase), ``plan_cache`` outcome counts, ``reused`` (the
-    products `mm.incremental` served from its cache), ``formats`` (the
-    planner's decisions as "format:reason" counts), ``index_engine`` (how
-    many expansions, sorts and `ops.csr.matrix_from_csr` COO fills ran
-    "native" or "numpy"), ``longest_run``,
-    ``device_s`` (CUDA-event seconds of each format's device work, summed
-    over the multiplies) and ``stack_device_s``, its stack share (None
-    without events).  Synchronizes."""
+    (summed per phase), ``plan_cache`` outcome counts, ``plan_evictions``
+    (plans the cache evicted over its entry cap, over its byte cap, and
+    the bytes they pinned), ``reused`` (the products `mm.incremental`
+    served from its cache), ``formats`` (the planner's decisions as
+    "format:reason" counts), ``index_engine`` (how many expansions, sorts
+    and `ops.csr.matrix_from_csr` COO fills ran "native" or "numpy"),
+    ``longest_run``, ``rebuild_bytes`` (the bytes of the bins C's
+    rebuilds allocated and of the old blocks they moved), ``regions``
+    ({"calls", "seconds"} inclusive, of every `core.timings` region timed
+    since, in any layer), ``h2d_bytes`` (`core.mempool`'s
+    host-to-device bytes since), ``device_s`` (CUDA-event seconds of each
+    format's device work, summed over the multiplies) and
+    ``stack_device_s``, its stack share (None without events).
+    Synchronizes."""
     _fold_events(wait=True)
+    # a baseline taken before the registry's or the counter's reset
+    # counts from zero
+    gen, now = region_totals()
+    gen0, base = _totals["regions0"]
+    if gen != gen0:
+        base = {}
+    regions = {}
+    for name, (calls, sec) in now.items():
+        calls0, sec0 = base.get(name, (0, 0.0))
+        if calls > calls0:
+            regions[name] = {"calls": calls - calls0, "seconds": sec - sec0}
+    gen0, h2d0 = _totals["h2d0"]
+    h2d = mempool.transfer_totals()["h2d"] - (h2d0 if mempool.stats_generation() == gen0 else 0)
     return {"multiplies": _totals["multiplies"],
             "host_phase_s": dict(_totals["host_phase_s"]),
-            "plan_cache": dict(_totals["plan_cache"]), "reused": _totals["reused"],
+            "plan_cache": dict(_totals["plan_cache"]),
+            "plan_evictions": dict(_totals["plan_evictions"]), "reused": _totals["reused"],
             "formats": dict(_totals["formats"]),
             "index_engine": {k: dict(v) for k, v in _totals["index_engine"].items()},
             "longest_run": _totals["longest_run"],
+            "rebuild_bytes": dict(_totals["rebuild_bytes"]),
+            "regions": regions, "h2d_bytes": h2d,
             "device_s": dict(_totals["device_s"]),
             "stack_device_s": (_totals["device_s"].get("stack", 0.0)
                                if _totals["timed"].get("stack") else None)}
@@ -408,20 +441,27 @@ def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
     assemble, plan (or the cached plan) and launch, then the filter's
     compress."""
     t0 = time.perf_counter()
+    # "index" in three: the expansion, C's new keys, and the plan key
+    # (C's fingerprint is taken before the keys, the rest of the key
+    # after, so that region is entered twice)
     with timed("multiply_index"):
-        i, j, a_ent, b_ent = _candidates(a, b, filter_eps,
-                                         sym_c=c.matrix_type != NO_SYMMETRY, limits=limits)
+        with timed("multiply_index_expand"):
+            i, j, a_ent, b_ent = _candidates(a, b, filter_eps,
+                                             sym_c=c.matrix_type != NO_SYMMETRY, limits=limits)
         old_keys = c.keys
-        old_fp = c.pattern_fingerprint()
-        cand_keys = i * c.nblkcols + j
-        if retain_sparsity:
-            ok = mask_in_sorted(cand_keys, old_keys)
-            cand_keys, a_ent, b_ent = cand_keys[ok], a_ent[ok], b_ent[ok]
-            new_keys = old_keys
-        else:
-            new_keys = np.union1d(old_keys, np.unique(cand_keys))
-        key = _plan_key(a, b, c, old_fp, retain_sparsity, filter_eps, limits, cand_keys,
-                        a_ent, b_ent)
+        with timed("multiply_plan_key"):
+            old_fp = c.pattern_fingerprint()
+        with timed("multiply_index_keys"):
+            cand_keys = i * c.nblkcols + j
+            if retain_sparsity:
+                ok = mask_in_sorted(cand_keys, old_keys)
+                cand_keys, a_ent, b_ent = cand_keys[ok], a_ent[ok], b_ent[ok]
+                new_keys = old_keys
+            else:
+                new_keys = np.union1d(old_keys, np.unique(cand_keys))
+        with timed("multiply_plan_key"):
+            key = _plan_key(a, b, c, old_fp, retain_sparsity, filter_eps, limits, cand_keys,
+                            a_ent, b_ent)
     t1 = time.perf_counter()
     phase["index"] = t1 - t0
     inc_eligible = (key is not None and filter_eps is None and beta == 0
@@ -445,13 +485,17 @@ def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
     t2 = time.perf_counter()
     phase["assemble"] = t2 - t1
     with timed("multiply_stacks"):
-        entry, c._mm_plan_cache = _spans_for(key, c, a, b, cand_keys, a_ent, b_ent)
+        # timed apart, but no tracer spans of their own: the stacks'
+        # attributes (precision, entries) stay on "multiply_stacks"
+        with timed("multiply_plan", span=False):
+            entry, c._mm_plan_cache = _spans_for(key, c, a, b, cand_keys, a_ent, b_ent)
         spans = entry.spans
         t3 = time.perf_counter()
         phase["plan"] = t3 - t2
-        flops = _run_stacks(c, a, b, spans, alpha, c_zero=beta == 0 and beta_window is None,
-                            cached=entry)
-        _refresh_cached_bytes(key, entry)
+        with timed("multiply_launch", span=False):
+            flops = _run_stacks(c, a, b, spans, alpha,
+                                c_zero=beta == 0 and beta_window is None, cached=entry)
+            _refresh_cached_bytes(key, entry)
         phase["launch"] = time.perf_counter() - t3
     # the kernels wrote C's bins in place: stamp the completed values
     c._note_mutation(c.keys)
@@ -552,17 +596,21 @@ def _cached_spans(key) -> Optional[_CachedSpans]:
 
 def _plan_cache_insert(key, entry: _CachedSpans) -> None:
     """Insert with LRU eviction by entry count and by the index bytes
-    the cached plans pin (ref `dbcsr_tpu/mm/multiply.py:1760-1777`)."""
+    the cached plans pin (ref `dbcsr_tpu/mm/multiply.py:1760-1777`);
+    each eviction is counted by its cause, with the bytes it pinned."""
     global _plan_cache_bytes
     old = _plan_cache.pop(key, None)
     if old is not None:
         _plan_cache_bytes -= old.nbytes
     _plan_cache[key] = entry
     _plan_cache_bytes += entry.nbytes
+    evictions = _totals["plan_evictions"]
     while len(_plan_cache) > _PLAN_CACHE_MAX or (
             len(_plan_cache) > 1 and _plan_cache_bytes > _PLAN_CACHE_MAX_BYTES):
+        evictions["entries" if len(_plan_cache) > _PLAN_CACHE_MAX else "bytes"] += 1
         _, evicted = _plan_cache.popitem(last=False)
         _plan_cache_bytes -= evicted.nbytes
+        evictions["pinned_bytes"] += evicted.nbytes
 
 
 def _refresh_cached_bytes(key, entry: _CachedSpans) -> None:
@@ -691,7 +739,9 @@ def _rebuild_c(c: BlockSparseMatrix, new_keys: np.ndarray, beta, beta_window=Non
     blocks zero, old blocks scaled by beta.  With ``beta_window`` = (r0,
     r1, c0, c1), inclusive element bounds, beta applies only inside the
     window: old blocks wholly outside are copied as they are, and blocks
-    straddling it get an element-masked scale."""
+    straddling it get an element-masked scale.  Adds the bytes of the new
+    bins and of the old blocks moved to ``rebuild_bytes``, reckoned from
+    the host's counts."""
     old_keys, old_bins = c.keys, c.bins
     old_ent_bin, old_ent_slot = c.ent_bin, c.ent_slot
     rows = (new_keys // c.nblkcols).astype(np.int64)
@@ -715,9 +765,12 @@ def _rebuild_c(c: BlockSparseMatrix, new_keys: np.ndarray, beta, beta_window=Non
         inside = overlap & (blk_r0 >= r0) & (blk_r1 <= r1) & (blk_c0 >= c0) & (blk_c1 <= c1)
         straddle = overlap & ~inside
     counts = np.bincount(nb, minlength=len(shapes))
+    rebuilt = _totals["rebuild_bytes"]
     bins = []
     for b_id, (bm, bn) in enumerate(shapes):
         data = torch.zeros((int(counts[b_id]), bm, bn), dtype=c.dtype, device=dev)
+        block_bytes = bm * bn * c.dtype.itemsize
+        rebuilt["allocated"] += int(counts[b_id]) * block_bytes
         in_bin = nb[pos_old] == b_id if n_old else np.zeros(0, bool)
 
         def move(mask, factor=None):
@@ -727,6 +780,7 @@ def _rebuild_c(c: BlockSparseMatrix, new_keys: np.ndarray, beta, beta_window=Non
             if len(sel):
                 move_blocks(data, nsl[pos_old[sel]], old_bins[old_ent_bin[sel[0]]].data,
                             old_ent_slot[sel], factor)
+                rebuilt["moved"] += len(sel) * block_bytes
             return sel if len(sel) else None
 
         if beta != 0:

@@ -15,6 +15,16 @@ and driver, the event bus's records).  One event stream, two exports:
   ranges `timed` opens (``dbcsr_tpu_torch:<name>``), so host phases
   and the card's kernels line up.
 
+Both stamp events on `torch.profiler`'s clock: microseconds of
+CLOCK_REALTIME (``time.time_ns``), the clock of its events' ``start_ns``
+(a `torch.profiler` Chrome export subtracts its ``baseTimeNanoseconds``).
+The offset to the monotonic ``perf_counter`` is taken once, at `enable`.
+`tools/trace_merge.py` puts the shards of a world on one timeline by
+their ``clock_align`` instants (`parallel.multihost` publishes one at
+the join); it keeps a shard's own stamps where the shard is merged
+alone.  Shards without the instant, merged together, it would shift
+by their ``t0_unix`` though their stamps already are on the wall clock.
+
 The configured path is a base: the stream writes the process's shard
 ``<base>.p{index}<ext>`` (`obs.shard`), under a provisional name until
 the index is known (`rebind`, `flush` or the close settle it).
@@ -58,6 +68,7 @@ class Tracer:
         self.events: list = []
         self.dropped = 0
         self._t0 = time.perf_counter()
+        self._t0_us = time.time_ns() / 1e3  # `_t0` on the profiler's clock
         self._span_stack: list = []  # [name, t_start_us, attrs]
         pid = _shard.process_index()
         self._pid_final = pid is not None
@@ -65,12 +76,12 @@ class Tracer:
         self.path = shard_path(path, pid if self._pid_final else _shard.provisional_tag())
         self.chrome_path = self.path + ".chrome.json"
         self._fh = open(self.path, "a")
-        self._emit({"ev": "meta", "t0_unix": time.time(), "pid": self.process_index,
-                    "base_path": os.path.basename(path),
-                    "clock": "perf_counter_us_since_enable"})
+        self._emit({"ev": "meta", "t0_unix": self._t0_us / 1e6, "pid": self.process_index,
+                    "base_path": os.path.basename(path), "clock": "unix_us"})
 
     def now_us(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e6
+        """Now on the profiler's clock (see the module's docstring)."""
+        return (time.perf_counter() - self._t0) * 1e6 + self._t0_us
 
     def begin(self, name: str, t_us: float | None = None) -> None:
         self._span_stack.append([name, self.now_us() if t_us is None else t_us, None])

@@ -10,7 +10,10 @@ result back.  `contract_a[i]` is contracted against `contract_b[i]`;
 Each contraction is one product on the ops plane, as in the JAX package
 (`dbcsr_tpu/tensor/contract.py:255-270`): an event-bus product scope
 ``tensor_contract`` (a flight record and a product id under which the
-inner multiplies nest) and the tracer span's attributes.
+inner multiplies nest) and the tracer span's attributes.  Inside the
+``tensor_contract`` region, the operands' restriction, their remaps and
+the copy of the result into C's mapping are `core.timings` regions of
+their own (``tensor_restrict``, ``tensor_remap``, ``tensor_copy``).
 """
 
 from __future__ import annotations
@@ -272,11 +275,13 @@ def contract(
         # for the next step.  The caller's tensors were created outside
         # this chain and are never adopted or freed by it.
         with mempool.chain() as ch:
-            restricted_a = restrict_tensor(tensor_a, a_bounds)
-            restricted_b = restrict_tensor(tensor_b, b_bounds)
+            with timed("tensor_restrict"):
+                restricted_a = restrict_tensor(tensor_a, a_bounds)
+                restricted_b = restrict_tensor(tensor_b, b_bounds)
             # remap operands into matrix-compatible layouts (ref :1183)
-            a2 = remap(restricted_a, nca, ca, name=tensor_a.name + "_mm")
-            b2 = remap(restricted_b, cb, ncb, name=tensor_b.name + "_mm")
+            with timed("tensor_remap"):
+                a2 = remap(restricted_a, nca, ca, name=tensor_a.name + "_mm")
+                b2 = remap(restricted_b, cb, ncb, name=tensor_b.name + "_mm")
             # restrict/remap may have passed an operand through
             # unchanged; if the caller aliased C to an operand,
             # multiply would then read A/B while overwriting them —
@@ -308,7 +313,8 @@ def contract(
             ch.retire(b2.matrix)
             if beta != 1.0:
                 scale(tensor_c.matrix, beta)
-            tensor_copy(tensor_c, tmp, summation=True)
+            with timed("tensor_copy"):
+                tensor_copy(tensor_c, tmp, summation=True)
             return flops
 
 

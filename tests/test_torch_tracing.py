@@ -1,0 +1,302 @@
+"""The port's spans and counters where a step's host time goes, on the CPU.
+
+`mm.multiply.read_totals` reads, since `reset_totals`: every
+`core.timings` region (the multiply's "index" in three parts, plan
+building apart from launching, the matrix layer's value update, the
+contraction's layout work), the plan cache's evictions by cause, the
+bytes C's rebuild allocates and moves, and the host-to-device bytes of
+`core.mempool`, which `core.matrix.to_index` and `to_device` now feed.
+`reset_totals` takes baselines of the timer registry and of the
+transfer counter and clears neither.  The tracer stamps its spans on
+`torch.profiler`'s clock.  No counterpart in the JAX package: these are
+the port's own readings.
+"""
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from dbcsr_tpu_torch.core import matrix as core_matrix
+from dbcsr_tpu_torch.core import mempool, timings
+from dbcsr_tpu_torch.mm import multiply as mm
+from dbcsr_tpu_torch.obs import tracer
+from dbcsr_tpu_torch.ops import test_methods as port_tm
+from dbcsr_tpu_torch.tensor import contract, create_tensor
+
+SIZES = [3, 5, 2, 4]
+INDEX_PARTS = ("multiply_index_expand", "multiply_index_keys", "multiply_plan_key")
+STACK_PARTS = ("multiply_plan", "multiply_launch")
+LAYOUT_PARTS = ("tensor_restrict", "tensor_remap", "tensor_copy")
+
+
+@pytest.fixture(autouse=True)
+def fresh():
+    mm.clear_plan_cache()
+    mm.reset_totals()
+    yield
+    mm.clear_plan_cache()
+    tracer.disable()
+
+
+def _operands(seed=1, occ=(0.6, 0.6, 0.3)):
+    rng = np.random.default_rng(seed)
+    return [port_tm.make_random_matrix(name, SIZES, SIZES, occupation=o, rng=rng, device="cpu")
+            for name, o in zip("ABC", occ)]
+
+
+def _tensors(seed=3):
+    """T(i,j,k) mapped (i | j,k), M(k,l), and an empty C(i,j,l) mapped
+    (i | j,l): the contraction remaps T and copies its result into C's
+    mapping."""
+    si, sj, sk, sl = [2, 3], [3, 2], [4, 2], [2, 2]
+    rng = np.random.default_rng(seed)
+    t = create_tensor("T", [si, sj, sk], (0,), (1, 2), device="cpu")
+    m = create_tensor("M", [sk, sl], (0,), (1,), device="cpu")
+    for x, occ in ((t, 0.8), (m, 0.9)):
+        for idx in np.ndindex(*[len(b) for b in x.blk_sizes]):
+            if rng.random() < occ:
+                x.put_block(idx, rng.standard_normal(x.block_shape(idx)))
+        x.finalize()
+    c = create_tensor("C", [si, sj, sl], (0,), (1, 2), device="cpu")
+    c.finalize()
+    return t, m, c
+
+
+_RI = dict(contract_a=(2,), notcontract_a=(0, 1), contract_b=(0,), notcontract_b=(1,),
+           map_1=(0, 1), map_2=(2,))
+
+
+# ------------------------------------------------------------- regions
+def test_stack_multiply_regions_nest_in_their_parents():
+    a, b, c = _operands()
+    mm.multiply("N", "N", 1.0, a, b, 0.5, c)
+    regions = mm.read_totals()["regions"]
+    for name in ("multiply", "multiply_index", "multiply_stacks") + INDEX_PARTS + STACK_PARTS:
+        assert regions[name]["calls"] >= 1, name
+    # C's fingerprint and the rest of the key: one region, entered twice
+    assert regions["multiply_plan_key"]["calls"] == 2 * regions["multiply_index"]["calls"]
+    for parent, parts in (("multiply_index", INDEX_PARTS), ("multiply_stacks", STACK_PARTS)):
+        assert sum(regions[p]["seconds"] for p in parts) <= regions[parent]["seconds"]
+    # the host phases still cover what they covered
+    phase = c._mm_phase_s
+    assert regions["multiply_index"]["seconds"] <= phase["index"]
+
+
+def test_contraction_regions_nest_in_their_parents():
+    t, m, c = _tensors()
+    contract(1.0, t, m, 0.0, c, **_RI)
+    regions = mm.read_totals()["regions"]
+    for name in ("tensor_contract", "tas_multiply", "matrix_stage", "matrix_finalize")\
+            + LAYOUT_PARTS + INDEX_PARTS + STACK_PARTS:
+        assert regions[name]["calls"] >= 1, name
+    assert sum(regions[p]["seconds"] for p in LAYOUT_PARTS) + regions["tas_multiply"]["seconds"] \
+        <= regions["tensor_contract"]["seconds"]
+
+
+def test_value_update_is_timed_and_an_empty_finalize_is_not():
+    a, _, _ = _operands()
+    mm.reset_totals()
+    a.finalize()  # nothing staged
+    assert "matrix_finalize" not in mm.read_totals()["regions"]
+    bins = a.bins[0]
+    keys = a.keys[a.ent_bin == 0]
+    rows, cols = keys // a.nblkcols, keys % a.nblkcols
+    a.stage_device_blocks(rows, cols, torch.ones_like(bins.data[: len(rows)]))
+    a.finalize()
+    regions = mm.read_totals()["regions"]
+    assert regions["matrix_stage"]["calls"] == 1 and regions["matrix_finalize"]["calls"] == 1
+
+
+def test_regions_count_from_the_reset():
+    a, b, c = _operands()
+    mm.multiply("N", "N", 1.0, a, b, 0.0, c.copy())
+    mm.reset_totals()
+    assert mm.read_totals()["regions"] == {}
+    mm.multiply("N", "N", 1.0, a, b, 0.0, c.copy())
+    assert mm.read_totals()["regions"]["multiply"]["calls"] == 1
+    # a registry reset after the baseline: counted from zero again
+    timings.reset()
+    mm.multiply("N", "N", 1.0, a, b, 0.0, c.copy())
+    assert mm.read_totals()["regions"]["multiply"]["calls"] == 1
+
+
+def test_reset_totals_clears_neither_the_registry_nor_the_transfer_counter():
+    a, b, c = _operands()
+    mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+    before = mempool.transfer_totals()
+    lines = []
+    timings.report(out=lines.append)
+    mm.reset_totals()
+    assert mempool.transfer_totals() == before
+    after = []
+    timings.report(out=after.append)
+    assert after == lines and any("multiply_index_expand" in ln for ln in lines)
+
+
+# ------------------------------------------------------------ plan cache
+def _entry(nbytes):
+    e = mm._CachedSpans([])
+    e.nbytes = nbytes
+    return e
+
+
+def test_the_entry_cap_evicts_and_names_its_cause():
+    for i in range(mm._PLAN_CACHE_MAX + 1):
+        mm._plan_cache_insert(("plan", i), _entry(10))
+    ev = mm.read_totals()["plan_evictions"]
+    assert ev == {"entries": 1, "bytes": 0, "pinned_bytes": 10}
+    assert ("plan", 0) not in mm._plan_cache and len(mm._plan_cache) == mm._PLAN_CACHE_MAX
+
+
+def test_the_byte_cap_evicts_and_names_its_cause(monkeypatch):
+    monkeypatch.setattr(mm, "_PLAN_CACHE_MAX_BYTES", 100)
+    mm._plan_cache_insert(("plan", 0), _entry(60))
+    mm._plan_cache_insert(("plan", 1), _entry(50))
+    ev = mm.read_totals()["plan_evictions"]
+    assert ev == {"entries": 0, "bytes": 1, "pinned_bytes": 60}
+    # the same key again replaces its entry: no eviction
+    mm._plan_cache_insert(("plan", 1), _entry(50))
+    assert mm.read_totals()["plan_evictions"]["bytes"] == 1
+
+
+def test_distinct_products_evict_over_the_entry_cap():
+    a, b, c = _operands()
+    for i in range(mm._PLAN_CACHE_MAX + 1):
+        n = len(SIZES)
+        mm.multiply("N", "N", 1.0, a, b, 0.0, c.copy(), last_row=i % n,
+                    last_col=i // n % n, first_k=i // n // n)
+    assert mm.read_totals()["plan_cache"]["miss"] == mm._PLAN_CACHE_MAX + 1
+    assert mm.read_totals()["plan_evictions"]["entries"] == 1
+
+
+# ------------------------------------------------------------ C's rebuild
+def _block_bytes(m, keys):
+    r, c = keys // m.nblkcols, keys % m.nblkcols
+    return int(np.sum(m.row_blk_sizes[r] * m.col_blk_sizes[c])) * 8
+
+
+@pytest.mark.parametrize("beta", [0.0, 1.0, 0.5])
+def test_rebuild_bytes_are_the_blocks_allocated_and_moved(beta):
+    a, b, c = _operands(seed=2)
+    old_keys = c.keys.copy()
+    mm.multiply("N", "N", 1.0, a, b, beta, c)
+    rb = mm.read_totals()["rebuild_bytes"]
+    assert rb["allocated"] == _block_bytes(c, c.keys) > 0
+    assert rb["moved"] == (0 if beta == 0 else _block_bytes(c, old_keys))
+
+
+def test_rebuild_bytes_in_a_window_count_every_block_moved():
+    a, b, c = _operands(seed=2, occ=(0.6, 0.6, 0.8))
+    old_keys = c.keys.copy()
+    mm.multiply("N", "N", 1.0, a, b, 0.5, c, first_row=1, last_row=2)
+    rb = mm.read_totals()["rebuild_bytes"]
+    assert rb["allocated"] == _block_bytes(c, c.keys)
+    assert rb["moved"] == _block_bytes(c, old_keys)
+
+
+# --------------------------------------------------------- host to device
+def test_uploads_count_their_bytes():
+    idx = np.arange(7, dtype=np.int32)
+    arr = np.ones((3, 2, 5), np.float64)
+    t0 = mempool.transfer_totals()["h2d"]
+    core_matrix.to_index(idx, torch.device("cpu"))
+    assert mempool.transfer_totals()["h2d"] - t0 == np.asarray(idx, np.int64).nbytes
+    core_matrix.to_device(arr, torch.float64, torch.device("cpu"))
+    assert mempool.transfer_totals()["h2d"] - t0 == idx.size * 8 + arr.nbytes
+    assert mm.read_totals()["h2d_bytes"] == idx.size * 8 + arr.nbytes
+    mempool.reset_stats()  # a counter reset after the baseline: counted from zero
+    core_matrix.to_index(idx, torch.device("cpu"))
+    assert mm.read_totals()["h2d_bytes"] == idx.size * 8
+
+
+def test_a_finalize_of_host_blocks_counts_its_upload():
+    m = core_matrix.BlockSparseMatrix("H", SIZES, SIZES, device="cpu")
+    m.put_block(1, 2, np.ones((5, 2)))
+    mm.reset_totals()
+    m.finalize()
+    # the block's 80 bytes and the index of its slot
+    assert mm.read_totals()["h2d_bytes"] == 5 * 2 * 8 + 8
+
+
+# ----------------------------------------------------------------- tracer
+def test_the_tracer_shares_the_profilers_clock(tmp_path):
+    t = tracer.enable(str(tmp_path / "trace.jsonl"))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with timings.timed("clock_probe"):
+            time.sleep(0.002)
+    tracer.disable()
+    (span,) = [e for e in t.events if e.get("ev") == "span" and e["name"] == "clock_probe"]
+    (rng,) = [e for e in prof.profiler.kineto_results.events()
+              if e.name() == "dbcsr_tpu_torch:clock_probe"]
+    assert abs(rng.start_ns() / 1e3 - span["ts_us"]) < 1000.0
+    with open(t.chrome_path) as f:
+        (ce,) = [e for e in json.load(f)["traceEvents"] if e["name"] == "clock_probe"]
+    assert ce["ts"] == span["ts_us"]
+    meta = t.events[0]
+    assert meta["clock"] == "unix_us" and abs(meta["t0_unix"] * 1e6 - span["ts_us"]) < 60e6
+
+
+def test_a_region_without_a_span_leaves_its_attributes_to_its_parent(tmp_path):
+    t = tracer.enable(str(tmp_path / "trace.jsonl"))
+    mm.reset_totals()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with timings.timed("outer"):
+            with timings.timed("part", span=False):
+                tracer.annotate(x=1)
+                tracer.add("n", 2)
+            with timings.timed("own"):
+                tracer.annotate(y=3)
+    tracer.disable()
+    spans = {e["name"]: e for e in t.events if e.get("ev") == "span"}
+    assert "part" not in spans
+    assert spans["outer"]["attrs"] == {"x": 1, "n": 2} and spans["own"]["attrs"] == {"y": 3}
+    assert spans["own"]["depth"] == 1
+    # still a region of the timer and a range of the profiler
+    assert mm.read_totals()["regions"]["part"]["calls"] == 1
+    assert [e.name() for e in prof.profiler.kineto_results.events()
+            if e.name() == "dbcsr_tpu_torch:part"] == ["dbcsr_tpu_torch:part"]
+
+
+def test_the_profiler_range_opens_only_under_a_profiler(monkeypatch):
+    opened = []
+    real = torch.profiler.record_function
+
+    def counting(name):
+        opened.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    with timings.timed("quiet"):
+        pass
+    assert opened == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with timings.timed("heard"):
+            pass
+    assert opened == ["dbcsr_tpu_torch:heard"]
+    regions = mm.read_totals()["regions"]
+    assert regions["quiet"]["calls"] == regions["heard"]["calls"] == 1
+
+
+def test_trace_merge_keeps_a_lone_port_shard_on_the_profilers_clock(tmp_path):
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "tools"))
+    import trace_merge
+
+    t = tracer.enable(str(tmp_path / "t.jsonl"))
+    with timings.timed("first"):
+        pass
+    time.sleep(0.01)
+    with timings.timed("second"):
+        pass
+    tracer.disable()
+    res = trace_merge.merge([t.path])
+    assert res["mode"] == "t0_unix"
+    ts = {e["name"]: e["ts"] for e in res["doc"]["traceEvents"] if e.get("ph") == "X"}
+    spans = {e["name"]: e["ts_us"] for e in t.events if e.get("ev") == "span"}
+    # merged alone, a shard keeps its stamps: the profiler's clock
+    assert ts == spans
