@@ -120,6 +120,14 @@ _PLAN_CACHE_MAX_BYTES = 256 * 1024 * 1024
 _plan_cache: "OrderedDict[tuple, _CachedSpans]" = OrderedDict()
 _plan_cache_bytes = 0
 
+# `union_keys` takes the bitmap up to this many slots of C's key space a
+# key, and up to this many slots in all, which bounds its host memory to
+# 64 MiB: on an H100's host with NumPy 2.3.5 a slot costs about 1 ns and
+# a key sorted 0.2-2 us, so the bitmap is 1.3-7x faster than the sort
+# still at 256 slots a key (10^4 to 10^6 keys; timings in PERF.md)
+_UNION_BITMAP_K = 256
+_UNION_BITMAP_MAX = 1 << 26
+
 # what every multiply since `reset_totals` did: the count, host seconds
 # per phase, plan-cache outcomes and evictions, format decisions, the
 # engine that ran each expansion and sort, the longest run of any stack,
@@ -137,7 +145,8 @@ def reset_totals() -> None:
                    rebuild_bytes={"allocated": 0, "moved": 0},
                    formats={}, index_engine={"expand": {"native": 0, "numpy": 0},
                                              "sort": {"native": 0, "numpy": 0},
-                                             "coo_fill": {"native": 0, "numpy": 0}},
+                                             "coo_fill": {"native": 0, "numpy": 0},
+                                             "union": {"bitmap": 0, "sort": 0}},
                    regions0=region_totals(),
                    h2d0=(mempool.stats_generation(), mempool.transfer_totals()["h2d"]))
 
@@ -164,7 +173,9 @@ def read_totals() -> dict:
     the bytes they pinned), ``reused`` (the products `mm.incremental`
     served from its cache), ``formats`` (the planner's decisions as
     "format:reason" counts), ``index_engine`` (how many expansions, sorts
-    and `ops.csr.matrix_from_csr` COO fills ran "native" or "numpy"),
+    and `ops.csr.matrix_from_csr` COO fills ran "native" or "numpy", and
+    how many of C's key unions, `union_keys`, took the "bitmap" or the
+    "sort"),
     ``longest_run``, ``rebuild_bytes`` (the bytes of the bins C's
     rebuilds allocated and of the old blocks they moved), ``regions``
     ({"calls", "seconds"} inclusive, of every `core.timings` region timed
@@ -458,7 +469,7 @@ def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
                 cand_keys, a_ent, b_ent = cand_keys[ok], a_ent[ok], b_ent[ok]
                 new_keys = old_keys
             else:
-                new_keys = np.union1d(old_keys, np.unique(cand_keys))
+                new_keys = union_keys(old_keys, cand_keys, c.nblkrows * c.nblkcols)
         with timed("multiply_plan_key"):
             key = _plan_key(a, b, c, old_fp, retain_sparsity, filter_eps, limits, cand_keys,
                             a_ent, b_ent)
@@ -619,6 +630,22 @@ def _refresh_cached_bytes(key, entry: _CachedSpans) -> None:
     global _plan_cache_bytes
     if key is not None and _plan_cache.get(key) is entry:
         _plan_cache_bytes += entry.refresh_nbytes()
+
+
+def union_keys(old_keys: np.ndarray, cand_keys: np.ndarray, space: int) -> np.ndarray:
+    """C's new keys: ``np.union1d(old_keys, np.unique(cand_keys))``, the
+    sorted unique int64 keys, for keys in ``[0, space)``.  A presence
+    bitmap over the key space where it is at most `_UNION_BITMAP_K`
+    slots a key and at most `_UNION_BITMAP_MAX` slots, the sort
+    otherwise; counted in ``index_engine`` "union"."""
+    if space <= min(_UNION_BITMAP_K * (len(old_keys) + len(cand_keys)), _UNION_BITMAP_MAX):
+        _totals["index_engine"]["union"]["bitmap"] += 1
+        mark = np.zeros(space, bool)
+        mark[cand_keys] = True
+        mark[old_keys] = True
+        return np.flatnonzero(mark).astype(np.int64, copy=False)
+    _totals["index_engine"]["union"]["sort"] += 1
+    return np.union1d(old_keys, np.unique(cand_keys))
 
 
 def mask_in_sorted(cand_keys: np.ndarray, sorted_keys: np.ndarray) -> np.ndarray:

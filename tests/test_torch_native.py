@@ -204,7 +204,7 @@ def test_multiply_is_bitwise_the_same_under_both_engines(monkeypatch):
         other = "numpy" if engine == "1" else "native"
         totals = mm.read_totals()["index_engine"]
         assert totals == {"expand": {kind: 2, other: 0}, "sort": {kind: 2, other: 0},
-                          "coo_fill": {kind: 0, other: 0}}
+                          "coo_fill": {kind: 0, other: 0}, "union": {"bitmap": 2, "sort": 0}}
     for eps in (None, 0.5):
         x, y = results["1", eps], results["0", eps]
         assert np.array_equal(x.keys, y.keys)
