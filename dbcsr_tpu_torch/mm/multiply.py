@@ -50,12 +50,14 @@ drivers.  Every launch feeds `core.stats` (and the tracer's ``stack``
 instants); the phases are `core.timings.timed` regions (``multiply``
 around ``multiply_index``, ``multiply_c_assemble``, ``multiply_stacks``,
 ``multiply_filter`` or ``multiply_dense``; "index" holds
-``multiply_index_expand``, ``multiply_index_keys`` and
-``multiply_plan_key``, "stacks" holds ``multiply_plan`` and
+``multiply_index_expand`` (with ``multiply_filter_norms``, a filtered
+product's reads of its operands' block norms), ``multiply_index_keys``
+and ``multiply_plan_key``, "stacks" holds ``multiply_plan`` and
 ``multiply_launch``), so the span tracer and `torch.profiler` see them
 under the same names.  `read_totals` reads every region, the plan
-cache's evictions, the bytes C's rebuilds move and the host-to-device
-bytes since `reset_totals`.
+cache's evictions, the bytes C's rebuilds move, the filter's products
+and blocks, the model loops' counts and the host-to-device bytes since
+`reset_totals`.
 
 Integrity (ref `dbcsr_tpu/mm/multiply.py:246-270,512-535,1891-2025`):
 each multiply opens an event-bus product and a flight record
@@ -131,9 +133,10 @@ _UNION_BITMAP_MAX = 1 << 26
 # what every multiply since `reset_totals` did: the count, host seconds
 # per phase, plan-cache outcomes and evictions, format decisions, the
 # engine that ran each expansion and sort, the longest run of any stack,
-# the bytes C's rebuilds allocated and moved, the device seconds per
-# format already read from their CUDA event pairs, and the pairs still
-# pending; and the baselines of the timer registry and of the
+# the bytes C's rebuilds allocated and moved, the filter's products and
+# blocks, the device seconds per format already read from their CUDA
+# event pairs, and the pairs still pending; the model loops' counts
+# (`note_model`); and the baselines of the timer registry and of the
 # host-to-device counter, which are not cleared
 _totals: dict = {}
 
@@ -143,7 +146,9 @@ def reset_totals() -> None:
                    events=[], plan_cache={"hit": 0, "miss": 0, "uncacheable": 0}, reused=0,
                    plan_evictions={"entries": 0, "bytes": 0, "pinned_bytes": 0},
                    rebuild_bytes={"allocated": 0, "moved": 0},
-                   formats={}, index_engine={"expand": {"native": 0, "numpy": 0},
+                   filter={"candidates": 0, "dropped": 0, "blocks_kept": 0,
+                           "blocks_dropped": 0},
+                   models={}, formats={}, index_engine={"expand": {"native": 0, "numpy": 0},
                                              "sort": {"native": 0, "numpy": 0},
                                              "coo_fill": {"native": 0, "numpy": 0},
                                              "union": {"bitmap": 0, "sort": 0}},
@@ -152,6 +157,14 @@ def reset_totals() -> None:
 
 
 reset_totals()
+
+
+def note_model(model: str, **counts: int) -> None:
+    """Add a model loop's ``counts`` (loops, steps, rollbacks) to its
+    totals, `read_totals()["models"][model]`."""
+    tot = _totals["models"].setdefault(model, {})
+    for name, n in counts.items():
+        tot[name] = tot.get(name, 0) + int(n)
 
 
 def _fold_events(wait: bool) -> None:
@@ -177,7 +190,11 @@ def read_totals() -> dict:
     how many of C's key unions, `union_keys`, took the "bitmap" or the
     "sort"),
     ``longest_run``, ``rebuild_bytes`` (the bytes of the bins C's
-    rebuilds allocated and of the old blocks they moved), ``regions``
+    rebuilds allocated and of the old blocks they moved), ``filter``
+    (of the filtered stack products: the block products their operands'
+    patterns hold, "candidates", and those left out, "dropped"; C's
+    blocks the post-filter kept and dropped), ``models`` (each model
+    loop's counts, `note_model`), ``regions``
     ({"calls", "seconds"} inclusive, of every `core.timings` region timed
     since, in any layer), ``h2d_bytes`` (`core.mempool`'s
     host-to-device bytes since), ``device_s`` (CUDA-event seconds of each
@@ -206,6 +223,8 @@ def read_totals() -> dict:
             "index_engine": {k: dict(v) for k, v in _totals["index_engine"].items()},
             "longest_run": _totals["longest_run"],
             "rebuild_bytes": dict(_totals["rebuild_bytes"]),
+            "filter": dict(_totals["filter"]),
+            "models": {k: dict(v) for k, v in _totals["models"].items()},
             "regions": regions, "h2d_bytes": h2d,
             "device_s": dict(_totals["device_s"]),
             "stack_device_s": (_totals["device_s"].get("stack", 0.0)
@@ -517,7 +536,11 @@ def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
     if filter_eps is not None and not retain_sparsity:
         with timed("multiply_filter"):
             norms = c.block_norms()
-            compress(c, norms ** 2 >= float(filter_eps) ** 2)
+            keep = norms ** 2 >= float(filter_eps) ** 2
+            kept = int(np.count_nonzero(keep))
+            _totals["filter"]["blocks_kept"] += kept
+            _totals["filter"]["blocks_dropped"] += len(keep) - kept
+            compress(c, keep)
     _totals["plan_cache"][c._mm_plan_cache] += 1
     return flops
 
@@ -703,22 +726,32 @@ def _candidates(a, b, filter_eps, sym_c: bool = False, limits=NO_LIMITS):
     squared f32 norms and a per-A-row eps (`dbcsr_mm_cannon.F:1098-1105`);
     ``sym_c`` keeps only C's stored triangle, i <= j (ref the symmetric
     skip, `dbcsr_mm_csr.F:281`); ``limits`` are the block limits.  Runs
-    the native engine unless `native.enabled` is off."""
+    the native engine unless `native.enabled` is off.  A filtered
+    product counts its candidates, every (i, k, j) the patterns hold
+    (from the row pointers, before any filter), and those it left out
+    in ``filter`` "candidates" and "dropped"."""
     na2 = nb2 = row_eps = None
     if filter_eps is not None:
-        na2 = a.block_norms().astype(np.float32) ** 2
-        nb2 = b.block_norms().astype(np.float32) ** 2
-        row_counts = np.diff(a.row_ptr)
-        with np.errstate(over="ignore"):  # huge eps -> inf is a valid threshold
-            row_eps = (np.float32(filter_eps)
-                       / np.maximum(1, row_counts).astype(np.float32)) ** 2
+        with timed("multiply_filter_norms"):
+            na2 = a.block_norms().astype(np.float32) ** 2
+            nb2 = b.block_norms().astype(np.float32) ** 2
+            row_counts = np.diff(a.row_ptr)
+            with np.errstate(over="ignore"):  # huge eps -> inf is a valid threshold
+                row_eps = (np.float32(filter_eps)
+                           / np.maximum(1, row_counts).astype(np.float32)) ** 2
     if native.enabled():
         _totals["index_engine"]["expand"]["native"] += 1
-        return native.symbolic_product(a.row_ptr, a.keys % a.nblkcols, b.row_ptr,
-                                       b.keys % b.nblkcols, na2, nb2, row_eps,
-                                       sym_c=sym_c, limits=limits)
-    _totals["index_engine"]["expand"]["numpy"] += 1
-    return _candidates_numpy(a, b, na2, nb2, row_eps, sym_c, limits)
+        out = native.symbolic_product(a.row_ptr, a.keys % a.nblkcols, b.row_ptr,
+                                      b.keys % b.nblkcols, na2, nb2, row_eps,
+                                      sym_c=sym_c, limits=limits)
+    else:
+        _totals["index_engine"]["expand"]["numpy"] += 1
+        out = _candidates_numpy(a, b, na2, nb2, row_eps, sym_c, limits)
+    if filter_eps is not None:
+        candidates = int(np.diff(b.row_ptr)[a.keys % a.nblkcols].sum())
+        _totals["filter"]["candidates"] += candidates
+        _totals["filter"]["dropped"] += candidates - len(out[0])
+    return out
 
 
 def _candidates_numpy(a, b, na2, nb2, row_eps, sym_c: bool = False, limits=NO_LIMITS):

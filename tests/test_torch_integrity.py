@@ -389,6 +389,18 @@ def test_guarded_loops_roll_back_in_both_packages(model, seed):
     assert [r["model"] for r in events.records(kind="chain_rollback")][0] == model
 
 
+def test_a_sign_rollback_is_counted_in_the_models_totals():
+    _, ploop = _loops("sign")
+    port_mm.reset_totals()
+    with faults.inject_faults("execute_stack:flip,seed=13,times=1") as sp:
+        _, history = ploop()
+    assert sp[0].fired == 1
+    rolled = _ctr(metrics, "dbcsr_tpu_chain_rollback_total", model="sign")
+    assert rolled >= 1
+    assert port_mm.read_totals()["models"]["sign"] == {"loops": 1, "steps": len(history),
+                                                       "rollbacks": rolled}
+
+
 @pytest.mark.parametrize("model", ["purify", "sign", "invsqrt"])
 def test_probe_is_the_detector_under_verify(model):
     _, ploop = _loops(model)

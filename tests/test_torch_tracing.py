@@ -24,6 +24,7 @@ import torch
 from dbcsr_tpu_torch.core import matrix as core_matrix
 from dbcsr_tpu_torch.core import mempool, timings
 from dbcsr_tpu_torch.mm import multiply as mm
+from dbcsr_tpu_torch.models import make_test_density, sign_iteration
 from dbcsr_tpu_torch.obs import tracer
 from dbcsr_tpu_torch.ops import test_methods as port_tm
 from dbcsr_tpu_torch.tensor import contract, create_tensor
@@ -32,6 +33,8 @@ SIZES = [3, 5, 2, 4]
 INDEX_PARTS = ("multiply_index_expand", "multiply_index_keys", "multiply_plan_key")
 STACK_PARTS = ("multiply_plan", "multiply_launch")
 LAYOUT_PARTS = ("tensor_restrict", "tensor_remap", "tensor_copy")
+SIGN_PARTS = ("models_sign_setup", "models_sign_shift", "models_sign_check")
+NO_FILTER = {"candidates": 0, "dropped": 0, "blocks_kept": 0, "blocks_dropped": 0}
 
 
 @pytest.fixture(autouse=True)
@@ -136,6 +139,62 @@ def test_reset_totals_clears_neither_the_registry_nor_the_transfer_counter():
     after = []
     timings.report(out=after.append)
     assert after == lines and any("multiply_index_expand" in ln for ln in lines)
+
+
+# ------------------------------------------------- the sign loop and filter
+def test_a_sign_loop_fills_its_regions_and_counts_its_loop():
+    a = make_test_density(4, 3, occ=0.6, seed=2, device="cpu")
+    _, history = sign_iteration(a, steps=30, filter_eps=1e-10, tol=1e-10)
+    totals = mm.read_totals()
+    regions = totals["regions"]
+    steps = len(history)
+    assert regions["models_sign_setup"]["calls"] == 1
+    assert regions["models_sign_shift"]["calls"] == regions["models_sign_check"]["calls"] == steps
+    # two filtered multiplies a step, each reading its operands' norms
+    # inside the expansion and post-filtering C
+    assert totals["multiplies"] == 2 * steps
+    for name in ("multiply_filter_norms", "multiply_filter", "multiply_index_expand"):
+        assert regions[name]["calls"] == 2 * steps, name
+    assert regions["multiply_filter_norms"]["seconds"] <= \
+        regions["multiply_index_expand"]["seconds"]
+    assert totals["models"] == {"sign": {"loops": 1, "steps": steps, "rollbacks": 0}}
+    f = totals["filter"]
+    assert f["candidates"] > 0 and f["blocks_kept"] > 0
+    assert 0 <= f["dropped"] <= f["candidates"]
+    sign_iteration(a, steps=30, filter_eps=1e-10, tol=1e-10)
+    assert mm.read_totals()["models"]["sign"]["loops"] == 2
+
+
+def test_reset_totals_clears_the_models_and_filter_counters():
+    sign_iteration(make_test_density(4, 3, seed=1, device="cpu"), steps=3, filter_eps=1e-10)
+    assert mm.read_totals()["models"] and mm.read_totals()["filter"] != NO_FILTER
+    mm.reset_totals()
+    totals = mm.read_totals()
+    assert totals["models"] == {} and totals["filter"] == NO_FILTER
+    assert not set(SIGN_PARTS + ("multiply_filter_norms",)) & set(totals["regions"])
+
+
+def test_the_filter_counts_candidates_from_the_patterns():
+    a, b, c = _operands(seed=4)
+    per_row_b = np.diff(b.row_ptr)
+    want = int(per_row_b[a.keys % a.nblkcols].sum())
+    mm.multiply("N", "N", 1.0, a, b, 0.0, c.copy(), filter_eps=1e-12)
+    assert mm.read_totals()["filter"]["candidates"] == want
+    assert mm.read_totals()["filter"]["dropped"] == 0
+    mm.reset_totals()
+    # an eps above every product drops each candidate, and C is empty
+    out = c.copy()
+    mm.multiply("N", "N", 1.0, a, b, 0.0, out, filter_eps=1e6)
+    assert mm.read_totals()["filter"]["candidates"] == mm.read_totals()["filter"]["dropped"] == want
+    assert mm.read_totals()["filter"]["blocks_kept"] == len(out.keys)
+
+
+def test_an_unfiltered_multiply_counts_no_filter():
+    a, b, c = _operands()
+    mm.multiply("N", "N", 1.0, a, b, 0.0, c)
+    totals = mm.read_totals()
+    assert totals["filter"] == NO_FILTER and totals["models"] == {}
+    assert "multiply_filter_norms" not in totals["regions"]
 
 
 # ------------------------------------------------------------ plan cache
