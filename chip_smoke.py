@@ -109,7 +109,8 @@ non-zero:
    orbitals, T where the density's pair pattern has (mu,nu) and (mu,P)
    (43,526 blocks of 23^3, 4.24 GB, seeded normals drawn on the card), M
    the density, C 190,965 blocks (18.6 GB); the TAS split (64 groups of
-   block limits) runs K1's tiled path on (529,23,23) products.  It
+   block limits, C's pattern built once before them and its bins kept
+   by every group) runs K1's tiled path on (529,23,23) products.  It
    prints nsplit, the wall time, the host phases, the stacks' device
    time beside their bound, the plan-cache outcomes, the allocator's
    peak and retries, and holds every block of C against the plain
@@ -2173,7 +2174,10 @@ def phase_tensor() -> dict:
              f"tensor: {run['flops']} flops, the pattern {2 * int(np.prod(mnk)) * pat['products']}")
     _require(all(f.startswith("stack:") for f in run["formats"]),
              f"tensor: formats {run['formats']}")
-    _require(run["index_engine"]["expand"]["native"] == ngroups,
+    # C's pattern is built once before the groups, which then keep its bins
+    _require(run["c_rebuild"] == {"rebuilt": 0, "kept": ngroups, "prebuilt": 1},
+             f"tensor: C was rebuilt, kept and pre-built {run['c_rebuild']}")
+    _require(run["index_engine"]["expand"]["native"] == ngroups + run["c_rebuild"]["prebuilt"],
              f"tensor: the native expansion ran {run['index_engine']}")
     _require(run["plan_cache"]["hit"] == 0, f"tensor: the groups' plans collided: "
                                             f"{run['plan_cache']}")

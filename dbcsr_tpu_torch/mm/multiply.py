@@ -8,8 +8,10 @@ three executions of the same product:
   front on the host by the native index engine (`native/`; the NumPy
   path `_candidates_numpy` when ``DBCSR_TPU_TORCH_NATIVE=0``); C is
   restructured onto the product's pattern with beta applied on the
-  device (`_rebuild_c`); the triples are grouped by shape-bin triple and
-  sorted by (group, C slot, A entry) -- the JAX package's sort contract
+  device (`_rebuild_c`; a C that already holds every key of the product
+  at beta 1 keeps its bins, and the kernels accumulate into them); the
+  triples are grouped by shape-bin triple and sorted by (group, C slot,
+  A entry) -- the JAX package's sort contract
   (`np.lexsort((a_ent, c_slot, group))`) -- and each group runs as one
   stack through `acc.smm` (`_run_stacks`);
 * dense: A and B are scattered onto dense canvases on the device, one
@@ -55,8 +57,9 @@ product's reads of its operands' block norms), ``multiply_index_keys``
 and ``multiply_plan_key``, "stacks" holds ``multiply_plan`` and
 ``multiply_launch``), so the span tracer and `torch.profiler` see them
 under the same names.  `read_totals` reads every region, the plan
-cache's evictions, the bytes C's rebuilds move, the filter's products
-and blocks, the model loops' counts and the host-to-device bytes since
+cache's evictions, the bytes C's rebuilds move, how often C was
+rebuilt, kept or pre-built (`prebuild_c`), the filter's products and
+blocks, the model loops' counts and the host-to-device bytes since
 `reset_totals`.
 
 Integrity (ref `dbcsr_tpu/mm/multiply.py:246-270,512-535,1891-2025`):
@@ -133,9 +136,10 @@ _UNION_BITMAP_MAX = 1 << 26
 # what every multiply since `reset_totals` did: the count, host seconds
 # per phase, plan-cache outcomes and evictions, format decisions, the
 # engine that ran each expansion and sort, the longest run of any stack,
-# the bytes C's rebuilds allocated and moved, the filter's products and
-# blocks, the device seconds per format already read from their CUDA
-# event pairs, and the pairs still pending; the model loops' counts
+# the bytes C's rebuilds allocated and moved, the multiplies that
+# rebuilt or kept C and the pre-builds, the filter's products and blocks,
+# the device seconds per format already read from their CUDA event
+# pairs, and the pairs still pending; the model loops' counts
 # (`note_model`); and the baselines of the timer registry and of the
 # host-to-device counter, which are not cleared
 _totals: dict = {}
@@ -146,6 +150,7 @@ def reset_totals() -> None:
                    events=[], plan_cache={"hit": 0, "miss": 0, "uncacheable": 0}, reused=0,
                    plan_evictions={"entries": 0, "bytes": 0, "pinned_bytes": 0},
                    rebuild_bytes={"allocated": 0, "moved": 0},
+                   c_rebuild={"rebuilt": 0, "kept": 0, "prebuilt": 0},
                    filter={"candidates": 0, "dropped": 0, "blocks_kept": 0,
                            "blocks_dropped": 0},
                    models={}, formats={}, index_engine={"expand": {"native": 0, "numpy": 0},
@@ -190,7 +195,9 @@ def read_totals() -> dict:
     how many of C's key unions, `union_keys`, took the "bitmap" or the
     "sort"),
     ``longest_run``, ``rebuild_bytes`` (the bytes of the bins C's
-    rebuilds allocated and of the old blocks they moved), ``filter``
+    rebuilds allocated and of the old blocks they moved), ``c_rebuild``
+    (the stack products that "rebuilt" C or "kept" its bins, and the
+    "prebuilt" patterns of `prebuild_c`), ``filter``
     (of the filtered stack products: the block products their operands'
     patterns hold, "candidates", and those left out, "dropped"; C's
     blocks the post-filter kept and dropped), ``models`` (each model
@@ -223,6 +230,7 @@ def read_totals() -> dict:
             "index_engine": {k: dict(v) for k, v in _totals["index_engine"].items()},
             "longest_run": _totals["longest_run"],
             "rebuild_bytes": dict(_totals["rebuild_bytes"]),
+            "c_rebuild": dict(_totals["c_rebuild"]),
             "filter": dict(_totals["filter"]),
             "models": {k: dict(v) for k, v in _totals["models"].items()},
             "regions": regions, "h2d_bytes": h2d,
@@ -263,6 +271,20 @@ def _effective(matrix: BlockSparseMatrix, trans: str) -> BlockSparseMatrix:
     if trans == "N":
         return m
     return new_transposed(m, conjugate=trans == "C" and m.dtype.is_complex)
+
+
+def _check_operands(a, b, c) -> None:
+    """op(A), op(B) and C chain: blockings, dtypes and devices."""
+    if not np.array_equal(a.col_blk_sizes, b.row_blk_sizes):
+        raise ValueError("inner blockings of op(A), op(B) differ")
+    if not np.array_equal(c.row_blk_sizes, a.row_blk_sizes):
+        raise ValueError("C row blocking != op(A) row blocking")
+    if not np.array_equal(c.col_blk_sizes, b.col_blk_sizes):
+        raise ValueError("C col blocking != op(B) col blocking")
+    if not (a.dtype == b.dtype == c.dtype):
+        raise TypeError(f"dtypes of A/B/C differ: {a.dtype}/{b.dtype}/{c.dtype}")
+    if not (a.device == b.device == c.device):
+        raise ValueError(f"devices of A/B/C differ: {a.device}/{b.device}/{c.device}")
 
 
 def multiply(
@@ -306,16 +328,7 @@ def multiply(
     b = _effective(matrix_b, transb)
     c = matrix_c
     alpha, beta = (_real_scalar(x, c.dtype) for x in (alpha, beta))
-    if not np.array_equal(a.col_blk_sizes, b.row_blk_sizes):
-        raise ValueError("inner blockings of op(A), op(B) differ")
-    if not np.array_equal(c.row_blk_sizes, a.row_blk_sizes):
-        raise ValueError("C row blocking != op(A) row blocking")
-    if not np.array_equal(c.col_blk_sizes, b.col_blk_sizes):
-        raise ValueError("C col blocking != op(B) col blocking")
-    if not (a.dtype == b.dtype == c.dtype):
-        raise TypeError(f"dtypes of A/B/C differ: {a.dtype}/{b.dtype}/{c.dtype}")
-    if not (a.device == b.device == c.device):
-        raise ValueError(f"devices of A/B/C differ: {a.device}/{b.device}/{c.device}")
+    _check_operands(a, b, c)
 
     limits = (first_row, last_row, first_col, last_col, first_k, last_k)
     beta_window = None
@@ -489,9 +502,10 @@ def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
                 new_keys = old_keys
             else:
                 new_keys = union_keys(old_keys, cand_keys, c.nblkrows * c.nblkcols)
+        keep_c = _keeps_bins(c, new_keys, beta)
         with timed("multiply_plan_key"):
             key = _plan_key(a, b, c, old_fp, retain_sparsity, filter_eps, limits, cand_keys,
-                            a_ent, b_ent)
+                            a_ent, b_ent, keep_c)
     t1 = time.perf_counter()
     phase["index"] = t1 - t0
     inc_eligible = (key is not None and filter_eps is None and beta == 0
@@ -511,7 +525,11 @@ def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
         phase["incremental"] = t_inc - t1  # what deciding on a full run cost
         t1 = t_inc
     with timed("multiply_c_assemble"):
-        _rebuild_c(c, new_keys, beta, beta_window)
+        if keep_c:
+            c.own_bins()
+        else:
+            _rebuild_c(c, new_keys, beta, beta_window)
+        _totals["c_rebuild"]["kept" if keep_c else "rebuilt"] += 1
     t2 = time.perf_counter()
     phase["assemble"] = t2 - t1
     with timed("multiply_stacks"):
@@ -562,18 +580,21 @@ def _spans_for(key, c, a, b, cand_keys, a_ent, b_ent):
     return entry, outcome
 
 
-def _plan_key(a, b, c, c_fp, retain_sparsity, filter_eps, limits, cand_keys, a_ent, b_ent):
+def _plan_key(a, b, c, c_fp, retain_sparsity, filter_eps, limits, cand_keys, a_ent, b_ent,
+              keep_c):
     """The plan-cache key (ref `dbcsr_tpu/mm/multiply.py:299-329`), or
     None for a filtered product while `mempool.enabled` is off.  ``c_fp``
     is C's fingerprint before `_rebuild_c`.  The port's additions: the
-    device (planning asks whether C is on the card) and the tuned
-    table's path (a redirected table directory)."""
+    device (planning asks whether C is on the card), the tuned table's
+    path (a redirected table directory) and ``keep_c``: a plan indexes
+    C's binning as the product found it when C keeps its bins
+    (`_keeps_bins`), and as `_rebuild_c` lays it out otherwise."""
     if filter_eps is not None and not mempool.enabled():
         return None
     cfg = get_config()
     key = (a.pattern_fingerprint(), b.pattern_fingerprint(), c_fp,
            name_of(a.dtype), name_of(b.dtype), name_of(c.dtype), str(c.device),
-           c.matrix_type, bool(retain_sparsity), tuple(limits),
+           c.matrix_type, bool(retain_sparsity), tuple(limits), bool(keep_c),
            (cfg.mm_driver, cfg.validate_kernels, cfg.mm_format),
            params.params_path(), params.generation(),
            # an adaptive promotion or a chain scope's transition must not
@@ -794,6 +815,18 @@ def _candidates_numpy(a, b, na2, nb2, row_eps, sym_c: bool = False, limits=NO_LI
     return i, j, a_ent, b_ent
 
 
+def _keeps_bins(c: BlockSparseMatrix, new_keys: np.ndarray, beta) -> bool:
+    """Whether a product onto ``new_keys`` (C's keys and the product's)
+    leaves C's bins, binning and keys as they are instead of `_rebuild_c`:
+    where the union added no key (old keys are a subset of new) and beta
+    is 1, which scales nothing, inside a window or out.  The kernels then
+    accumulate into C's bins; their launches bump the bins' versions
+    (`acc.stack_kernel.mark_written`), so caches keyed on a bin's
+    identity and version see the write, and a bin a cache shares is
+    copied first (`own_bins`)."""
+    return len(new_keys) == len(c.keys) and beta == 1
+
+
 def _rebuild_c(c: BlockSparseMatrix, new_keys: np.ndarray, beta, beta_window=None) -> None:
     """Restructure C onto the (possibly grown) pattern on the device: new
     blocks zero, old blocks scaled by beta.  With ``beta_window`` = (r0,
@@ -856,6 +889,33 @@ def _rebuild_c(c: BlockSparseMatrix, new_keys: np.ndarray, beta, beta_window=Non
                 data[slots] = data[slots] * torch.where(mask, beta * one, one)
         bins.append(_Bin((bm, bn), data, int(counts[b_id])))
     c.set_structure_from_device(new_keys, bins, binning=(nb, nsl, shapes))
+
+
+def final_keys(transa: str, transb: str, matrix_a: BlockSparseMatrix,
+               matrix_b: BlockSparseMatrix, c: BlockSparseMatrix) -> np.ndarray:
+    """C's keys after ``multiply(transa, transb, ., A, B, ., C)`` unfiltered
+    and unlimited: C's keys and every key of the symbolic product of
+    `_effective`'s op(A) and op(B) (C's stored triangle for a symmetric
+    C, as `_stack_multiply` asks `_candidates`).  Block limits only
+    partition the product, so a split's groups together add exactly
+    these keys."""
+    a, b = _effective(matrix_a, transa), _effective(matrix_b, transb)
+    _check_operands(a, b, c)
+    i, j, _, _ = _candidates(a, b, None, sym_c=c.matrix_type != NO_SYMMETRY)
+    return union_keys(c.keys, i * c.nblkcols + j, c.nblkrows * c.nblkcols)
+
+
+def prebuild_c(transa: str, transb: str, matrix_a: BlockSparseMatrix,
+               matrix_b: BlockSparseMatrix, beta, c: BlockSparseMatrix) -> None:
+    """Restructure C once onto its `final_keys` with beta applied, so
+    that the unfiltered multiplies of a split into C (at beta 1) find
+    every key they write and keep C's bins (`_keeps_bins`); counted in
+    ``c_rebuild`` "prebuilt"."""
+    keys = final_keys(transa, transb, matrix_a, matrix_b, c)
+    beta = _real_scalar(beta, c.dtype)
+    if not _keeps_bins(c, keys, beta):
+        _rebuild_c(c, keys, beta)
+    _totals["c_rebuild"]["prebuilt"] += 1
 
 
 class Span(NamedTuple):

@@ -7,7 +7,11 @@ reference replicates the small matrix into each process group and
 redistributes and sums afterwards (`redistribute_and_sum`, :783); on one
 device the group loop reuses the engine's block-index limits, which
 bound each group's working set while keeping a fixed, deterministic
-accumulation order.
+accumulation order.  An unfiltered split first builds C's final pattern
+once, beta applied (`mm.multiply.prebuild_c`, region
+``tas_c_prebuild``), so each group's multiply finds every key it writes
+in C and accumulates into C's bins where they are; the JAX package
+restructures C in every group instead.
 
 With ``mesh=`` (a `parallel.mesh.Grid`) the split runs on the grid, as
 the JAX package's per-group Cannons do (`_tas_multiply_mesh`).  The
@@ -23,7 +27,7 @@ from dbcsr_tpu_torch.core import mempool
 from dbcsr_tpu_torch.core.config import get_config
 from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
 from dbcsr_tpu_torch.core.timings import timed
-from dbcsr_tpu_torch.mm.multiply import multiply
+from dbcsr_tpu_torch.mm.multiply import multiply, prebuild_c
 from dbcsr_tpu_torch.obs import tracer
 from dbcsr_tpu_torch.ops.operations import scale
 from dbcsr_tpu_torch.parallel.mesh import Grid, optimize_grid
@@ -168,8 +172,16 @@ def tas_multiply(
         if nsplit <= 1:
             return multiply(transa, transb, alpha, a, b, beta, c, filter_eps=filter_eps)
 
-        # beta applies once to all of C, then groups accumulate
-        if beta != 1.0:
+        # beta applies once to all of C, then groups accumulate.  Limits
+        # take the stack format (`format_planner.choose`), so unfiltered
+        # groups add exactly C's final keys: built once here, C's bins
+        # stay in place through the loop.  A filtered product's survivors
+        # are known only group by group; an operand aliased to C would be
+        # restructured under the groups that read it.
+        if filter_eps is None and a is not c and b is not c:
+            with timed("tas_c_prebuild"):
+                prebuild_c(transa, transb, a, b, beta, c)
+        elif beta != 1.0:
             scale(c, beta)
         flops = 0
         if long_dim == "m":

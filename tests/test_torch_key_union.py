@@ -136,7 +136,8 @@ def test_north_star_multiply_is_the_same_on_both_paths(monkeypatch):
 
 def test_tas_contraction_is_the_same_on_both_paths(monkeypatch):
     """An RI-shaped contraction, T(i,j,k) M(k,l) into an empty C(i,j,l)
-    split into TAS groups: every group's union on each path, the same C."""
+    split into TAS groups: every group's union and the union of C's
+    pattern built before them, on each path, the same C."""
     si, sj, sk, sl = [3] * 12, [2] * 12, [4, 3, 2], [2, 3]
     rng = np.random.default_rng(5)
     t = create_tensor("T", [si, sj, sk], (0, 1), (2,), device="cpu")
@@ -159,7 +160,8 @@ def test_tas_contraction_is_the_same_on_both_paths(monkeypatch):
         contract(1.0, t, m, 0.0, c, **kw)
         groups, unions = mm.read_totals()["multiplies"], _unions()
         assert c.matrix._tas_nsplit > 1 and groups > 1
-        assert sum(unions.values()) == groups
+        assert sum(unions.values()) == groups + mm.read_totals()["c_rebuild"]["prebuilt"]
+        assert mm.read_totals()["c_rebuild"]["prebuilt"] == 1
         # a group with few candidates in C's key space sorts on either path
         assert unions["bitmap"] > 0 if path == "bitmap" else unions["bitmap"] == 0
         out[path] = c.matrix

@@ -32,11 +32,13 @@ from dbcsr_tpu.tas import tas_multiply as jax_tas_multiply
 
 from dbcsr_tpu_torch.core import timings
 from dbcsr_tpu_torch.core.config import get_config, set_config
-from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
+from dbcsr_tpu_torch.core.matrix import SYMMETRIC, BlockSparseMatrix
 from dbcsr_tpu_torch.interop import matrix_from_numpy_state
+from dbcsr_tpu_torch.mm import multiply as port_mm
 from dbcsr_tpu_torch.mm.multiply import multiply as port_multiply
 from dbcsr_tpu_torch.obs.costmodel import kernel_validation_tolerance
 from dbcsr_tpu_torch.ops import test_methods as port_tm
+from dbcsr_tpu_torch.ops.operations import scale
 from dbcsr_tpu_torch.tas import (
     TASMatrix,
     batched_mm,
@@ -159,20 +161,85 @@ def test_tas_beta_accumulate():
     _agree(pc, jc, 2.0 * jax_tm.to_dense(ja) @ jax_tm.to_dense(jb) + 0.5 * c0)
 
 
-def test_tas_matches_single_multiply():
-    """nsplit > 1 gives the same result as one multiply, bit for bit (each
-    C block sums its products in the same order)."""
-    ls, ss, rng = _tall(25, 4, seed=4)
-    ja, pa = _pair("a", ls, ss, 0.4, rng)
-    jb, pb = _pair("b", ss, ss, 0.7, rng)
-    jc, pc1 = _pair("c", ls, ss, 0.0, rng)
-    pc2 = pc1.copy()
-    port_multiply("N", "N", 1.0, pa, pb, 0.0, pc1)
-    tas_multiply("N", "N", 1.0, pa, pb, 0.0, pc2, nsplit=6)
-    jax_tas_multiply("N", "N", 1.0, ja, jb, 0.0, jc, nsplit=6)
-    assert np.array_equal(pc1.keys, pc2.keys)
-    assert np.array_equal(port_tm.to_dense(pc1), port_tm.to_dense(pc2))
+def _long_operands(long_dim, seed, c_occ):
+    """JAX and port operands of an m-, n- or k-long product (trans flags
+    first), C at occupancy ``c_occ``."""
+    ls, ss, rng = _tall(25, 4, seed=seed)
+    a_shape, b_shape, c_shape, trans = {
+        "m": ((ls, ss), (ss, ss), (ls, ss), ("N", "N")),
+        "n": ((ss, ss), (ss, ls), (ss, ls), ("N", "N")),
+        "k": ((ls, ss), (ls, ss), (ss, ss), ("T", "N"))}[long_dim]
+    ja, pa = _pair("a", *a_shape, 0.4, rng)
+    jb, pb = _pair("b", *b_shape, 0.7, rng)
+    jc, pc = _pair("c", *c_shape, c_occ, rng)
+    return trans, (ja, jb, jc), (pa, pb, pc)
+
+
+def _group_loop(transa, transb, alpha, a, b, beta, c, nsplit, long_dim):
+    """The split as it ran before C was pre-built: C scaled by beta, then
+    one multiply at beta 1 per group, each restructuring C."""
+    if beta != 1.0:
+        scale(c, beta)
+    nblk, lo, hi = {"m": (c.nblkrows, "first_row", "last_row"),
+                    "n": (c.nblkcols, "first_col", "last_col"),
+                    "k": (a.nblkrows if transa == "T" else a.nblkcols, "first_k",
+                          "last_k")}[long_dim]
+    per = -(-nblk // nsplit)
+    for g0 in range(0, nblk, per):
+        port_multiply(transa, transb, alpha, a, b, 1.0, c,
+                      **{lo: g0, hi: min(g0 + per, nblk) - 1})
+
+
+@pytest.mark.parametrize("beta", [0.0, 1.0, 0.5])
+@pytest.mark.parametrize("long_dim", ["m", "n", "k"])
+def test_tas_matches_single_multiply(long_dim, beta):
+    """nsplit > 1 gives one multiply's keys, and bit for bit the values of
+    the group loop that restructured C in every group.  An m- or n-long
+    split also gives one multiply's values bit for bit (each C block sums
+    its products in the same order, in one group); a k-long split adds
+    each group's partial sums to C in turn, so there the JAX package's
+    split is the reference, within 1e-12."""
+    (ta, tb), (ja, jb, jc), (pa, pb, pc1) = _long_operands(long_dim, 4, 0.3)
+    pc2, pc3 = pc1.copy(), pc1.copy()
+    port_multiply(ta, tb, 1.5, pa, pb, beta, pc1)
+    tas_multiply(ta, tb, 1.5, pa, pb, beta, pc2, nsplit=6)
+    _group_loop(ta, tb, 1.5, pa, pb, beta, pc3, 6, long_dim)
+    jax_tas_multiply(ta, tb, 1.5, ja, jb, beta, jc, nsplit=6)
+    assert pc2._tas_nsplit == 6
+    assert np.array_equal(pc1.keys, pc2.keys) and np.array_equal(pc3.keys, pc2.keys)
+    assert np.array_equal(port_tm.to_dense(pc3), port_tm.to_dense(pc2))
+    if long_dim != "k":
+        assert np.array_equal(port_tm.to_dense(pc1), port_tm.to_dense(pc2))
     _agree(pc2, jc)
+
+
+@pytest.mark.parametrize("long_dim,sym", [("m", "b"), ("n", "a"), ("k", "c"), ("k", "")])
+def test_tas_prebuilt_keys_are_the_groups_union(long_dim, sym):
+    """`final_keys` is C's keys and the union of every group's
+    candidates, with symmetric operands desymmetrized and a symmetric
+    C's stored triangle."""
+    (ta, tb), _, (pa, pb, pc) = _long_operands(long_dim, 9, 0.2)
+    rng = np.random.default_rng(9)
+    ops = {"a": pa, "b": pb, "c": pc}
+    if sym:
+        x = ops[sym]
+        ops[sym] = port_tm.make_random_matrix(sym, x.row_blk_sizes, x.col_blk_sizes,
+                                              occupation=0.5, matrix_type=SYMMETRIC,
+                                              rng=rng, device="cpu")
+    pa, pb, pc = ops["a"], ops["b"], ops["c"]
+    a, b = port_mm._effective(pa, ta), port_mm._effective(pb, tb)
+    nblk, lo, hi = {"m": (pc.nblkrows, 0, 1), "n": (pc.nblkcols, 2, 3),
+                    "k": (a.nblkcols, 4, 5)}[long_dim]
+    want = pc.keys
+    for g0 in range(0, nblk, 3):
+        limits = [None] * 6
+        limits[lo], limits[hi] = g0, min(g0 + 3, nblk) - 1
+        i, j, _, _ = port_mm._candidates(a, b, None, sym_c=sym == "c", limits=tuple(limits))
+        want = np.union1d(want, i * pc.nblkcols + j)
+    got = port_mm.final_keys(ta, tb, pa, pb, pc)
+    assert np.array_equal(got, want) and len(got) > len(pc.keys)
+    tas_multiply(ta, tb, 1.0, pa, pb, 0.5, pc, nsplit=4)
+    assert np.array_equal(pc.keys, want)
 
 
 def test_tas_wrapper_and_auto_split():

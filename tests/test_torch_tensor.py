@@ -625,8 +625,10 @@ def test_ri_contraction_of_the_water_system_matches_jax():
     assert pc.matrix._tas_nsplit > 1
     nsplit, nrows = pc.matrix._tas_nsplit, pc.matrix.nblkrows
     assert totals["multiplies"] == len(range(0, nrows, -(-nrows // nsplit)))  # the groups
+    # one expansion a group, and one for C's pattern built before them
+    assert totals["c_rebuild"] == {"rebuilt": 0, "kept": totals["multiplies"], "prebuilt": 1}
     assert totals["index_engine"]["expand"]["native"] + totals["index_engine"]["expand"]["numpy"] \
-        == totals["multiplies"]
+        == totals["multiplies"] + 1
     assert all(k.startswith("stack:") for k in totals["formats"])
     want = np.einsum("abc,cd->abd", jt.to_dense(), jm.to_dense())
     _same(pc, jc, 1e-12, want)

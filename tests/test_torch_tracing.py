@@ -4,8 +4,10 @@
 `core.timings` region (the multiply's "index" in three parts, plan
 building apart from launching, the matrix layer's value update, the
 contraction's layout work), the plan cache's evictions by cause, the
-bytes C's rebuild allocates and moves, and the host-to-device bytes of
-`core.mempool`, which `core.matrix.to_index` and `to_device` now feed.
+bytes C's rebuild allocates and moves, the multiplies that rebuilt or
+kept C's bins and the TAS split's pre-builds, and the host-to-device
+bytes of `core.mempool`, which `core.matrix.to_index` and `to_device`
+now feed.
 `reset_totals` takes baselines of the timer registry and of the
 transfer counter and clears neither.  The tracer stamps its spans on
 `torch.profiler`'s clock.  No counterpart in the JAX package: these are
@@ -27,6 +29,8 @@ from dbcsr_tpu_torch.mm import multiply as mm
 from dbcsr_tpu_torch.models import make_test_density, sign_iteration
 from dbcsr_tpu_torch.obs import tracer
 from dbcsr_tpu_torch.ops import test_methods as port_tm
+from dbcsr_tpu_torch.ops.operations import scale
+from dbcsr_tpu_torch.tas import tas_multiply
 from dbcsr_tpu_torch.tensor import contract, create_tensor
 
 SIZES = [3, 5, 2, 4]
@@ -256,6 +260,118 @@ def test_rebuild_bytes_in_a_window_count_every_block_moved():
     rb = mm.read_totals()["rebuild_bytes"]
     assert rb["allocated"] == _block_bytes(c, c.keys)
     assert rb["moved"] == _block_bytes(c, old_keys)
+
+
+def _split_operands(seed=5, c_occ=0.3):
+    """A tall A, a square B and a tall C for a split into row groups."""
+    rng = np.random.default_rng(seed)
+    tall, short = [3, 5, 2, 4] * 3, [2, 4, 3]
+    return [port_tm.make_random_matrix(name, rows, cols, occupation=o, rng=rng, device="cpu")
+            for name, rows, cols, o in (("A", tall, short, 0.5), ("B", short, short, 0.8),
+                                        ("C", tall, short, c_occ))]
+
+
+@pytest.mark.parametrize("beta", [0.0, 1.0, 0.5])
+def test_a_split_prebuilds_c_once_and_keeps_its_bins(beta):
+    a, b, c = _split_operands()
+    old_keys = c.keys.copy()
+    tas_multiply("N", "N", 1.0, a, b, beta, c, nsplit=4)
+    totals = mm.read_totals()
+    assert totals["c_rebuild"] == {"rebuilt": 0, "kept": 4, "prebuilt": 1}
+    assert totals["multiplies"] == 4 and totals["regions"]["tas_c_prebuild"]["calls"] == 1
+    # C's final bins allocated once, the old blocks moved once
+    rb = totals["rebuild_bytes"]
+    assert rb["allocated"] == _block_bytes(c, c.keys) > _block_bytes(c, old_keys)
+    assert rb["moved"] == (0 if beta == 0 else _block_bytes(c, old_keys))
+
+
+def test_a_filtered_split_is_not_prebuilt():
+    a, b, c = _split_operands()
+    c2 = c.copy()
+    tas_multiply("N", "N", 1.0, a, b, 0.5, c, nsplit=4, filter_eps=1e-3)
+    totals = mm.read_totals()
+    assert totals["c_rebuild"]["prebuilt"] == 0 and "tas_c_prebuild" not in totals["regions"]
+    assert totals["c_rebuild"]["rebuilt"] + totals["c_rebuild"]["kept"] == 4
+    # as the groups ran before: C scaled, then each group's filtered
+    # multiply into it
+    scale(c2, 0.5)
+    for g0 in range(0, 12, 3):
+        mm.multiply("N", "N", 1.0, a, b, 1.0, c2, filter_eps=1e-3, first_row=g0,
+                    last_row=g0 + 2)
+    assert np.array_equal(c.keys, c2.keys)
+    assert np.array_equal(port_tm.to_dense(c), port_tm.to_dense(c2))
+
+
+@pytest.mark.parametrize("beta,window,kept", [
+    (1.0, False, True), (1.0, True, True), (0.5, False, False), (0.5, True, False)])
+def test_a_c_that_covers_the_product_keeps_its_bins_at_beta_1(beta, window, kept):
+    """C already holds every key of the product: at beta 1 (a window
+    scales nothing then) the kernels accumulate into C's bins, whose
+    versions rise, so a canvas cached on them is built again; any other
+    beta rebuilds."""
+    a, b, c = _operands(seed=4)
+    mm.multiply("N", "N", 1.0, a, b, 1.0, c)
+    before = port_tm.to_dense(c)
+    bins = [(bn.data.data_ptr(), bn.data._version, bn.data.clone()) for bn in c.bins]
+    stale = mm._dense_canvas_cached(c)
+    assert np.array_equal(stale.numpy(), before)
+    mm.reset_totals()
+    limits = dict(first_row=1, last_row=2) if window else {}
+    mm.multiply("N", "N", 2.0, a, b, beta, c, **limits)
+    assert mm.read_totals()["c_rebuild"] == {"rebuilt": int(not kept), "kept": int(kept),
+                                             "prebuilt": 0}
+    same = [bn.data.data_ptr() for bn in c.bins] == [p for p, _, _ in bins]
+    assert same == kept
+    if kept:  # every bin a kernel wrote reads a new version
+        written = [not torch.equal(bn.data, old) for bn, (_, _, old) in zip(c.bins, bins)]
+        assert any(written)
+        assert all(bn.data._version > v for bn, (_, v, _), w in zip(c.bins, bins, written) if w)
+        assert mm.read_totals()["rebuild_bytes"] == {"allocated": 0, "moved": 0}
+    dense_ab = port_tm.to_dense(a) @ port_tm.to_dense(b)
+    want = before.copy()
+    rows = slice(SIZES[0], SIZES[0] + SIZES[1] + SIZES[2]) if window else slice(None)
+    want[rows] = beta * before[rows] + 2.0 * dense_ab[rows]
+    got = port_tm.to_dense(c)
+    np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-13)
+    assert np.array_equal(mm._dense_canvas_cached(c).numpy(), got)
+
+
+def test_a_kept_c_is_planned_on_its_own_binning():
+    """A plan indexes C's slots: a C kept at beta 1 is launched on the
+    binning it came with, which another binning of the same keys (here a
+    bin's slots reversed) does not share with the rebuilt C of a beta 0.5
+    product of the same fingerprint; neither reuses the other's plan."""
+    rng, sizes = np.random.default_rng(4), [3, 5, 3, 5, 3]
+    a, b, c = [port_tm.make_random_matrix(name, sizes, sizes, occupation=0.6, rng=rng,
+                                          device="cpu") for name in "ABC"]
+    mm.multiply("N", "N", 1.0, a, b, 1.0, c)
+    nb, slots = c.ent_bin.copy(), c.ent_slot.copy()
+    big = int(np.argmax([bn.count for bn in c.bins]))
+    assert c.bins[big].count > 2
+    slots[nb == big] = c.bins[big].count - 1 - slots[nb == big]
+    bins = [core_matrix._Bin(bn.shape, bn.data.flip(0) if i == big else bn.data.clone(),
+                             bn.count) for i, bn in enumerate(c.bins)]
+    c.set_structure_from_device(c.keys.copy(), bins,
+                                binning=(nb, slots, [bn.shape for bn in c.bins]))
+    before, dense_ab = port_tm.to_dense(c), port_tm.to_dense(a) @ port_tm.to_dense(b)
+    for beta in (0.5, 1.0):
+        cx = c.copy()
+        mm.multiply("N", "N", 1.0, a, b, beta, cx)
+        np.testing.assert_allclose(port_tm.to_dense(cx), beta * before + dense_ab,
+                                   rtol=1e-13, atol=1e-13)
+    assert mm.read_totals()["plan_cache"]["hit"] == 0
+
+
+def test_a_kept_c_shared_with_a_cache_is_copied_first():
+    a, b, c = _operands(seed=4)
+    mm.multiply("N", "N", 1.0, a, b, 1.0, c)
+    held = [bn.data for bn in c.bins]
+    snapshot = [d.clone() for d in held]
+    c._bins_shared = True  # as the incremental cache marks the bins it holds
+    mm.multiply("N", "N", 1.0, a, b, 1.0, c)
+    assert mm.read_totals()["c_rebuild"] == {"rebuilt": 1, "kept": 1, "prebuilt": 0}
+    assert all(torch.equal(d, s) for d, s in zip(held, snapshot))
+    assert all(bn.data is not d for bn, d in zip(c.bins, held))
 
 
 # --------------------------------------------------------- host to device
