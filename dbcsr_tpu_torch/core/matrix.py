@@ -122,6 +122,18 @@ def move_blocks(dst: torch.Tensor, dst_slots: np.ndarray, src: torch.Tensor,
         dst[to_index(dst_slots[s0: s0 + per], dst.device)] = blocks
 
 
+def window_mask(bm: int, bn: int, r_lo: torch.Tensor, r_hi: torch.Tensor,
+                c_lo: torch.Tensor, c_hi: torch.Tensor) -> torch.Tensor:
+    """(N, bm, bn) bool mask of per-block element windows: True where the
+    block-local row is in [r_lo, r_hi] and the column in [c_lo, c_hi]
+    (inclusive, (N,) index tensors).  Shared by `ops.operations.crop_matrix`
+    and the windowed factor of `BlockSparseMatrix.bins_onto`."""
+    ri = torch.arange(bm, device=r_lo.device)[None, :, None]
+    ci = torch.arange(bn, device=r_lo.device)[None, None, :]
+    return ((ri >= r_lo[:, None, None]) & (ri <= r_hi[:, None, None])
+            & (ci >= c_lo[:, None, None]) & (ci <= c_hi[:, None, None]))
+
+
 class BlockSparseMatrix:
     """A block-compressed sparse row matrix on one device."""
 
@@ -428,40 +440,80 @@ class BlockSparseMatrix:
         # a same-pattern finalize (a loop's value update) journals exactly
         # the staged keys; a new key changes the structure
         same_pattern = len(merged) == len(self.keys)
-        rows = (merged // self.nblkcols).astype(np.int64)
-        cols = (merged % self.nblkcols).astype(np.int64)
-        nb, nsl, shapes = _bin_entries(self.row_blk_sizes, self.col_blk_sizes,
-                                       rows, cols)
+        bins, binning, _, _ = self.bins_onto(merged)
+        _, nsl, shapes = binning
         shape_to_bin = {s: i for i, s in enumerate(shapes)}
-        counts = np.bincount(nb, minlength=len(shapes))
-        datas = [torch.zeros((int(counts[i]), bm, bn), dtype=self.dtype,
-                             device=self.device)
-                 for i, (bm, bn) in enumerate(shapes)]
-        # 1) surviving old blocks: device-to-device move per shape
-        if len(self.keys):
-            pos_old = np.searchsorted(merged, self.keys)
-            new_bin_of_old = nb[pos_old]
-            for b in range(len(shapes)):
-                old_sel = np.nonzero(new_bin_of_old == b)[0]
-                if not len(old_sel):
-                    continue
-                src = self.bins[self.ent_bin[old_sel[0]]].data
-                move_blocks(datas[b], nsl[pos_old[old_sel]], src, self.ent_slot[old_sel])
-        # 2) staged batches in call order (each is one shape -> one bin);
+        # the staged batches in call order (each is one shape -> one bin);
         # a batch is a host array, or a device tensor (`stage_device_blocks`)
         for keys_b, arr, summation in self._work_batches:
-            b = shape_to_bin[(int(arr.shape[1]), int(arr.shape[2]))]
+            data = bins[shape_to_bin[(int(arr.shape[1]), int(arr.shape[2]))]].data
             slots = to_index(nsl[np.searchsorted(merged, keys_b)], self.device)
             blocks = arr if isinstance(arr, torch.Tensor) else to_device(arr, self.dtype,
                                                                         self.device)
             if summation:
-                datas[b].index_add_(0, slots, blocks)
+                data.index_add_(0, slots, blocks)
             else:
-                datas[b][slots] = blocks
-        bins = [_Bin(s, datas[i], int(counts[i])) for i, s in enumerate(shapes)]
+                data[slots] = blocks
         self._work_batches.clear()
-        self.set_structure_from_device(merged, bins, binning=(nb, nsl, shapes),
+        self.set_structure_from_device(merged, bins, binning=binning,
                                        value_delta_keys=staged_keys if same_pattern else None)
+
+    def bins_onto(self, new_keys: np.ndarray, factor=None, window=None) -> tuple:
+        """The matrix's blocks moved onto ``new_keys`` (sorted unique
+        int64, a superset of its keys), not installed: (bins, their
+        `_bin_entries` binning, the bytes of the bins, the bytes of the
+        old blocks moved), the bytes reckoned from the host's counts.
+        Each bin is a fresh zero tensor, since caches key on a bin's
+        identity and version, and each old block moves to its new slot by
+        `move_blocks`.  ``factor`` scales the old blocks: None or 1 moves
+        them as they are, 0 leaves them out (zero).  With ``window`` =
+        (r0, r1, c0, c1), inclusive element bounds, ``factor`` applies only
+        inside it: old blocks wholly outside move as they are, and blocks
+        straddling it get an element-masked scale."""
+        rows = (new_keys // self.nblkcols).astype(np.int64)
+        cols = (new_keys % self.nblkcols).astype(np.int64)
+        nb, nsl, shapes = _bin_entries(self.row_blk_sizes, self.col_blk_sizes, rows, cols)
+        counts = np.bincount(nb, minlength=len(shapes))
+        pos_old = np.searchsorted(new_keys, self.keys)
+        scale = None if factor is None or factor == 1 else factor
+        windowed = window is not None and scale is not None and len(self.keys) > 0
+        inside = np.ones(len(self.keys), bool)
+        if windowed:
+            r0, r1, c0, c1 = window
+            orows, ocols = self.entry_coords()
+            blk_r0 = self.row_blk_offsets[orows]
+            blk_r1 = self.row_blk_offsets[orows + 1] - 1
+            blk_c0 = self.col_blk_offsets[ocols]
+            blk_c1 = self.col_blk_offsets[ocols + 1] - 1
+            overlap = (blk_r1 >= r0) & (blk_r0 <= r1) & (blk_c1 >= c0) & (blk_c0 <= c1)
+            inside = overlap & (blk_r0 >= r0) & (blk_r1 <= r1) & (blk_c0 >= c0) & (blk_c1 <= c1)
+            straddle = overlap & ~inside
+        dev = self.device
+        bin_of_old = nb[pos_old]
+        bins, allocated, moved = [], 0, 0
+        for b_id, (bm, bn) in enumerate(shapes):
+            data = torch.zeros((int(counts[b_id]), bm, bn), dtype=self.dtype, device=dev)
+            block_bytes = bm * bn * self.dtype.itemsize
+            allocated += int(counts[b_id]) * block_bytes
+            in_bin = bin_of_old == b_id
+            moves = [(in_bin & inside, scale)] if factor != 0 else []
+            if windowed:
+                moves.append((in_bin & ~inside, None))
+            for mask, f in moves:
+                sel = np.nonzero(mask)[0]
+                if len(sel):
+                    move_blocks(data, nsl[pos_old[sel]], self.bins[self.ent_bin[sel[0]]].data,
+                                self.ent_slot[sel], f)
+                    moved += len(sel) * block_bytes
+            if windowed and len(sel := np.nonzero(in_bin & straddle)[0]):
+                lo_hi = (np.maximum(r0 - blk_r0[sel], 0), np.minimum(r1 - blk_r0[sel], bm - 1),
+                         np.maximum(c0 - blk_c0[sel], 0), np.minimum(c1 - blk_c0[sel], bn - 1))
+                mask = window_mask(bm, bn, *(to_index(x, dev) for x in lo_hi))
+                one = torch.ones((), dtype=self.dtype, device=dev)
+                slots = to_index(nsl[pos_old[sel]], dev)
+                data[slots] = data[slots] * torch.where(mask, factor * one, one)
+            bins.append(_Bin((bm, bn), data, int(counts[b_id])))
+        return bins, (nb, nsl, shapes), allocated, moved
 
     def set_structure_from_device(self, keys: np.ndarray, bins: List[_Bin],
                                   binning=None, value_delta_keys=None) -> None:

@@ -54,20 +54,21 @@ def set_hooks(timeset_fn, timestop_fn) -> None:
 def timeset(name: str, span: bool = True) -> None:
     if _hooks:
         _hooks[0](name)
-        return
     _stack.append([name, time.perf_counter(), 0.0])
-    if span and _trace._tracer is not None:
+    if span and not _hooks and _trace._tracer is not None:
         _trace._tracer.begin(name)
 
 
-def timestop(name: str, span: bool = True) -> None:
-    if _hooks:
-        _hooks[1](name)
-        return
+def timestop(name: str, span: bool = True) -> float:
+    """Close the innermost region, ``name``, and return its seconds; the
+    registry is charged with them unless `set_hooks` has taken it over."""
     ent = _stack.pop()
     if ent[0] != name:
         raise RuntimeError(f"timer mismatch: stopped {name}, open {ent[0]}")
     dt = time.perf_counter() - ent[1]
+    if _hooks:
+        _hooks[1](name)
+        return dt
     if span and _trace._tracer is not None:
         _trace._tracer.end(name, dur_s=dt)
     st = _stats.setdefault(name, _RoutineStat())
@@ -80,24 +81,36 @@ def timestop(name: str, span: bool = True) -> None:
         pst = _stats.setdefault(parent[0], _RoutineStat())
         c, t = pst.callees.get(name, (0, 0.0))
         pst.callees[name] = (c + 1, t + dt)
+    return dt
+
+
+@dataclasses.dataclass
+class Region:
+    """What `timed` yields: ``seconds``, set at the block's exit, are the
+    seconds `timestop` charges to the registry (measured also while
+    `set_hooks` has taken the registry over)."""
+
+    seconds: float = 0.0
 
 
 @contextlib.contextmanager
 def timed(name: str, span: bool = True):
-    """Host timer, tracer span and profiler range around the block.
-    ``span=False``: no tracer span, so the tracer attributes written
-    inside go to the enclosing span (a phase split out of it for timing).
-    The profiler range is opened only while a profiler records: it costs
-    most of a region's enter and exit and records nothing otherwise."""
+    """Host timer, tracer span and profiler range around the block; yields
+    a `Region`.  ``span=False``: no tracer span, so the tracer attributes
+    written inside go to the enclosing span (a phase split out of it for
+    timing).  The profiler range is opened only while a profiler records:
+    it costs most of a region's enter and exit and records nothing
+    otherwise."""
+    region = Region()
     timeset(name, span)
     try:
         if torch.autograd._profiler_enabled():
             with torch.profiler.record_function(f"dbcsr_tpu_torch:{name}"):
-                yield
+                yield region
         else:
-            yield
+            yield region
     finally:
-        timestop(name, span)
+        region.seconds = timestop(name, span)
 
 
 def reset() -> None:

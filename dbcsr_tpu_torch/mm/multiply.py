@@ -50,17 +50,19 @@ adjacent spans of one C bin run as one fused launch
 plan-cache entry and is built again when a heal changes the spans'
 drivers.  Every launch feeds `core.stats` (and the tracer's ``stack``
 instants); the phases are `core.timings.timed` regions (``multiply``
-around ``multiply_index``, ``multiply_c_assemble``, ``multiply_stacks``,
-``multiply_filter`` or ``multiply_dense``; "index" holds
+around ``multiply_format``, ``multiply_index``, ``multiply_incremental``,
+``multiply_c_assemble``, ``multiply_stacks``, ``multiply_filter`` or
+``multiply_dense``; "index" holds
 ``multiply_index_expand`` (with ``multiply_filter_norms``, a filtered
 product's reads of its operands' block norms), ``multiply_index_keys``
 and ``multiply_plan_key``, "stacks" holds ``multiply_plan`` and
-``multiply_launch``), so the span tracer and `torch.profiler` see them
-under the same names.  `read_totals` reads every region, the plan
-cache's evictions, the bytes C's rebuilds move, how often C was
-rebuilt, kept or pre-built (`prebuild_c`), the filter's products and
-blocks, the model loops' counts and the host-to-device bytes since
-`reset_totals`.
+``multiply_launch``), so the span tracer (but for the four timed with
+``span=False``: format, incremental, plan and launch) and
+`torch.profiler` see them under the same names.  `read_totals` reads
+every region, the plan cache's evictions, the bytes C's rebuilds move,
+how often C was rebuilt, kept or pre-built (`prebuild_c`), the filter's
+products and blocks, the model loops' counts and the host-to-device
+bytes since `reset_totals`.
 
 Integrity (ref `dbcsr_tpu/mm/multiply.py:246-270,512-535,1891-2025`):
 each multiply opens an event-bus product and a flight record
@@ -108,13 +110,12 @@ from dbcsr_tpu_torch.core.matrix import (
     BlockSparseMatrix,
     _Bin,
     _bin_entries,
-    move_blocks,
     to_index,
 )
 from dbcsr_tpu_torch.mm import format_planner
 from dbcsr_tpu_torch.mm import incremental as _incremental
 from dbcsr_tpu_torch.obs import costmodel, events, flight, tracer
-from dbcsr_tpu_torch.ops.operations import compress, crop_matrix, window_mask
+from dbcsr_tpu_torch.ops.operations import compress, crop_matrix
 from dbcsr_tpu_torch.ops.transformations import desymmetrize, new_transposed
 from dbcsr_tpu_torch.resilience import faults
 
@@ -362,20 +363,22 @@ def multiply(
 def _multiply_body(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
                    beta_window) -> int:
     """The engine body.  Leaves the format in ``c._mm_algorithm``, the
-    host seconds of each phase in ``c._mm_phase_s`` ("format" for the
-    planner; "index", "assemble", "plan" -- the plan-cache lookup
-    included -- and "launch" for a stack product; "dense" or "composite"
-    for the calls of those formats), the plan-cache outcome in
+    host seconds of each phase in ``c._mm_phase_s``, each read off its
+    region ("format", ``multiply_format``; for a stack product "index",
+    ``multiply_index``, "incremental", ``multiply_incremental``,
+    "assemble", ``multiply_c_assemble``, "plan", ``multiply_plan``, and
+    "launch", ``multiply_launch``; "dense" or "composite",
+    ``multiply_dense``), the plan-cache outcome in
     ``c._mm_plan_cache`` (None off the stack format), each span's (m, n,
     k, entries, kernel, longest run) in ``c._mm_spans`` and, on a CUDA
     device, a pair of CUDA events around the format's device work in
     ``c._mm_device_events``."""
-    t0 = time.perf_counter()
-    plan = format_planner.choose(a, b, c, filter_eps=filter_eps,
-                                 retain_sparsity=retain_sparsity,
-                                 no_limits=all(x is None for x in limits))
-    format_planner.note_decision(plan)
-    phase = {"format": time.perf_counter() - t0}
+    with timed("multiply_format", span=False) as region:
+        plan = format_planner.choose(a, b, c, filter_eps=filter_eps,
+                                     retain_sparsity=retain_sparsity,
+                                     no_limits=all(x is None for x in limits))
+        format_planner.note_decision(plan)
+    phase = {"format": region.seconds}
     flops = None
     if plan.fmt != "stack":
         flops = _canvas_multiply(a, b, c, alpha, beta, plan, phase)
@@ -408,25 +411,24 @@ def _canvas_multiply(a, b, c, alpha, beta, plan, phase):
     # failure to fall over from
     _check_matmul_precision(c.dtype, c.device)
     held = [(bn.data, bn.data._version) for bn in c.bins]
-    t1 = time.perf_counter()
-    ev = _start_events(c.device)
-    try:
-        with timed("multiply_dense"):
+    with timed("multiply_dense") as region:
+        ev = _start_events(c.device)
+        try:
             if plan.fmt == "composite":
                 flops = _composite_multiply(a, b, c, alpha, beta, plan.panels)
             else:
                 flops = _dense_multiply(a, b, c, alpha, beta)
-    except Exception as exc:  # noqa: BLE001 -- classified and counted, or raised
-        if len(c.bins) != len(held) or any(bn.data is not d or bn.data._version != v
-                                           for bn, (d, v) in zip(c.bins, held)):
-            raise  # C already restructured: nothing to fall over from
-        _note_dense_fallback(exc, driver=plan.fmt)
-        return None
-    c._mm_device_events = _stop_events(ev)
-    sync = stats.sync_timing_enabled()
-    if sync and c.device.type == "cuda":
-        torch.cuda.synchronize(c.device)
-    phase[plan.fmt] = seconds = time.perf_counter() - t1
+        except Exception as exc:  # noqa: BLE001 -- classified and counted, or raised
+            if len(c.bins) != len(held) or any(bn.data is not d or bn.data._version != v
+                                               for bn, (d, v) in zip(c.bins, held)):
+                raise  # C already restructured: nothing to fall over from
+            _note_dense_fallback(exc, driver=plan.fmt)
+            return None
+        c._mm_device_events = _stop_events(ev)
+        sync = stats.sync_timing_enabled()
+        if sync and c.device.type == "cuda":
+            torch.cuda.synchronize(c.device)
+    phase[plan.fmt] = seconds = region.seconds
     format_planner.note_outcome(plan, seconds, flops)
     stats.record_driver(plan.fmt, flops, seconds=seconds, dtype=name_of(c.dtype), sync=sync,
                         nbytes=costmodel.dense_cost(c.nfullrows, c.nfullcols, a.nfullcols,
@@ -483,11 +485,10 @@ def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
     """The stack format: index, the incremental reuse where eligible,
     assemble, plan (or the cached plan) and launch, then the filter's
     compress."""
-    t0 = time.perf_counter()
     # "index" in three: the expansion, C's new keys, and the plan key
     # (C's fingerprint is taken before the keys, the rest of the key
     # after, so that region is entered twice)
-    with timed("multiply_index"):
+    with timed("multiply_index") as region:
         with timed("multiply_index_expand"):
             i, j, a_ent, b_ent = _candidates(a, b, filter_eps,
                                              sym_c=c.matrix_type != NO_SYMMETRY, limits=limits)
@@ -506,45 +507,42 @@ def _stack_multiply(a, b, c, alpha, beta, retain_sparsity, filter_eps, limits,
         with timed("multiply_plan_key"):
             key = _plan_key(a, b, c, old_fp, retain_sparsity, filter_eps, limits, cand_keys,
                             a_ent, b_ent, keep_c)
-    t1 = time.perf_counter()
-    phase["index"] = t1 - t0
+    phase["index"] = region.seconds
     inc_eligible = (key is not None and filter_eps is None and beta == 0
                     and beta_window is None and not retain_sparsity
                     and all(x is None for x in limits) and mempool.enabled()
                     and c.matrix_type == NO_SYMMETRY)
     c._mm_device_events, c._mm_spans = None, []
     if inc_eligible:
-        flops = _incremental.maybe_reuse(key, a, b, c, alpha, new_keys, cand_keys, a_ent, b_ent)
+        # what serving the product, or deciding on a full run, cost
+        with timed("multiply_incremental", span=False) as region:
+            flops = _incremental.maybe_reuse(key, a, b, c, alpha, new_keys, cand_keys, a_ent,
+                                             b_ent)
+        phase["incremental"] = region.seconds
         if flops is not None:
             c._note_mutation(c.keys)  # the spliced values are installed
-            phase["incremental"] = time.perf_counter() - t1
             c._mm_plan_cache = None
             _totals["reused"] += 1
             return flops
-        t_inc = time.perf_counter()
-        phase["incremental"] = t_inc - t1  # what deciding on a full run cost
-        t1 = t_inc
-    with timed("multiply_c_assemble"):
+    with timed("multiply_c_assemble") as region:
         if keep_c:
             c.own_bins()
         else:
             _rebuild_c(c, new_keys, beta, beta_window)
         _totals["c_rebuild"]["kept" if keep_c else "rebuilt"] += 1
-    t2 = time.perf_counter()
-    phase["assemble"] = t2 - t1
+    phase["assemble"] = region.seconds
     with timed("multiply_stacks"):
         # timed apart, but no tracer spans of their own: the stacks'
         # attributes (precision, entries) stay on "multiply_stacks"
-        with timed("multiply_plan", span=False):
+        with timed("multiply_plan", span=False) as region:
             entry, c._mm_plan_cache = _spans_for(key, c, a, b, cand_keys, a_ent, b_ent)
+        phase["plan"] = region.seconds
         spans = entry.spans
-        t3 = time.perf_counter()
-        phase["plan"] = t3 - t2
-        with timed("multiply_launch", span=False):
+        with timed("multiply_launch", span=False) as region:
             flops = _run_stacks(c, a, b, spans, alpha,
                                 c_zero=beta == 0 and beta_window is None, cached=entry)
             _refresh_cached_bytes(key, entry)
-        phase["launch"] = time.perf_counter() - t3
+        phase["launch"] = region.seconds
     # the kernels wrote C's bins in place: stamp the completed values
     c._note_mutation(c.keys)
     if inc_eligible:
@@ -828,67 +826,13 @@ def _keeps_bins(c: BlockSparseMatrix, new_keys: np.ndarray, beta) -> bool:
 
 
 def _rebuild_c(c: BlockSparseMatrix, new_keys: np.ndarray, beta, beta_window=None) -> None:
-    """Restructure C onto the (possibly grown) pattern on the device: new
-    blocks zero, old blocks scaled by beta.  With ``beta_window`` = (r0,
-    r1, c0, c1), inclusive element bounds, beta applies only inside the
-    window: old blocks wholly outside are copied as they are, and blocks
-    straddling it get an element-masked scale.  Adds the bytes of the new
-    bins and of the old blocks moved to ``rebuild_bytes``, reckoned from
-    the host's counts."""
-    old_keys, old_bins = c.keys, c.bins
-    old_ent_bin, old_ent_slot = c.ent_bin, c.ent_slot
-    rows = (new_keys // c.nblkcols).astype(np.int64)
-    cols = (new_keys % c.nblkcols).astype(np.int64)
-    nb, nsl, shapes = _bin_entries(c.row_blk_sizes, c.col_blk_sizes, rows, cols)
-    pos_old = np.searchsorted(new_keys, old_keys)  # old keys are in new keys
-    n_old = len(old_keys)
-    dev = c.device
-    windowed = beta_window is not None and beta != 1 and n_old > 0
-    inside = np.ones(n_old, bool)
-    straddle = np.zeros(n_old, bool)
-    if windowed:
-        r0, r1, c0, c1 = beta_window
-        orows = (old_keys // c.nblkcols).astype(np.int64)
-        ocols = (old_keys % c.nblkcols).astype(np.int64)
-        blk_r0 = c.row_blk_offsets[orows]
-        blk_r1 = c.row_blk_offsets[orows + 1] - 1
-        blk_c0 = c.col_blk_offsets[ocols]
-        blk_c1 = c.col_blk_offsets[ocols + 1] - 1
-        overlap = (blk_r1 >= r0) & (blk_r0 <= r1) & (blk_c1 >= c0) & (blk_c0 <= c1)
-        inside = overlap & (blk_r0 >= r0) & (blk_r1 <= r1) & (blk_c0 >= c0) & (blk_c1 <= c1)
-        straddle = overlap & ~inside
-    counts = np.bincount(nb, minlength=len(shapes))
-    rebuilt = _totals["rebuild_bytes"]
-    bins = []
-    for b_id, (bm, bn) in enumerate(shapes):
-        data = torch.zeros((int(counts[b_id]), bm, bn), dtype=c.dtype, device=dev)
-        block_bytes = bm * bn * c.dtype.itemsize
-        rebuilt["allocated"] += int(counts[b_id]) * block_bytes
-        in_bin = nb[pos_old] == b_id if n_old else np.zeros(0, bool)
-
-        def move(mask, factor=None):
-            """Copy the old blocks of ``mask`` to their new slots (times
-            ``factor``), a bounded chunk at a time; returns them, or None."""
-            sel = np.nonzero(mask)[0]
-            if len(sel):
-                move_blocks(data, nsl[pos_old[sel]], old_bins[old_ent_bin[sel[0]]].data,
-                            old_ent_slot[sel], factor)
-                rebuilt["moved"] += len(sel) * block_bytes
-            return sel if len(sel) else None
-
-        if beta != 0:
-            move(in_bin & inside, None if beta == 1 else beta)
-        if windowed:
-            move(in_bin & ~inside & ~straddle)
-            if (sel := move(in_bin & straddle)) is not None:
-                lo_hi = (np.maximum(r0 - blk_r0[sel], 0), np.minimum(r1 - blk_r0[sel], bm - 1),
-                         np.maximum(c0 - blk_c0[sel], 0), np.minimum(c1 - blk_c0[sel], bn - 1))
-                mask = window_mask(bm, bn, *(to_index(x, dev) for x in lo_hi))
-                one = torch.ones((), dtype=c.dtype, device=dev)
-                slots = to_index(nsl[pos_old[sel]], dev)
-                data[slots] = data[slots] * torch.where(mask, beta * one, one)
-        bins.append(_Bin((bm, bn), data, int(counts[b_id])))
-    c.set_structure_from_device(new_keys, bins, binning=(nb, nsl, shapes))
+    """Restructure C onto the (possibly grown) pattern, old blocks scaled
+    by beta (inside ``beta_window`` when given; `BlockSparseMatrix.bins_onto`),
+    and add the bytes allocated and moved to ``rebuild_bytes``."""
+    bins, binning, allocated, moved = c.bins_onto(new_keys, factor=beta, window=beta_window)
+    _totals["rebuild_bytes"]["allocated"] += allocated
+    _totals["rebuild_bytes"]["moved"] += moved
+    c.set_structure_from_device(new_keys, bins, binning=binning)
 
 
 def final_keys(transa: str, transb: str, matrix_a: BlockSparseMatrix,

@@ -39,6 +39,7 @@ from dbcsr_tpu_torch.core.matrix import (
     _bin_entries,
     to_host,
     to_index,
+    window_mask,
 )
 
 
@@ -97,18 +98,6 @@ def get_block_diag(matrix: BlockSparseMatrix, name: Optional[str] = None) -> Blo
     rows, cols = matrix.entry_coords()
     out.set_structure_from_device(*_subset_bins(matrix, rows == cols))
     return out
-
-
-def window_mask(bm: int, bn: int, r_lo: torch.Tensor, r_hi: torch.Tensor,
-                c_lo: torch.Tensor, c_hi: torch.Tensor) -> torch.Tensor:
-    """(N, bm, bn) bool mask of per-block element windows: True where the
-    block-local row is in [r_lo, r_hi] and the column in [c_lo, c_hi]
-    (inclusive, (N,) index tensors).  Shared by `crop_matrix` and the
-    multiply's windowed beta."""
-    ri = torch.arange(bm, device=r_lo.device)[None, :, None]
-    ci = torch.arange(bn, device=r_lo.device)[None, None, :]
-    return ((ri >= r_lo[:, None, None]) & (ri <= r_hi[:, None, None])
-            & (ci >= c_lo[:, None, None]) & (ci <= c_hi[:, None, None]))
 
 
 def crop_matrix(matrix: BlockSparseMatrix, row_bounds=None, col_bounds=None,

@@ -25,6 +25,8 @@ import torch
 
 from dbcsr_tpu_torch.core import matrix as core_matrix
 from dbcsr_tpu_torch.core import mempool, timings
+from dbcsr_tpu_torch.core.config import get_config, set_config
+from dbcsr_tpu_torch.mm import incremental as _incremental
 from dbcsr_tpu_torch.mm import multiply as mm
 from dbcsr_tpu_torch.models import make_test_density, sign_iteration
 from dbcsr_tpu_torch.obs import tracer
@@ -81,6 +83,7 @@ _RI = dict(contract_a=(2,), notcontract_a=(0, 1), contract_b=(0,), notcontract_b
 # ------------------------------------------------------------- regions
 def test_stack_multiply_regions_nest_in_their_parents():
     a, b, c = _operands()
+    timings.reset()  # the regions' seconds from zero, so they compare exactly
     mm.multiply("N", "N", 1.0, a, b, 0.5, c)
     regions = mm.read_totals()["regions"]
     for name in ("multiply", "multiply_index", "multiply_stacks") + INDEX_PARTS + STACK_PARTS:
@@ -89,9 +92,9 @@ def test_stack_multiply_regions_nest_in_their_parents():
     assert regions["multiply_plan_key"]["calls"] == 2 * regions["multiply_index"]["calls"]
     for parent, parts in (("multiply_index", INDEX_PARTS), ("multiply_stacks", STACK_PARTS)):
         assert sum(regions[p]["seconds"] for p in parts) <= regions[parent]["seconds"]
-    # the host phases still cover what they covered
+    # the host phases are read off the same clock
     phase = c._mm_phase_s
-    assert regions["multiply_index"]["seconds"] <= phase["index"]
+    assert regions["multiply_index"]["seconds"] == phase["index"]
 
 
 def test_contraction_regions_nest_in_their_parents():
@@ -396,6 +399,84 @@ def test_a_finalize_of_host_blocks_counts_its_upload():
     m.finalize()
     # the block's 80 bytes and the index of its slot
     assert mm.read_totals()["h2d_bytes"] == 5 * 2 * 8 + 8
+
+
+# ------------------------------------------------------------- one clock
+PHASE_REGIONS = {"format": "multiply_format", "index": "multiply_index",
+                 "incremental": "multiply_incremental", "assemble": "multiply_c_assemble",
+                 "plan": "multiply_plan", "launch": "multiply_launch",
+                 "dense": "multiply_dense", "composite": "multiply_dense"}
+PRODUCT_PHASES = {"stack": {"format", "index", "assemble", "plan", "launch"},
+                  "dense": {"format", "dense"},
+                  "incremental": {"format", "index", "incremental"}}
+
+
+@pytest.fixture
+def product():
+    """(A, B, C, beta) for one more multiply of the kind asked: a stack
+    product, a dense one, or one the incremental cache serves (after the
+    runs that record and install it)."""
+    prev = {k: getattr(get_config(), k) for k in ("mm_format", "incremental")}
+
+    def make(kind):
+        set_config(mm_format="dense" if kind == "dense" else "stack",
+                   incremental="auto" if kind == "incremental" else "off")
+        a, b, c = _operands()
+        beta = 0.0 if kind == "incremental" else 0.5
+        if kind == "incremental":
+            for _ in range(3):
+                mm.multiply("N", "N", 1.0, a, b, beta, c)
+        return a, b, c, beta
+
+    yield make
+    set_config(**prev)
+    _incremental.reset()
+
+
+@pytest.mark.parametrize("kind", list(PRODUCT_PHASES))
+def test_each_phase_is_its_regions_seconds(kind, product):
+    a, b, c, beta = product(kind)
+    timings.reset()
+    mm.reset_totals()
+    mm.multiply("N", "N", 1.0, a, b, beta, c)
+    totals = mm.read_totals()
+    assert totals["reused"] == (kind == "incremental")
+    assert set(c._mm_phase_s) == PRODUCT_PHASES[kind]
+    for name, seconds in c._mm_phase_s.items():
+        assert seconds == totals["regions"][PHASE_REGIONS[name]]["seconds"] > 0, name
+        assert totals["regions"][PHASE_REGIONS[name]]["calls"] == 1, name
+    assert totals["host_phase_s"] == c._mm_phase_s
+
+
+@pytest.mark.parametrize("kind", list(PRODUCT_PHASES))
+def test_the_phases_are_timed_while_hooks_hold_the_timer(kind, product):
+    a, b, c, beta = product(kind)
+    mm.reset_totals()
+    opened = []
+    timings.set_hooks(opened.append, lambda name: None)
+    try:
+        mm.multiply("N", "N", 1.0, a, b, beta, c)
+    finally:
+        timings.set_hooks(None, None)
+    assert set(c._mm_phase_s) == PRODUCT_PHASES[kind]
+    assert all(seconds > 0 for seconds in c._mm_phase_s.values())
+    assert {PHASE_REGIONS[name] for name in c._mm_phase_s} <= set(opened)
+    assert "multiply_format" not in mm.read_totals()["regions"]
+
+
+def test_the_format_and_incremental_regions_are_no_spans(tmp_path, product):
+    a, b, c, beta = product("incremental")
+    mm.reset_totals()
+    t = tracer.enable(str(tmp_path / "trace.jsonl"))
+    mm.multiply("N", "N", 1.0, a, b, beta, c)
+    tracer.disable()
+    spans = {e["name"]: e for e in t.events if e.get("ev") == "span"}
+    assert "multiply_index" in spans
+    assert not {"multiply_format", "multiply_incremental"} & set(spans)
+    # the planner's attributes stay on the product's span
+    assert spans["multiply"]["attrs"]["format"] == "stack"
+    regions = mm.read_totals()["regions"]
+    assert regions["multiply_format"]["calls"] == regions["multiply_incremental"]["calls"] == 1
 
 
 # ----------------------------------------------------------------- tracer
