@@ -121,10 +121,16 @@ from dbcsr_tpu_torch.resilience import faults
 
 NO_LIMITS = (None,) * 6
 
-_PLAN_CACHE_MAX = 16
+# the plan cache is bounded by bytes alone, LRU: each entry is charged
+# the bytes its plans pin, and at least `_PLAN_ENTRY_FLOOR` for its host
+# bookkeeping, so the same budget bounds the count too (4,096 entries).
+# `_plan_cache_bytes` is what the plans pin, `_plan_cache_charged` what
+# they are charged
 _PLAN_CACHE_MAX_BYTES = 256 * 1024 * 1024
+_PLAN_ENTRY_FLOOR = 64 * 1024
 _plan_cache: "OrderedDict[tuple, _CachedSpans]" = OrderedDict()
 _plan_cache_bytes = 0
+_plan_cache_charged = 0
 
 # `union_keys` takes the bitmap up to this many slots of C's key space a
 # key, and up to this many slots in all, which bounds its host memory to
@@ -188,9 +194,12 @@ def _fold_events(wait: bool) -> None:
 def read_totals() -> dict:
     """The totals since `reset_totals`: ``multiplies``, ``host_phase_s``
     (summed per phase), ``plan_cache`` outcome counts, ``plan_evictions``
-    (plans the cache evicted over its entry cap, over its byte cap, and
-    the bytes they pinned), ``reused`` (the products `mm.incremental`
-    served from its cache), ``formats`` (the planner's decisions as
+    (plans the cache evicted: "entries", those its per-entry floor
+    decided, a full cache of plans smaller than the floor; "bytes", those
+    the bytes the plans pin decided; and "pinned_bytes", the bytes they
+    pinned), ``plan_cache_resident`` (the cache as it stands: its
+    "entries" and the "bytes" they pin), ``reused`` (the products
+    `mm.incremental` served from its cache), ``formats`` (the planner's decisions as
     "format:reason" counts), ``index_engine`` (how many expansions, sorts
     and `ops.csr.matrix_from_csr` COO fills ran "native" or "numpy", and
     how many of C's key unions, `union_keys`, took the "bitmap" or the
@@ -226,7 +235,9 @@ def read_totals() -> dict:
     return {"multiplies": _totals["multiplies"],
             "host_phase_s": dict(_totals["host_phase_s"]),
             "plan_cache": dict(_totals["plan_cache"]),
-            "plan_evictions": dict(_totals["plan_evictions"]), "reused": _totals["reused"],
+            "plan_evictions": dict(_totals["plan_evictions"]),
+            "plan_cache_resident": {"entries": len(_plan_cache), "bytes": _plan_cache_bytes},
+            "reused": _totals["reused"],
             "formats": dict(_totals["formats"]),
             "index_engine": {k: dict(v) for k, v in _totals["index_engine"].items()},
             "longest_run": _totals["longest_run"],
@@ -241,9 +252,9 @@ def read_totals() -> dict:
 
 
 def clear_plan_cache() -> None:
-    global _plan_cache_bytes
+    global _plan_cache_bytes, _plan_cache_charged
     _plan_cache.clear()
-    _plan_cache_bytes = 0
+    _plan_cache_bytes = _plan_cache_charged = 0
 
 
 def _real_scalar(x, dtype):
@@ -647,31 +658,44 @@ def _cached_spans(key) -> Optional[_CachedSpans]:
     return _plan_cache[key]
 
 
+def _charge(nbytes: int) -> int:
+    """What an entry pinning ``nbytes`` is charged against the budget."""
+    return max(nbytes, _PLAN_ENTRY_FLOOR)
+
+
 def _plan_cache_insert(key, entry: _CachedSpans) -> None:
-    """Insert with LRU eviction by entry count and by the index bytes
-    the cached plans pin (ref `dbcsr_tpu/mm/multiply.py:1760-1777`);
-    each eviction is counted by its cause, with the bytes it pinned."""
-    global _plan_cache_bytes
+    """Insert with LRU eviction while the entries' charges pass
+    `_PLAN_CACHE_MAX_BYTES` (the newest entry always stays); each
+    eviction is counted by its cause, "bytes" where the pinned bytes
+    alone pass the budget, "entries" where the floor decided, with the
+    bytes it pinned (ref `dbcsr_tpu/mm/multiply.py:1760-1777`, which
+    also caps the count at 16: a cyclic scan over more keys than that,
+    as the TAS split's groups are, would never hit)."""
+    global _plan_cache_bytes, _plan_cache_charged
     old = _plan_cache.pop(key, None)
     if old is not None:
         _plan_cache_bytes -= old.nbytes
+        _plan_cache_charged -= _charge(old.nbytes)
     _plan_cache[key] = entry
     _plan_cache_bytes += entry.nbytes
+    _plan_cache_charged += _charge(entry.nbytes)
     evictions = _totals["plan_evictions"]
-    while len(_plan_cache) > _PLAN_CACHE_MAX or (
-            len(_plan_cache) > 1 and _plan_cache_bytes > _PLAN_CACHE_MAX_BYTES):
-        evictions["entries" if len(_plan_cache) > _PLAN_CACHE_MAX else "bytes"] += 1
+    while len(_plan_cache) > 1 and _plan_cache_charged > _PLAN_CACHE_MAX_BYTES:
+        evictions["bytes" if _plan_cache_bytes > _PLAN_CACHE_MAX_BYTES else "entries"] += 1
         _, evicted = _plan_cache.popitem(last=False)
         _plan_cache_bytes -= evicted.nbytes
+        _plan_cache_charged -= _charge(evicted.nbytes)
         evictions["pinned_bytes"] += evicted.nbytes
 
 
 def _refresh_cached_bytes(key, entry: _CachedSpans) -> None:
-    """Keep the cache's byte count honest after a run that healed plans
+    """Keep the cache's byte counts honest after a run that healed plans
     or built fused plans in place."""
-    global _plan_cache_bytes
+    global _plan_cache_bytes, _plan_cache_charged
     if key is not None and _plan_cache.get(key) is entry:
+        before = entry.nbytes
         _plan_cache_bytes += entry.refresh_nbytes()
+        _plan_cache_charged += _charge(entry.nbytes) - _charge(before)
 
 
 def union_keys(old_keys: np.ndarray, cand_keys: np.ndarray, space: int) -> np.ndarray:

@@ -5,8 +5,10 @@ bit as an uncached run does (and agree with the JAX package's multiply
 at relative 1e-12 in f64, 1e-5 in f32); anything planning reads (the
 config, the tuned table's generation, the dtypes, C's kind,
 ``retain_sparsity``, and for a filtered product the survivors) must
-miss; the LRU evicts by count and by the bytes the plans pin; with the
-residency knob off a filtered product is not cached.
+miss; the LRU evicts by the bytes the plans pin, each entry charged at
+least a fixed floor, which bounds the count too; the TAS split's groups
+repeat their keys from call to call, however many; with the residency
+knob off a filtered product is not cached.
 """
 
 import os
@@ -33,6 +35,7 @@ from dbcsr_tpu_torch.core.matrix import BlockSparseMatrix
 from dbcsr_tpu_torch.mm import multiply as mm
 from dbcsr_tpu_torch.ops import operations as pops
 from dbcsr_tpu_torch.ops import test_methods as port_tm
+from dbcsr_tpu_torch.tas import tas_multiply
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZES = np.array([2, 3, 5, 3, 4, 2])
@@ -207,16 +210,30 @@ def test_pool_env_switch():
     assert outs == ["False", "True"]
 
 
-def test_eviction_by_count():
+def test_eviction_by_count(monkeypatch):
+    """More distinct products than the JAX package's 16 all stay resident
+    and hit on repeat; once the per-entry floor fills the budget, the
+    least recent goes first."""
     b = operands(seed=6)[1]
     c = BlockSparseMatrix("C", SIZES, SIZES, device="cpu")
-    mats = [operands(seed=100 + s, occ=(0.5, 0.5, 0.3))[0] for s in range(mm._PLAN_CACHE_MAX + 1)]
+    mats = [operands(seed=100 + s, occ=(0.5, 0.5, 0.3))[0] for s in range(21)]
     assert len({m.pattern_fingerprint() for m in mats}) == len(mats)
-    for m in mats:
+    held, extra = mats[:-1], mats[-1]
+    for m in held:
         assert run(m, b, c)[1] == "miss"
-    assert len(mm._plan_cache) == mm._PLAN_CACHE_MAX
-    assert run(mats[-1], b, c)[1] == "hit"
-    assert run(mats[0], b, c)[1] == "miss"  # the least recent went first
+    assert mm.read_totals()["plan_cache_resident"]["entries"] == len(held)
+    assert [run(m, b, c)[1] for m in held] == ["hit"] * len(held)
+    assert mm.read_totals()["plan_evictions"]["entries"] == 0
+    # a budget the floor fills at len(held) entries
+    assert all(e.nbytes < mm._PLAN_ENTRY_FLOOR for e in mm._plan_cache.values())
+    monkeypatch.setattr(mm, "_PLAN_CACHE_MAX_BYTES", len(held) * mm._PLAN_ENTRY_FLOOR)
+    assert run(extra, b, c)[1] == "miss"
+    assert len(mm._plan_cache) == len(held)
+    assert run(extra, b, c)[1] == "hit"
+    assert run(held[0], b, c)[1] == "miss"  # the least recent went first
+    assert run(held[-1], b, c)[1] == "hit"
+    ev = mm.read_totals()["plan_evictions"]
+    assert ev["entries"] == 2 and ev["bytes"] == 0
 
 
 def test_eviction_by_bytes(monkeypatch):
@@ -231,6 +248,37 @@ def test_eviction_by_bytes(monkeypatch):
     assert mm._plan_cache_bytes == sum(e.nbytes for e in mm._plan_cache.values())
     assert run(a2, b, c)[1] == "hit"
     assert run(a, b, c)[1] == "miss"
+
+
+def test_tas_groups_past_sixteen_hit_on_the_next_call():
+    """A TAS split into 20 groups, called twice into fresh Cs with new
+    values in B: the groups' keys repeat, so every lookup of the second
+    call hits, and its C is the same call's on a cleared cache."""
+    rng = np.random.default_rng(11)
+    rows = rng.integers(2, 4, 40)
+    a = port_tm.make_random_matrix("A", rows, SIZES, occupation=0.5, rng=rng, device="cpu")
+    b = port_tm.make_random_matrix("B", SIZES, SIZES, occupation=0.6, rng=rng, device="cpu")
+
+    def call():
+        c = BlockSparseMatrix("C", rows, SIZES, device="cpu")
+        tas_multiply("N", "N", 1.0, a, b, 0.0, c, nsplit=20)
+        return c
+
+    call()
+    groups = mm.read_totals()["plan_cache"]["miss"]
+    assert groups == 20
+    pops.scale(b, -1.3)
+    mm.reset_totals()
+    warm = call()
+    totals = mm.read_totals()
+    assert totals["plan_cache"] == {"hit": groups, "miss": 0, "uncacheable": 0}
+    assert totals["plan_cache_resident"]["entries"] >= groups
+    assert totals["plan_evictions"] == {"entries": 0, "bytes": 0, "pinned_bytes": 0}
+    mm.clear_plan_cache()
+    cold = call()
+    assert_bitwise(warm, cold)
+    want = port_tm.to_dense(a) @ port_tm.to_dense(b)
+    np.testing.assert_allclose(port_tm.to_dense(warm), want, rtol=1e-12, atol=1e-12)
 
 
 def test_aliasing_operands_and_c(monkeypatch):

@@ -212,11 +212,17 @@ def _entry(nbytes):
 
 
 def test_the_entry_cap_evicts_and_names_its_cause():
-    for i in range(mm._PLAN_CACHE_MAX + 1):
+    """Plans under the per-entry floor: the budget holds 4,096 of them,
+    and one more evicts the least recent, counted under "entries" with
+    the bytes it pinned."""
+    cap = mm._PLAN_CACHE_MAX_BYTES // mm._PLAN_ENTRY_FLOOR
+    assert cap == 4096
+    for i in range(cap + 1):
         mm._plan_cache_insert(("plan", i), _entry(10))
-    ev = mm.read_totals()["plan_evictions"]
-    assert ev == {"entries": 1, "bytes": 0, "pinned_bytes": 10}
-    assert ("plan", 0) not in mm._plan_cache and len(mm._plan_cache) == mm._PLAN_CACHE_MAX
+    totals = mm.read_totals()
+    assert totals["plan_evictions"] == {"entries": 1, "bytes": 0, "pinned_bytes": 10}
+    assert ("plan", 0) not in mm._plan_cache and len(mm._plan_cache) == cap
+    assert totals["plan_cache_resident"] == {"entries": cap, "bytes": 10 * cap}
 
 
 def test_the_byte_cap_evicts_and_names_its_cause(monkeypatch):
@@ -230,14 +236,26 @@ def test_the_byte_cap_evicts_and_names_its_cause(monkeypatch):
     assert mm.read_totals()["plan_evictions"]["bytes"] == 1
 
 
-def test_distinct_products_evict_over_the_entry_cap():
+def test_distinct_products_evict_over_the_entry_cap(monkeypatch):
+    """17 distinct products, past the JAX package's 16, all stay resident
+    and hit on repeat; with a budget the floor fills at 17 entries, an
+    18th evicts the least recent under "entries"."""
     a, b, c = _operands()
-    for i in range(mm._PLAN_CACHE_MAX + 1):
-        n = len(SIZES)
-        mm.multiply("N", "N", 1.0, a, b, 0.0, c.copy(), last_row=i % n,
+    n = len(SIZES)
+
+    def product(i):
+        out = c.copy()
+        mm.multiply("N", "N", 1.0, a, b, 0.0, out, last_row=i % n,
                     last_col=i // n % n, first_k=i // n // n)
-    assert mm.read_totals()["plan_cache"]["miss"] == mm._PLAN_CACHE_MAX + 1
+        return out._mm_plan_cache
+
+    assert [product(i) for i in range(17)] == ["miss"] * 17
+    assert [product(i) for i in range(17)] == ["hit"] * 17
+    assert mm.read_totals()["plan_evictions"]["entries"] == 0
+    monkeypatch.setattr(mm, "_PLAN_CACHE_MAX_BYTES", 17 * mm._PLAN_ENTRY_FLOOR)
+    assert product(17) == "miss"
     assert mm.read_totals()["plan_evictions"]["entries"] == 1
+    assert product(0) == "miss" and product(16) == "hit"
 
 
 # ------------------------------------------------------------ C's rebuild
